@@ -1,0 +1,121 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, ``build/lib<name>.so`` next to
+this file, at first use; a library is rebuilt when any source or header
+in ``csrc/`` is newer than it.  All stale sources compile in parallel,
+one ``nvcc`` each.  The libraries are bound with ``ctypes``: every
+pointer and the stream are ``c_void_p``, and each entry point returns
+``cudaGetLastError()`` for the wrapper to check.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import time
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_DIR, "csrc")
+BUILD_DIR = os.path.join(_DIR, "build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# entry points of each library: name -> argtypes (restype is c_int)
+SIGNATURES = {
+    "channelizer2": {
+        "sd_kernel2": (
+            [_P, _I, _F]            # xw, in_kind, in_gain
+            + [_P] * 13             # h_re h_im q r prev_re prev_im ftail
+                                    # ataps w2d w64_re w64_im tw_re tw_im
+            + [_P, _I]              # audio, audio_bf16
+            + [_P] * 6              # last_re last_im ftail_out psd
+                                    # f_scr psd_part
+            + [_I] * 5              # M C mt ka da
+            + [_F, _F, _P]),        # quad_gain psd_scale stream
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, "
+                           "PATH): the CUDA kernels cannot be built")
+    return found
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    lib = lib_path(name)
+    if not os.path.exists(lib):
+        return True
+    deps = [os.path.join(CSRC, f"{name}.cu")] + \
+        glob.glob(os.path.join(CSRC, "*.cuh"))
+    return max(os.path.getmtime(d) for d in deps) > os.path.getmtime(lib)
+
+
+def build_all(force: bool = False) -> dict[str, float]:
+    """Compile every stale ``csrc/*.cu`` in parallel; returns the
+    seconds each build took and writes ``build/<name>.log`` (the
+    ``-Xptxas -v`` register and spill report)."""
+    names = sorted(os.path.basename(p)[:-3]
+                   for p in glob.glob(os.path.join(CSRC, "*.cu")))
+    todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    procs = {}
+    for n in todo:
+        tmp = f"{lib_path(n)}.{os.getpid()}.tmp"
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+             os.path.join(CSRC, f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    secs, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        secs[n] = time.perf_counter() - t0
+        with open(os.path.join(BUILD_DIR, f"{n}.log"), "w") as fh:
+            fh.write(out)
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib_path(n))
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return secs
+
+
+def load_library(name: str = "channelizer2") -> ctypes.CDLL:
+    """The bound library of ``csrc/<name>.cu``, built if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        if _stale(name):
+            build_all()
+        lib = ctypes.CDLL(lib_path(name))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib

@@ -1,0 +1,462 @@
+"""Fused FM channelizer v2 with the fused four-step PSD (counterpart of
+``sigdigger_tpu/kernels/channelizer2.py``).
+
+One call of :func:`kernel2` does, for a whole block of M channel
+samples and C channels:
+
+1. channelize, ``Y = Xw·H`` (mix-baked taps, one complex product);
+2. derotate row m by the table product ``Q[m//64]·R[m%64]``;
+3. FM-discriminate, ``atan2(Y[m]·conj(Y[m-1]))·quad_gain``, with the
+   previous block's rotated last row carried in;
+4. decimate to audio with a banded FIR, ``audio[j] = Σ_t a[t]·f_ext[j·Da
+   − t + Ka − 1]`` over ``f_ext = [ftail | f]``, carrying the tail;
+5. compute the block's 4096-point PSD (A = B = 64) from the same packed
+   window buffer: frame f is rows ``[64f, 64f+64)`` of both planes.
+
+On a CUDA tensor it launches the hand-written kernel in
+``csrc/channelizer2.cu``; on a CPU tensor it runs
+:func:`kernel2_reference`, the plain PyTorch version of the same math.
+Only the snapped channel grid (table rotator) with the fused PSD is
+ported; the cos/sin rotator and the unfused geometries are listed in
+ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.dsp.filters import fir_lowpass
+from sigdigger_tpu_torch.dsp.window import window_taps
+from sigdigger_tpu_torch.kernels.channelizer import (
+    MatChannelizerConfig,
+    make_mat_constants,
+)
+from sigdigger_tpu_torch.kernels.fft import _dft_matrix
+from sigdigger_tpu_torch.kernels.ops import atan2
+from sigdigger_tpu_torch.native import (
+    frame_windows_packed,
+    frame_windows_packed_i8,
+    frame_windows_packed_i16,
+)
+from sigdigger_tpu_torch.types import WindowFunction
+
+_TWO_PI = 2.0 * np.pi
+
+UNSUPPORTED = (
+    "the port's fused FM receiver needs the snapped channel grid, "
+    "decimation == 64 and psd_fft == 4096 with m_tile % 256 == 0; the "
+    "cos/sin rotator and the unfused PSD kernels are pending in "
+    "ROADMAP.md queue 2 items 2-3 (kernels/fft.py _psd_kernel_xw, "
+    "_psd_kernel: slice 2)")
+
+
+@dataclass(frozen=True)
+class MatChannelizer2Config:
+    """The fused geometry only: taps == decimation == 64, psd_fft ==
+    4096 and m_tile % 256 == 0 (the reference's receiver.py:94-96 rule);
+    any other geometry raises ``NotImplementedError``."""
+
+    sample_rate: float
+    n_channels: int
+    taps: int = 64
+    decimation: int = 64
+    audio_taps: int = 64
+    audio_decim: int = 8
+    block_out: int = 8192        # M total per call
+    m_tile: int = 2048           # Mt: rows per Q-table span
+    fir_tile: int = 0            # audio-FIR chunk (0 → auto)
+    quad_gain: float = 1.0 / np.pi
+    in_i16: bool = False         # upload framed IQ as int16
+    i16_scale: float = 4096.0    # counts per unit
+    in_i8: bool = False          # int8 upload; wins over in_i16
+    i8_scale: float = 64.0       # counts per unit
+    audio_bf16: bool = False     # drain audio as bfloat16
+    psd_fft: int = 4096
+
+    def __post_init__(self):
+        if not (self.taps == 64 and self.decimation == 64
+                and self.psd_fft == 4096 and self.m_tile % 256 == 0):
+            raise NotImplementedError(UNSUPPORTED)
+        assert self.block_out % self.m_tile == 0
+        assert self.m_tile % self.audio_decim == 0
+        assert self.audio_taps % self.audio_decim == 0
+        if self.fir_tile == 0:
+            # auto: ≤256 rows, multiple of audio_decim, divides m_tile
+            ft = min(self.m_tile, 256)
+            ft -= ft % self.audio_decim
+            while ft >= self.audio_decim and self.m_tile % ft:
+                ft -= self.audio_decim
+            object.__setattr__(self, "fir_tile",
+                               ft if ft >= self.audio_decim
+                               else self.m_tile)
+        assert self.m_tile % self.fir_tile == 0
+        assert self.fir_tile % self.audio_decim == 0
+
+    @property
+    def block_in(self) -> int:
+        return self.block_out * self.decimation
+
+    @property
+    def audio_out(self) -> int:
+        return self.block_out // self.audio_decim
+
+    @property
+    def channel_rate(self) -> float:
+        return self.sample_rate / self.decimation
+
+    @property
+    def in_gain(self) -> float:
+        return 1.0 / self.i8_scale if self.in_i8 else 1.0 / self.i16_scale
+
+
+def _as_v1_cfg(cfg: MatChannelizer2Config) -> MatChannelizerConfig:
+    return MatChannelizerConfig(
+        sample_rate=cfg.sample_rate, n_channels=cfg.n_channels,
+        taps=cfg.taps, decimation=cfg.decimation,
+        audio_taps=cfg.audio_taps, audio_decim=cfg.audio_decim,
+        block_out=cfg.block_out, quad_gain=cfg.quad_gain,
+    )
+
+
+def _local_band(cfg: MatChannelizer2Config) -> np.ndarray:
+    """Banded audio FIR over one tail-extended FIR chunk: row i (audio)
+    hits f_ext[i*Da - t + (Ka-1)] for tap t."""
+    ka, da, ft = cfg.audio_taps, cfg.audio_decim, cfg.fir_tile
+    ataps = fir_lowpass(ka, min(1.0, 1.0 / da))
+    bt = np.zeros((ft // da, ft + ka - 1), np.float32)
+    for i in range(ft // da):
+        for t in range(ka):
+            bt[i, i * da - t + ka - 1] = ataps[t]
+    return bt
+
+
+def _psd_frame_constants(cfg: MatChannelizer2Config
+                         ) -> tuple[dict[str, np.ndarray], float]:
+    """What the kernel reads of the fused PSD, for one 4096-sample
+    frame (A = B = 64): the window as ``w2d [64, 64]``, the twiddles
+    ``W_4096^{k1·b}`` as ``tw_re``/``tw_im [64, 64]``, the 64-point DFT
+    matrix ``dft_re``/``dft_im`` and its row 1 ``w64_re``/``w64_im``
+    (``W_64^n``, n < 64), and ``psd_scale = 1/(fs·Σw²·frames)``."""
+    taps = np.asarray(window_taps(
+        WindowFunction.BLACKMANN_HARRIS, cfg.psd_fft), np.float64)
+    d_re, d_im = _dft_matrix(64)
+    ang = -2.0 * np.pi * np.arange(64)[:, None] * np.arange(64)[None, :] \
+        / cfg.psd_fft
+    frames = cfg.block_in // cfg.psd_fft
+    psd_scale = 1.0 / (cfg.sample_rate * float(np.sum(taps ** 2)) * frames)
+    return {
+        "w2d": taps.astype(np.float32).reshape(64, 64),
+        "tw_re": np.cos(ang).astype(np.float32),
+        "tw_im": np.sin(ang).astype(np.float32),
+        "dft_re": d_re, "dft_im": d_im,
+        "w64_re": d_re[1].copy(), "w64_im": d_im[1].copy(),
+    }, psd_scale
+
+
+# the reference's psd_fb: its fused PSD pairs two frames in the lanes
+_PSD_FB = 2
+
+
+def _psd_constants(cfg: MatChannelizer2Config
+                   ) -> tuple[tuple[np.ndarray, ...], float]:
+    """The reference's lane-paired fused-PSD constants (w2d, bd_re,
+    bd_im, tw_re, tw_im, db2_re, db2_im, fsum, fold) and ``psd_scale``,
+    tiled from :func:`_psd_frame_constants`.  Nothing in the port reads
+    them: the tests hold them against the reference's, array for array,
+    which checks the frame constants the kernel reads."""
+    fr, psd_scale = _psd_frame_constants(cfg)
+    fb = _PSD_FB
+    eye_fb = np.eye(fb, dtype=np.float32)
+    eye_2 = np.eye(2, dtype=np.float32)
+    fsum = np.zeros((64, fb * 64), np.float32)
+    for fi in range(fb):
+        fsum[np.arange(64), fi * 64 + np.arange(64)] = 1.0
+    return ((np.tile(fr["w2d"], (fb, 1)),
+             np.kron(eye_fb, fr["dft_re"]), np.kron(eye_fb, fr["dft_im"]),
+             np.tile(fr["tw_re"], (fb, 2)), np.tile(fr["tw_im"], (fb, 2)),
+             np.kron(eye_2, fr["dft_re"]), np.kron(eye_2, fr["dft_im"]),
+             fsum, np.concatenate([np.eye(64, dtype=np.float32)] * 2)),
+            psd_scale)
+
+
+def _rot_tables(cfg: MatChannelizer2Config, theta64: np.ndarray,
+                phi: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Rotator factor tables, f64-built: Q rows e^{-j(φ0+64gθ)} per
+    64-sample span of each m_tile (cos rows then -sin rows,
+    [m_tiles·2qs, C]) and R rows e^{-j rθ}, r<64 ([128, C])."""
+    th = np.asarray(theta64, np.float64)
+    phi = np.asarray(phi, np.float64)
+    qs = cfg.m_tile // 64
+    m_tiles = cfg.block_out // cfg.m_tile
+    g = np.arange(qs, dtype=np.float64)
+    q = np.zeros((m_tiles * 2 * qs, cfg.n_channels), np.float32)
+    for mi in range(m_tiles):
+        ang = np.mod(
+            phi[None, :] + (mi * cfg.m_tile + g[:, None] * 64.0)
+            * th[None, :], _TWO_PI)
+        q[mi * 2 * qs:mi * 2 * qs + qs] = np.cos(ang)
+        q[mi * 2 * qs + qs:(mi + 1) * 2 * qs] = -np.sin(ang)
+    r_ang = np.mod(np.arange(64.0)[:, None] * th[None, :], _TWO_PI)
+    r = np.concatenate([np.cos(r_ang), -np.sin(r_ang)]).astype(np.float32)
+    return q, r
+
+
+@dataclass(frozen=True)
+class Kernel2Params:
+    """Scalars of one :func:`kernel2` geometry."""
+
+    mt: int              # rows per Q-table span (m_tile)
+    ka: int              # audio taps
+    da: int              # audio decimation
+    quad_gain: float
+    in_gain: float       # dequantization gain of an integer upload
+    audio_bf16: bool
+    psd_scale: float
+
+
+def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
+                      prev_re: torch.Tensor, prev_im: torch.Tensor,
+                      ftail: torch.Tensor, p: Kernel2Params):
+    """Plain PyTorch version of ``_kernel2`` (fused PSD, table rotator)
+    for a whole block.
+
+    xw: packed ``[2M, 64]`` float32/int16/int8; prev_re, prev_im
+    ``[1, C]``; ftail ``[Ka-1, C]``.  Returns ``(audio [M/Da, C]``
+    float32 or bfloat16``, last_re, last_im, ftail_out, psd [64, 64])``
+    with the PSD in ``(k1, k2)`` order.
+    """
+    m = xw.shape[0] // 2
+    c = prev_re.shape[1]
+    xr, xi = xw[:m], xw[m:]
+    if xr.dtype != torch.float32:
+        # integer upload: dequantize (in_gain = 1/scale)
+        xr = xr.float() * p.in_gain
+        xi = xi.float() * p.in_gain
+    h_re, h_im = consts["h_re"], consts["h_im"]
+    yr = xr @ h_re - xi @ h_im
+    yi = xr @ h_im + xi @ h_re
+
+    # rotator e^{-j m θ_c} = Q[m // 64]·R[m % 64] (channelizer2.py:164-176)
+    qs = p.mt // 64
+    q = consts["q"].view(m // p.mt, 2, qs, c)
+    q_re = q[:, 0].reshape(m // 64, c).repeat_interleave(64, dim=0)
+    q_im = q[:, 1].reshape(m // 64, c).repeat_interleave(64, dim=0)
+    r_re = consts["r"][:64].repeat(m // 64, 1)
+    r_im = consts["r"][64:].repeat(m // 64, 1)
+    cr = q_re * r_re - q_im * r_im
+    ci = q_re * r_im + q_im * r_re
+    rr = yr * cr - yi * ci
+    ri = yr * ci + yi * cr
+
+    # discriminator against the previous ROTATED row
+    pr = torch.cat([prev_re, rr[:-1]])
+    pi = torch.cat([prev_im, ri[:-1]])
+    dr = rr * pr + ri * pi
+    di = ri * pr - rr * pi
+    f = atan2(di, dr) * p.quad_gain
+
+    # banded decimating audio FIR over the tail-extended f
+    f_ext = torch.cat([ftail, f])
+    ataps = consts["ataps"]
+    audio = torch.zeros((m // p.da, c), dtype=torch.float32,
+                        device=xw.device)
+    for t in range(p.ka):
+        s = p.ka - 1 - t
+        audio += ataps[t] * f_ext[s:s + m:p.da]
+    if p.audio_bf16:
+        audio = audio.to(torch.bfloat16)
+
+    # four-step PSD of the block's 4096-sample frames
+    frames = m // 64
+    xfr = xr.reshape(frames, 64, 64) * consts["w2d"]
+    xfi = xi.reshape(frames, 64, 64) * consts["w2d"]
+    d_re, d_im = consts["dft_re"], consts["dft_im"]
+    s1r = d_re @ xfr - d_im @ xfi
+    s1i = d_re @ xfi + d_im @ xfr
+    tw_re, tw_im = consts["tw_re"], consts["tw_im"]
+    s2r = s1r * tw_re - s1i * tw_im
+    s2i = s1r * tw_im + s1i * tw_re
+    s3r = s2r @ d_re - s2i @ d_im
+    s3i = s2r @ d_im + s2i @ d_re
+    psd = (s3r * s3r + s3i * s3i).sum(0) * p.psd_scale
+    return audio, rr[-1:].clone(), ri[-1:].clone(), f_ext[m:].clone(), psd
+
+
+_IN_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params):
+    from sigdigger_tpu_torch.kernels._build import load_library
+
+    m = xw.shape[0] // 2
+    c = prev_re.shape[1]
+    dev = xw.device
+    if xw.dtype not in _IN_KIND or xw.dim() != 2 or xw.shape[1] != 64:
+        raise ValueError(f"xw must be [2M, 64] f32/i16/i8, got "
+                         f"{tuple(xw.shape)} {xw.dtype}")
+    if m % 256 or m % p.mt or p.mt % 64 or m % p.da:
+        raise ValueError(f"block_out {m} does not fit m_tile {p.mt} / "
+                         f"audio_decim {p.da}")
+    shapes = {
+        "prev_re": (prev_re, (1, c)), "prev_im": (prev_im, (1, c)),
+        "ftail": (ftail, (p.ka - 1, c)),
+        "h_re": (consts["h_re"], (64, c)), "h_im": (consts["h_im"], (64, c)),
+        "q": (consts["q"], (2 * (m // 64), c)), "r": (consts["r"], (128, c)),
+        "ataps": (consts["ataps"], (p.ka,)),
+        "w2d": (consts["w2d"], (64, 64)),
+        "w64_re": (consts["w64_re"], (64,)),
+        "w64_im": (consts["w64_im"], (64,)),
+        "tw_re": (consts["tw_re"], (64, 64)),
+        "tw_im": (consts["tw_im"], (64, 64)),
+    }
+    if not xw.is_contiguous() or xw.device != dev:
+        raise ValueError(f"xw must be contiguous on {dev}")
+    for name, (t, shape) in shapes.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(
+                f"kernel2 {name}: want contiguous float32 {shape} on {dev},"
+                f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+    lib = load_library("channelizer2")
+    audio = torch.empty((m // p.da, c), device=dev, dtype=(
+        torch.bfloat16 if p.audio_bf16 else torch.float32))
+    last_re = torch.empty((1, c), device=dev)
+    last_im = torch.empty((1, c), device=dev)
+    ftail_out = torch.empty((p.ka - 1, c), device=dev)
+    psd = torch.empty((64, 64), device=dev)
+    f_scr = torch.empty((m, c), device=dev)
+    psd_part = torch.empty((m // 64, 64, 64), device=dev)
+    # every tensor passed stays referenced (by the caller, or for the
+    # scratch by PyTorch's stream-ordered allocator) while the launch runs
+    with torch.cuda.device(dev):
+        err = lib.sd_kernel2(
+            _ptr(xw), _IN_KIND[xw.dtype], p.in_gain,
+            _ptr(consts["h_re"]), _ptr(consts["h_im"]),
+            _ptr(consts["q"]), _ptr(consts["r"]),
+            _ptr(prev_re), _ptr(prev_im), _ptr(ftail),
+            _ptr(consts["ataps"]), _ptr(consts["w2d"]),
+            _ptr(consts["w64_re"]), _ptr(consts["w64_im"]),
+            _ptr(consts["tw_re"]), _ptr(consts["tw_im"]),
+            _ptr(audio), int(p.audio_bf16), _ptr(last_re), _ptr(last_im),
+            _ptr(ftail_out), _ptr(psd), _ptr(f_scr), _ptr(psd_part),
+            m, c, p.mt, p.ka, p.da, p.quad_gain, p.psd_scale,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sd_kernel2 launch failed: CUDA error {err}")
+    kernel2.launches += 1
+    return audio, last_re, last_im, ftail_out, psd
+
+
+def kernel2(xw: torch.Tensor, consts: dict[str, torch.Tensor],
+            prev_re: torch.Tensor, prev_im: torch.Tensor,
+            ftail: torch.Tensor, p: Kernel2Params):
+    """One fused block: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor.  Returns what :func:`kernel2_reference`
+    returns.  ``kernel2.launches`` counts the CUDA launches."""
+    if xw.device.type == "cuda":
+        return _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p)
+    if xw.device.type == "cpu":
+        return kernel2_reference(xw, consts, prev_re, prev_im, ftail, p)
+    raise ValueError(f"kernel2 runs on cuda or cpu, not {xw.device}")
+
+
+kernel2.launches = 0
+
+
+class MatChannelizer2:
+    """Large-block streaming FM receiver on the fused kernel.
+
+    The framed input is ONE packed ``[2M, K]`` upload; the carries
+    (rotated previous row, audio FIR tail) stay on the device between
+    blocks, and the framing history (K-1 samples) stays on the host.
+    Channel centres are snapped to the block-rate grid ``fs/block_in``
+    before any constant is built (the reference's ``snap_grid=True``),
+    which makes the rotator tables block-invariant device constants.
+    """
+
+    def __init__(self, cfg: MatChannelizer2Config, f0s: np.ndarray,
+                 bw: float, device: str | torch.device | None = None
+                 ) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        f0s = np.asarray(f0s, np.float64)
+        grid = cfg.sample_rate / cfg.block_in
+        f0s = np.round(f0s / grid) * grid
+        self.f0s = f0s
+        c = cfg.n_channels
+        base = make_mat_constants(_as_v1_cfg(cfg), f0s, bw)
+        self._theta64 = np.mod(
+            _TWO_PI * np.broadcast_to(f0s, (c,))
+            / cfg.sample_rate * cfg.decimation, _TWO_PI)
+        q_tab, r_tab = _rot_tables(cfg, self._theta64, np.zeros(c))
+        host, psd_scale = _psd_frame_constants(cfg)
+        host.update(h_re=base["h_re"], h_im=base["h_im"], q=q_tab, r=r_tab,
+                    ataps=fir_lowpass(cfg.audio_taps,
+                                      min(1.0, 1.0 / cfg.audio_decim)))
+        self.consts = {k: torch.as_tensor(np.ascontiguousarray(v),
+                                          device=self.device)
+                       for k, v in host.items()}
+        self.params = Kernel2Params(
+            mt=cfg.m_tile, ka=cfg.audio_taps, da=cfg.audio_decim,
+            quad_gain=cfg.quad_gain, in_gain=cfg.in_gain,
+            audio_bf16=cfg.audio_bf16, psd_scale=psd_scale)
+        self._history = np.zeros(cfg.taps - 1, np.complex64)
+        self._prev_re = torch.zeros((1, c), device=self.device)
+        self._prev_im = torch.zeros((1, c), device=self.device)
+        self._ftail = torch.zeros((cfg.audio_taps - 1, c),
+                                  device=self.device)
+        self.psd_block = None
+        # set to a list to record a CUDA (start, end) event pair around
+        # each kernel call (kernel time per block, read after a sync)
+        self.events: list | None = None
+
+    def feed_async(self, x: np.ndarray) -> torch.Tensor:
+        """Frame + launch one block; returns the DEVICE audio tensor."""
+        return self.feed_packed(self._frame(x))
+
+    def feed_packed(self, xw) -> torch.Tensor:
+        """Launch one pre-framed packed ``[2M, K]`` buffer (numpy or
+        tensor); the ``(k1, k2)`` PSD block lands in ``psd_block``."""
+        xw = torch.as_tensor(xw).to(self.device)
+        if self.events is not None:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        audio, last_re, last_im, ftail, psd = kernel2(
+            xw, self.consts, self._prev_re, self._prev_im, self._ftail,
+            self.params)
+        if self.events is not None:
+            ev[1].record()
+            self.events.append(ev)
+        self.psd_block = psd
+        self._prev_re, self._prev_im, self._ftail = last_re, last_im, ftail
+        return audio
+
+    def _frame(self, x: np.ndarray) -> np.ndarray:
+        cfg = self.cfg
+        x = np.asarray(x, np.complex64)
+        if len(x) != cfg.block_in:
+            raise ValueError(f"block holds {len(x)} samples, the "
+                             f"channelizer takes {cfg.block_in}")
+        ext = np.concatenate([self._history, x])
+        if cfg.in_i8:
+            xw = frame_windows_packed_i8(ext, cfg.block_out, cfg.taps,
+                                         cfg.decimation, cfg.i8_scale)
+        elif cfg.in_i16:
+            xw = frame_windows_packed_i16(ext, cfg.block_out, cfg.taps,
+                                          cfg.decimation, cfg.i16_scale)
+        else:
+            xw = frame_windows_packed(ext, cfg.block_out, cfg.taps,
+                                      cfg.decimation)
+        self._history = ext[-(cfg.taps - 1):].copy()
+        return xw

@@ -33,3 +33,9 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(1234)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; the test skips "
+        "itself where CUDA is absent")

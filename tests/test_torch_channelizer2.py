@@ -1,0 +1,146 @@
+"""kernel2_reference (the plain PyTorch version of the fused FM
+channelizer with the fused PSD) against the reference MatChannelizer2
+in interpret mode, over chained blocks.
+
+Tolerances, with their reason:
+- audio: 2e-5 absolute.  The two sides sum the 64-term complex
+  channelize product and the 64-tap audio FIR in different orders
+  (float32 rounding ~1e-6 relative to the terms); the discriminator
+  turns that into ~1e-6 rad, and audio here is O(0.1..1).
+- FIR tail (the unfiltered discriminator output): 1e-4 absolute.  On
+  the noise-only channels |Y| is small next to the product's terms, so
+  the same rounding is a larger phase error before the FIR averages
+  it.
+- rotated carry row: 1e-5 relative to its largest magnitude (same
+  summation-order rounding).
+- PSD block: 1e-5 relative to its largest bin, and every bin 1e-4
+  relative to itself (float32 four-step DFT in a different summation
+  order: the rounding of the strong carrier bins' terms lands in every
+  bin, and the noise bins sit some 6e5 below the largest).
+- bf16 audio: one bf16 rounding step of the value (2^-7 relative), when
+  the float32 results on either side straddle a rounding boundary.
+Both sides frame with the numpy framers (ties to even): the reference's
+optional C++ framer rounds ties away from zero, which would put the
+integer uploads one count apart on exact ties.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import sigdigger_tpu.native as ref_native
+from sigdigger_tpu.kernels.channelizer2 import MatChannelizer2 as RefChan2
+from sigdigger_tpu.kernels.channelizer2 import (
+    MatChannelizer2Config as RefChan2Config,
+)
+from sigdigger_tpu_torch.kernels.channelizer2 import (
+    MatChannelizer2,
+    MatChannelizer2Config,
+    kernel2,
+    kernel2_reference,
+)
+
+FS = 2_048_000.0
+F0S = np.linspace(-800e3, 700e3, 8)
+BW = 100e3
+
+VARIANTS = {
+    "f32": dict(),
+    "i16": dict(in_i16=True),
+    "i16_bf16": dict(in_i16=True, audio_bf16=True),
+}
+
+
+def cfg_kwargs(block_out, **kw):
+    return dict(sample_rate=FS, n_channels=8, taps=64, decimation=64,
+                audio_taps=64, audio_decim=8, block_out=block_out,
+                m_tile=min(2048, block_out), psd_fft=4096, **kw)
+
+
+def fm_signal(f0s, n, seed):
+    """FM tones on every other channel centre plus complex noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / FS
+    x = np.zeros(n, np.complex128)
+    for i in range(0, len(f0s), 2):
+        msg = np.sin(2 * np.pi * (300.0 + 100.0 * i) * t)
+        x += 0.2 * np.exp(1j * (2 * np.pi * f0s[i] * t
+                                + 2 * np.pi * 3e3 * np.cumsum(msg) / FS))
+    x += 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64)
+
+
+def assert_audio_close(ours, ref, bf16):
+    ours = ours.float().numpy() if isinstance(ours, torch.Tensor) else ours
+    ref = np.asarray(ref).astype(np.float32)
+    tol = 2e-5 + (2.0 ** -7 * np.abs(ref) if bf16 else 0.0)
+    assert ours.shape == ref.shape
+    assert np.all(np.abs(ours - ref) <= tol), np.abs(ours - ref).max()
+
+
+@pytest.mark.parametrize("block_out", [512, 4096])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_kernel2_reference_matches_reference(variant, block_out,
+                                             monkeypatch):
+    monkeypatch.setattr(ref_native, "_lib", None)
+    kw = VARIANTS[variant]
+    bf16 = kw.get("audio_bf16", False)
+    ref = RefChan2(RefChan2Config(**cfg_kwargs(block_out, **kw),
+                                  channel_tile=8, fuse_psd=True), F0S, BW,
+                   interpret=True, snap_grid=True)
+    port = MatChannelizer2(MatChannelizer2Config(
+        **cfg_kwargs(block_out, **kw)), F0S, BW, device="cpu")
+    n = port.cfg.block_in
+    x = fm_signal(port.f0s, 3 * n, seed=block_out)
+    prev_re, prev_im, ftail = port._prev_re, port._prev_im, port._ftail
+    for b in range(3):
+        blk = x[b * n:(b + 1) * n]
+        xw = torch.from_numpy(port._frame(blk))
+        audio, prev_re, prev_im, ftail, psd = kernel2_reference(
+            xw, port.consts, prev_re, prev_im, ftail, port.params)
+        ref_audio = np.asarray(ref.feed_async(blk))
+
+        assert audio.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert_audio_close(audio, ref_audio, bf16)
+        rp = np.concatenate([np.asarray(ref._prev_re),
+                             np.asarray(ref._prev_im)])
+        op = torch.cat([prev_re, prev_im]).numpy()
+        assert np.abs(op - rp).max() <= 1e-5 * np.abs(rp).max()
+        np.testing.assert_allclose(ftail.numpy(), np.asarray(ref._ftail),
+                                   rtol=0, atol=1e-4)
+        rpsd = np.asarray(ref.psd_block)
+        assert psd.shape == (64, 64)
+        assert np.abs(psd.numpy() - rpsd).max() <= 1e-5 * rpsd.max()
+        assert np.all(np.abs(psd.numpy() - rpsd) <= 1e-4 * np.abs(rpsd))
+
+
+def test_host_class_chains_through_kernel2():
+    """MatChannelizer2.feed_async goes through kernel2 and chains the
+    carries: two blocks through the host class equal two chained
+    kernel2_reference calls, bit for bit (same code on the CPU)."""
+    cfg = MatChannelizer2Config(**cfg_kwargs(512, in_i16=True))
+    a = MatChannelizer2(cfg, F0S, BW, device="cpu")
+    b = MatChannelizer2(cfg, F0S, BW, device="cpu")
+    x = fm_signal(a.f0s, 2 * cfg.block_in, seed=3)
+    carries = (b._prev_re, b._prev_im, b._ftail)
+    launches = kernel2.launches
+    for i in range(2):
+        blk = x[i * cfg.block_in:(i + 1) * cfg.block_in]
+        got = a.feed_async(blk)
+        out = kernel2_reference(torch.from_numpy(b._frame(blk)), b.consts,
+                                *carries, b.params)
+        carries = out[1:4]
+        assert torch.equal(got, out[0])
+        assert torch.equal(a.psd_block, out[4])
+    assert torch.equal(a._ftail, carries[2])
+    assert kernel2.launches == launches      # the CPU path launches none
+
+
+def test_unsupported_geometries_raise():
+    """Every geometry the reference would run unfused is refused."""
+    for kw in (dict(psd_fft=2048), dict(decimation=32),
+               dict(block_out=128, m_tile=128)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            MatChannelizer2Config(**dict(cfg_kwargs(512), **kw))

@@ -1,0 +1,201 @@
+"""The port's copies of the host constant builders against the
+reference's, array for array.
+
+Both sides build in float64 numpy and store float32 with the same
+expressions, so every array is expected bit-identical (``array_equal``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import sigdigger_tpu.native as ref_native
+from sigdigger_tpu.dsp.filters import fir_lowpass as ref_fir_lowpass
+from sigdigger_tpu.dsp.window import window_taps as ref_window_taps
+from sigdigger_tpu.kernels.channelizer import (
+    MatChannelizerConfig as RefV1Config,
+)
+from sigdigger_tpu.kernels.channelizer import (
+    make_mat_constants as ref_make_mat_constants,
+)
+from sigdigger_tpu.kernels.channelizer2 import MatChannelizer2 as RefChan2
+from sigdigger_tpu.kernels.channelizer2 import (
+    MatChannelizer2Config as RefChan2Config,
+)
+from sigdigger_tpu.kernels.channelizer2 import _local_band as ref_local_band
+from sigdigger_tpu.kernels.fft import _dft_matrix as ref_dft_matrix
+from sigdigger_tpu.types import WindowFunction as RefWindow
+from sigdigger_tpu_torch import native
+from sigdigger_tpu_torch.dsp.filters import fir_lowpass
+from sigdigger_tpu_torch.dsp.window import window_taps
+from sigdigger_tpu_torch.kernels.channelizer import (
+    MatChannelizerConfig,
+    make_mat_constants,
+)
+from sigdigger_tpu_torch.kernels.channelizer2 import (
+    MatChannelizer2,
+    MatChannelizer2Config,
+    _local_band,
+    _psd_constants,
+    _rot_tables,
+)
+from sigdigger_tpu_torch.kernels.fft import _dft_matrix
+from sigdigger_tpu_torch.types import WindowFunction
+
+# (sample_rate, channels, block_out, audio_decim, bw): a small fused
+# geometry and the 1024-channel bench geometry (bench.py:113-123)
+GEOMETRIES = {
+    "small": (2_048_000.0, np.linspace(-800e3, 700e3, 8), 512, 8, 100e3),
+    "bench": (102_400_000.0, np.linspace(-48e6, 48e6, 1024), 8192, 32,
+              800e3),
+}
+
+
+def _v2_kwargs(geom):
+    fs, f0s, block_out, da, _ = GEOMETRIES[geom]
+    return dict(sample_rate=fs, n_channels=len(f0s), taps=64, decimation=64,
+                audio_taps=64, audio_decim=da, block_out=block_out,
+                m_tile=min(2048, block_out), psd_fft=4096)
+
+
+def _ref_v2_cfg(geom):
+    """The reference's config of the same fused geometry (the port's is
+    fused by construction and has no channel tile)."""
+    n = GEOMETRIES[geom][1].size
+    return RefChan2Config(**_v2_kwargs(geom), channel_tile=min(128, n),
+                          fuse_psd=True)
+
+
+@pytest.mark.parametrize("taps,cutoff", [(64, 1 / 8), (64, 1 / 32),
+                                         (64, 2 * 800e3 / 102.4e6),
+                                         (33, 1.0)])
+def test_fir_lowpass(taps, cutoff):
+    assert np.array_equal(fir_lowpass(taps, cutoff),
+                          ref_fir_lowpass(taps, cutoff))
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+@pytest.mark.parametrize("kind", [w.name for w in WindowFunction])
+def test_window_taps(kind, n):
+    assert np.array_equal(window_taps(WindowFunction[kind], n),
+                          ref_window_taps(RefWindow[kind], n))
+
+
+@pytest.mark.parametrize("n", [8, 64])
+def test_dft_matrix(n):
+    for a, b in zip(_dft_matrix(n), ref_dft_matrix(n)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+def test_make_mat_constants(geom):
+    fs, f0s, block_out, da, bw = GEOMETRIES[geom]
+    kw = dict(sample_rate=fs, n_channels=len(f0s), taps=64,
+              decimation=64, audio_taps=64, audio_decim=da,
+              block_out=block_out)
+    ours = make_mat_constants(MatChannelizerConfig(**kw), f0s, bw)
+    ref = ref_make_mat_constants(
+        RefV1Config(**kw, channel_tile=min(128, len(f0s))), f0s, bw)
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        assert np.array_equal(ours[k], ref[k]), k
+
+
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+def test_config_and_local_band(geom):
+    ours = MatChannelizer2Config(**_v2_kwargs(geom))
+    ref = _ref_v2_cfg(geom)
+    assert ours.fir_tile == ref.fir_tile
+    assert (ours.block_in, ours.audio_out) == (ref.block_in, ref.audio_out)
+    assert np.array_equal(_local_band(ours), ref_local_band(ref))
+
+
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+def test_rot_tables_and_psd_constants(geom):
+    """Tables of a reference channelizer built on the snapped grid,
+    against the port's builders fed the port's own snapped grid."""
+    fs, f0s, _, _, bw = GEOMETRIES[geom]
+    ours_cfg = MatChannelizer2Config(**_v2_kwargs(geom))
+    ref = RefChan2(_ref_v2_cfg(geom), f0s, bw, interpret=True,
+                   snap_grid=True)
+    port = MatChannelizer2(ours_cfg, f0s, bw, device="cpu")
+    assert np.array_equal(port.f0s, ref.f0s)
+    assert np.array_equal(port._theta64, ref._theta64)
+
+    q, r = _rot_tables(ours_cfg, port._theta64, np.zeros(len(f0s)))
+    q_ref, r_ref = ref._rot_tables()
+    assert np.array_equal(q, q_ref)
+    assert np.array_equal(r, r_ref)
+    assert np.array_equal(q, np.asarray(ref._phi0_dev))
+    assert np.array_equal(r, np.asarray(ref.consts["theta"]))
+
+    consts, scale = _psd_constants(ours_cfg)
+    assert scale == ref._psd_scale
+    assert len(consts) == len(ref._psd_dev_consts)
+    for a, b in zip(consts, ref._psd_dev_consts):
+        assert np.array_equal(a, np.asarray(b))
+
+    # what the port's kernel reads is cut from the same arrays
+    assert np.array_equal(port.consts["h_re"].numpy(),
+                          np.asarray(ref.consts["h_re"]))
+    assert np.array_equal(port.consts["h_im"].numpy(),
+                          np.asarray(ref.consts["h_im"]))
+    assert np.array_equal(port.consts["q"].numpy(), q_ref)
+    assert np.array_equal(port.consts["r"].numpy(), r_ref)
+    # the one-frame PSD constants are the reference's first frame block;
+    # its DFT_A and DFT_B blocks are the same 64-point matrix
+    w2d, bd_re, bd_im, tw_re, tw_im, db2_re, db2_im = (
+        np.asarray(a) for a in ref._psd_dev_consts[:7])
+    for key, want in (("w2d", w2d[:64]), ("tw_re", tw_re[:64, :64]),
+                      ("tw_im", tw_im[:64, :64]),
+                      ("dft_re", bd_re[:64, :64]),
+                      ("dft_im", bd_im[:64, :64]),
+                      ("dft_re", db2_re[:64, :64]),
+                      ("dft_im", db2_im[:64, :64]),
+                      ("w64_re", bd_re[1, :64]), ("w64_im", bd_im[1, :64])):
+        assert np.array_equal(port.consts[key].numpy(), want), key
+    assert port.params.psd_scale == ref._psd_scale
+
+
+def _ext(n, seed, amp):
+    rng = np.random.default_rng(seed)
+    return (amp * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            ).astype(np.complex64)
+
+
+@pytest.mark.parametrize("m", [64, 512])
+def test_float_framer(m):
+    ext = _ext(63 + m * 64, 0, 1.0)
+    assert np.array_equal(native.frame_windows_packed(ext, m, 64, 64),
+                          ref_native.frame_windows_packed(ext, m, 64, 64))
+
+
+@pytest.mark.parametrize("bits,scale,amp", [(16, 4096.0, 3.0),
+                                            (8, 64.0, 0.8)])
+def test_integer_framers(bits, scale, amp, monkeypatch):
+    """Bit for bit against the reference's numpy framers (np.rint, ties
+    to even, saturating; amp drives some samples into saturation).
+    The reference's optional C++ framer rounds ties away from zero, so
+    against it the values may differ by one count, and only on exact
+    ties."""
+    ours_fn = {16: native.frame_windows_packed_i16,
+               8: native.frame_windows_packed_i8}[bits]
+    name = {16: "frame_windows_packed_i16", 8: "frame_windows_packed_i8"}[bits]
+    m = 512
+    ext = _ext(63 + m * 64, 1, amp)
+    # exact ties: multiples of half a count
+    ext[:256] = (np.arange(-128, 128) + 0.5) / scale
+    ours = ours_fn(ext, m, 64, 64, scale)
+    native_out = getattr(ref_native, name)(ext, m, 64, 64, scale)
+    monkeypatch.setattr(ref_native, "_lib", None)
+    numpy_out = getattr(ref_native, name)(ext, m, 64, 64, scale)
+    assert ours.dtype == numpy_out.dtype
+    assert np.array_equal(ours, numpy_out)
+    info = np.iinfo(ours.dtype)
+    assert ours.min() == info.min and ours.max() == info.max
+    diff = ours.astype(np.int32) - native_out.astype(np.int32)
+    assert np.abs(diff).max() <= 1
+    w = np.lib.stride_tricks.as_strided(
+        ext, shape=(m, 64), strides=(ext.strides[0] * 64, ext.strides[0]))
+    scaled = np.concatenate([w.real, w.imag]) * np.float32(scale)
+    assert np.all(np.mod(scaled[diff != 0], 1.0) == 0.5)

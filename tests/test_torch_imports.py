@@ -1,0 +1,94 @@
+"""The port stands alone: it imports neither JAX nor sigdigger_tpu."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "sigdigger_tpu_torch")
+
+MODULES = [
+    "sigdigger_tpu_torch",
+    "sigdigger_tpu_torch.backend",
+    "sigdigger_tpu_torch.types",
+    "sigdigger_tpu_torch.native",
+    "sigdigger_tpu_torch.dsp",
+    "sigdigger_tpu_torch.dsp.window",
+    "sigdigger_tpu_torch.dsp.filters",
+    "sigdigger_tpu_torch.kernels",
+    "sigdigger_tpu_torch.kernels._build",
+    "sigdigger_tpu_torch.kernels.ops",
+    "sigdigger_tpu_torch.kernels.channelizer",
+    "sigdigger_tpu_torch.kernels.fft",
+    "sigdigger_tpu_torch.kernels.channelizer2",
+    "sigdigger_tpu_torch.receiver",
+]
+
+_FORBIDDEN = ("jax", "sigdigger_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    # whole module names: `sigdigger_tpu_torch` is not `sigdigger_tpu`
+    return any(name == f or name.startswith(f + ".") for f in _FORBIDDEN)
+
+
+def _sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_every_module_imports_without_jax_or_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import sigdigger_tpu_torch as p\n"
+        "assert p.KernelReceiver.__module__ == 'sigdigger_tpu_torch.receiver'\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'sigdigger_tpu' or "
+        "m.startswith('sigdigger_tpu.'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_every_package_module_is_listed():
+    found = set()
+    for f in _sources():
+        rel = os.path.relpath(f, ROOT)
+        if rel == "chip_smoke.py":
+            continue
+        mod = rel[:-3].replace(os.sep, ".")
+        found.add(mod[:-len(".__init__")] if mod.endswith(".__init__")
+                  else mod)
+    assert found == set(MODULES)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_import_statement_names_jax_or_reference(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert not [n for n in names if _forbidden(n)], names
+
+
+def test_forbidden_match_is_by_whole_name():
+    assert _forbidden("jax.numpy") and _forbidden("sigdigger_tpu.native")
+    assert not _forbidden("sigdigger_tpu_torch.native")
+    assert not _forbidden("jaxtyping")
