@@ -3,21 +3,41 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure (any exception exits nonzero):
+Phases, each fatal on failure (any exception exits nonzero), each
+printing the seconds it took:
 
 1. device and build: the card's name and power limit; every CUDA
-   kernel of the port built with nvcc from ``kernels/csrc``.
-2. kernel against its plain version: the fused FM channelizer
-   (``kernel2``) and ``kernel2_reference`` on the card, 3 chained
-   blocks at the full bench width, f32 in / f32 audio and int16 in /
-   bf16 audio, held to the tolerances below; kernel, plain and library
-   times with CUDA events.
-3. end to end: ``KernelReceiver`` at the bench geometry (1024 channels,
-   102.4 Msps, block_out 8192, int16 in, bf16 audio, fused PSD) over
-   synthetic FM made from a seed, through ``run(pipeline_depth=3)``;
-   every block must go through the CUDA kernel, the audio of modulated
-   channels must peak at their tones and the PSD at the pure carrier.
-4. the TPU kernel list (ported or pending) and the ``kernels`` line.
+   kernel of the port built with nvcc from ``kernels/csrc`` (one nvcc
+   per source, all at once).
+2. each kernel against its plain version on the card, with CUDA-event
+   times of the kernel, its plain version and a library yardstick:
+   the fused FM channelizer (``kernel2``) over 3 chained blocks at the
+   full bench width, f32 in / f32 audio and int16 in / bf16 audio; the
+   standalone PSD (``psd_kernel``) at N = 4096, F = 128 over 3 blocks;
+   the raw bank (``raw_kernel``) at 1024 channels, M = 8192 over 3
+   chained blocks; the recovery bank (``recovery_kernel``) with the psk
+   receiver's own 1024 lanes (sps 8, RRC matched filter) on QPSK at the
+   main path's M = 8192, chained into a block of 1024, and with 1024
+   lanes of every kind over 2 chained blocks of 1024 (the plain version
+   is a Python loop of ~150 small operations per sample: ~35 s for the
+   full block).
+3. FM end to end: ``KernelReceiver(mode="fm")`` at the bench geometry
+   (1024 channels, 102.4 Msps, block_out 8192, int16 in, bf16 audio,
+   fused PSD) over synthetic FM made from a seed, through
+   ``run(pipeline_depth=3)``; every block must go through the kernel,
+   the audio of modulated channels must peak at their tones and the PSD
+   at the pure carrier.
+3b. digital end to end: ``KernelReceiver(mode="psk")`` at the same
+   width (psd_fft 4096, 200 kbaud = 8 samples per symbol, bw 400 kHz)
+   over synthetic QPSK on a few channels, a pure carrier and noise,
+   through ``run(pipeline_depth=3)`` over 12 blocks: the PSD, raw and
+   recovery kernels must each launch once per block, the strobed QPSK
+   symbols must concentrate (4th power > 0.85) and the PSD peak on the
+   carrier; then a synchronous per-layer breakdown, and ``fsk`` and
+   ``ask`` for 3 blocks each.
+4. the TPU kernel list (ported or pending, each with its bound: the
+   ported ones at the inputs phase 2 timed, the pending ones at the
+   bench's shapes) and the ``kernels`` line.
 5. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA and the rest of the repository; it prints no result without
@@ -65,14 +85,30 @@ TOL_PSD_BIN = 1e-4
 TOL_AUDIO = 1e-4
 TOL_TAIL = 1e-3
 TOL_FRAC = 1e-4
+# raw bank planes and power: 1e-5 of the largest value / of itself
+# (float32 summation order; both round the rotator phase once)
+TOL_RAW = 1e-5
+# recovery, per lane: symbols within 2e-3 up to the first strobe that
+# differs (the loops feed back, so a one-ulp difference can move a
+# strobe), then the strobe count within ±1, period within 1%, the
+# tail's M-th-power concentration within 0.02 (tests/test_torch_recovery)
+TOL_SYM = 2e-3
+
+# the digital receiver of phase 3b
+DIG_BW = 400e3
+DIG_SPS = 8
+QPSK_CHANNELS = (100, 300, 500, 700, 900)
+DIG_PURE = 600
+DIG_BLOCKS = 12
+REC_BLOCK = 1024
 
 TPU_KERNELS = [
     ("kernels/channelizer2.py:126 _kernel2", "ported"),
     ("kernels/fft.py:283 _psd_kernel_xw", "pending"),
     ("kernels/fft.py:264 _psd_kernel_xw_ema", "pending"),
-    ("kernels/fft.py:65 _psd_kernel", "pending"),
-    ("kernels/rawbank.py:61 _raw_kernel", "pending"),
-    ("kernels/recovery.py:90 _recovery_kernel", "pending"),
+    ("kernels/fft.py:65 _psd_kernel", "ported"),
+    ("kernels/rawbank.py:61 _raw_kernel", "ported"),
+    ("kernels/recovery.py:90 _recovery_kernel", "ported"),
     ("kernels/audio.py:193 _audio_kernel", "pending"),
     ("kernels/symsqueeze.py:71 _squeeze_kernel", "pending"),
     ("kernels/compact.py:64 _compact_kernel", "pending"),
@@ -134,10 +170,7 @@ def kernel2_bound_ms(m, c, in_bytes, audio_bytes, ka, da) -> tuple:
               + (m // da) * c * audio_bytes      # audio
               + ka * 4 + 4 * 4096 * 4            # taps, PSD constants
               + 4096 * 4)                        # PSD block
-    ops_ms = ops / PEAK_F32 * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes"), ops, nbytes
+    return bound(ops, nbytes) + (ops, nbytes)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -227,7 +260,9 @@ def phase2_kernel_vs_plain(ch2, torch):
                        xw[BLOCK_OUT:].float() * chan.params.in_gain)
     hc = torch.complex(chan.consts["h_re"], chan.consts["h_im"])
     library_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
-    stages = profile_stages(ch2, chan, xw, carries, torch)
+    stages = profile_stages(
+        lambda: ch2.kernel2(xw, chan.consts, *carries, chan.params),
+        ("chan_rot_disc", "psd_frames", "audio_fir", "psd_sum"))
     bound, bound_by, ops, nbytes = kernel2_bound_ms(
         BLOCK_OUT, N_CHANNELS, 2, 2, 64, AUDIO_DECIM)
     print(f"phase2 timing: kernel2 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -239,27 +274,520 @@ def phase2_kernel_vs_plain(ch2, torch):
                 bound_by=bound_by)
 
 
-def profile_stages(ch2, chan, xw, carries, torch) -> dict:
-    """Device time per CUDA function of one kernel2 call, from
-    torch.profiler over 5 calls ("not measured" when the trace holds no
-    device time)."""
+def profile_stages(fn, stages: tuple, reps: int = 5) -> dict:
+    """Device time per CUDA function (ms per launch) of ``fn``, from
+    torch.profiler over ``reps`` calls ("not measured" when the trace
+    holds no device time).  Each stage's total is divided by the
+    launches the trace holds, not by ``reps``: the profiler may keep
+    only the last calls of a long run."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            ch2.kernel2(xw, chan.consts, *carries, chan.params)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
-        for stage in ("chan_rot_disc", "psd_frames", "audio_fir",
-                      "psd_sum"):
+        for stage in stages:
             if stage in ev.key:
                 dev_us = getattr(ev, "device_time_total", None)
                 if dev_us is None:
                     dev_us = getattr(ev, "cuda_time_total", 0.0)
-                out[stage] = round(dev_us / 5 / 1e3, 4)
+                out[stage] = round(dev_us / max(ev.count, 1) / 1e3, 4)
     return out or {"stages": "not measured"}
+
+
+def time_once_ms(fn) -> tuple:
+    """(CUDA-event time of one call without a warm-up call, its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    """(least time in ms, what bounds it): operations over the float32
+    peak or bytes over the memory rate, whichever is larger."""
+    ops_ms = ops / PEAK_F32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def psd_bound(n: int, frames: int, in_bytes: int) -> tuple:
+    """At FFT cost: 5·N·log2(N) per frame, |X|² (3 per bin) and the
+    frame sum; bytes: the packed frames read once, twiddles and tables,
+    the [A, B] block written once."""
+    a = 1 << (int(np.log2(n)) // 2)
+    ops = frames * (5 * n * int(np.log2(n)) + 3 * n + n)
+    nbytes = 2 * n * frames * in_bytes + 2 * n * 4 + 2 * (a + n // a) * 4 \
+        + n * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def raw_bound(m: int, k: int, c: int, m_tiles: int) -> tuple:
+    """The complex product (8·M·K·C) plus 13 per output element: phase
+    (2), sin and cos (2), rotation (6), |y|² and its sum (3); bytes:
+    both window planes, the taps, θ and φ0 read once, both output planes
+    and the power written once."""
+    ops = 8 * m * k * c + 13 * m * c
+    nbytes = 2 * m * k * 4 + 2 * k * c * 4 + c * 4 + m_tiles * c * 4 \
+        + 2 * m * c * 4 + c * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+# operations of the recovery bank, counted from kernels/recovery.py at
+# what each lane's kind needs (the kernel blends every arm on every lane;
+# an arm weighted by zero reaches no output or state row):
+# - carrier loop (PSK, coherent ASK), per sample: derotation 6,
+#   magnitude 5, unit vector 2, loop 4, cos and sin 2, LO update and
+#   renormalisation 12, plus the phase detector of its order;
+# - FSK, per sample: quadrature product or rotation 6, atan2 ~20, scale 1;
+# - ASK, per sample: the envelope's magnitude 5 (envelope lanes) and the
+#   DC tracker 4;
+# - Gardner clock, per sample on every lane: 47;
+# - the fused CMA, per strobe (push is zero between strobes, and the
+#   emitted symbol is read only at strobes): 30 + 30 per equalizer tap.
+REC_LOOP_OPS = 31
+REC_ORDER_OPS = {1: 0, 2: 3, 4: 8, 8: 13}
+REC_FSK_OPS = 27
+REC_ENV_OPS, REC_DC_OPS = 5, 4
+REC_GARDNER_OPS = 47
+REC_CMA_OPS, REC_EQ_TAP_OPS = 30, 30
+
+
+def recovery_front_ops(bank) -> int:
+    """Front-end operations per sample, summed over the bank's lanes."""
+    from sigdigger_tpu_torch.kernels.recovery import KIND_ASK, KIND_PSK
+
+    total = 0
+    for kind, order, pll in zip(bank._kind, bank._order, bank._pll):
+        if kind == KIND_PSK:
+            total += REC_LOOP_OPS + REC_ORDER_OPS[int(order)]
+        elif kind == KIND_ASK:
+            total += REC_DC_OPS + (REC_LOOP_OPS if pll else REC_ENV_OPS)
+        else:
+            total += REC_FSK_OPS
+    return total
+
+
+def recovery_bound(m: int, bank, strobes: int) -> tuple:
+    """Ops: each lane's front end at its kind, the Gardner clock on every
+    lane, the matched filter at the bank's nonzero taps (a multiply and
+    an add per tap and plane) and the CMA at this run's ``strobes``;
+    bytes: the y planes, state, parameter rows and taps read once,
+    symbols, strobes and state written once."""
+    c, keq, rows = bank.cfg.n_channels, bank.cfg.eq_taps, bank.STATE_ROWS
+    nnz = int(np.count_nonzero(bank._mf))
+    ops = (m * (recovery_front_ops(bank) + c * REC_GARDNER_OPS + 4 * nnz)
+           + strobes * (REC_CMA_OPS + REC_EQ_TAP_OPS * keq))
+    nbytes = (2 * m * c + 2 * rows * c + 20 * c + bank._mf.size
+              + 3 * m * c) * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def pending_bounds() -> dict:
+    """Least time of each pending TPU kernel's work at the shapes the
+    bench uses, keyed by its TPU_KERNELS entry: (shape, ms, bound_by,
+    operations, bytes).  Counted from the function each computes (an FFT
+    at FFT cost, a gather at its live columns), not from the TPU
+    kernel's MXU-shaped work.  The engine kernels take the
+    ``KernelAnalyzer`` session of ``bench.py:255-284``: 1024 slots,
+    decimation 64, audio at 1/32, int16 upload, symbol group 4, compact
+    width 1024, bf16 drains; 832 audio, 48 psk, 8 fsk, 8 ask and 128
+    power inspectors.  Kernels that no bench path runs are marked so,
+    with the shape assumed."""
+    m, c, k, n, da, r = BLOCK_OUT, N_CHANNELS, 64, 4096, AUDIO_DECIM, 4
+    f = m * k // n
+    log2n = int(np.log2(n))
+    live = 48 + 8 + 8                  # live digital columns
+    out = {}
+
+    def put(row, shape, ops, nbytes):
+        out[TPU_KERNELS[row - 1][0]] = (shape, *bound(ops, nbytes), ops,
+                                        nbytes)
+
+    # _psd_kernel_xw: the engine's PSD from the int16 [2M, K] upload,
+    # windowed in the kernel: FFT cost + window + |X|² + frame sum
+    ops = f * (5 * n * log2n + 2 * n + 3 * n + n)
+    nbytes = 2 * m * k * 2 + n * 4 + 2 * n * 4 + 4 * 64 * 4 + n * 4
+    put(2, "engine: [2M, K] int16, A = B = 64", ops, nbytes)
+    put(3, "engine: as 2, plus the EMA", ops + 3 * n, nbytes + 2 * n * 4)
+    # _audio_kernel: channelize (8MKC), ~50 operations per channel
+    # sample (rotator 8, the FM arm's discriminator with atan2 ~30, AM
+    # and SSB arms and AGC ~12), the decimating FIR (2·64 per audio
+    # sample); int16 windows in, f32 audio and block power out
+    put(7, "engine: 1024 slots, audio at 1/32",
+        8 * m * k * c + 50 * m * c + 2 * 64 * (m // da) * c,
+        2 * m * k * 2 + 2 * k * c * 4 + (m // da) * c * 4 + c * 4)
+    # _squeeze_kernel: 3 planes [M, C] → [M/R, C], a multiply-add each
+    put(8, "engine: 3 x [M, C] f32, R = 4", 2 * 3 * m * c,
+        3 * m * c * 4 + 3 * (m // r) * c * 4)
+    # _compact_kernel: the 64 live digital columns of 3 squeezed planes
+    # gathered into [3·M/R, W = 1024] bf16
+    put(9, "engine: 3 x [M/R, C] f32, 64 live columns, W = 1024 bf16", 0,
+        3 * (m // r) * live * 4 + 3 * (m // r) * 1024 * 2)
+    # _pack_kernel: the live columns of each section read once, the
+    # ~0.69 MB int16 buffer of the bench session written once
+    # (drainpack.py:24-25): audio [M/32, 832], status 2 x [1, C], the
+    # squeezed digital planes 3 x [M/R, 64]
+    put(10, "engine: the bench session's drain", 0,
+        (m // da) * 832 * 4 + 2 * c * 4 + 3 * (m // r) * live * 4 + 690_000)
+    # not on a bench path: _tv_kernel (assumed: a 625-line frame, 2048
+    # samples per line in, 1024 out, 3 operations per output sample)
+    put(11, "no bench path; assumed [625, 2048] f32 -> [625, 1024]",
+        3 * 625 * 1024, 625 * 2048 * 4 + 625 * 1024 * 4)
+    # _cma_kernel (assumed: 64 channels, 2048 symbols, 5 complex taps,
+    # ~180 operations per symbol as in the fused CMA)
+    put(12, "no bench path; assumed [2048, 64] complex, 5 taps",
+        180 * 2048 * 64, 2 * 2048 * 64 * 4 * 2 + 2 * 5 * 64 * 4 * 2)
+    # v1 _kernel (assumed: the fm receiver's geometry with f32 windows):
+    # channelize, rotator and discriminator, the audio FIR
+    put(13, "no bench path; assumed the fm receiver's shapes, f32 in",
+        8 * m * k * c + 38 * m * c + 2 * 64 * (m // da) * c,
+        2 * m * k * 4 + 2 * k * c * 4 + (m // da) * c * 4 + 2 * c * 4)
+    return out
+
+
+def phase2_psd(fftm, torch) -> dict:
+    """The standalone PSD kernel against its plain version, N = 4096,
+    F = 128 (the digital receiver's PSD at the bench width), 3 blocks."""
+    n = 4096
+    frames = BLOCK_OUT * 64 // n
+    psd = fftm.PSD(fftm.PSDConfig(fft_size=n, frames_per_block=frames),
+                   FS, device="cuda")
+    x, _, _ = synth_iq(F0S, 3 * psd.cfg.block_in, SEED + 2)
+    worst_bin, max_abs = 0.0, 0.0
+    for b in range(3):
+        blk = x[b * psd.cfg.block_in:(b + 1) * psd.cfg.block_in]
+        xp = torch.from_numpy(psd.prepare(blk)).cuda()
+        got = fftm.psd_kernel(xp, psd.consts, psd.params)
+        want = fftm.psd_kernel_reference(xp, psd.consts, psd.params)
+        torch.cuda.synchronize()
+        check(torch.isfinite(got).all())
+        d = (got - want).abs()
+        worst_bin = max(worst_bin, float((d / want.abs()).max()))
+        max_abs = max(max_abs, float(d.max()))
+    print(f"phase2 psd: worst bin rel err {worst_bin:.3g} (tol "
+          f"{TOL_PSD_BIN}), max abs err {max_abs:.3g}", flush=True)
+    check(worst_bin <= TOL_PSD_BIN, worst_bin)
+    ms = time_ms(lambda: fftm.psd_kernel(xp, psd.consts, psd.params), 20)
+    plain_ms = time_ms(lambda: fftm.psd_kernel_reference(
+        xp, psd.consts, psd.params), 3)
+    frames_c = torch.from_numpy(
+        (blk.reshape(frames, n) * psd._taps.astype(np.float32)).astype(
+            np.complex64)).cuda()
+    library_ms = time_ms(lambda: torch.fft.fft(frames_c), 20)
+    bms, by, ops, nbytes = psd_bound(n, frames, 4)
+    stages = profile_stages(
+        lambda: fftm.psd_kernel(xp, psd.consts, psd.params),
+        ("psd_frames", "psd_sum"))
+    print(f"phase2 psd timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+          f" torch.fft.fft of the [{frames}, {n}] windowed frames (library "
+          f"yardstick, FFT only) {library_ms:.4f} ms, bound {bms:.5f} ms by "
+          f"{by} ({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); "
+          f"stages {stages}", flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
+def phase2_raw(rawm, torch) -> dict:
+    """The raw bank kernel against its plain version at 1024 channels,
+    M = 8192 (m_tile 2048), two float32 planes, 3 chained blocks."""
+    cfg = rawm.RawBankConfig(sample_rate=FS, n_channels=N_CHANNELS, taps=64,
+                             decimation=64, block_out=BLOCK_OUT,
+                             m_tile=2048)
+    bank = rawm.RawBank(cfg, device="cuda")
+    bank.begin_defer()
+    for i, f0 in enumerate(F0S):
+        bank.configure_channel(i, f0=float(f0), bw=DIG_BW)
+    bank.end_defer()
+    x, _, _ = synth_iq(F0S, 3 * cfg.block_in, SEED + 3)
+    worst_plane, worst_pow, max_abs = 0.0, 0.0, 0.0
+    for b in range(3):
+        blk = x[b * cfg.block_in:(b + 1) * cfg.block_in]
+        xr, xi = (torch.from_numpy(a).cuda() for a in bank.frame(blk))
+        phi0 = torch.from_numpy(bank._phi_tiles()).cuda()
+        args = (xr, xi, bank.consts["h_re"], bank.consts["h_im"],
+                bank.consts["theta"], phi0, bank.params)
+        got = rawm.raw_kernel(*args)
+        want = rawm.raw_kernel_reference(*args)
+        torch.cuda.synchronize()
+        top = max(float(want[0].abs().max()), float(want[1].abs().max()))
+        for g, w in zip(got[:2], want[:2]):
+            check(torch.isfinite(g).all())
+            d = float((g - w).abs().max())
+            max_abs = max(max_abs, d)
+            worst_plane = max(worst_plane, d / top)
+        worst_pow = max(worst_pow, float(
+            ((got[2] - want[2]).abs() / want[2]).max()))
+        # chain the rotator phase as RawBank._launch does
+        bank._phi = np.mod(bank._phi + bank._theta64 * cfg.block_out,
+                           2 * np.pi)
+    print(f"phase2 raw: planes max abs err {max_abs:.3g} ({worst_plane:.3g}"
+          f" of the largest, tol {TOL_RAW}), power worst rel err "
+          f"{worst_pow:.3g} (tol {TOL_RAW})", flush=True)
+    check(worst_plane <= TOL_RAW and worst_pow <= TOL_RAW,
+          (worst_plane, worst_pow))
+    ms = time_ms(lambda: rawm.raw_kernel(*args), 20)
+    plain_ms = time_ms(lambda: rawm.raw_kernel_reference(*args), 3)
+    xc = torch.complex(xr, xi)
+    hc = torch.complex(bank.consts["h_re"], bank.consts["h_im"])
+    yard_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
+    bms, by, ops, nbytes = raw_bound(BLOCK_OUT, 64, N_CHANNELS,
+                                     BLOCK_OUT // 2048)
+    stages = profile_stages(lambda: rawm.raw_kernel(*args),
+                            ("raw_rot", "raw_power"))
+    print(f"phase2 raw timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"channelize matmul (yardstick, no rotator or power) "
+          f"{yard_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+          f"({ops / 1e9:.3f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); stages "
+          f"{stages}", flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+# recovery lanes of every kind: (name, configure_channel keys, signal,
+# concentration power, or 0 for none)
+REC_VARIANTS = [
+    ("psk2", dict(kind=0, order=2), "psk", 2),
+    ("psk4", dict(kind=0, order=4), "psk", 4),
+    ("psk8", dict(kind=0, order=8), "psk", 8),
+    ("fsk_quad", dict(kind=1, use_mf=False), "fsk", 0),
+    ("fsk_phase", dict(kind=1, use_mf=False, quad_demod=False,
+                       fsk_phase=0.3), "fsk", 0),
+    ("ask_env", dict(kind=2, use_mf=False), "ask", 0),
+    ("ask_coh", dict(kind=2, use_mf=False, pll=True), "ask", 0),
+    ("psk4_eq", dict(kind=0, order=4, eq_enabled=True), "psk", 4),
+    ("psk4_manual", dict(kind=0, order=4, manual_clock=True,
+                         clock_phase=0.25), "psk", 4),
+    ("psk4_stopped", dict(kind=0, order=4, running=False), "psk", 0),
+]
+
+
+def recovery_lanes(n: int, seed: int):
+    """[n, 1024] complex64 lane signals, lane i of variant i % 10 (PSK
+    at sps 4 with RRC shaping and a small carrier offset, FSK and ASK at
+    sps 8), plus light noise; returns (y, per-lane variant index)."""
+    from sigdigger_tpu_torch.dsp.filters import rrc_taps
+
+    rng = np.random.default_rng(seed)
+    taps = rrc_taps(4.0, span=6, rolloff=0.35)
+    k = np.arange(n)
+    y = np.empty((n, N_CHANNELS), np.complex64)
+    var = np.arange(N_CHANNELS) % len(REC_VARIANTS)
+    for lane in range(N_CHANNELS):
+        name, kw, sig, _ = REC_VARIANTS[var[lane]]
+        if sig == "psk":
+            order = kw["order"]
+            up = np.zeros(n, np.complex128)
+            up[::4] = np.exp(2j * np.pi * rng.integers(0, order, n // 4)
+                             / order)
+            z = np.convolve(up, taps)[:n] * np.exp(
+                2j * np.pi * rng.uniform(-2e-3, 2e-3) * k)
+        elif sig == "fsk":
+            bits = rng.integers(0, 2, n // 8 + 1)
+            z = np.exp(1j * np.cumsum((2 * bits - 1).repeat(8)[:n]
+                                      * 0.1 * np.pi))
+        else:
+            bits = rng.integers(0, 2, n // 8 + 1)
+            z = (0.4 + 0.6 * bits).repeat(8)[:n] * np.exp(
+                2j * np.pi * 1e-3 * k)
+        y[:, lane] = z
+    y += 0.01 * (rng.standard_normal(y.shape)
+                 + 1j * rng.standard_normal(y.shape))
+    return y, var
+
+
+def recovery_compare(recm, torch, bank, y: np.ndarray, lens) -> dict:
+    """The recovery kernel and its plain version from the bank's state,
+    chained over consecutive blocks of ``lens`` samples of ``y`` [T, C];
+    returns both runs' symbols and strobes on the host, their final
+    states, whether every output was bit-equal, and the CUDA-event time
+    of the plain version's first block."""
+    yr = torch.from_numpy(np.ascontiguousarray(y.real)).cuda()
+    yi = torch.from_numpy(np.ascontiguousarray(y.imag)).cuda()
+    consts = (bank.consts["params"], bank.consts["mf"], bank.params)
+    sk = sp = torch.as_tensor(bank.state).cuda()
+    outs_k, outs_p, plain_ms = [], [], None
+    start = 0
+    for n in lens:
+        a = yr[start:start + n].contiguous()
+        b = yi[start:start + n].contiguous()
+        start += n
+        ok = recm.recovery_kernel(a, b, sk, *consts)
+        ms, op = time_once_ms(
+            lambda: recm.recovery_kernel_reference(a, b, sp, *consts))
+        plain_ms = ms if plain_ms is None else plain_ms
+        sk, sp = ok[3], op[3]
+        outs_k.append(ok)
+        outs_p.append(op)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(u, v) for a, b in zip(outs_k, outs_p)
+                    for u, v in zip(a, b))
+
+    def host(outs):
+        sym = torch.cat([torch.complex(o[0], o[1]) for o in outs])
+        return (sym.cpu().numpy(),
+                torch.cat([o[2] for o in outs]).cpu().numpy() > 0.5)
+
+    (sym_k, st_k), (sym_p, st_p) = host(outs_k), host(outs_p)
+    check(np.all(np.isfinite(sym_k)))
+    return dict(sym_k=sym_k, st_k=st_k, sym_p=sym_p, st_p=st_p,
+                per_k=sk[7].cpu().numpy(), per_p=sp[7].cpu().numpy(),
+                bit_equal=bit_equal, plain_ms=plain_ms)
+
+
+def recovery_agreement(r: dict, powers) -> dict:
+    """The tolerance scheme: the symbols up to each lane's first moved
+    strobe, then the strobe count, the period and the tail's M-th-power
+    concentration (``powers`` per lane, 0 for none)."""
+    from sigdigger_tpu_torch.kernels.recovery import strobe_agreement
+
+    ag = strobe_agreement(r["sym_k"], r["st_k"], r["sym_p"], r["st_p"])
+    dconc = 0.0
+    for lane, power in enumerate(powers):
+        if power:
+            dconc = max(dconc, abs(
+                conc(r["sym_k"][:, lane], r["st_k"][:, lane], power)
+                - conc(r["sym_p"][:, lane], r["st_p"][:, lane], power)))
+    out = dict(
+        max_err=float(ag["max_err"].max()),
+        moved=int((ag["first_diff"] < len(r["st_k"])).sum()),
+        dcount=int(np.abs(ag["count_a"] - ag["count_b"]).max()),
+        dper=float((np.abs(r["per_k"] - r["per_p"]) / r["per_p"]).max()),
+        dconc=dconc)
+    check(out["max_err"] <= TOL_SYM and out["dcount"] <= 1
+          and out["dper"] <= 0.01 and out["dconc"] <= 0.02, out)
+    return out
+
+
+def agreement_line(r: dict, ag: dict) -> str:
+    return (f"bit-equal to plain: {r['bit_equal']}; lanes whose strobes "
+            f"moved {ag['moved']}; symbol max abs err before the first "
+            f"moved strobe {ag['max_err']:.3g} (tol {TOL_SYM}); strobe "
+            f"count diff {ag['dcount']} (tol 1); period rel diff "
+            f"{ag['dper']:.3g} (tol 0.01); concentration diff "
+            f"{ag['dconc']:.3g} (tol 0.02)")
+
+
+def qpsk_lanes(n: int, sps: int, seed: int) -> np.ndarray:
+    """[n, 1024] complex64: QPSK at ``sps`` samples per symbol with RRC
+    shaping (roll-off 0.35), a small carrier offset per lane, and light
+    noise: what the psk receiver's recovery bank reads on modulated
+    channels."""
+    from sigdigger_tpu_torch.dsp.filters import rrc_taps
+
+    rng = np.random.default_rng(seed)
+    taps = rrc_taps(float(sps), span=8, rolloff=0.35)
+    k = np.arange(n)
+    y = np.empty((n, N_CHANNELS), np.complex64)
+    for lane in range(N_CHANNELS):
+        up = np.zeros(n, np.complex128)
+        up[::sps] = np.exp(0.5j * np.pi * rng.integers(0, 4, len(up[::sps])))
+        y[:, lane] = np.convolve(up, taps)[:n] * np.exp(
+            2j * np.pi * rng.uniform(-5e-4, 5e-4) * k)
+    y += 0.01 * (rng.standard_normal(y.shape)
+                 + 1j * rng.standard_normal(y.shape))
+    return y
+
+
+def phase2_recovery(recm, torch) -> dict:
+    """The recovery kernel against its plain version.  Main path: the
+    psk receiver's own bank (1024 lanes, sps 8, 49-tap RRC matched
+    filter) on QPSK at M = 8192, chained into a second block of 1024,
+    where the plain version's first call is also its time.  Every kind:
+    1024 lanes of the ten kinds and options over 2 chained blocks of
+    1024 (the plain version is a Python loop of ~150 small operations
+    per sample)."""
+    # main path
+    bank = digital_receiver("psk")._rec
+    check(bank.cfg.block_len == BLOCK_OUT
+          and int(np.count_nonzero(bank._mf[:, 0])) == 6 * DIG_SPS + 1)
+    y_main = qpsk_lanes(BLOCK_OUT + REC_BLOCK, DIG_SPS, SEED + 6)
+    r = recovery_compare(recm, torch, bank, y_main, (BLOCK_OUT, REC_BLOCK))
+    ag = recovery_agreement(r, [4] * N_CHANNELS)
+    concs = [conc(r["sym_k"][:BLOCK_OUT, i], r["st_k"][:BLOCK_OUT, i], 4)
+             for i in range(N_CHANNELS)]
+    print(f"phase2 recovery, psk receiver lanes: {N_CHANNELS} lanes x "
+          f"blocks of {BLOCK_OUT} and {REC_BLOCK}, "
+          f"{agreement_line(r, ag)}; kernel's QPSK concentration over the "
+          f"first block's second half: min {min(concs):.4f}", flush=True)
+    max_err = ag["max_err"]
+
+    # every kind
+    mixed = recm.RecoveryBank(recm.RecoveryBankConfig(
+        n_channels=N_CHANNELS, block_len=REC_BLOCK), device="cuda")
+    y, var = recovery_lanes(2 * REC_BLOCK, SEED + 4)
+    mixed.begin_defer()
+    for lane in range(N_CHANNELS):
+        name, kw, sig, _ = REC_VARIANTS[var[lane]]
+        mixed.configure_channel(lane, sps=4.0 if sig == "psk" else 8.0,
+                                loop_bw=0.005, clock_gain=0.08, **kw)
+    mixed.end_defer()
+    rm = recovery_compare(recm, torch, mixed, y, (REC_BLOCK, REC_BLOCK))
+    agm = recovery_agreement(rm, [REC_VARIANTS[v][3] for v in var])
+    sym_k, st_k, sym_p, st_p = rm["sym_k"], rm["st_k"], rm["sym_p"], rm["st_p"]
+    # ASK: the DC tracker (pole 0.9995) has not settled in 2048 samples,
+    # so the envelope statistics are held against the plain version's
+    fsk_bimodal, dask = 1.0, 0.0
+    for lane in range(N_CHANNELS):
+        name = REC_VARIANTS[var[lane]][0]
+        tk, tp = (np.real(s[:, lane][st[:, lane]])
+                  for s, st in ((sym_k, st_k), (sym_p, st_p)))
+        tk, tp = tk[len(tk) // 2:], tp[len(tp) // 2:]
+        if name == "fsk_quad":
+            fsk_bimodal = min(fsk_bimodal, float(np.mean(
+                np.abs(np.abs(tk) - 0.1) < 0.03)))
+        if name.startswith("ask"):
+            dask = max(dask, abs(tk.mean() - tp.mean()),
+                       abs(tk.std() / tp.std() - 1.0))
+        if name == "psk4_stopped":
+            check(not st_k[:, lane].any(), lane)
+    print(f"phase2 recovery, every kind: {N_CHANNELS} lanes x 2 blocks of "
+          f"{REC_BLOCK}, {agreement_line(rm, agm)}; fsk bimodal share "
+          f"{fsk_bimodal:.3f} (> 0.9); ask tail mean / spread diff "
+          f"{dask:.3g} (tol 0.02)", flush=True)
+    check(fsk_bimodal > 0.9 and dask <= 0.02, (fsk_bimodal, dask))
+    max_err = max(max_err, agm["max_err"])
+
+    # timing at the main path's shape and lanes
+    consts = (bank.consts["params"], bank.consts["mf"], bank.params)
+    yr = torch.from_numpy(np.ascontiguousarray(y_main[:BLOCK_OUT].real))
+    yi = torch.from_numpy(np.ascontiguousarray(y_main[:BLOCK_OUT].imag))
+    yr, yi = yr.cuda(), yi.cuda()
+    state0 = torch.as_tensor(bank.state).cuda()
+    ms = time_ms(lambda: recm.recovery_kernel(yr, yi, state0, *consts), 3)
+    strobes = int(r["st_k"][:BLOCK_OUT].sum())
+    bms, by, ops, nbytes = recovery_bound(BLOCK_OUT, bank, strobes)
+    step_ns = ms * 1e6 / (2 * BLOCK_OUT)
+    stages = profile_stages(
+        lambda: recm.recovery_kernel(yr, yi, state0, *consts),
+        ("rec_front", "rec_mf", "rec_gardner"), reps=2)
+    print(f"phase2 recovery timing at M = {BLOCK_OUT}, psk receiver lanes: "
+          f"kernel {ms:.4f} ms, plain (one call) {r['plain_ms']:.1f} ms, "
+          f"bound {bms:.4f} ms by {by} ({ops / 1e9:.3f} GFLOP at {strobes} "
+          f"strobes, {nbytes / 2 ** 20:.1f} MiB); latency: {2 * BLOCK_OUT} "
+          f"dependent steps per lane (front end, then Gardner) at "
+          f"{step_ns:.1f} ns per step; stages {stages}", flush=True)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=r["plain_ms"],
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def conc(sym: np.ndarray, strobe: np.ndarray, power: int) -> float:
+    """|mean(e^{j·power·angle})| of the second half of the strobed
+    symbols: 1 for a clean constellation of that order."""
+    got = sym[strobe]
+    tail = got[len(got) // 2:]
+    return float(np.abs(np.mean(np.exp(1j * power * np.angle(tail)))))
 
 
 class ArraySource:
@@ -374,6 +902,146 @@ def stage_breakdown(rx, x: np.ndarray, torch) -> dict:
     return {k: round(sorted(v)[len(v) // 2], 4) for k, v in times.items()}
 
 
+def synth_digital(f0s: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """QPSK at 200 kbaud (RRC, roll-off 0.35, held over each channel
+    sample) on QPSK_CHANNELS, a pure carrier on DIG_PURE, and noise."""
+    from sigdigger_tpu_torch.dsp.filters import rrc_taps
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64) / FS
+    x = 0.02 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    taps = rrc_taps(float(DIG_SPS), span=8, rolloff=0.35)
+    m = n // 64
+    for ch in QPSK_CHANNELS:
+        up = np.zeros(m, np.complex128)
+        up[::DIG_SPS] = np.exp(0.5j * np.pi * rng.integers(
+            0, 4, len(up[::DIG_SPS])))
+        bb = np.convolve(up, taps)[:m]
+        x += 0.25 * np.repeat(bb, 64) * np.exp(2j * np.pi * f0s[ch] * t)
+    x += 0.5 * np.exp(2j * np.pi * f0s[DIG_PURE] * t)
+    return x.astype(np.complex64)
+
+
+def digital_receiver(mode: str):
+    from sigdigger_tpu_torch import KernelReceiver
+
+    return KernelReceiver(
+        sample_rate=FS, f0s=F0S, bw=DIG_BW, mode=mode, decimation=64,
+        block_out=BLOCK_OUT, psd_fft=4096,
+        baud=FS / 64 / DIG_SPS, psk_order=4)
+
+
+def phase3b_digital(torch, card: str) -> dict:
+    """The psk receiver end to end at full width, then fsk and ask;
+    returns the psk run's launches per kernel."""
+    from sigdigger_tpu_torch.kernels import fft, rawbank, recovery
+
+    kernels = {"psd": fft.psd_kernel, "raw": rawbank.raw_kernel,
+               "recovery": recovery.recovery_kernel}
+    rx = digital_receiver("psk")
+    check(rx.device.type == "cuda")
+    x = synth_digital(F0S, DIG_BLOCKS * rx.block_in, SEED + 5)
+    cols = list(QPSK_CHANNELS)
+    sym, strobes = [], []
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = None
+    for blk in rx.run(ArraySource(x), pipeline_depth=3):
+        sym.append(blk.symbols[:, cols])
+        strobes.append(blk.strobes[:, cols])
+        check(blk.symbols.shape == (BLOCK_OUT, N_CHANNELS)
+              and blk.symbols.dtype == np.complex64
+              and blk.strobes.dtype == bool, blk.symbols.shape)
+        last = blk
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    check(len(sym) == DIG_BLOCKS, len(sym))
+    check(all(n == DIG_BLOCKS for n in launches.values()), launches)
+    sym, strobes = np.concatenate(sym), np.concatenate(strobes)
+    check(np.all(np.isfinite(sym)))
+    half = DIG_BLOCKS * BLOCK_OUT // 2
+    concs = [conc(sym[half:, i], strobes[half:, i], 4)
+             for i in range(len(cols))]
+    check(min(concs) > 0.85, concs)
+    psd = np.fft.fftshift(last.psd)
+    freqs = np.fft.fftshift(np.fft.fftfreq(4096, 1.0 / FS))
+    pk = freqs[int(np.argmax(psd))]
+    check(abs(pk - F0S[DIG_PURE]) <= 2 * FS / 4096, (pk, F0S[DIG_PURE]))
+    check(np.all(np.isfinite(last.psd)))
+    block_ms = wall / DIG_BLOCKS * 1e3
+    print(f"phase3b psk e2e: {DIG_BLOCKS} blocks, launches {launches}, "
+          f"block wall {block_ms:.3f} ms, "
+          f"{rx.block_in / (wall / DIG_BLOCKS) / 1e6:.2f} Msps, QPSK "
+          f"4th-power concentration {[round(c, 4) for c in concs]} "
+          f"(> 0.85), PSD peak {pk:.0f} Hz on carrier {F0S[DIG_PURE]:.0f} "
+          f"Hz | card: {card}", flush=True)
+    print(f"phase3b stages (synchronous, median ms over 6 blocks after 2 "
+          f"warm-up blocks): {digital_stages(rx, x, torch)}", flush=True)
+
+    for mode in ("fsk", "ask"):
+        rx = digital_receiver(mode)
+        for k in kernels.values():
+            k.launches = 0
+        blocks = list(rx.run(ArraySource(x[:3 * rx.block_in]),
+                             pipeline_depth=3))
+        got = {name: k.launches for name, k in kernels.items()}
+        check(len(blocks) == 3 and all(n == 3 for n in got.values()),
+              (mode, got))
+        check(all(np.all(np.isfinite(b.symbols)) and b.strobes.any()
+                  for b in blocks), mode)
+        print(f"phase3b {mode}: 3 blocks, launches {got}, strobes per "
+              f"block {[int(b.strobes.sum()) for b in blocks]}", flush=True)
+    return launches
+
+
+def digital_stages(rx, x: np.ndarray, torch) -> dict:
+    """Host-clock time of each layer of one digital block, each stage
+    ended by a synchronise: framing (the PSD's, the raw bank's), H2D,
+    the three kernels, D2H of symbols and strobes, PSD fold; medians
+    over 6 blocks after 2 warm-up blocks."""
+    from sigdigger_tpu_torch.kernels import fft
+
+    keys = ("frame_psd", "frame_raw", "h2d", "psd", "raw", "recovery",
+            "d2h", "fold")
+    times: dict[str, list] = {k: [] for k in keys}
+    n_blocks = len(x) // rx.block_in
+    for b in range(8):
+        i = b % n_blocks
+        blk = x[i * rx.block_in:(i + 1) * rx.block_in]
+        t = [time.perf_counter()]
+        xp = rx._psd.prepare(blk)
+        t.append(time.perf_counter())
+        xr, xi = rx._raw.frame(blk)
+        t.append(time.perf_counter())
+        xp_d = torch.from_numpy(xp).to(rx.device)
+        xr_d = torch.from_numpy(xr).to(rx.device)
+        xi_d = torch.from_numpy(xi).to(rx.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        psd = fft.psd_kernel(xp_d, rx._psd.consts, rx._psd.params)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        y_re, y_im = rx._raw.feed_frames(xr_d, xi_d, fetch=False)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        sr, si, st = rx._rec.feed_planes(y_re, y_im, fetch=False)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        torch.complex(sr, si).cpu().numpy()
+        (st > 0.5).cpu().numpy()
+        t.append(time.perf_counter())
+        rx._psd.fold(psd.cpu().numpy())
+        t.append(time.perf_counter())
+        if b < 2:
+            continue
+        for k, t0, t1 in zip(keys, t, t[1:]):
+            times[k].append((t1 - t0) * 1e3)
+    return {k: round(sorted(v)[len(v) // 2], 4) for k, v in times.items()}
+
+
 def main() -> int:
     import torch
 
@@ -382,6 +1050,7 @@ def main() -> int:
         return 2
     from sigdigger_tpu_torch.kernels import _build
     from sigdigger_tpu_torch.kernels import channelizer2 as ch2
+    from sigdigger_tpu_torch.kernels import fft, rawbank, recovery
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -397,28 +1066,60 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
 
-    p2 = phase2_kernel_vs_plain(ch2, torch)
-    launches = phase3_end_to_end(ch2, torch, card)
+    t0 = time.perf_counter()
+    p2 = {"kernel2": phase2_kernel_vs_plain(ch2, torch),
+          "psd": phase2_psd(fft, torch),
+          "raw": phase2_raw(rawbank, torch),
+          "recovery": phase2_recovery(recovery, torch)}
+    print(f"phase2: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches = {"kernel2": phase3_end_to_end(ch2, torch, card)}
+    print(f"phase3: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3b_digital(torch, card))
+    print(f"phase3b: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    print(json.dumps({"tpu_kernels": [
-        {"replaces": f"sigdigger_tpu/{r}", "status": s}
-        for r, s in TPU_KERNELS]}))
+    # every TPU kernel with its bound: the ported ones at the inputs
+    # phase 2 timed, the pending ones at the bench's shapes
+    pending = pending_bounds()
+    ported = dict(zip((r for r, s in TPU_KERNELS if s == "ported"),
+                      ("kernel2", "psd", "raw", "recovery")))
+    listing = []
+    for r, s in TPU_KERNELS:
+        entry = {"replaces": f"sigdigger_tpu/{r}", "status": s}
+        if r in ported:
+            entry.update(bound_ms=p2[ported[r]]["bound_ms"],
+                         bound_by=p2[ported[r]]["bound_by"])
+        else:
+            shape, ms, by, ops, nbytes = pending[r]
+            entry.update(shape=shape, bound_ms=ms, bound_by=by,
+                         gflop=ops / 1e9, mib=nbytes / 2 ** 20)
+        listing.append(entry)
+    print(json.dumps({"tpu_kernels": listing}))
+    rows = [
+        # no one PyTorch call computes kernel2 or the raw bank; the
+        # channelize matmuls timed in phase 2 are yardsticks for their
+        # product only, and no PyTorch call computes the recovery loops
+        ("kernel2", "channelizer2.cu", "kernels/channelizer2.py:126"),
+        ("psd", "psd.cu", "kernels/fft.py:65"),
+        ("raw", "rawbank.cu", "kernels/rawbank.py:61"),
+        ("recovery", "recovery.cu", "kernels/recovery.py:90"),
+    ]
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "kernel2",
+        "name": {"psd": "psd_kernel", "raw": "raw_kernel",
+                 "recovery": "recovery_kernel"}.get(name, name),
         "route": "cuda",
-        "source": "sigdigger_tpu_torch/kernels/csrc/channelizer2.cu",
-        "replaces": "sigdigger_tpu/kernels/channelizer2.py:126",
-        "launches": launches,
-        "max_abs_err": p2["max_abs_err"],
-        "ms": p2["ms"],
-        "plain_ms": p2["plain_ms"],
-        "bound_ms": p2["bound_ms"],
-        "bound_by": p2["bound_by"],
-        # no one PyTorch call computes this function; the channelize
-        # matmul timed in phase 2 is a yardstick for stage (a) only
-        "library_ms": None,
-    }]}))
+        "source": f"sigdigger_tpu_torch/kernels/csrc/{src}",
+        "replaces": f"sigdigger_tpu/{tpu}",
+        "launches": launches[name],
+        "max_abs_err": p2[name]["max_abs_err"],
+        "ms": p2[name]["ms"],
+        "plain_ms": p2[name]["plain_ms"],
+        "bound_ms": p2[name]["bound_ms"],
+        "bound_by": p2[name]["bound_by"],
+        "library_ms": None if name == "kernel2" else p2[name]["library_ms"],
+    } for name, src, tpu in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

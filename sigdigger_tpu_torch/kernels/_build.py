@@ -42,7 +42,36 @@ SIGNATURES = {
             + [_I] * 5              # M C mt ka da
             + [_F, _F, _P]),        # quad_gain psd_scale stream
     },
+    "psd": {
+        "sd_psd": (
+            [_P, _I, _F]            # x, in_kind, in_gain
+            + [_P] * 8              # wa_re wa_im wb_re wb_im tw_re tw_im
+                                    # psd part
+            + [_I] * 3              # A B F
+            + [_F, _P]),            # scale stream
+    },
+    "rawbank": {
+        "sd_rawbank": (
+            [_P, _P, _I, _F]        # xr, xi, in_kind, in_gain
+            + [_P] * 8              # h_re h_im theta phi0 y_re y_im
+                                    # power pow_part
+            + [_I] * 4              # M C K mt
+            + [_P]),                # stream
+    },
+    "recovery": {
+        "sd_recovery": (
+            [_P] * 13               # y_re y_im state prm taps sym_re
+                                    # sym_im strobe state_out ext_re
+                                    # ext_im mf_re mf_im
+            + [_I] * 4              # M C K keq
+            + [_F, _F, _P]),        # adc one_m_adc stream
+    },
 }
+
+# flags of one library only: the recovery loops feed back, so its
+# arithmetic must round as the plain version's separate multiply and
+# add do (no FMA contraction)
+EXTRA_FLAGS = {"recovery": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -88,7 +117,8 @@ def build_all(force: bool = False) -> dict[str, float]:
     for n in todo:
         tmp = f"{lib_path(n)}.{os.getpid()}.tmp"
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+            [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(n, []), "-I", CSRC,
+             "-o", tmp,
              os.path.join(CSRC, f"{n}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     secs, failed = {}, []

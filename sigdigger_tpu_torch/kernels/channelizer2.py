@@ -50,9 +50,9 @@ _TWO_PI = 2.0 * np.pi
 UNSUPPORTED = (
     "the port's fused FM receiver needs the snapped channel grid, "
     "decimation == 64 and psd_fft == 4096 with m_tile % 256 == 0; the "
-    "cos/sin rotator and the unfused PSD kernels are pending in "
-    "ROADMAP.md queue 2 items 2-3 (kernels/fft.py _psd_kernel_xw, "
-    "_psd_kernel: slice 2)")
+    "unfused FM geometries wait for the PSD read from the window buffer "
+    "(ROADMAP.md queue 2 item 2: kernels/fft.py _psd_kernel_xw) and the "
+    "cos/sin rotator of _kernel2 (queue 2 item 1)")
 
 
 @dataclass(frozen=True)

@@ -17,6 +17,8 @@
 //                      packed rows -> |X|^2 partial per frame
 //   (d) psd_sum        sum of the partials in frame order, times the
 //                      scale -> PSD [64, 64] in (k1, k2) order
+//   (c) and (d) are the shared stages of psd.cuh at A = B = 64, with the
+//   window applied in the kernel.
 //
 // Carries are written to fresh output buffers, never over an input
 // another block still reads.  Everything is float32 on the CUDA cores
@@ -28,6 +30,7 @@
 #include <stdint.h>
 
 #include "ops.cuh"
+#include "psd.cuh"
 
 namespace {
 
@@ -38,15 +41,6 @@ constexpr int KC = 32;       // (a): taps per shared-memory chunk
 constexpr int XS = KC + 1;   // (a): padded row stride of the x chunk
 constexpr int YS = TC + 1;   // (a): padded row stride of the Y tile
 constexpr int MAX_KA = 256;  // (b): audio taps held in shared memory
-
-template <typename T>
-__device__ __forceinline__ float deq(T v, float gain) {
-    return static_cast<float>(v) * gain;
-}
-template <>
-__device__ __forceinline__ float deq<float>(float v, float) {
-    return v;
-}
 
 // (a) Channelize, rotate, discriminate.
 //
@@ -245,119 +239,24 @@ audio_fir(const float* __restrict__ f, const float* __restrict__ ftail_in,
     }
 }
 
-// (c) Four-step 4096-point DFT of one frame, |X|^2 in (k1, k2) order.
-// Frame f is packed rows [64f, 64f+64) of both planes: x[a·64 + b] sits
-// at row 64f+a, column b (the windows of the channelizer are the raw
-// stream when taps == decimation, offset by the K−1 history samples).
-//
-// Bound: operations, 2·8·64^3 flops per frame (0.54 GFLOP for the 128
-// frames of a block); each frame's 16-32 KB is read once.  Design: one
-// block per frame, the frame windowed into shared memory; DFT_A runs
-// down the columns (thread = column, 16 k1 rows in registers), the
-// result overwrites the tile after a barrier with the twiddle applied,
-// then DFT_B runs along the rows (thread = k2).  W_64^n comes from one
-// 64-entry table: W_64^{k·a} = W_64^{(k·a) mod 64}.
 template <typename T>
-__global__ void __launch_bounds__(256)
-psd_frames(const T* __restrict__ xw, float in_gain,
-           const float* __restrict__ w2d,
-           const float* __restrict__ w64_re, const float* __restrict__ w64_im,
-           const float* __restrict__ tw_re, const float* __restrict__ tw_im,
-           float* __restrict__ part, int M) {
-    __shared__ float sr[64 * 65];
-    __shared__ float si[64 * 65];
-    __shared__ float wr[64];
-    __shared__ float wi[64];
-    const int tid = threadIdx.x;
-    const size_t fr = blockIdx.x;
-    if (tid < 64) {
-        wr[tid] = w64_re[tid];
-        wi[tid] = w64_im[tid];
-    }
-    for (int i = tid; i < 64 * 64; i += 256) {
-        const int a = i >> 6, b = i & 63;
-        const size_t row = fr * 64 + a;
-        const float w = w2d[i];
-        sr[a * 65 + b] = deq(xw[row * K + b], in_gain) * w;
-        si[a * 65 + b] = deq(xw[((size_t)M + row) * K + b], in_gain) * w;
-    }
-    __syncthreads();
-
-    const int col = tid & 63;       // b in DFT_A, k2 in DFT_B
-    const int k1_0 = (tid >> 6) * 16;
-    float accr[16], acci[16];
-#pragma unroll
-    for (int u = 0; u < 16; ++u) accr[u] = acci[u] = 0.0f;
-    // DFT_A over rows: s1[k1][b] = Σ_a W^{k1·a} x[a][b]
-    for (int a = 0; a < 64; ++a) {
-        const float xr = sr[a * 65 + col], xi = si[a * 65 + col];
-#pragma unroll
-        for (int u = 0; u < 16; ++u) {
-            const int idx = ((k1_0 + u) * a) & 63;
-            const float cr = wr[idx], ci = wi[idx];
-            accr[u] += cr * xr - ci * xi;
-            acci[u] += cr * xi + ci * xr;
-        }
-    }
-    __syncthreads();
-    // twiddle W_4096^{k1·b}, in place
-#pragma unroll
-    for (int u = 0; u < 16; ++u) {
-        const int k1 = k1_0 + u;
-        const float tr = tw_re[k1 * 64 + col], ti = tw_im[k1 * 64 + col];
-        sr[k1 * 65 + col] = accr[u] * tr - acci[u] * ti;
-        si[k1 * 65 + col] = accr[u] * ti + acci[u] * tr;
-        accr[u] = acci[u] = 0.0f;
-    }
-    __syncthreads();
-    // DFT_B over columns: s3[k1][k2] = Σ_b s2[k1][b] W^{b·k2}
-    for (int b = 0; b < 64; ++b) {
-        const int idx = (b * col) & 63;
-        const float cr = wr[idx], ci = wi[idx];
-#pragma unroll
-        for (int u = 0; u < 16; ++u) {
-            const float xr = sr[(k1_0 + u) * 65 + b];
-            const float xi = si[(k1_0 + u) * 65 + b];
-            accr[u] += xr * cr - xi * ci;
-            acci[u] += xr * ci + xi * cr;
-        }
-    }
-#pragma unroll
-    for (int u = 0; u < 16; ++u)
-        part[fr * 4096 + (k1_0 + u) * 64 + col] =
-            accr[u] * accr[u] + acci[u] * acci[u];
-}
-
-// (d) Sum of the per-frame partials in frame order (deterministic, no
-// atomics), times psd_scale = 1/(fs·Σw²·frames).  Bound: bytes, the
-// frames·16 KB of partials read once.
-__global__ void __launch_bounds__(256)
-psd_sum(const float* __restrict__ part, float* __restrict__ psd, int frames,
-        float scale) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= 4096) return;
-    float acc = 0.0f;
-    for (int fr = 0; fr < frames; ++fr) acc += part[(size_t)fr * 4096 + i];
-    psd[i] = acc * scale;
-}
-
-template <typename T>
-void launch_input_stages(const void* xw, float in_gain, const float* h_re,
-                         const float* h_im, const float* q, const float* r,
-                         const float* prev_re, const float* prev_im,
-                         const float* w2d, const float* w64_re,
-                         const float* w64_im, const float* tw_re,
-                         const float* tw_im, float* last_re, float* last_im,
-                         float* ftail_out, float* f_scr, float* psd_part,
-                         int M, int C, int mt, int ka, float quad_gain,
-                         cudaStream_t s) {
+cudaError_t launch_input_stages(
+    const void* xw, float in_gain, const float* h_re, const float* h_im,
+    const float* q, const float* r, const float* prev_re,
+    const float* prev_im, const float* w2d, const float* w64_re,
+    const float* w64_im, const float* tw_re, const float* tw_im,
+    float* last_re, float* last_im, float* ftail_out, float* f_scr,
+    float* psd_part, float* psd, int M, int C, int mt, int ka,
+    float quad_gain, float psd_scale, cudaStream_t s) {
     const T* x = static_cast<const T*>(xw);
     const dim3 grid_a((C + TC - 1) / TC, M / TM);
     chan_rot_disc<T><<<grid_a, 256, 0, s>>>(
         x, in_gain, h_re, h_im, q, r, prev_re, prev_im, f_scr, last_re,
         last_im, ftail_out, M, C, mt, ka, quad_gain);
-    psd_frames<T><<<M / 64, 256, 0, s>>>(
-        x, in_gain, w2d, w64_re, w64_im, tw_re, tw_im, psd_part, M);
+    // (c) + (d): frame f is rows [64f, 64f+64) of both planes
+    return four_step::launch_psd<T, 64, 64>(
+        x, in_gain, w2d, (size_t)64 * K, K, (size_t)M * K, w64_re, w64_im,
+        w64_re, w64_im, tw_re, tw_im, psd_part, psd, M / 64, psd_scale, s);
 }
 
 }  // namespace
@@ -382,30 +281,30 @@ extern "C" int sd_kernel2(
         M < ka || da < 1 || M % da || C < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
     switch (in_kind) {
     case 0:
-        launch_input_stages<float>(xw, in_gain, h_re, h_im, q, r, prev_re,
-                                   prev_im, w2d, w64_re, w64_im, tw_re,
-                                   tw_im, last_re, last_im, ftail_out, f_scr,
-                                   psd_part, M, C, mt, ka, quad_gain, s);
+        e = launch_input_stages<float>(
+            xw, in_gain, h_re, h_im, q, r, prev_re, prev_im, w2d, w64_re,
+            w64_im, tw_re, tw_im, last_re, last_im, ftail_out, f_scr,
+            psd_part, psd, M, C, mt, ka, quad_gain, psd_scale, s);
         break;
     case 1:
-        launch_input_stages<int16_t>(xw, in_gain, h_re, h_im, q, r, prev_re,
-                                     prev_im, w2d, w64_re, w64_im, tw_re,
-                                     tw_im, last_re, last_im, ftail_out,
-                                     f_scr, psd_part, M, C, mt, ka,
-                                     quad_gain, s);
+        e = launch_input_stages<int16_t>(
+            xw, in_gain, h_re, h_im, q, r, prev_re, prev_im, w2d, w64_re,
+            w64_im, tw_re, tw_im, last_re, last_im, ftail_out, f_scr,
+            psd_part, psd, M, C, mt, ka, quad_gain, psd_scale, s);
         break;
     case 2:
-        launch_input_stages<int8_t>(xw, in_gain, h_re, h_im, q, r, prev_re,
-                                    prev_im, w2d, w64_re, w64_im, tw_re,
-                                    tw_im, last_re, last_im, ftail_out,
-                                    f_scr, psd_part, M, C, mt, ka,
-                                    quad_gain, s);
+        e = launch_input_stages<int8_t>(
+            xw, in_gain, h_re, h_im, q, r, prev_re, prev_im, w2d, w64_re,
+            w64_im, tw_re, tw_im, last_re, last_im, ftail_out, f_scr,
+            psd_part, psd, M, C, mt, ka, quad_gain, psd_scale, s);
         break;
     default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 block_b(64, 4);
     const dim3 grid_b((C + 63) / 64, (M / da + 3) / 4);
     if (audio_bf16)
@@ -414,6 +313,5 @@ extern "C" int sd_kernel2(
     else
         audio_fir<false><<<grid_b, block_b, 0, s>>>(f_scr, ftail_in, ataps,
                                                     audio, M, C, ka, da);
-    psd_sum<<<4096 / 256, 256, 0, s>>>(psd_part, psd, M / 64, psd_scale);
     return static_cast<int>(cudaGetLastError());
 }

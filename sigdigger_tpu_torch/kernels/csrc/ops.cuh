@@ -5,7 +5,19 @@
 // polynomial for atan on [0, 1], the same 1e-30 guard, and 0 at the
 // origin.  The port keeps it instead of atan2f so that the kernel, its
 // plain PyTorch version and the reference agree to float32 rounding.
+//
+// deq<T> reads one element of an upload that is float32 or an integer
+// quantization of it (int16, int8), scaled back by gain = 1/scale.
 #pragma once
+
+template <typename T>
+__device__ __forceinline__ float deq(T v, float gain) {
+    return static_cast<float>(v) * gain;
+}
+template <>
+__device__ __forceinline__ float deq<float>(float v, float) {
+    return v;
+}
 
 __device__ __forceinline__ float sd_atan2(float y, float x) {
     const float ax = fabsf(x);

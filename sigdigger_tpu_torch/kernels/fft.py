@@ -1,20 +1,35 @@
-"""Four-step (Bailey) PSD: constants and the host-side fold
-(counterpart of the host half of ``sigdigger_tpu/kernels/fft.py``).
+"""Four-step (Bailey) PSD: the standalone PSD kernel, its host class
+and the host-side fold (counterpart of ``sigdigger_tpu/kernels/fft.py``
+``PallasPSDConfig``/``PallasPSD``/``_psd_kernel``).
 
 An N-point FFT with N = A·B is a DFT_A over rows, a twiddle
 ``W_N^{k1·b}`` and a DFT_B over columns; a PSD kernel returns the
 block's mean |X|² in ``(k1, k2)`` digit order and the host restores
-natural order and folds it into a running EMA.  In the fused FM
-receiver the PSD block comes out of the channelizer kernel
-(``channelizer2.kernel2``), so only :class:`PSDFold` runs here; the
-standalone PSD kernels are not ported yet.
+natural order and folds it into a running EMA (:class:`PSDFold`).
+
+:func:`psd_kernel` launches the hand-written kernel in ``csrc/psd.cu``
+on a CUDA tensor and runs :func:`psd_kernel_reference`, the plain
+PyTorch version, on a CPU tensor.  :class:`PSD` frames and windows a
+block on the host (``native.frame_psd_packed``), uploads it once and
+launches the kernel; the digital receiver modes use it.  In the fused
+FM receiver the PSD comes out of the channelizer kernel instead
+(``channelizer2.kernel2``).  The PSD read straight from the
+channelizer's window buffer (``_psd_kernel_xw`` and its ``_ema``
+variant) is not ported yet.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.dsp.window import window_taps
+from sigdigger_tpu_torch.native import frame_psd_packed
+from sigdigger_tpu_torch.types import WindowFunction
 
 
 def _dft_matrix(n: int, sign: float = -1.0) -> tuple[np.ndarray, np.ndarray]:
@@ -26,14 +41,27 @@ def _dft_matrix(n: int, sign: float = -1.0) -> tuple[np.ndarray, np.ndarray]:
 
 @dataclass(frozen=True)
 class PSDConfig:
-    """Counterpart of ``PallasPSDConfig``, as far as the fold needs it."""
+    """Counterpart of ``PallasPSDConfig``."""
 
     fft_size: int                # N = A * B
     frames_per_block: int        # F (non-overlapping frames per feed)
     frames_per_program: int = 8  # Fb: sets the per-block EMA weight
+    a: int = 0                   # row factor (0 → auto ≈ sqrt(N))
 
     def __post_init__(self):
+        if self.a == 0:
+            object.__setattr__(
+                self, "a", 1 << (int(np.log2(self.fft_size)) // 2))
+        assert self.fft_size % self.a == 0
         assert self.frames_per_block % self.frames_per_program == 0
+
+    @property
+    def b(self) -> int:
+        return self.fft_size // self.a
+
+    @property
+    def block_in(self) -> int:
+        return self.fft_size * self.frames_per_block
 
 
 class PSDFold:
@@ -70,3 +98,195 @@ class PSDFold:
 
     def shifted(self) -> np.ndarray:
         return np.fft.fftshift(self.psd).astype(np.float32)
+
+
+@dataclass(frozen=True)
+class PSDParams:
+    """Scalars of one :func:`psd_kernel` geometry."""
+
+    a: int
+    b: int
+    scale: float         # 1/(fs·Σw²·F): mean power per Hz
+    in_gain: float       # dequantization gain of an int16 upload
+
+
+def psd_constants(a: int, b: int) -> dict[str, np.ndarray]:
+    """What the PSD reads, float64-built: the DFT_A and DFT_B matrices
+    (``da_*``, ``db_*``), their rows 1 (``wa_*``, ``wb_*``: W_A^n and
+    W_B^n, the tables the kernel indexes) and the twiddles ``tw_*``
+    [A, B] = W_N^{k1·b}."""
+    da_re, da_im = _dft_matrix(a)
+    db_re, db_im = _dft_matrix(b)
+    ang = -2.0 * np.pi * np.arange(a)[:, None] * np.arange(b)[None, :] \
+        / (a * b)
+    return {"da_re": da_re, "da_im": da_im, "db_re": db_re, "db_im": db_im,
+            "wa_re": da_re[1].copy(), "wa_im": da_im[1].copy(),
+            "wb_re": db_re[1].copy(), "wb_im": db_im[1].copy(),
+            "tw_re": np.cos(ang).astype(np.float32),
+            "tw_im": np.sin(ang).astype(np.float32)}
+
+
+def psd_kernel_reference(xp: torch.Tensor, consts: dict[str, torch.Tensor],
+                         p: PSDParams) -> torch.Tensor:
+    """Plain PyTorch version of ``_psd_kernel`` for a whole block.
+
+    xp: packed ``[2A, F·B]`` float32 or int16 (windowed frames in the
+    four-step layout).  Returns the mean PSD ``[A, B]`` in ``(k1, k2)``
+    order."""
+    a, b = p.a, p.b
+    f = xp.shape[1] // b
+    xr, xi = xp[:a], xp[a:]
+    if xr.dtype != torch.float32:
+        # int16 upload: dequantize (in_gain = 1/i16_scale)
+        xr = xr.float() * p.in_gain
+        xi = xi.float() * p.in_gain
+    xr = xr.reshape(a, f, b).permute(1, 0, 2)    # [F, A, B]
+    xi = xi.reshape(a, f, b).permute(1, 0, 2)
+    da_re, da_im = consts["da_re"], consts["da_im"]
+    s1r = da_re @ xr - da_im @ xi
+    s1i = da_re @ xi + da_im @ xr
+    tw_re, tw_im = consts["tw_re"], consts["tw_im"]
+    s2r = s1r * tw_re - s1i * tw_im
+    s2i = s1r * tw_im + s1i * tw_re
+    db_re, db_im = consts["db_re"], consts["db_im"]
+    s3r = s2r @ db_re - s2i @ db_im
+    s3i = s2r @ db_im + s2i @ db_re
+    return (s3r * s3r + s3i * s3i).sum(0) * p.scale
+
+
+_IN_KIND = {torch.float32: 0, torch.int16: 1}
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def psd_shape_supported(a: int, b: int) -> bool:
+    """The kernel takes A and B powers of two in [16, 128]."""
+    return all(16 <= v <= 128 and v & (v - 1) == 0 for v in (a, b))
+
+
+def _psd_cuda(xp: torch.Tensor, consts: dict[str, torch.Tensor],
+              p: PSDParams) -> torch.Tensor:
+    from sigdigger_tpu_torch.kernels._build import load_library
+
+    a, b = p.a, p.b
+    dev = xp.device
+    if (xp.dtype not in _IN_KIND or xp.dim() != 2 or xp.shape[0] != 2 * a
+            or xp.shape[1] % b or xp.shape[1] == 0
+            or not xp.is_contiguous()):
+        raise ValueError(f"psd xp must be contiguous [2A, F·B] = "
+                         f"[{2 * a}, F·{b}] float32/int16, got "
+                         f"{tuple(xp.shape)} {xp.dtype}")
+    if not psd_shape_supported(a, b):
+        raise ValueError(f"psd kernel takes A, B powers of two in "
+                         f"[16, 128], got A={a}, B={b}")
+    shapes = {"wa_re": (a,), "wa_im": (a,), "wb_re": (b,), "wb_im": (b,),
+              "tw_re": (a, b), "tw_im": (a, b)}
+    for name, shape in shapes.items():
+        t = consts[name]
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(
+                f"psd {name}: want contiguous float32 {shape} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    f = xp.shape[1] // b
+    lib = load_library("psd")
+    psd = torch.empty((a, b), device=dev)
+    part = torch.empty((f, a, b), device=dev)
+    with torch.cuda.device(dev):
+        err = lib.sd_psd(
+            _ptr(xp), _IN_KIND[xp.dtype], p.in_gain,
+            _ptr(consts["wa_re"]), _ptr(consts["wa_im"]),
+            _ptr(consts["wb_re"]), _ptr(consts["wb_im"]),
+            _ptr(consts["tw_re"]), _ptr(consts["tw_im"]),
+            _ptr(psd), _ptr(part), a, b, f, p.scale,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sd_psd launch failed: CUDA error {err}")
+    psd_kernel.launches += 1
+    return psd
+
+
+def psd_kernel(xp: torch.Tensor, consts: dict[str, torch.Tensor],
+               p: PSDParams) -> torch.Tensor:
+    """One block's mean PSD ``[A, B]`` in ``(k1, k2)`` order: the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor.
+    ``psd_kernel.launches`` counts the CUDA launches."""
+    if xp.device.type == "cuda":
+        return _psd_cuda(xp, consts, p)
+    if xp.device.type == "cpu":
+        return psd_kernel_reference(xp, consts, p)
+    raise ValueError(f"psd_kernel runs on cuda or cpu, not {xp.device}")
+
+
+psd_kernel.launches = 0
+
+
+class PSD(PSDFold):
+    """Streaming mean PSD over fixed blocks (counterpart of
+    ``PallasPSD``).
+
+    ``feed(x)`` consumes ``cfg.block_in`` complex samples and returns
+    the natural-order running PSD (power/Hz); the EMA fold across
+    blocks happens on the host.  Runs on ``cuda`` unless ``device``
+    says otherwise.
+    """
+
+    def __init__(self, cfg: PSDConfig, sample_rate: float,
+                 window: WindowFunction = WindowFunction.BLACKMANN_HARRIS,
+                 alpha: float = 0.25, in_i16: bool = False,
+                 i16_scale: float = 4096.0,
+                 device: str | torch.device | None = None) -> None:
+        # the EMA weight follows the caller's frames_per_program, before
+        # the cap below (the reference's fft.py:123 then :129-137)
+        super().__init__(cfg, alpha)
+        self.device = resolve_device(device)
+        self.in_i16 = bool(in_i16)
+        self.i16_scale = float(i16_scale)
+        self.sample_rate = float(sample_rate)
+        a, b, n = cfg.a, cfg.b, cfg.fft_size
+        if not psd_shape_supported(a, b):
+            raise NotImplementedError(
+                f"the port's PSD kernel takes A, B powers of two in "
+                f"[16, 128] (N from 256 to 16384), got A={a}, B={b}")
+        fb = cfg.frames_per_program
+        if fb * b > 1024:
+            # the reference caps its frame batch to keep its block-
+            # diagonal DFT_B VMEM-sized; the cap only enters the scale
+            fb = max(d for d in range(1, 1024 // b + 1)
+                     if cfg.frames_per_block % d == 0)
+            self.cfg = PSDConfig(fft_size=n,
+                                 frames_per_block=cfg.frames_per_block,
+                                 frames_per_program=fb, a=a)
+        self._taps = window_taps(window, n).astype(np.float64)
+        wsum2 = float(np.sum(self._taps ** 2))
+        scale = 1.0 / (self.sample_rate * wsum2 * fb
+                       * (cfg.frames_per_block // fb))
+        self.consts = {k: torch.as_tensor(v, device=self.device)
+                       for k, v in psd_constants(a, b).items()}
+        self.params = PSDParams(a=a, b=b, scale=scale,
+                                in_gain=1.0 / self.i16_scale)
+
+    def prepare(self, x: np.ndarray) -> np.ndarray:
+        """Host framing: x [block_in] complex → windowed packed
+        [2A, F·B] planes in the kernel's layout, quantized to int16
+        after the window when ``in_i16``."""
+        cfg = self.cfg
+        xp = frame_psd_packed(np.asarray(x, np.complex64), self._taps,
+                              cfg.frames_per_block, cfg.a, cfg.b)
+        if self.in_i16:
+            out = np.empty(xp.shape, np.int16)
+            np.clip(np.rint(xp * self.i16_scale), -32768, 32767, out,
+                    casting="unsafe")
+            return out
+        return xp
+
+    def feed_async(self, x: np.ndarray) -> torch.Tensor:
+        """Frame, upload once and launch; returns the DEVICE ``(k1, k2)``
+        PSD block.  Fold fetched blocks IN ORDER with :meth:`fold`."""
+        xp = torch.from_numpy(self.prepare(x)).to(self.device)
+        return psd_kernel(xp, self.consts, self.params)
+
+    def feed(self, x: np.ndarray) -> np.ndarray:
+        return self.fold(self.feed_async(x).cpu().numpy())

@@ -1,15 +1,20 @@
 """KernelReceiver — the port's streaming receiver (counterpart of
 ``sigdigger_tpu/receiver.py``).
 
-A signal source feeds fixed blocks; the host frames each block into one
-packed window buffer, uploads it once, and one call of the fused kernel
-(``kernels/channelizer2.kernel2``) channelizes, FM-demodulates and
-decimates every channel and computes the block's PSD.  The host fetches
-the audio and the 64×64 PSD block and folds the PSD into a running EMA.
+A signal source feeds fixed blocks.  In FM mode the host frames each
+block into one packed window buffer, uploads it once, and one call of
+the fused kernel (``kernels/channelizer2.kernel2``) channelizes,
+FM-demodulates and decimates every channel and computes the block's
+PSD.  In the digital modes (``psk``/``fsk``/``ask``) three kernels run
+per block: the standalone PSD (``kernels/fft.psd_kernel``), the raw
+bank (``kernels/rawbank.raw_kernel``) and the recovery bank
+(``kernels/recovery.recovery_kernel``), whose input planes never leave
+the device.  The host fetches the audio or the symbols and strobes,
+and folds the PSD into a running EMA.
 
-Only FM mode on the fused geometry is ported; the digital modes and the
-unfused PSD geometries raise ``NotImplementedError`` naming the
-ROADMAP.md entry that will port them.
+FM runs only on the fused geometry; its unfused geometries raise
+``NotImplementedError`` naming the ROADMAP.md entry that will port
+them.
 """
 
 from __future__ import annotations
@@ -27,7 +32,18 @@ from sigdigger_tpu_torch.kernels.channelizer2 import (
     MatChannelizer2,
     MatChannelizer2Config,
 )
-from sigdigger_tpu_torch.kernels.fft import PSDConfig, PSDFold
+from sigdigger_tpu_torch.kernels.fft import PSD, PSDConfig, PSDFold
+from sigdigger_tpu_torch.kernels.rawbank import RawBank, RawBankConfig
+from sigdigger_tpu_torch.kernels.recovery import (
+    KIND_ASK,
+    KIND_FSK,
+    KIND_PSK,
+    RecoveryBank,
+    RecoveryBankConfig,
+)
+from sigdigger_tpu_torch.types import WindowFunction
+
+_KINDS = {"psk": KIND_PSK, "fsk": KIND_FSK, "ask": KIND_ASK}
 
 
 class BlockSource(Protocol):
@@ -43,14 +59,19 @@ class ReceiverBlock:
     """One processed block."""
 
     psd: np.ndarray                   # running natural-order PSD [N]
-    audio: np.ndarray                 # [T_audio, C]
+    audio: np.ndarray | None = None   # [T_audio, C] (fm mode)
+    symbols: np.ndarray | None = None  # [T, C] complex64 (digital modes)
+    strobes: np.ndarray | None = None  # [T, C] bool (digital modes)
 
 
 class KernelReceiver:
-    """Multi-channel FM receiver on the fused CUDA kernel.
+    """Multi-channel receiver on the port's CUDA kernels.
 
-    Runs on ``cuda`` unless ``device`` says otherwise; ``device="cpu"``
-    runs the kernel's plain PyTorch version.
+    mode: ``"fm"`` (fused channelize + demod + audio + PSD) or
+    ``"psk"``/``"fsk"``/``"ask"`` (PSD, raw bank, then the recovery
+    bank at ``baud`` symbols/s, ``psk_order`` for psk).  Runs on
+    ``cuda`` unless ``device`` says otherwise; ``device="cpu"`` runs the
+    kernels' plain PyTorch versions.
     """
 
     def __init__(
@@ -62,6 +83,8 @@ class KernelReceiver:
         decimation: int = 64,
         block_out: int = 2048,
         psd_fft: int = 4096,
+        baud: float | None = None,
+        psk_order: int = 4,
         device: str | torch.device | None = None,
         snap_grid: bool = True,
         in_i16: bool = False,
@@ -69,31 +92,57 @@ class KernelReceiver:
         audio_decim: int = 8,
         in_i8: bool = False,
     ) -> None:
-        if mode != "fm":
-            raise NotImplementedError(
-                f"mode {mode!r} is pending in ROADMAP.md queue 1 item 3 "
-                "(receiver digital modes, on the raw and recovery bank "
-                "kernels of queue 2 items 4-5)")
-        if not snap_grid:
+        if mode != "fm" and mode not in _KINDS:
+            raise ValueError(f"mode must be fm, psk, fsk or ask, not {mode!r}")
+        if mode == "fm" and not snap_grid:
             raise NotImplementedError(UNSUPPORTED)
         self.device = resolve_device(device)
         f0s = np.asarray(f0s, np.float64)
+        n_channels = len(f0s)
         self.mode = mode
-        # the fused geometry: the four-step PSD rides the channelizer's
-        # call (the reference's receiver.py:94-96 rule; the config
-        # refuses any other geometry)
-        self.cfg = MatChannelizer2Config(
-            sample_rate=float(sample_rate), n_channels=len(f0s),
-            taps=64, decimation=decimation, audio_taps=64,
-            audio_decim=audio_decim, block_out=block_out,
-            m_tile=min(2048, block_out), in_i16=in_i16, in_i8=in_i8,
-            audio_bf16=audio_bf16, psd_fft=psd_fft,
-        )
-        self._chan = MatChannelizer2(self.cfg, f0s, bw, device=self.device)
-        frames = self.cfg.block_in // psd_fft
-        self._psd = PSDFold(PSDConfig(
-            fft_size=psd_fft, frames_per_block=frames,
-            frames_per_program=min(8, frames)))
+        self.audio_decim = audio_decim
+        frames = block_out * decimation // psd_fft
+        psd_cfg = PSDConfig(fft_size=psd_fft, frames_per_block=frames,
+                            frames_per_program=min(8, frames))
+        if mode == "fm":
+            # the fused geometry: the four-step PSD rides the
+            # channelizer's call (the reference's receiver.py:94-96
+            # rule; the config refuses any other geometry)
+            self.cfg = MatChannelizer2Config(
+                sample_rate=float(sample_rate), n_channels=n_channels,
+                taps=64, decimation=decimation, audio_taps=64,
+                audio_decim=audio_decim, block_out=block_out,
+                m_tile=min(2048, block_out), in_i16=in_i16, in_i8=in_i8,
+                audio_bf16=audio_bf16, psd_fft=psd_fft,
+            )
+            self._chan = MatChannelizer2(self.cfg, f0s, bw,
+                                         device=self.device)
+            self._psd = PSDFold(psd_cfg)
+            return
+        # digital modes: the raw bank's planes chain into the recovery
+        # bank on the device; the PSD is its own kernel on the raw IQ
+        # (receiver.py:109-145, 166-169)
+        self.cfg = RawBankConfig(
+            sample_rate=float(sample_rate), n_channels=n_channels, taps=64,
+            decimation=decimation, block_out=block_out,
+            m_tile=min(2048, block_out))
+        self._chan = None
+        self._raw = RawBank(self.cfg, device=self.device)
+        self._rec = RecoveryBank(RecoveryBankConfig(
+            n_channels=n_channels, block_len=block_out), device=self.device)
+        self._psd = PSD(psd_cfg, float(sample_rate),
+                        WindowFunction.BLACKMANN_HARRIS, device=self.device)
+        sps = self.channel_rate / float(baud or (self.channel_rate / 4))
+        self._raw.begin_defer()
+        self._rec.begin_defer()
+        for i, f0 in enumerate(f0s):
+            self._raw.configure_channel(i, f0=float(f0), bw=bw)
+            self._rec.configure_channel(
+                i, kind=_KINDS[mode], sps=sps,
+                order=psk_order if mode == "psk" else 2,
+                loop_bw=0.005, clock_gain=0.05, use_mf=(mode == "psk"))
+        self._raw.end_defer()
+        self._rec.end_defer()
 
     @property
     def channel_rate(self) -> float:
@@ -101,7 +150,7 @@ class KernelReceiver:
 
     @property
     def audio_rate(self) -> float:
-        return self.cfg.channel_rate / self.cfg.audio_decim
+        return self.cfg.channel_rate / self.audio_decim
 
     @property
     def block_in(self) -> int:
@@ -111,20 +160,29 @@ class KernelReceiver:
         return self.drain(self.feed_async(x))
 
     def feed_async(self, x: np.ndarray):
-        """Frame, upload once and launch one block, deferring every
+        """Frame, upload and launch one block, deferring every
         device-to-host fetch.  Returns an in-flight handle for
         :meth:`drain`; handles MUST be drained in feed order (the PSD
         EMA fold is sequential)."""
-        audio = self._chan.feed_async(x)
-        return (self._chan.psd_block, audio)
+        if self.mode == "fm":
+            audio = self._chan.feed_async(x)
+            return (self._chan.psd_block, audio)
+        psd_h = self._psd.feed_async(x)
+        # device-resident chaining: the raw planes never visit the host
+        y_re, y_im = self._raw.feed_frames(*self._raw.frame(x), fetch=False)
+        return (psd_h,) + self._rec.feed_planes(y_re, y_im, fetch=False)
 
     def drain(self, handle) -> ReceiverBlock:
-        psd_h, a = handle
-        psd = self._psd.fold(psd_h.cpu().numpy())
-        audio = a.cpu()
-        if audio.dtype != torch.float32:      # bf16 drain
-            audio = audio.float()
-        return ReceiverBlock(psd=psd, audio=audio.numpy())
+        psd = self._psd.fold(handle[0].cpu().numpy())
+        if self.mode == "fm":
+            audio = handle[1].cpu()
+            if audio.dtype != torch.float32:      # bf16 drain
+                audio = audio.float()
+            return ReceiverBlock(psd=psd, audio=audio.numpy())
+        sym_re, sym_im, strobe = handle[1:]
+        return ReceiverBlock(
+            psd=psd, symbols=torch.complex(sym_re, sym_im).cpu().numpy(),
+            strobes=(strobe > 0.5).cpu().numpy())
 
     def run(self, source: BlockSource,
             max_blocks: int | None = None,
@@ -149,21 +207,39 @@ class KernelReceiver:
     # -- state carried across blocks ----------------------------------
     def state_dict(self) -> dict:
         """The carried state as plain numpy arrays."""
-        ch = self._chan
-        return {
-            "history": ch._history.copy(),
-            "prev_re": ch._prev_re.cpu().numpy(),
-            "prev_im": ch._prev_im.cpu().numpy(),
-            "ftail": ch._ftail.cpu().numpy(),
-            "psd": self._psd.psd.copy(),
-            "psd_count": self._psd._count,
-        }
+        out = {"psd": self._psd.psd.copy(), "psd_count": self._psd._count}
+        if self.mode == "fm":
+            ch = self._chan
+            out.update(history=ch._history.copy(),
+                       prev_re=ch._prev_re.cpu().numpy(),
+                       prev_im=ch._prev_im.cpu().numpy(),
+                       ftail=ch._ftail.cpu().numpy())
+        else:
+            st = self._rec.state
+            out.update(history=self._raw._history.copy(),
+                       phi=self._raw._phi.copy(),
+                       rec_state=(st.cpu().numpy() if isinstance(
+                           st, torch.Tensor) else np.array(st)))
+        return out
 
     def load_state(self, d: dict) -> None:
         """Restore :meth:`state_dict` output (or the same values read
-        off a reference receiver)."""
+        off a reference receiver: its channelizer's carries in FM mode,
+        its raw bank's ``_history``/``_phi`` and recovery ``state`` in
+        the digital modes)."""
+        c = self.cfg.n_channels
+        self._psd.psd = np.asarray(d["psd"], np.float64).copy()
+        self._psd._count = int(d["psd_count"])
+        if self.mode != "fm":
+            self._raw._history = np.asarray(d["history"],
+                                            np.complex64).copy()
+            self._raw._phi = np.asarray(d["phi"], np.float64).copy()
+            rows = self._rec.STATE_ROWS
+            self._rec.state = torch.as_tensor(np.asarray(
+                d["rec_state"], np.float32).reshape(rows, c).copy(),
+                device=self.device)
+            return
         ch = self._chan
-        c = ch.cfg.n_channels
 
         def dev(name, shape):
             a = np.asarray(d[name], np.float32).reshape(shape)
@@ -173,5 +249,3 @@ class KernelReceiver:
         ch._prev_re = dev("prev_re", (1, c))
         ch._prev_im = dev("prev_im", (1, c))
         ch._ftail = dev("ftail", (ch.cfg.audio_taps - 1, c))
-        self._psd.psd = np.asarray(d["psd"], np.float64).copy()
-        self._psd._count = int(d["psd_count"])

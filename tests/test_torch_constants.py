@@ -23,10 +23,24 @@ from sigdigger_tpu.kernels.channelizer2 import (
     MatChannelizer2Config as RefChan2Config,
 )
 from sigdigger_tpu.kernels.channelizer2 import _local_band as ref_local_band
+from sigdigger_tpu.dsp.filters import rrc_taps as ref_rrc_taps
+from sigdigger_tpu.dsp.pll import loop_gains as ref_loop_gains
+from sigdigger_tpu.kernels.audio import (
+    _lowpass_columns as ref_lowpass_columns,
+)
+from sigdigger_tpu.kernels.fft import PallasPSD, PallasPSDConfig
 from sigdigger_tpu.kernels.fft import _dft_matrix as ref_dft_matrix
+from sigdigger_tpu.kernels.rawbank import RawBank as RefRawBank
+from sigdigger_tpu.kernels.rawbank import RawBankConfig as RefRawBankConfig
+from sigdigger_tpu.kernels.recovery import RecoveryBank as RefRecoveryBank
+from sigdigger_tpu.kernels.recovery import (
+    RecoveryBankConfig as RefRecoveryBankConfig,
+)
 from sigdigger_tpu.types import WindowFunction as RefWindow
 from sigdigger_tpu_torch import native
-from sigdigger_tpu_torch.dsp.filters import fir_lowpass
+from sigdigger_tpu_torch.dsp.filters import fir_lowpass, rrc_taps
+from sigdigger_tpu_torch.dsp.pll import loop_gains
+from sigdigger_tpu_torch.kernels.audio import _lowpass_columns
 from sigdigger_tpu_torch.dsp.window import window_taps
 from sigdigger_tpu_torch.kernels.channelizer import (
     MatChannelizerConfig,
@@ -39,7 +53,18 @@ from sigdigger_tpu_torch.kernels.channelizer2 import (
     _psd_constants,
     _rot_tables,
 )
-from sigdigger_tpu_torch.kernels.fft import _dft_matrix
+from sigdigger_tpu_torch.kernels.fft import (
+    PSD,
+    PSDConfig,
+    _dft_matrix,
+    psd_constants,
+)
+from sigdigger_tpu_torch.kernels.rawbank import RawBank, RawBankConfig
+from sigdigger_tpu_torch.kernels.recovery import (
+    PARAM_ROWS,
+    RecoveryBank,
+    RecoveryBankConfig,
+)
 from sigdigger_tpu_torch.types import WindowFunction
 
 # (sample_rate, channels, block_out, audio_decim, bw): a small fused
@@ -199,3 +224,130 @@ def test_integer_framers(bits, scale, amp, monkeypatch):
         ext, shape=(m, 64), strides=(ext.strides[0] * 64, ext.strides[0]))
     scaled = np.concatenate([w.real, w.imag]) * np.float32(scale)
     assert np.all(np.mod(scaled[diff != 0], 1.0) == 0.5)
+
+
+@pytest.mark.parametrize("sps,span,rolloff", [(4.0, 8, 0.35), (8.0, 6, 0.35),
+                                              (3.0, 6, 0.5), (6.4, 6, 0.25),
+                                              (4.0, 6, 0.0)])
+def test_rrc_taps(sps, span, rolloff):
+    assert np.array_equal(rrc_taps(sps, span, rolloff),
+                          ref_rrc_taps(sps, span, rolloff))
+
+
+@pytest.mark.parametrize("bw", [0.005, 0.01, 0.0, 0.123])
+def test_loop_gains(bw):
+    assert loop_gains(bw) == ref_loop_gains(bw)
+    assert loop_gains(bw, 1.0) == ref_loop_gains(bw, 1.0)
+
+
+def test_lowpass_columns():
+    cn = np.array([0.0, 1e-7, 0.01, 0.3, 1.0, 2.5])
+    assert np.array_equal(_lowpass_columns(64, cn),
+                          ref_lowpass_columns(64, cn))
+
+
+@pytest.mark.parametrize("m,k,d", [(64, 64, 64), (512, 64, 16)])
+def test_frame_windows(m, k, d, monkeypatch):
+    ext = _ext(k - 1 + m * d, 3, 1.0)
+    ours = native.frame_windows(ext, m, k, d)
+    want_native = ref_native.frame_windows(ext, m, k, d)
+    monkeypatch.setattr(ref_native, "_lib", None)
+    want = ref_native.frame_windows(ext, m, k, d)
+    for a, b, c in zip(ours, want, want_native):
+        assert a.dtype == np.float32
+        assert np.array_equal(a, b) and np.array_equal(a, c)
+
+
+@pytest.mark.parametrize("n,f", [(512, 8), (4096, 4), (8192, 2)])
+def test_frame_psd_packed(n, f, monkeypatch):
+    """Bit for bit against the reference's numpy and C++ framers."""
+    a = 1 << (int(np.log2(n)) // 2)
+    taps = window_taps(WindowFunction.BLACKMANN_HARRIS, n)
+    x = _ext(n * f, 5, 1.0)
+    ours = native.frame_psd_packed(x, taps, f, a, n // a)
+    want_native = ref_native.frame_psd_packed(x, taps, f, a, n // a)
+    monkeypatch.setattr(ref_native, "_lib", None)
+    want = ref_native.frame_psd_packed(x, taps, f, a, n // a)
+    assert np.array_equal(ours, want) and np.array_equal(ours, want_native)
+    re, im = native.frame_psd(x, taps, f, a, n // a)
+    assert np.array_equal(re, ours[:a]) and np.array_equal(im, ours[a:])
+
+
+@pytest.mark.parametrize("n,frames,fpp", [(512, 8, 8), (4096, 128, 8),
+                                          (4096, 32, 32), (16384, 4, 2)])
+def test_psd_constants_scale_alpha(n, frames, fpp):
+    ref = PallasPSD(PallasPSDConfig(fft_size=n, frames_per_block=frames,
+                                    frames_per_program=fpp),
+                    102.4e6, RefWindow.BLACKMANN_HARRIS, interpret=True)
+    ours = PSD(PSDConfig(fft_size=n, frames_per_block=frames,
+                         frames_per_program=fpp), 102.4e6, device="cpu")
+    assert ours.params.scale == ref._scale
+    assert ours.alpha_block == ref.alpha_block
+    assert ours.cfg.frames_per_program == ref.cfg.frames_per_program
+    a, b = ref.cfg.a, ref.cfg.b
+    fb = ref.cfg.frames_per_program
+    da_re, da_im, tw_re, tw_im, bd_re, bd_im, _ = (
+        np.asarray(v) for v in ref._const)
+    c = psd_constants(a, b)
+    for key, want in (("da_re", da_re), ("da_im", da_im),
+                      ("tw_re", tw_re[:, :b]), ("tw_im", tw_im[:, :b]),
+                      ("db_re", bd_re[:b, :b]), ("db_im", bd_im[:b, :b]),
+                      ("wa_re", da_re[1]), ("wa_im", da_im[1]),
+                      ("wb_re", bd_re[1, :b]), ("wb_im", bd_im[1, :b])):
+        assert np.array_equal(c[key], want), key
+    # the reference tiles the twiddles over its frame batch
+    assert np.array_equal(np.tile(c["tw_re"], (1, fb)), tw_re)
+
+
+def _banks(c=64, m_tile=256):
+    f0s = np.linspace(-40e6, 40e6, c)
+    geom = dict(sample_rate=102.4e6, n_channels=c, taps=64, decimation=64,
+                block_out=1024, m_tile=m_tile)
+    ref = RefRawBank(RefRawBankConfig(**geom, channel_tile=c),
+                     interpret=True)
+    ours = RawBank(RawBankConfig(**geom), device="cpu")
+    for bank in (ref, ours):
+        bank.begin_defer()
+        for i, f0 in enumerate(f0s):
+            bank.configure_channel(i, f0=f0, bw=400e3 + 1e3 * i)
+        bank.end_defer()
+    return ref, ours
+
+
+@pytest.mark.parametrize("m_tile", [256, 1024])
+def test_rawbank_constants(m_tile):
+    ref, ours = _banks(m_tile=m_tile)
+    assert np.array_equal(ours._h, ref._h)
+    assert np.array_equal(ours._theta64, ref._theta64)
+    for key in ("h_re", "h_im", "theta"):
+        assert np.array_equal(ours.consts[key].numpy(),
+                              np.asarray(ref.consts[key])), key
+    for phi in (np.zeros(64), np.linspace(0.0, 6.2, 64)):
+        ours._phi = ref._phi = phi
+        want = ref._phi_tiles()
+        assert np.array_equal(ours._phi_tiles(), want[::8])
+        assert not want[np.arange(len(want)) % 8 != 0].any()
+
+
+def test_recovery_rows_and_initial_state():
+    cfg = dict(n_channels=16, block_len=256)
+    ref = RefRecoveryBank(RefRecoveryBankConfig(**cfg, channel_tile=16),
+                          interpret=True)
+    ours = RecoveryBank(RecoveryBankConfig(**cfg), device="cpu")
+    assert np.array_equal(ours.state, ref.state)
+    for bank in (ref, ours):
+        bank.configure_channel(1, kind=1, sps=5.5, quad_demod=False,
+                               fsk_phase=1.1, clock_gain=0.03)
+        bank.configure_channel(2, kind=2, pll=True, running=False,
+                               manual_clock=True, clock_phase=0.4)
+        bank.configure_channel(3, kind=0, order=2, eq_enabled=True,
+                               eq_rate=5e-3, eq_locked=True, use_mf=False)
+        bank.configure_channel(4, kind=0, order=8, loop_bw=0.02,
+                               mf_rolloff=0.2, sps=2.5)
+    rows = ours.param_rows()
+    assert tuple(rows) == PARAM_ROWS
+    for name in PARAM_ROWS:
+        assert np.array_equal(rows[name], np.asarray(ref.consts[name])[0]), \
+            name
+    assert np.array_equal(ours._mf, np.asarray(ref.consts["mf"]))
+    assert np.array_equal(ours.state, ref.state)

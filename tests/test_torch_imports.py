@@ -20,12 +20,16 @@ MODULES = [
     "sigdigger_tpu_torch.dsp",
     "sigdigger_tpu_torch.dsp.window",
     "sigdigger_tpu_torch.dsp.filters",
+    "sigdigger_tpu_torch.dsp.pll",
     "sigdigger_tpu_torch.kernels",
     "sigdigger_tpu_torch.kernels._build",
     "sigdigger_tpu_torch.kernels.ops",
+    "sigdigger_tpu_torch.kernels.audio",
     "sigdigger_tpu_torch.kernels.channelizer",
     "sigdigger_tpu_torch.kernels.fft",
     "sigdigger_tpu_torch.kernels.channelizer2",
+    "sigdigger_tpu_torch.kernels.rawbank",
+    "sigdigger_tpu_torch.kernels.recovery",
     "sigdigger_tpu_torch.receiver",
 ]
 
