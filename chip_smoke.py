@@ -20,7 +20,15 @@ printing the seconds it took:
    main path's M = 8192, chained into a block of 1024, and with 1024
    lanes of every kind over 2 chained blocks of 1024 (the plain version
    is a Python loop of ~150 small operations per sample: ~35 s for the
-   full block).
+   full block).  Then the forms this slice added: kernel2 unfused with
+   the cos/sin rotator, live phase chained over 3 blocks at the full
+   bench width (int16 in, bf16 audio); the PSD read from the window
+   buffer (``psd_xw_kernel``) at N 4096 (A 64) and N 2048 (A 32) on the
+   int16 [16384, 64] upload with frame_stride 1 and 4, and with the
+   device EMA (``psd_xw_ema_kernel``) chained over 3 blocks; the v1
+   channelizer (``kernel1``) at ``__graft_entry__.entry()``'s geometry
+   (256 channels, 25.6 Msps, decimation 64, M 1024, audio at 1/8)
+   chained over 3 blocks.
 3. FM end to end: ``KernelReceiver(mode="fm")`` at the bench geometry
    (1024 channels, 102.4 Msps, block_out 8192, int16 in, bf16 audio,
    fused PSD) over synthetic FM made from a seed, through
@@ -35,6 +43,17 @@ printing the seconds it took:
    symbols must concentrate (4th power > 0.85) and the PSD peak on the
    carrier; then a synchronous per-layer breakdown, and ``fsk`` and
    ``ask`` for 3 blocks each.
+3c. FM at every geometry: ``KernelReceiver(mode="fm", snap_grid=False)``
+   at the bench geometry (live phase, cos/sin rotator, PSD read from the
+   upload) through ``run(pipeline_depth=3)`` over 12 blocks: kernel2 and
+   ``psd_xw_kernel`` each launch once per block, the audio peaks at the
+   tones and the PSD on the off-grid pure carrier; a synchronous
+   per-layer breakdown; then 3 blocks each of ``decimation=32``
+   (standalone PSD) and ``psd_fft=2048`` snapped (A = 32).
+3d. the device-EMA spectrum (``PSDFromXW.feed_ema`` over 12 bench
+   uploads, read once with ``shifted()``) and the v1 channelizer
+   (``MatChannelizer.feed`` at the entry's geometry over 4 blocks of an
+   FM tone).
 4. the TPU kernel list (ported or pending, each with its bound: the
    ported ones at the inputs phase 2 timed, the pending ones at the
    bench's shapes) and the ``kernels`` line.
@@ -104,8 +123,8 @@ REC_BLOCK = 1024
 
 TPU_KERNELS = [
     ("kernels/channelizer2.py:126 _kernel2", "ported"),
-    ("kernels/fft.py:283 _psd_kernel_xw", "pending"),
-    ("kernels/fft.py:264 _psd_kernel_xw_ema", "pending"),
+    ("kernels/fft.py:283 _psd_kernel_xw", "ported"),
+    ("kernels/fft.py:264 _psd_kernel_xw_ema", "ported"),
     ("kernels/fft.py:65 _psd_kernel", "ported"),
     ("kernels/rawbank.py:61 _raw_kernel", "ported"),
     ("kernels/recovery.py:90 _recovery_kernel", "ported"),
@@ -115,7 +134,7 @@ TPU_KERNELS = [
     ("kernels/drainpack.py:188 _pack_kernel", "pending"),
     ("kernels/tvline.py:54 _tv_kernel", "pending"),
     ("kernels/equalizer.py:42 _cma_kernel", "pending"),
-    ("kernels/channelizer.py:124 _kernel", "pending"),
+    ("kernels/channelizer.py:124 _kernel", "ported"),
 ]
 
 
@@ -148,28 +167,35 @@ def synth_iq(f0s_snapped: np.ndarray, n: int, seed: int):
     return x.astype(np.complex64), tones, pure
 
 
-def kernel2_bound_ms(m, c, in_bytes, audio_bytes, ka, da) -> tuple:
-    """Least time of one fused block on the card: the larger of the
+def kernel2_bound_ms(m, c, in_bytes, audio_bytes, ka, da, fused=True,
+                     mt=None) -> tuple:
+    """Least time of one block on the card: the larger of the
     operations over the float32 peak and the bytes (inputs read once,
-    outputs written once) over the memory rate.  The PSD counts at the
-    cost of an FFT, 5·N·log2(N) per frame, not the dense DFT products
-    the kernel does."""
+    outputs written once) over the memory rate.  The fused PSD counts at
+    the cost of an FFT, 5·N·log2(N) per frame, not the dense DFT
+    products the kernel does.  ``mt`` set: the cos/sin rotator with
+    that tile (phase 2, sin and cos 2, rotation 6 per element, θ and the
+    tile phases read) instead of the Q·R tables (table product 6,
+    rotation 6)."""
     k, n = 64, 4096
     frames = m // 64
+    rot = 36 if mt else 38               # rotator, discriminator, atan2
     ops = (8 * m * k * c                 # channelize, complex product
-           + 38 * m * c                  # rotator, discriminator, atan2
-           + 2 * ka * (m // da) * c      # audio FIR
-           + frames * (2 * n             # window (real × complex)
-                       + 5 * n * 12      # 4096-point FFT
-                       + 3 * n           # |X|²
-                       + n))             # frame sum
+           + rot * m * c
+           + 2 * ka * (m // da) * c)     # audio FIR
     nbytes = (2 * m * k * in_bytes               # packed windows
               + 2 * k * c * 4                    # H
-              + (2 * (m // 64) + 128) * c * 4    # Q, R tables
+              + ((1 + m // mt) * c * 4 if mt     # θ, tile phases
+                 else (2 * (m // 64) + 128) * c * 4)   # Q, R tables
               + (2 + 2 * (ka - 1)) * c * 4       # carries in and out
               + (m // da) * c * audio_bytes      # audio
-              + ka * 4 + 4 * 4096 * 4            # taps, PSD constants
-              + 4096 * 4)                        # PSD block
+              + ka * 4)                          # taps
+    if fused:
+        ops += frames * (2 * n            # window (real × complex)
+                         + 5 * n * 12     # 4096-point FFT
+                         + 3 * n          # |X|²
+                         + n)             # frame sum
+        nbytes += 4 * 4096 * 4 + 4096 * 4   # PSD constants, PSD block
     return bound(ops, nbytes) + (ops, nbytes)
 
 
@@ -405,9 +431,7 @@ def pending_bounds() -> dict:
     width 1024, bf16 drains; 832 audio, 48 psk, 8 fsk, 8 ask and 128
     power inspectors.  Kernels that no bench path runs are marked so,
     with the shape assumed."""
-    m, c, k, n, da, r = BLOCK_OUT, N_CHANNELS, 64, 4096, AUDIO_DECIM, 4
-    f = m * k // n
-    log2n = int(np.log2(n))
+    m, c, k, da, r = BLOCK_OUT, N_CHANNELS, 64, AUDIO_DECIM, 4
     live = 48 + 8 + 8                  # live digital columns
     out = {}
 
@@ -415,12 +439,6 @@ def pending_bounds() -> dict:
         out[TPU_KERNELS[row - 1][0]] = (shape, *bound(ops, nbytes), ops,
                                         nbytes)
 
-    # _psd_kernel_xw: the engine's PSD from the int16 [2M, K] upload,
-    # windowed in the kernel: FFT cost + window + |X|² + frame sum
-    ops = f * (5 * n * log2n + 2 * n + 3 * n + n)
-    nbytes = 2 * m * k * 2 + n * 4 + 2 * n * 4 + 4 * 64 * 4 + n * 4
-    put(2, "engine: [2M, K] int16, A = B = 64", ops, nbytes)
-    put(3, "engine: as 2, plus the EMA", ops + 3 * n, nbytes + 2 * n * 4)
     # _audio_kernel: channelize (8MKC), ~50 operations per channel
     # sample (rotator 8, the FM arm's discriminator with atan2 ~30, AM
     # and SSB arms and AGC ~12), the decimating FIR (2·64 per audio
@@ -449,11 +467,6 @@ def pending_bounds() -> dict:
     # ~180 operations per symbol as in the fused CMA)
     put(12, "no bench path; assumed [2048, 64] complex, 5 taps",
         180 * 2048 * 64, 2 * 2048 * 64 * 4 * 2 + 2 * 5 * 64 * 4 * 2)
-    # v1 _kernel (assumed: the fm receiver's geometry with f32 windows):
-    # channelize, rotator and discriminator, the audio FIR
-    put(13, "no bench path; assumed the fm receiver's shapes, f32 in",
-        8 * m * k * c + 38 * m * c + 2 * 64 * (m // da) * c,
-        2 * m * k * 4 + 2 * k * c * 4 + (m // da) * c * 4 + 2 * c * 4)
     return out
 
 
@@ -1042,6 +1055,442 @@ def digital_stages(rx, x: np.ndarray, torch) -> dict:
     return {k: round(sorted(v)[len(v) // 2], 4) for k, v in times.items()}
 
 
+def phase2_kernel2_cossin(ch2, torch) -> tuple:
+    """kernel2 unfused with the cos/sin rotator against its plain
+    version at the full bench width (int16 in, bf16 audio), live phase
+    chained over 3 blocks.  Returns the kernels-line numbers and the 3
+    int16 uploads (the PSD read from the window buffer reads them)."""
+    cfg = ch2.MatChannelizer2Config(
+        sample_rate=FS, n_channels=N_CHANNELS, taps=64, decimation=64,
+        audio_taps=64, audio_decim=AUDIO_DECIM, block_out=BLOCK_OUT,
+        m_tile=2048, psd_fft=4096, in_i16=True, audio_bf16=True,
+        fuse_psd=False)
+    chan = ch2.MatChannelizer2(cfg, F0S, BW, device="cuda", snap_grid=False)
+    check(not chan._table_rot and not chan.params.fuse_psd)
+    x, _, _ = synth_iq(chan.f0s, 3 * cfg.block_in, SEED + 7)
+    ck = cp = (chan._prev_re, chan._prev_im, chan._ftail)
+    worst = {"audio_frac": 0.0, "audio_max": 0.0, "tail_frac": 0.0,
+             "carry_rel": 0.0}
+    uploads = []
+    for b in range(3):
+        xw = torch.from_numpy(chan._frame(
+            x[b * cfg.block_in:(b + 1) * cfg.block_in])).cuda()
+        uploads.append(xw)
+        phi0 = chan.phi0()
+        ok = ch2.kernel2(xw, chan.consts, *ck, chan.params, phi0)
+        op = ch2.kernel2_reference(xw, chan.consts, *cp, chan.params, phi0)
+        torch.cuda.synchronize()
+        check(ok[4] is None and op[4] is None)
+        ck, cp = ok[1:4], op[1:4]
+        fa, ma = disagree(ok[0], op[0], TOL_AUDIO, True)
+        ft, _ = disagree(ok[3], op[3], TOL_TAIL, False)
+        pr = torch.cat([op[1], op[2]])
+        carry = float((torch.cat([ok[1], ok[2]]) - pr).abs().max()
+                      / pr.abs().max())
+        for key, v in (("audio_frac", fa), ("audio_max", ma),
+                       ("tail_frac", ft), ("carry_rel", carry)):
+            worst[key] = max(worst[key], v)
+        check(torch.isfinite(ok[0].float()).all())
+        if b < 2:
+            chan._phi = chan._phi + chan._theta64[None, :] * cfg.block_out
+    print(f"phase2 kernel2 unfused cos/sin, live phase: audio disagree frac "
+          f"{worst['audio_frac']:.3g} (tol {TOL_FRAC}), audio max abs err "
+          f"{worst['audio_max']:.6g}, ftail disagree frac "
+          f"{worst['tail_frac']:.3g}, carry rel err {worst['carry_rel']:.3g}"
+          f" (tol {TOL_REL})", flush=True)
+    check(worst["audio_frac"] <= TOL_FRAC and worst["tail_frac"] <= TOL_FRAC
+          and worst["carry_rel"] <= TOL_REL, worst)
+    xw, phi0 = uploads[-1], chan.phi0()
+    carries = (chan._prev_re, chan._prev_im, chan._ftail)
+    ms = time_ms(lambda: ch2.kernel2(xw, chan.consts, *carries, chan.params,
+                                     phi0), 20)
+    plain_ms = time_ms(lambda: ch2.kernel2_reference(
+        xw, chan.consts, *carries, chan.params, phi0), 5)
+    xc = torch.complex(xw[:BLOCK_OUT].float() * chan.params.in_gain,
+                       xw[BLOCK_OUT:].float() * chan.params.in_gain)
+    hc = torch.complex(chan.consts["h_re"], chan.consts["h_im"])
+    library_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
+    stages = profile_stages(
+        lambda: ch2.kernel2(xw, chan.consts, *carries, chan.params, phi0),
+        ("chan_rot_disc", "audio_fir"))
+    bms, by, ops, nbytes = kernel2_bound_ms(
+        BLOCK_OUT, N_CHANNELS, 2, 2, 64, AUDIO_DECIM, fused=False, mt=2048)
+    print(f"phase2 kernel2 unfused cos/sin timing: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, channelize matmul (library yardstick) "
+          f"{library_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+          f"({ops / 1e9:.3f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); stages "
+          f"{stages}", flush=True)
+    return dict(max_abs_err=worst["audio_max"], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by), uploads
+
+
+def psd_xw_bound(n: int, kept: int, in_bytes: int, ema: bool) -> tuple:
+    """At FFT cost per frame read (5·N·log2 N), the window (2 per
+    sample: real x complex), |X|² (3 per bin) and the frame sum; bytes:
+    the frames read, the window, twiddles and tables once, the [A, B]
+    block written once.  The EMA adds 3 operations per bin and the
+    running PSD read."""
+    a = n // 64
+    ops = kept * (5 * n * int(np.log2(n)) + 2 * n + 3 * n + n)
+    nbytes = 2 * n * kept * in_bytes + n * 4 + 2 * n * 4 \
+        + 2 * (a + 64) * 4 + n * 4
+    if ema:
+        ops += 3 * n
+        nbytes += n * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def phase2_psd_xw(fftm, torch, uploads) -> tuple:
+    """The PSD read from the window buffer against its plain version on
+    the int16 [16384, 64] uploads of phase 2's live-phase blocks: N 4096
+    (A 64) and N 2048 (A 32), frame_stride 1 and 4; then the device EMA
+    chained over the 3 blocks.  Returns the kernels-line numbers of both
+    forms."""
+    worst_bin, max_abs, main = 0.0, 0.0, None
+    for n in (4096, 2048):
+        for stride in (1, 4):
+            frames = BLOCK_OUT * 64 // n
+            psd = fftm.PSDFromXW(
+                fftm.PSDConfig(fft_size=n, frames_per_block=frames,
+                               frames_per_program=8),
+                BLOCK_OUT, FS, in_scale=1.0 / 4096.0, frame_stride=stride,
+                device="cuda")
+            for xw in uploads:
+                got = fftm.psd_xw_kernel(xw, psd.consts, psd.xw_params)
+                want = fftm.psd_xw_kernel_reference(xw, psd.consts,
+                                                    psd.xw_params)
+                torch.cuda.synchronize()
+                check(torch.isfinite(got).all())
+                d = (got - want).abs()
+                worst_bin = max(worst_bin, float((d / want.abs()).max()))
+                max_abs = max(max_abs, float(d.max()))
+            if n == 4096 and stride == 1:
+                main = psd
+    print(f"phase2 psd_xw (N 4096 and 2048, stride 1 and 4, 3 blocks): "
+          f"worst bin rel err {worst_bin:.3g} (tol {TOL_PSD_BIN}), max abs "
+          f"err {max_abs:.3g}", flush=True)
+    check(worst_bin <= TOL_PSD_BIN, worst_bin)
+    # the device EMA, chained
+    prev_k = prev_p = torch.zeros((64, 64), device="cuda")
+    ema_bin, ema_abs = 0.0, 0.0
+    for b, xw in enumerate(uploads):
+        alpha = 1.0 if b == 0 else main.alpha_block
+        prev_k = fftm.psd_xw_ema_kernel(xw, main.consts, main.xw_params,
+                                        prev_k, alpha)
+        prev_p = fftm.psd_xw_kernel_reference(xw, main.consts,
+                                              main.xw_params, prev_p, alpha)
+        torch.cuda.synchronize()
+        d = (prev_k - prev_p).abs()
+        ema_bin = max(ema_bin, float((d / prev_p.abs()).max()))
+        ema_abs = max(ema_abs, float(d.max()))
+    print(f"phase2 psd_xw ema (3 chained blocks): worst bin rel err "
+          f"{ema_bin:.3g} (tol {TOL_PSD_BIN}), max abs err {ema_abs:.3g}",
+          flush=True)
+    check(ema_bin <= TOL_PSD_BIN, ema_bin)
+
+    xw, p, c = uploads[-1], main.xw_params, main.consts
+    ms = time_ms(lambda: fftm.psd_xw_kernel(xw, c, p), 20)
+    plain_ms = time_ms(lambda: fftm.psd_xw_kernel_reference(xw, c, p), 3)
+    ema_ms = time_ms(lambda: fftm.psd_xw_ema_kernel(xw, c, p, prev_k, 0.5),
+                     20)
+    ema_plain_ms = time_ms(lambda: fftm.psd_xw_kernel_reference(
+        xw, c, p, prev_k, 0.5), 3)
+    frames = BLOCK_OUT // 64
+    win = c["w2d"].reshape(-1)
+    xr = xw[:BLOCK_OUT].reshape(frames, 4096).float() * win
+    xi = xw[BLOCK_OUT:].reshape(frames, 4096).float() * win
+    frames_c = torch.complex(xr, xi)
+    library_ms = time_ms(lambda: torch.fft.fft(frames_c), 20)
+    bms, by, ops, nbytes = psd_xw_bound(4096, frames, 2, False)
+    ems, eby, eops, ebytes = psd_xw_bound(4096, frames, 2, True)
+    stages = profile_stages(lambda: fftm.psd_xw_kernel(xw, c, p),
+                            ("psd_frames", "psd_sum"))
+    print(f"phase2 psd_xw timing (N 4096, {frames} int16 frames): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, ema kernel {ema_ms:.4f} "
+          f"ms, ema plain {ema_plain_ms:.4f} ms, torch.fft.fft of the "
+          f"[{frames}, 4096] windowed frames (library yardstick, FFT only) "
+          f"{library_ms:.4f} ms, bound {bms:.5f} ms by {by} "
+          f"({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB), ema bound "
+          f"{ems:.5f} ms by {eby}; stages {stages}", flush=True)
+    return (dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=bms, bound_by=by),
+            dict(max_abs_err=ema_abs, ms=ema_ms, plain_ms=ema_plain_ms,
+                 library_ms=library_ms, bound_ms=ems, bound_by=eby))
+
+
+# the v1 channelizer at __graft_entry__.entry()'s geometry
+V1_FS = 25_600_000.0
+V1_CHANNELS = 256
+V1_BLOCK = 1024
+V1_F0S = np.linspace(-12e6, 12e6, V1_CHANNELS)
+
+
+def v1_channelizer(ch1):
+    cfg = ch1.MatChannelizerConfig(
+        sample_rate=V1_FS, n_channels=V1_CHANNELS, taps=64, decimation=64,
+        audio_taps=64, audio_decim=8, block_out=V1_BLOCK)
+    return ch1.MatChannelizer(cfg, V1_F0S, bw=200e3, device="cuda")
+
+
+def v1_signal(n: int, seed: int):
+    """FM tones (±25 kHz deviation) on a few v1 channels plus noise;
+    returns (iq, {channel: tone Hz})."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64) / V1_FS
+    x = 0.02 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    tones = {40: 2000.0, 130: 3000.0, 220: 5000.0}
+    for ch, tone in tones.items():
+        x += 0.3 * np.exp(1j * (2 * np.pi * V1_F0S[ch] * t + 2 * np.pi
+                                * 25e3 * np.cumsum(np.sin(
+                                    2 * np.pi * tone * t)) / V1_FS))
+    return x.astype(np.complex64), tones
+
+
+def v1_bound(m: int, c: int, ka: int, da: int) -> tuple:
+    """The complex product (8·M·K·C), 36 per channel sample for the
+    cos/sin rotator, discriminator and atan2, the FIR (2 per tap and
+    audio sample); bytes: both float32 window planes, the taps, θ, φ0
+    and the carried row read once, audio and the last row written."""
+    ops = 8 * m * 64 * c + 36 * m * c + 2 * ka * (m // da) * c
+    nbytes = 2 * m * 64 * 4 + 2 * 64 * c * 4 + 4 * c * 4 + ka * 4 \
+        + (m // da) * c * 4 + 2 * c * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def phase2_kernel1(ch1, torch) -> dict:
+    """The v1 kernel against its plain version at the entry's geometry,
+    3 chained blocks (phase and carried row advanced as
+    ``MatChannelizer.feed`` does)."""
+    chan = v1_channelizer(ch1)
+    cfg = chan.cfg
+    x, _ = v1_signal(3 * cfg.block_in, SEED + 8)
+    ck = cp = (torch.zeros((1, V1_CHANNELS), device="cuda"),) * 2
+    worst_frac, max_abs, carry_rel = 0.0, 0.0, 0.0
+    hist = np.zeros(63, np.complex64)
+    for b in range(3):
+        xw, hist = ch1.make_windows(
+            cfg, x[b * cfg.block_in:(b + 1) * cfg.block_in], hist)
+        xr = torch.from_numpy(np.ascontiguousarray(xw.real)).cuda()
+        xi = torch.from_numpy(np.ascontiguousarray(xw.imag)).cuda()
+        phi0 = torch.from_numpy(np.mod(chan._phi, 2 * np.pi).astype(
+            np.float32)).cuda()
+        ok = ch1.kernel1(xr, xi, chan.consts, phi0, *ck, chan.params)
+        op = ch1.kernel1_reference(xr, xi, chan.consts, phi0, *cp,
+                                   chan.params)
+        torch.cuda.synchronize()
+        check(torch.isfinite(ok[0]).all())
+        ck, cp = ok[1:], op[1:]
+        fa, ma = disagree(ok[0], op[0], TOL_AUDIO, False)
+        pr = torch.cat(op[1:])
+        carry_rel = max(carry_rel, float((torch.cat(ok[1:]) - pr).abs().max()
+                                         / pr.abs().max()))
+        worst_frac, max_abs = max(worst_frac, fa), max(max_abs, ma)
+        chan._phi = chan._phi + chan._theta64[None, :] * cfg.block_out
+    print(f"phase2 kernel1 (v1, {V1_CHANNELS} channels, M {V1_BLOCK}): audio "
+          f"disagree frac {worst_frac:.3g} (tol {TOL_FRAC}), audio max abs "
+          f"err {max_abs:.6g}, carry rel err {carry_rel:.3g} (tol "
+          f"{TOL_REL})", flush=True)
+    check(worst_frac <= TOL_FRAC and carry_rel <= TOL_REL,
+          (worst_frac, carry_rel))
+    args = (xr, xi, chan.consts, phi0, *ck, chan.params)
+    ms = time_ms(lambda: ch1.kernel1(*args), 20)
+    plain_ms = time_ms(lambda: ch1.kernel1_reference(*args), 5)
+    xc = torch.complex(xr, xi)
+    hc = torch.complex(chan.consts["h_re"], chan.consts["h_im"])
+    library_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
+    bms, by, ops, nbytes = v1_bound(V1_BLOCK, V1_CHANNELS, 64, 8)
+    stages = profile_stages(lambda: ch1.kernel1(*args),
+                            ("chan_rot_disc", "audio_fir"))
+    print(f"phase2 kernel1 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, channelize matmul (library yardstick) {library_ms:.4f} ms, "
+          f"bound {bms:.5f} ms by {by} ({ops / 1e9:.4f} GFLOP, "
+          f"{nbytes / 2 ** 20:.2f} MiB); stages {stages}", flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
+def fm_checks(rx, blocks, tones: dict, f_pure: float, n_fft: int) -> float:
+    """Audio of the modulated channels peaks at their tones (after the
+    first two blocks) and the last PSD on the pure carrier; returns the
+    PSD peak's frequency."""
+    audio = np.concatenate([b.audio for b in blocks])
+    check(audio.shape == (len(blocks) * rx.cfg.audio_out, N_CHANNELS),
+          audio.shape)
+    check(np.all(np.isfinite(audio)))
+    for ch, tone in tones.items():
+        a = audio[2 * rx.cfg.audio_out:, ch]
+        spec = np.abs(np.fft.rfft((a - a.mean()) * np.hanning(len(a))))
+        res = rx.audio_rate / len(a)
+        f_pk = (np.argmax(spec[2:]) + 2) * res
+        check(abs(f_pk - tone) <= 2 * res, (ch, f_pk, tone))
+    psd = np.fft.fftshift(blocks[-1].psd)
+    freqs = np.fft.fftshift(np.fft.fftfreq(n_fft, 1.0 / FS))
+    pk = freqs[int(np.argmax(psd))]
+    check(abs(pk - f_pure) <= 2 * FS / n_fft, (pk, f_pure))
+    check(np.all(np.isfinite(blocks[-1].psd)))
+    return float(pk)
+
+
+def fm_receiver(**kw):
+    from sigdigger_tpu_torch import KernelReceiver
+
+    args = dict(sample_rate=FS, f0s=F0S, bw=BW, mode="fm", decimation=64,
+                block_out=BLOCK_OUT, psd_fft=4096, in_i16=True,
+                audio_bf16=True, audio_decim=AUDIO_DECIM)
+    args.update(kw)
+    return KernelReceiver(**args)
+
+
+def phase3c_every_geometry(ch2, fftm, torch, card: str) -> dict:
+    """The unsnapped FM receiver at the full bench width over 12 blocks,
+    then 3 blocks each of decimation 32 and psd_fft 2048; returns the
+    first run's launches of kernel2 and psd_xw_kernel."""
+    rx = fm_receiver(snap_grid=False)
+    check(rx.device.type == "cuda" and not rx.cfg.fuse_psd
+          and not rx._chan._table_rot and rx._shared_psd)
+    x, tones, pure = synth_iq(rx._chan.f0s, E2E_BLOCKS * rx.block_in,
+                              SEED + 9)
+    grid = FS / rx.block_in
+    check(abs(rx._chan.f0s[pure] / grid - round(rx._chan.f0s[pure] / grid))
+          > 0.1, "the pure carrier must lie off the block-rate grid")
+    ch2.kernel2.launches = 0
+    fftm.psd_xw_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = list(rx.run(ArraySource(x), pipeline_depth=3))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"kernel2_cossin": ch2.kernel2.launches,
+                "psd_xw": fftm.psd_xw_kernel.launches}
+    check(len(blocks) == E2E_BLOCKS, len(blocks))
+    check(all(n == E2E_BLOCKS for n in launches.values()), launches)
+    pk = fm_checks(rx, blocks, tones, rx._chan.f0s[pure], 4096)
+    block_ms = wall / E2E_BLOCKS * 1e3
+    print(f"phase3c fm unsnapped e2e: {E2E_BLOCKS} blocks, launches "
+          f"{launches}, block wall {block_ms:.3f} ms, "
+          f"{rx.block_in / (wall / E2E_BLOCKS) / 1e6:.2f} Msps, audio peaks "
+          f"{sorted(tones.values())} Hz ok, PSD peak {pk:.0f} Hz on off-grid "
+          f"carrier {rx._chan.f0s[pure]:.1f} Hz | card: {card}", flush=True)
+    print(f"phase3c stages (synchronous, median ms over 8 blocks after 2 "
+          f"warm-up blocks): {unfused_stages(rx, x, torch, fftm)}",
+          flush=True)
+
+    for name, kw, kernel in (
+            ("decimation 32, standalone PSD", dict(decimation=32),
+             fftm.psd_kernel),
+            ("psd_fft 2048 snapped, A = 32", dict(psd_fft=2048),
+             fftm.psd_xw_kernel)):
+        rx = fm_receiver(**kw)
+        check(not rx.cfg.fuse_psd and rx._chan._table_rot)
+        x, tones, pure = synth_iq(rx._chan.f0s, 3 * rx.block_in, SEED + 10)
+        ch2.kernel2.launches = kernel.launches = 0
+        blocks = list(rx.run(ArraySource(x), pipeline_depth=3))
+        got = (ch2.kernel2.launches, kernel.launches)
+        check(len(blocks) == 3 and got == (3, 3), (name, got))
+        audio = np.concatenate([b.audio for b in blocks])
+        check(np.all(np.isfinite(audio)) and all(
+            np.all(np.isfinite(b.psd)) for b in blocks), name)
+        n_fft = kw.get("psd_fft", 4096)
+        freqs = np.fft.fftshift(np.fft.fftfreq(n_fft, 1.0 / FS))
+        pk = freqs[int(np.argmax(np.fft.fftshift(blocks[-1].psd)))]
+        check(abs(pk - rx._chan.f0s[pure]) <= 2 * FS / n_fft, (name, pk))
+        print(f"phase3c fm {name}: 3 blocks, launches (kernel2, PSD) {got}, "
+              f"PSD peak {pk:.0f} Hz on carrier {rx._chan.f0s[pure]:.0f} Hz",
+              flush=True)
+    return launches
+
+
+def unfused_stages(rx, x: np.ndarray, torch, fftm) -> dict:
+    """Host-clock time of each layer of one unsnapped block, each stage
+    ended by a synchronise: framing, H2D, kernel2 (with the tile-phase
+    upload), the PSD from the upload, D2H, PSD fold; medians over 8
+    blocks after 2 warm-up blocks."""
+    keys = ("frame", "h2d", "kernel2", "psd_xw", "d2h", "fold")
+    times: dict[str, list] = {k: [] for k in keys}
+    for b in range(10):
+        blk = x[b * rx.block_in:(b + 1) * rx.block_in]
+        t = [time.perf_counter()]
+        xw = rx._chan._frame(blk)
+        t.append(time.perf_counter())
+        xw_d = torch.from_numpy(xw).to(rx.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        audio = rx._chan.feed_packed(xw_d)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        psd = rx._psd.feed_async(xw_d)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        audio_h, psd_h = audio.cpu(), psd.cpu().numpy()
+        t.append(time.perf_counter())
+        audio_h.float().numpy()
+        rx._psd.fold(psd_h)
+        t.append(time.perf_counter())
+        if b < 2:
+            continue
+        for k, t0, t1 in zip(keys, t, t[1:]):
+            times[k].append((t1 - t0) * 1e3)
+    return {k: round(sorted(v)[len(v) // 2], 4) for k, v in times.items()}
+
+
+def phase3d_ema_and_v1(ch1, ch2, fftm, torch) -> dict:
+    """The spectrum with the device EMA (``PSDFromXW.feed_ema`` on 12
+    bench uploads, read once) and the v1 channelizer
+    (``MatChannelizer.feed``, 4 blocks at the entry's geometry); returns
+    the launches of each."""
+    chan = ch2.MatChannelizer2(ch2.MatChannelizer2Config(
+        sample_rate=FS, n_channels=N_CHANNELS, block_out=BLOCK_OUT,
+        audio_decim=AUDIO_DECIM, in_i16=True, fuse_psd=False), F0S, BW,
+        device="cuda", snap_grid=False)
+    spec = fftm.PSDFromXW(
+        fftm.PSDConfig(fft_size=4096, frames_per_block=BLOCK_OUT // 64,
+                       frames_per_program=8),
+        BLOCK_OUT, FS, in_scale=1.0 / 4096.0, device="cuda")
+    x, _, pure = synth_iq(F0S, E2E_BLOCKS * chan.cfg.block_in, SEED + 11)
+    n = chan.cfg.block_in
+    uploads = [chan._frame(x[b * n:(b + 1) * n]) for b in range(E2E_BLOCKS)]
+    fftm.psd_xw_ema_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for xw in uploads:
+        spec.feed_ema(xw)
+    shifted = spec.shifted()
+    wall = time.perf_counter() - t0
+    ema_launches = fftm.psd_xw_ema_kernel.launches
+    check(ema_launches == E2E_BLOCKS, ema_launches)
+    freqs = np.fft.fftshift(np.fft.fftfreq(4096, 1.0 / FS))
+    pk = freqs[int(np.argmax(shifted))]
+    check(np.all(np.isfinite(shifted)) and abs(pk - F0S[pure])
+          <= 2 * FS / 4096, (pk, F0S[pure]))
+    print(f"phase3d spectrum, device EMA: {E2E_BLOCKS} blocks, launches "
+          f"{ema_launches}, {wall / E2E_BLOCKS * 1e3:.3f} ms per block "
+          f"(upload and launch, one fetch at the end), peak {pk:.0f} Hz on "
+          f"carrier {F0S[pure]:.0f} Hz", flush=True)
+
+    v1 = v1_channelizer(ch1)
+    x, tones = v1_signal(4 * v1.cfg.block_in, SEED + 12)
+    ch1.kernel1.launches = 0
+    t0 = time.perf_counter()
+    audio = np.concatenate([v1.feed(x[b * v1.cfg.block_in:
+                                      (b + 1) * v1.cfg.block_in])
+                            for b in range(4)])
+    wall = time.perf_counter() - t0
+    v1_launches = ch1.kernel1.launches
+    check(v1_launches == 4 and audio.shape == (4 * V1_BLOCK // 8,
+                                               V1_CHANNELS), v1_launches)
+    check(np.all(np.isfinite(audio)))
+    rate = V1_FS / 64 / 8
+    for ch, tone in tones.items():
+        a = audio[V1_BLOCK // 8:, ch]
+        sp = np.abs(np.fft.rfft((a - a.mean()) * np.hanning(len(a))))
+        f_pk = (np.argmax(sp[2:]) + 2) * rate / len(a)
+        check(abs(f_pk - tone) <= 2 * rate / len(a), (ch, f_pk, tone))
+    print(f"phase3d v1 channelizer: 4 blocks, launches {v1_launches}, "
+          f"{wall / 4 * 1e3:.3f} ms per block (framing, upload, launch, "
+          f"fetch), audio peaks {sorted(tones.values())} Hz ok", flush=True)
+    return {"psd_xw_ema": ema_launches, "kernel1": v1_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1049,6 +1498,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     from sigdigger_tpu_torch.kernels import _build
+    from sigdigger_tpu_torch.kernels import channelizer as ch1
     from sigdigger_tpu_torch.kernels import channelizer2 as ch2
     from sigdigger_tpu_torch.kernels import fft, rawbank, recovery
 
@@ -1071,6 +1521,10 @@ def main() -> int:
           "psd": phase2_psd(fft, torch),
           "raw": phase2_raw(rawbank, torch),
           "recovery": phase2_recovery(recovery, torch)}
+    p2["kernel2_cossin"], uploads = phase2_kernel2_cossin(ch2, torch)
+    p2["psd_xw"], p2["psd_xw_ema"] = phase2_psd_xw(fft, torch, uploads)
+    p2["kernel1"] = phase2_kernel1(ch1, torch)
+    del uploads
     print(f"phase2: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     launches = {"kernel2": phase3_end_to_end(ch2, torch, card)}
@@ -1078,48 +1532,65 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(phase3b_digital(torch, card))
     print(f"phase3b: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3c_every_geometry(ch2, fft, torch, card))
+    print(f"phase3c: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3d_ema_and_v1(ch1, ch2, fft, torch))
+    print(f"phase3d: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # each kernel form: (name, key, source, TPU kernel); the FM forms'
+    # library yardstick (the channelize matmul alone) computes part of
+    # the function only, so their library_ms is null
+    rows = [
+        ("kernel2", "kernel2", "channelizer2.cu",
+         "kernels/channelizer2.py:126"),
+        ("kernel2_unfused_cossin", "kernel2_cossin", "channelizer2.cu",
+         "kernels/channelizer2.py:126"),
+        ("psd_xw_kernel", "psd_xw", "psd_xw.cu", "kernels/fft.py:283"),
+        ("psd_xw_ema_kernel", "psd_xw_ema", "psd_xw.cu",
+         "kernels/fft.py:264"),
+        ("psd_kernel", "psd", "psd.cu", "kernels/fft.py:65"),
+        ("raw_kernel", "raw", "rawbank.cu", "kernels/rawbank.py:61"),
+        ("recovery_kernel", "recovery", "recovery.cu",
+         "kernels/recovery.py:90"),
+        ("kernel1", "kernel1", "channelizer.cu",
+         "kernels/channelizer.py:124"),
+    ]
+    no_library = ("kernel2", "kernel2_cossin", "raw", "recovery", "kernel1")
+    check(all(launches[key] > 0 for _, key, _, _ in rows), launches)
 
     # every TPU kernel with its bound: the ported ones at the inputs
     # phase 2 timed, the pending ones at the bench's shapes
     pending = pending_bounds()
-    ported = dict(zip((r for r, s in TPU_KERNELS if s == "ported"),
-                      ("kernel2", "psd", "raw", "recovery")))
+    ported = {tpu: key for _, key, _, tpu in rows if key != "kernel2_cossin"}
     listing = []
     for r, s in TPU_KERNELS:
         entry = {"replaces": f"sigdigger_tpu/{r}", "status": s}
-        if r in ported:
-            entry.update(bound_ms=p2[ported[r]]["bound_ms"],
-                         bound_by=p2[ported[r]]["bound_by"])
+        key = ported.get(r.split(" ")[0])
+        if s == "ported":
+            entry.update(bound_ms=p2[key]["bound_ms"],
+                         bound_by=p2[key]["bound_by"])
         else:
             shape, ms, by, ops, nbytes = pending[r]
             entry.update(shape=shape, bound_ms=ms, bound_by=by,
                          gflop=ops / 1e9, mib=nbytes / 2 ** 20)
         listing.append(entry)
     print(json.dumps({"tpu_kernels": listing}))
-    rows = [
-        # no one PyTorch call computes kernel2 or the raw bank; the
-        # channelize matmuls timed in phase 2 are yardsticks for their
-        # product only, and no PyTorch call computes the recovery loops
-        ("kernel2", "channelizer2.cu", "kernels/channelizer2.py:126"),
-        ("psd", "psd.cu", "kernels/fft.py:65"),
-        ("raw", "rawbank.cu", "kernels/rawbank.py:61"),
-        ("recovery", "recovery.cu", "kernels/recovery.py:90"),
-    ]
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": {"psd": "psd_kernel", "raw": "raw_kernel",
-                 "recovery": "recovery_kernel"}.get(name, name),
+        "name": name,
         "route": "cuda",
         "source": f"sigdigger_tpu_torch/kernels/csrc/{src}",
         "replaces": f"sigdigger_tpu/{tpu}",
-        "launches": launches[name],
-        "max_abs_err": p2[name]["max_abs_err"],
-        "ms": p2[name]["ms"],
-        "plain_ms": p2[name]["plain_ms"],
-        "bound_ms": p2[name]["bound_ms"],
-        "bound_by": p2[name]["bound_by"],
-        "library_ms": None if name == "kernel2" else p2[name]["library_ms"],
-    } for name, src, tpu in rows]}))
+        "launches": launches[key],
+        "max_abs_err": p2[key]["max_abs_err"],
+        "ms": p2[key]["ms"],
+        "plain_ms": p2[key]["plain_ms"],
+        "bound_ms": p2[key]["bound_ms"],
+        "bound_by": p2[key]["bound_by"],
+        "library_ms": None if key in no_library else p2[key]["library_ms"],
+    } for name, key, src, tpu in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

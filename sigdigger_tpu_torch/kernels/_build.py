@@ -31,11 +31,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # entry points of each library: name -> argtypes (restype is c_int)
 SIGNATURES = {
+    "channelizer": {
+        "sd_kernel1": (
+            [_P] * 13               # xr xi h_re h_im theta phi0 prev_re
+                                    # prev_im ataps audio last_re last_im
+                                    # f_scr
+            + [_I] * 4              # M C ka da
+            + [_F, _P]),            # quad_gain stream
+    },
     "channelizer2": {
         "sd_kernel2": (
             [_P, _I, _F]            # xw, in_kind, in_gain
-            + [_P] * 13             # h_re h_im q r prev_re prev_im ftail
-                                    # ataps w2d w64_re w64_im tw_re tw_im
+            + [_P, _P]              # h_re h_im
+            + [_I] + [_P] * 4       # table_rot q r theta phi0
+            + [_P] * 4              # prev_re prev_im ftail ataps
+            + [_I] + [_P] * 5       # fuse_psd w2d w64_re w64_im tw_re tw_im
             + [_P, _I]              # audio, audio_bf16
             + [_P] * 6              # last_re last_im ftail_out psd
                                     # f_scr psd_part
@@ -48,6 +58,16 @@ SIGNATURES = {
             + [_P] * 8              # wa_re wa_im wb_re wb_im tw_re tw_im
                                     # psd part
             + [_I] * 3              # A B F
+            + [_F, _P]),            # scale stream
+    },
+    "psd_xw": {
+        "sd_psd_xw": (
+            [_P, _I]                # xw, in_kind
+            + [_P] * 7              # w2d wa_re wa_im wb_re wb_im tw_re
+                                    # tw_im
+            + [_I, _P, _F]          # ema prev alpha
+            + [_P, _P]              # psd part
+            + [_I] * 5              # M A B fb stride
             + [_F, _P]),            # scale stream
     },
     "rawbank": {

@@ -1,5 +1,5 @@
-"""Mix-baked channelizer constants (counterpart of the host half of
-``sigdigger_tpu/kernels/channelizer.py``).
+"""The v1 FM channelizer and the mix-baked channelizer constants
+(counterpart of ``sigdigger_tpu/kernels/channelizer.py``).
 
 The whole per-channel chain is cast as one complex product: window m of
 the input covers samples ``[mD - K + 1 … mD]`` and
@@ -7,18 +7,30 @@ the input covers samples ``[mD - K + 1 … mD]`` and
     Y[m, c] = Σ_k Xw[m, k] · H[k, c],  H[k, c] = h[K-1-k]·e^{-jω_c(k-(K-1))}
 
 so "LO multiply + FIR + decimate" is one ``[M, K]×[K, C]`` product;
-the residual rotation ``e^{-jω_c m D}`` is applied afterwards.  The v1
-kernel itself (``_kernel``) is not ported yet; its config and constants
-serve the v2 kernel in ``channelizer2.py``.
+the residual rotation ``e^{-j(φ0 + m·θ_c)}`` is applied afterwards.
+:func:`kernel1` is the v1 block, ``_kernel``: channelize, the cos/sin
+rotator over the whole block (one time tile), the FM discriminator with
+the previous row carried in, and the global banded audio FIR
+``audio[i] = Σ_t a[t]·f[i·Da − t]`` over ``f[m] = 0`` for m < 0,
+restarted every block (no FIR tail is carried).  On a CUDA tensor it
+launches ``csrc/channelizer.cu``, which shares its stages with the v2
+kernel (``csrc/chan.cuh``); on a CPU tensor it runs
+:func:`kernel1_reference`.  :class:`MatChannelizer` drives it; its
+config and constants also serve the v2 kernel in ``channelizer2.py``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.filters import fir_lowpass
+from sigdigger_tpu_torch.kernels.ops import atan2
+from sigdigger_tpu_torch.native import frame_windows
 
 _TWO_PI = 2.0 * np.pi
 
@@ -84,3 +96,198 @@ def make_mat_constants(cfg: MatChannelizerConfig, f0s: np.ndarray,
                             dtype=np.float32)[:, None],  # [M, 1]
         "bt": bt,
     }
+
+
+def make_windows(cfg: MatChannelizerConfig, x: np.ndarray,
+                 history: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Stride-D windows [M, K] of (history | x); returns (windows,
+    new_history[K-1])."""
+    if len(x) != cfg.block_in:
+        raise ValueError(f"block holds {len(x)} samples, the channelizer "
+                         f"takes {cfg.block_in}")
+    ext = np.concatenate([history, x])
+    m = cfg.block_out
+    windows = np.lib.stride_tricks.as_strided(
+        ext, shape=(m, cfg.taps),
+        strides=(ext.strides[0] * cfg.decimation, ext.strides[0]),
+    )
+    return np.ascontiguousarray(windows), ext[-(cfg.taps - 1):].copy()
+
+
+@dataclass(frozen=True)
+class Kernel1Params:
+    """Scalars of one :func:`kernel1` geometry."""
+
+    ka: int              # audio taps
+    da: int              # audio decimation
+    quad_gain: float
+
+
+def kernel1_reference(xr: torch.Tensor, xi: torch.Tensor,
+                      consts: dict[str, torch.Tensor], phi0: torch.Tensor,
+                      prev_re: torch.Tensor, prev_im: torch.Tensor,
+                      p: Kernel1Params):
+    """Plain PyTorch version of ``_kernel`` for one block.
+
+    xr, xi: float32 window planes ``[M, K]``; phi0, prev_re, prev_im
+    ``[1, C]``.  Returns ``(audio [M//Da, C], last_re, last_im)``."""
+    m, c = xr.shape[0], consts["h_re"].shape[1]
+    h_re, h_im = consts["h_re"], consts["h_im"]
+    yr = xr @ h_re - xi @ h_im
+    yi = xr @ h_im + xi @ h_re
+    # ph = φ0 + m·θ rounded once, as fma(m, θ, φ0): the float64 product
+    # and sum are exact for these operands (channelizer.py:134)
+    ramp = torch.arange(m, dtype=torch.float64, device=xr.device)[:, None]
+    ph = (phi0.double() + ramp * consts["theta"].double()).float()
+    cr = torch.cos(ph)
+    ci = -torch.sin(ph)
+    rr = yr * cr - yi * ci
+    ri = yr * ci + yi * cr
+    pr = torch.cat([prev_re, rr[:-1]])
+    pi = torch.cat([prev_im, ri[:-1]])
+    dr = rr * pr + ri * pi
+    di = ri * pr - rr * pi
+    f = atan2(di, dr) * p.quad_gain
+    # the global banded audio FIR: audio[i] = Σ_t a[t]·f[i·Da − t], f = 0
+    # before the block
+    ataps = consts["ataps"]
+    ma = m // p.da
+    f_ext = torch.cat([torch.zeros((p.ka - 1, c), device=xr.device), f])
+    audio = torch.zeros((ma, c), dtype=torch.float32, device=xr.device)
+    for t in range(p.ka):
+        s = p.ka - 1 - t
+        audio += ataps[t] * f_ext[s:s + ma * p.da:p.da]
+    return audio, rr[-1:].clone(), ri[-1:].clone()
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
+    from sigdigger_tpu_torch.kernels._build import load_library
+
+    dev = xr.device
+    m = xr.shape[0] if xr.dim() == 2 else 0
+    c = consts["h_re"].shape[1]
+    for name, t in (("xr", xr), ("xi", xi)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (m, 64)
+                or m == 0 or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"kernel1 {name}: want contiguous float32 "
+                             f"[M, 64] on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if p.da < 1 or m < p.da or not 1 <= p.ka <= 256:
+        raise ValueError(f"kernel1 takes 1 <= audio_decim <= M and 1..256 "
+                         f"audio taps, got M={m}, da={p.da}, ka={p.ka}")
+    shapes = {"h_re": (consts["h_re"], (64, c)),
+              "h_im": (consts["h_im"], (64, c)),
+              "theta": (consts["theta"], (1, c)),
+              "ataps": (consts["ataps"], (p.ka,)),
+              "phi0": (phi0, (1, c)), "prev_re": (prev_re, (1, c)),
+              "prev_im": (prev_im, (1, c))}
+    for name, (t, shape) in shapes.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(
+                f"kernel1 {name}: want contiguous float32 {shape} on {dev},"
+                f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = load_library("channelizer")
+    audio = torch.empty((m // p.da, c), device=dev)
+    last_re = torch.empty((1, c), device=dev)
+    last_im = torch.empty((1, c), device=dev)
+    f_scr = torch.empty((m, c), device=dev)
+    with torch.cuda.device(dev):
+        err = lib.sd_kernel1(
+            _ptr(xr), _ptr(xi), _ptr(consts["h_re"]), _ptr(consts["h_im"]),
+            _ptr(consts["theta"]), _ptr(phi0), _ptr(prev_re),
+            _ptr(prev_im), _ptr(consts["ataps"]), _ptr(audio),
+            _ptr(last_re), _ptr(last_im), _ptr(f_scr),
+            m, c, p.ka, p.da, p.quad_gain,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sd_kernel1 launch failed: CUDA error {err}")
+    kernel1.launches += 1
+    return audio, last_re, last_im
+
+
+def kernel1(xr: torch.Tensor, xi: torch.Tensor,
+            consts: dict[str, torch.Tensor], phi0: torch.Tensor,
+            prev_re: torch.Tensor, prev_im: torch.Tensor, p: Kernel1Params):
+    """One v1 block: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors.  Returns what :func:`kernel1_reference` returns.
+    ``kernel1.launches`` counts the CUDA launches."""
+    if xr.device.type == "cuda":
+        return _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p)
+    if xr.device.type == "cpu":
+        return kernel1_reference(xr, xi, consts, phi0, prev_re, prev_im, p)
+    raise ValueError(f"kernel1 runs on cuda or cpu, not {xr.device}")
+
+
+kernel1.launches = 0
+
+
+class MatChannelizer:
+    """Streaming multi-channel FM receiver on :func:`kernel1`
+    (counterpart of the reference's ``MatChannelizer``).
+
+    The host keeps the carried state: the framing history, the last
+    rotated row (complex64) and the rotation phase ``_phi`` (float64);
+    each :meth:`feed` is one launch.  Runs on ``cuda`` unless ``device``
+    says otherwise.
+    """
+
+    def __init__(self, cfg: MatChannelizerConfig, f0s: np.ndarray,
+                 bw: float, device: str | torch.device | None = None
+                 ) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        c = cfg.n_channels
+        host = make_mat_constants(cfg, f0s, bw)
+        host["ataps"] = fir_lowpass(cfg.audio_taps,
+                                    min(1.0, 1.0 / cfg.audio_decim))
+        self.consts = {k: torch.as_tensor(np.ascontiguousarray(v),
+                                          device=self.device)
+                       for k, v in host.items()
+                       if k in ("h_re", "h_im", "theta", "ataps")}
+        self.params = Kernel1Params(ka=cfg.audio_taps, da=cfg.audio_decim,
+                                    quad_gain=cfg.quad_gain)
+        self._history = np.zeros(cfg.taps - 1, np.complex64)
+        self._prev = np.zeros((1, c), np.complex64)
+        self._phi = np.zeros((1, c), np.float64)
+        self._theta64 = np.mod(
+            _TWO_PI * np.broadcast_to(np.asarray(f0s, np.float64), (c,))
+            / cfg.sample_rate * cfg.decimation, _TWO_PI)
+
+    def feed(self, x: np.ndarray) -> np.ndarray:
+        """One block of ``cfg.block_in`` input samples → audio
+        ``[audio_out, n_channels]`` float32."""
+        cfg = self.cfg
+        x = np.asarray(x, np.complex64)
+        if len(x) != cfg.block_in:
+            raise ValueError(f"block holds {len(x)} samples, the "
+                             f"channelizer takes {cfg.block_in}")
+        ext = np.concatenate([self._history, x])
+        xw_re, xw_im = frame_windows(ext, cfg.block_out, cfg.taps,
+                                     cfg.decimation)
+        self._history = ext[-(cfg.taps - 1):].copy()
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)
+                                    ).to(self.device)
+
+        phi0 = np.mod(self._phi, _TWO_PI).astype(np.float32)
+        audio, last_re, last_im = self.feed_device(
+            dev(xw_re), dev(xw_im), dev(phi0), dev(self._prev.real),
+            dev(self._prev.imag))
+        self._prev = (last_re.cpu().numpy()
+                      + 1j * last_im.cpu().numpy()).astype(np.complex64)
+        self._phi = self._phi + self._theta64[None, :] * cfg.block_out
+        return audio.cpu().numpy()
+
+    def feed_device(self, xw_re: torch.Tensor, xw_im: torch.Tensor,
+                    phi0: torch.Tensor, prev_re: torch.Tensor,
+                    prev_im: torch.Tensor):
+        """One launch on device tensors (no host conversion, no state
+        update); returns ``(audio, last_re, last_im)``."""
+        return kernel1(xw_re, xw_im, self.consts, phi0, prev_re, prev_im,
+                       self.params)

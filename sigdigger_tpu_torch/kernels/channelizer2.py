@@ -1,24 +1,29 @@
-"""Fused FM channelizer v2 with the fused four-step PSD (counterpart of
-``sigdigger_tpu/kernels/channelizer2.py``).
+"""FM channelizer v2 with the optional fused four-step PSD (counterpart
+of ``sigdigger_tpu/kernels/channelizer2.py``).
 
 One call of :func:`kernel2` does, for a whole block of M channel
 samples and C channels:
 
 1. channelize, ``Y = Xw·H`` (mix-baked taps, one complex product);
-2. derotate row m by the table product ``Q[m//64]·R[m%64]``;
+2. derotate row m by ``e^{-j(φ0 + m·θ)}``: with the table rotator (the
+   snapped channel grid, ``m_tile % 64 == 0``) the product
+   ``Q[m//64]·R[m%64]`` of two float64-built tables; otherwise the
+   cos/sin rotator, ``cos``/``sin`` of ``ph = φ0[mi] + m_local·θ`` in
+   float32 with one start phase ``φ0[mi]`` per time tile of ``m_tile``
+   rows, built in float64 on the host;
 3. FM-discriminate, ``atan2(Y[m]·conj(Y[m-1]))·quad_gain``, with the
    previous block's rotated last row carried in;
 4. decimate to audio with a banded FIR, ``audio[j] = Σ_t a[t]·f_ext[j·Da
    − t + Ka − 1]`` over ``f_ext = [ftail | f]``, carrying the tail;
-5. compute the block's 4096-point PSD (A = B = 64) from the same packed
-   window buffer: frame f is rows ``[64f, 64f+64)`` of both planes.
+5. with ``fuse_psd``, compute the block's 4096-point PSD (A = B = 64)
+   from the same packed window buffer: frame f is rows ``[64f, 64f+64)``
+   of both planes.
 
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/channelizer2.cu``; on a CPU tensor it runs
 :func:`kernel2_reference`, the plain PyTorch version of the same math.
-Only the snapped channel grid (table rotator) with the fused PSD is
-ported; the cos/sin rotator and the unfused geometries are listed in
-ROADMAP.md.
+The cos/sin phase is rounded to float32 once, as a fused multiply-add
+does (``kernels/rawbank.py`` explains why).
 """
 
 from __future__ import annotations
@@ -46,20 +51,17 @@ from sigdigger_tpu_torch.native import (
 from sigdigger_tpu_torch.types import WindowFunction
 
 _TWO_PI = 2.0 * np.pi
-
-UNSUPPORTED = (
-    "the port's fused FM receiver needs the snapped channel grid, "
-    "decimation == 64 and psd_fft == 4096 with m_tile % 256 == 0; the "
-    "unfused FM geometries wait for the PSD read from the window buffer "
-    "(ROADMAP.md queue 2 item 2: kernels/fft.py _psd_kernel_xw) and the "
-    "cos/sin rotator of _kernel2 (queue 2 item 1)")
+# the reference's psd_fb: its fused PSD pairs two frames in the lanes,
+# which sets its rule m_tile % 256 == 0
+_PSD_FB = 2
 
 
 @dataclass(frozen=True)
 class MatChannelizer2Config:
-    """The fused geometry only: taps == decimation == 64, psd_fft ==
-    4096 and m_tile % 256 == 0 (the reference's receiver.py:94-96 rule);
-    any other geometry raises ``NotImplementedError``."""
+    """The reference's config without its TPU tiles (``channel_tile``,
+    ``psd_fb``).  ``fuse_psd`` defaults to True here (the reference's
+    default is False): the port's first slice ran the fused geometry
+    only."""
 
     sample_rate: float
     n_channels: int
@@ -68,7 +70,7 @@ class MatChannelizer2Config:
     audio_taps: int = 64
     audio_decim: int = 8
     block_out: int = 8192        # M total per call
-    m_tile: int = 2048           # Mt: rows per Q-table span
+    m_tile: int = 2048           # Mt: rows per rotator-phase tile
     fir_tile: int = 0            # audio-FIR chunk (0 → auto)
     quad_gain: float = 1.0 / np.pi
     in_i16: bool = False         # upload framed IQ as int16
@@ -76,12 +78,10 @@ class MatChannelizer2Config:
     in_i8: bool = False          # int8 upload; wins over in_i16
     i8_scale: float = 64.0       # counts per unit
     audio_bf16: bool = False     # drain audio as bfloat16
+    fuse_psd: bool = True        # the block's PSD out of the same call
     psd_fft: int = 4096
 
     def __post_init__(self):
-        if not (self.taps == 64 and self.decimation == 64
-                and self.psd_fft == 4096 and self.m_tile % 256 == 0):
-            raise NotImplementedError(UNSUPPORTED)
         assert self.block_out % self.m_tile == 0
         assert self.m_tile % self.audio_decim == 0
         assert self.audio_taps % self.audio_decim == 0
@@ -96,6 +96,10 @@ class MatChannelizer2Config:
                                else self.m_tile)
         assert self.m_tile % self.fir_tile == 0
         assert self.fir_tile % self.audio_decim == 0
+        if self.fuse_psd:
+            assert self.taps == 64 and self.psd_fft == 4096, \
+                "fuse_psd needs the A=B=64 Bailey geometry"
+            assert self.m_tile % (128 * _PSD_FB) == 0
 
     @property
     def block_in(self) -> int:
@@ -158,10 +162,6 @@ def _psd_frame_constants(cfg: MatChannelizer2Config
     }, psd_scale
 
 
-# the reference's psd_fb: its fused PSD pairs two frames in the lanes
-_PSD_FB = 2
-
-
 def _psd_constants(cfg: MatChannelizer2Config
                    ) -> tuple[tuple[np.ndarray, ...], float]:
     """The reference's lane-paired fused-PSD constants (w2d, bd_re,
@@ -182,6 +182,8 @@ def _psd_constants(cfg: MatChannelizer2Config
              np.kron(eye_2, fr["dft_re"]), np.kron(eye_2, fr["dft_im"]),
              fsum, np.concatenate([np.eye(64, dtype=np.float32)] * 2)),
             psd_scale)
+
+
 
 
 def _rot_tables(cfg: MatChannelizer2Config, theta64: np.ndarray,
@@ -206,29 +208,44 @@ def _rot_tables(cfg: MatChannelizer2Config, theta64: np.ndarray,
     return q, r
 
 
+def _phi_tiles(cfg: MatChannelizer2Config, phi: np.ndarray,
+               theta64: np.ndarray) -> np.ndarray:
+    """Start phase of each time tile of the cos/sin rotator, float64-
+    built, mod 2π, as float32 ``[m_tiles, C]`` (the reference's
+    ``_phi_tiles`` keeps the same rows 8 apart, a TPU sublane rule)."""
+    m_tiles = cfg.block_out // cfg.m_tile
+    mi = np.arange(m_tiles, dtype=np.float64)[:, None]
+    return np.mod(phi + mi * cfg.m_tile * theta64[None, :],
+                  _TWO_PI).astype(np.float32)
+
+
 @dataclass(frozen=True)
 class Kernel2Params:
     """Scalars of one :func:`kernel2` geometry."""
 
-    mt: int              # rows per Q-table span (m_tile)
+    mt: int              # rows per rotator-phase tile (m_tile)
     ka: int              # audio taps
     da: int              # audio decimation
     quad_gain: float
     in_gain: float       # dequantization gain of an integer upload
     audio_bf16: bool
-    psd_scale: float
+    psd_scale: float     # fused PSD: 1/(fs·Σw²·frames)
+    table_rot: bool      # Q·R tables (else cos/sin of φ0[mi] + m_local·θ)
+    fuse_psd: bool       # the block's PSD out of the same call
 
 
 def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
                       prev_re: torch.Tensor, prev_im: torch.Tensor,
-                      ftail: torch.Tensor, p: Kernel2Params):
-    """Plain PyTorch version of ``_kernel2`` (fused PSD, table rotator)
-    for a whole block.
+                      ftail: torch.Tensor, p: Kernel2Params,
+                      phi0: torch.Tensor | None = None):
+    """Plain PyTorch version of ``_kernel2`` for a whole block.
 
-    xw: packed ``[2M, 64]`` float32/int16/int8; prev_re, prev_im
-    ``[1, C]``; ftail ``[Ka-1, C]``.  Returns ``(audio [M/Da, C]``
-    float32 or bfloat16``, last_re, last_im, ftail_out, psd [64, 64])``
-    with the PSD in ``(k1, k2)`` order.
+    xw: packed ``[2M, K]`` float32/int16/int8; prev_re, prev_im
+    ``[1, C]``; ftail ``[Ka-1, C]``; phi0 ``[M/mt, C]`` the cos/sin
+    rotator's tile start phases (unused with the table rotator).
+    Returns ``(audio [M/Da, C]`` float32 or bfloat16``, last_re,
+    last_im, ftail_out, psd)`` with the fused PSD ``[64, 64]`` in
+    ``(k1, k2)`` order, or None without ``p.fuse_psd``.
     """
     m = xw.shape[0] // 2
     c = prev_re.shape[1]
@@ -241,15 +258,27 @@ def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
     yr = xr @ h_re - xi @ h_im
     yi = xr @ h_im + xi @ h_re
 
-    # rotator e^{-j m θ_c} = Q[m // 64]·R[m % 64] (channelizer2.py:164-176)
-    qs = p.mt // 64
-    q = consts["q"].view(m // p.mt, 2, qs, c)
-    q_re = q[:, 0].reshape(m // 64, c).repeat_interleave(64, dim=0)
-    q_im = q[:, 1].reshape(m // 64, c).repeat_interleave(64, dim=0)
-    r_re = consts["r"][:64].repeat(m // 64, 1)
-    r_im = consts["r"][64:].repeat(m // 64, 1)
-    cr = q_re * r_re - q_im * r_im
-    ci = q_re * r_im + q_im * r_re
+    if p.table_rot:
+        # e^{-j m θ_c} = Q[m // 64]·R[m % 64] (channelizer2.py:164-176)
+        qs = p.mt // 64
+        q = consts["q"].view(m // p.mt, 2, qs, c)
+        q_re = q[:, 0].reshape(m // 64, c).repeat_interleave(64, dim=0)
+        q_im = q[:, 1].reshape(m // 64, c).repeat_interleave(64, dim=0)
+        r_re = consts["r"][:64].repeat(m // 64, 1)
+        r_im = consts["r"][64:].repeat(m // 64, 1)
+        cr = q_re * r_re - q_im * r_im
+        ci = q_re * r_im + q_im * r_re
+    else:
+        # ph = φ0[mi] + m_local·θ rounded once, as fma(m_local, θ, φ0):
+        # the float64 product and sum are exact for these operands
+        # (channelizer2.py:181-183)
+        ramp = torch.arange(p.mt, dtype=torch.float64,
+                            device=xw.device)[:, None]
+        ph = (phi0.double()[:, None, :]
+              + (ramp * consts["theta"].double())[None]).reshape(m, c)
+        ph = ph.float()
+        cr = torch.cos(ph)
+        ci = -torch.sin(ph)
     rr = yr * cr - yi * ci
     ri = yr * ci + yi * cr
 
@@ -270,6 +299,9 @@ def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
         audio += ataps[t] * f_ext[s:s + m:p.da]
     if p.audio_bf16:
         audio = audio.to(torch.bfloat16)
+    last = (rr[-1:].clone(), ri[-1:].clone(), f_ext[m:].clone())
+    if not p.fuse_psd:
+        return (audio, *last, None)
 
     # four-step PSD of the block's 4096-sample frames
     frames = m // 64
@@ -284,48 +316,64 @@ def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
     s3r = s2r @ d_re - s2i @ d_im
     s3i = s2r @ d_im + s2i @ d_re
     psd = (s3r * s3r + s3i * s3i).sum(0) * p.psd_scale
-    return audio, rr[-1:].clone(), ri[-1:].clone(), f_ext[m:].clone(), psd
+    return (audio, *last, psd)
 
 
 _IN_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params):
+def _check_f32(name: str, t: torch.Tensor, shape: tuple,
+               dev: torch.device) -> None:
+    if (t is None or tuple(t.shape) != shape or t.dtype != torch.float32
+            or t.device != dev or not t.is_contiguous()):
+        got = None if t is None else (t.dtype, tuple(t.shape), t.device)
+        raise ValueError(f"kernel2 {name}: want contiguous float32 {shape} "
+                         f"on {dev}, got {got}")
+
+
+def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
+                  phi0):
     from sigdigger_tpu_torch.kernels._build import load_library
 
     m = xw.shape[0] // 2
     c = prev_re.shape[1]
     dev = xw.device
-    if xw.dtype not in _IN_KIND or xw.dim() != 2 or xw.shape[1] != 64:
-        raise ValueError(f"xw must be [2M, 64] f32/i16/i8, got "
-                         f"{tuple(xw.shape)} {xw.dtype}")
-    if m % 256 or m % p.mt or p.mt % 64 or m % p.da:
-        raise ValueError(f"block_out {m} does not fit m_tile {p.mt} / "
-                         f"audio_decim {p.da}")
+    if (xw.dtype not in _IN_KIND or xw.dim() != 2 or xw.shape[1] != 64
+            or not xw.is_contiguous()):
+        raise ValueError(f"xw must be contiguous [2M, 64] f32/i16/i8 on "
+                         f"{dev}, got {tuple(xw.shape)} {xw.dtype}")
+    if (m == 0 or m % p.mt or p.mt % p.da or (p.table_rot and p.mt % 64)
+            or (p.fuse_psd and m % 64)):
+        raise ValueError(
+            f"block_out {m} does not fit m_tile {p.mt} / audio_decim "
+            f"{p.da} (table rotator: m_tile % 64; fused PSD: M % 64)")
     shapes = {
         "prev_re": (prev_re, (1, c)), "prev_im": (prev_im, (1, c)),
         "ftail": (ftail, (p.ka - 1, c)),
         "h_re": (consts["h_re"], (64, c)), "h_im": (consts["h_im"], (64, c)),
-        "q": (consts["q"], (2 * (m // 64), c)), "r": (consts["r"], (128, c)),
         "ataps": (consts["ataps"], (p.ka,)),
-        "w2d": (consts["w2d"], (64, 64)),
-        "w64_re": (consts["w64_re"], (64,)),
-        "w64_im": (consts["w64_im"], (64,)),
-        "tw_re": (consts["tw_re"], (64, 64)),
-        "tw_im": (consts["tw_im"], (64, 64)),
     }
-    if not xw.is_contiguous() or xw.device != dev:
-        raise ValueError(f"xw must be contiguous on {dev}")
+    if p.table_rot:
+        shapes.update(q=(consts["q"], (2 * (m // 64), c)),
+                      r=(consts["r"], (128, c)))
+    else:
+        shapes.update(theta=(consts["theta"], (1, c)),
+                      phi0=(phi0, (m // p.mt, c)))
+    if p.fuse_psd:
+        shapes.update(w2d=(consts["w2d"], (64, 64)),
+                      w64_re=(consts["w64_re"], (64,)),
+                      w64_im=(consts["w64_im"], (64,)),
+                      tw_re=(consts["tw_re"], (64, 64)),
+                      tw_im=(consts["tw_im"], (64, 64)))
     for name, (t, shape) in shapes.items():
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or t.device != dev or not t.is_contiguous()):
-            raise ValueError(
-                f"kernel2 {name}: want contiguous float32 {shape} on {dev},"
-                f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+        _check_f32(name, t, shape, dev)
+
+    def opt(name, on):
+        return consts[name] if on else None
 
     lib = load_library("channelizer2")
     audio = torch.empty((m // p.da, c), device=dev, dtype=(
@@ -333,20 +381,24 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params):
     last_re = torch.empty((1, c), device=dev)
     last_im = torch.empty((1, c), device=dev)
     ftail_out = torch.empty((p.ka - 1, c), device=dev)
-    psd = torch.empty((64, 64), device=dev)
     f_scr = torch.empty((m, c), device=dev)
-    psd_part = torch.empty((m // 64, 64, 64), device=dev)
+    psd = psd_part = None
+    if p.fuse_psd:
+        psd = torch.empty((64, 64), device=dev)
+        psd_part = torch.empty((m // 64, 64, 64), device=dev)
+    tab, fused = p.table_rot, p.fuse_psd
     # every tensor passed stays referenced (by the caller, or for the
     # scratch by PyTorch's stream-ordered allocator) while the launch runs
     with torch.cuda.device(dev):
         err = lib.sd_kernel2(
             _ptr(xw), _IN_KIND[xw.dtype], p.in_gain,
             _ptr(consts["h_re"]), _ptr(consts["h_im"]),
-            _ptr(consts["q"]), _ptr(consts["r"]),
+            int(tab), _ptr(opt("q", tab)), _ptr(opt("r", tab)),
+            _ptr(opt("theta", not tab)), _ptr(None if tab else phi0),
             _ptr(prev_re), _ptr(prev_im), _ptr(ftail),
-            _ptr(consts["ataps"]), _ptr(consts["w2d"]),
-            _ptr(consts["w64_re"]), _ptr(consts["w64_im"]),
-            _ptr(consts["tw_re"]), _ptr(consts["tw_im"]),
+            _ptr(consts["ataps"]), int(fused), _ptr(opt("w2d", fused)),
+            _ptr(opt("w64_re", fused)), _ptr(opt("w64_im", fused)),
+            _ptr(opt("tw_re", fused)), _ptr(opt("tw_im", fused)),
             _ptr(audio), int(p.audio_bf16), _ptr(last_re), _ptr(last_im),
             _ptr(ftail_out), _ptr(psd), _ptr(f_scr), _ptr(psd_part),
             m, c, p.mt, p.ka, p.da, p.quad_gain, p.psd_scale,
@@ -359,14 +411,16 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params):
 
 def kernel2(xw: torch.Tensor, consts: dict[str, torch.Tensor],
             prev_re: torch.Tensor, prev_im: torch.Tensor,
-            ftail: torch.Tensor, p: Kernel2Params):
-    """One fused block: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor.  Returns what :func:`kernel2_reference`
-    returns.  ``kernel2.launches`` counts the CUDA launches."""
+            ftail: torch.Tensor, p: Kernel2Params,
+            phi0: torch.Tensor | None = None):
+    """One block: the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor.  Returns what :func:`kernel2_reference` returns.
+    ``kernel2.launches`` counts the CUDA launches."""
     if xw.device.type == "cuda":
-        return _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p)
+        return _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p, phi0)
     if xw.device.type == "cpu":
-        return kernel2_reference(xw, consts, prev_re, prev_im, ftail, p)
+        return kernel2_reference(xw, consts, prev_re, prev_im, ftail, p,
+                                 phi0)
     raise ValueError(f"kernel2 runs on cuda or cpu, not {xw.device}")
 
 
@@ -374,42 +428,66 @@ kernel2.launches = 0
 
 
 class MatChannelizer2:
-    """Large-block streaming FM receiver on the fused kernel.
+    """Large-block streaming FM receiver on :func:`kernel2`.
 
     The framed input is ONE packed ``[2M, K]`` upload; the carries
     (rotated previous row, audio FIR tail) stay on the device between
-    blocks, and the framing history (K-1 samples) stays on the host.
-    Channel centres are snapped to the block-rate grid ``fs/block_in``
-    before any constant is built (the reference's ``snap_grid=True``),
-    which makes the rotator tables block-invariant device constants.
+    blocks, and the framing history (K-1 samples) and the rotator phase
+    ``_phi`` (float64) stay on the host.  ``snap_grid=True`` (the
+    default here; the reference's is False) snaps the channel centres
+    to the block-rate grid ``fs/block_in`` before any constant is
+    built, which makes the rotator pattern block-invariant: the Q·R
+    tables (``m_tile % 64 == 0``) or the cos/sin tile phases at φ = 0
+    become device constants.  With ``snap_grid=False`` the cos/sin
+    rotator reads the tile phases of ``_phi``, uploaded per block, and
+    ``_phi`` advances by ``θ·block_out`` after each block.
     """
 
     def __init__(self, cfg: MatChannelizer2Config, f0s: np.ndarray,
-                 bw: float, device: str | torch.device | None = None
-                 ) -> None:
+                 bw: float, device: str | torch.device | None = None,
+                 snap_grid: bool = True) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         f0s = np.asarray(f0s, np.float64)
-        grid = cfg.sample_rate / cfg.block_in
-        f0s = np.round(f0s / grid) * grid
+        if snap_grid:
+            grid = cfg.sample_rate / cfg.block_in
+            f0s = np.round(f0s / grid) * grid
         self.f0s = f0s
+        self.snap_grid = bool(snap_grid)
+        # the reference's rule (channelizer2.py:329)
+        self._table_rot = self.snap_grid and cfg.m_tile % 64 == 0
         c = cfg.n_channels
         base = make_mat_constants(_as_v1_cfg(cfg), f0s, bw)
         self._theta64 = np.mod(
             _TWO_PI * np.broadcast_to(f0s, (c,))
             / cfg.sample_rate * cfg.decimation, _TWO_PI)
-        q_tab, r_tab = _rot_tables(cfg, self._theta64, np.zeros(c))
-        host, psd_scale = _psd_frame_constants(cfg)
-        host.update(h_re=base["h_re"], h_im=base["h_im"], q=q_tab, r=r_tab,
+        self._phi = np.zeros((1, c), np.float64)
+        host = dict(h_re=base["h_re"], h_im=base["h_im"],
                     ataps=fir_lowpass(cfg.audio_taps,
                                       min(1.0, 1.0 / cfg.audio_decim)))
+        if self._table_rot:
+            host["q"], host["r"] = _rot_tables(cfg, self._theta64,
+                                               np.zeros(c))
+        else:
+            host["theta"] = base["theta"]
+        psd_scale = 1.0
+        if cfg.fuse_psd:
+            frame, psd_scale = _psd_frame_constants(cfg)
+            host.update(frame)
         self.consts = {k: torch.as_tensor(np.ascontiguousarray(v),
                                           device=self.device)
                        for k, v in host.items()}
+        # snapped cos/sin: the per-block phase advance is ≡ 0 mod 2π, so
+        # the tile phases are one device constant
+        self._phi0_dev = (torch.as_tensor(self._phi_tiles(),
+                                          device=self.device)
+                          if self.snap_grid and not self._table_rot
+                          else None)
         self.params = Kernel2Params(
             mt=cfg.m_tile, ka=cfg.audio_taps, da=cfg.audio_decim,
             quad_gain=cfg.quad_gain, in_gain=cfg.in_gain,
-            audio_bf16=cfg.audio_bf16, psd_scale=psd_scale)
+            audio_bf16=cfg.audio_bf16, psd_scale=psd_scale,
+            table_rot=self._table_rot, fuse_psd=cfg.fuse_psd)
         self._history = np.zeros(cfg.taps - 1, np.complex64)
         self._prev_re = torch.zeros((1, c), device=self.device)
         self._prev_im = torch.zeros((1, c), device=self.device)
@@ -420,26 +498,42 @@ class MatChannelizer2:
         # each kernel call (kernel time per block, read after a sync)
         self.events: list | None = None
 
+    def _phi_tiles(self) -> np.ndarray:
+        return _phi_tiles(self.cfg, self._phi, self._theta64)
+
+    def phi0(self) -> torch.Tensor | None:
+        """The rotator's tile phases for the next block on the device
+        (None with the table rotator)."""
+        if self._table_rot:
+            return None
+        if self._phi0_dev is not None:
+            return self._phi0_dev
+        return torch.from_numpy(self._phi_tiles()).to(self.device)
+
     def feed_async(self, x: np.ndarray) -> torch.Tensor:
         """Frame + launch one block; returns the DEVICE audio tensor."""
         return self.feed_packed(self._frame(x))
 
     def feed_packed(self, xw) -> torch.Tensor:
         """Launch one pre-framed packed ``[2M, K]`` buffer (numpy or
-        tensor); the ``(k1, k2)`` PSD block lands in ``psd_block``."""
+        tensor); with ``fuse_psd`` the ``(k1, k2)`` PSD block lands in
+        ``psd_block``."""
         xw = torch.as_tensor(xw).to(self.device)
+        phi0 = self.phi0()
         if self.events is not None:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
         audio, last_re, last_im, ftail, psd = kernel2(
             xw, self.consts, self._prev_re, self._prev_im, self._ftail,
-            self.params)
+            self.params, phi0)
         if self.events is not None:
             ev[1].record()
             self.events.append(ev)
         self.psd_block = psd
         self._prev_re, self._prev_im, self._ftail = last_re, last_im, ftail
+        if not self.snap_grid:
+            self._phi = self._phi + self._theta64[None, :] * self.cfg.block_out
         return audio
 
     def _frame(self, x: np.ndarray) -> np.ndarray:

@@ -1,5 +1,6 @@
 // Four-step (Bailey) PSD stages shared by the fused FM kernel
-// (channelizer2.cu) and the standalone PSD kernel (psd.cu).
+// (channelizer2.cu), the standalone PSD kernel (psd.cu) and the PSD read
+// from the channelizer's window buffer (psd_xw.cu).
 //
 // An N-point DFT with N = A·B is a DFT_A down the columns of the frame
 // laid out as x[a][b] = x[a·B + b], a twiddle W_N^{k1·b}, and a DFT_B
@@ -12,7 +13,8 @@
 //               |X|² partial [A, B].  W_A^n and W_B^n come from one
 //               table each: W_A^{k·a} = W_A^{(k·a) mod A}.
 //   psd_sum     the partials summed in frame order (deterministic, no
-//               atomics), times the scale.
+//               atomics), times the scale; optionally blended into a
+//               running PSD, prev + α·(new − prev).
 //
 // A and B are powers of two in [16, 128], template parameters, so the
 // index arithmetic is shifts and masks and each shape gets the register
@@ -43,14 +45,16 @@ inline bool psd_shape_ok(int a, int b) {
     return pow2(a) && pow2(b);
 }
 
-// Frame f's element (a, b) is x[f·frame_stride + a·row_stride + b]
-// (real) and the same plus im_off (imaginary).  win [A·B] is null when
-// the frames arrive windowed.
+// Block f reads frame j = f % fb of group g = f / fb: its element (a, b)
+// is x[g·group_stride + j·frame_stride + a·row_stride + b] (real) and
+// the same plus im_off (imaginary); fb = 1 and group_stride =
+// frame_stride read consecutive frames.  win [A·B] is null when the
+// frames arrive windowed.
 template <typename T, int A, int B>
 __global__ void __launch_bounds__(A * B / U)
 psd_frames(const T* __restrict__ x, float in_gain,
            const float* __restrict__ win, size_t frame_stride,
-           size_t row_stride, size_t im_off,
+           size_t row_stride, size_t im_off, int fb, size_t group_stride,
            const float* __restrict__ wa_re, const float* __restrict__ wa_im,
            const float* __restrict__ wb_re, const float* __restrict__ wb_im,
            const float* __restrict__ tw_re, const float* __restrict__ tw_im,
@@ -74,7 +78,7 @@ psd_frames(const T* __restrict__ x, float in_gain,
         br[i] = wb_re[i];
         bi[i] = wb_im[i];
     }
-    const T* xf = x + fr * frame_stride;
+    const T* xf = x + (fr / fb) * group_stride + (fr % fb) * frame_stride;
     for (int i = tid; i < A * B; i += nt) {
         const int a = i / B, b = i % B;
         const size_t off = (size_t)a * row_stride + b;
@@ -135,27 +139,36 @@ psd_frames(const T* __restrict__ x, float in_gain,
         out[(k1_0 + u) * B + col] = accr[u] * accr[u] + acci[u] * acci[u];
 }
 
-// psd[i] = scale · Σ_f part[f][i], frames in order.
+// psd[i] = scale · Σ_f part[f][i], frames in order; with prev, the
+// result is prev[i] + α·(that − prev[i]).
 __global__ void __launch_bounds__(256)
 psd_sum(const float* __restrict__ part, float* __restrict__ psd,
-        int frames, int n, float scale) {
+        int frames, int n, float scale, const float* __restrict__ prev,
+        float alpha) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float acc = 0.0f;
     for (int fr = 0; fr < frames; ++fr) acc += part[(size_t)fr * n + i];
-    psd[i] = acc * scale;
+    float out = acc * scale;
+    if (prev != nullptr) out = prev[i] + alpha * (out - prev[i]);
+    psd[i] = out;
 }
 
-// Launch both stages for F frames of one shape on stream s; returns the
-// error of a refused shared-memory request, else cudaSuccess (launch
-// errors are read by the caller with cudaGetLastError()).
+// Launch both stages for F frames of one shape on stream s (frames in
+// groups of fb, group_stride apart: 0 means consecutive; prev null: no
+// blend); returns the error of a refused shared-memory request, else
+// cudaSuccess (launch errors are read by the caller with
+// cudaGetLastError()).
 template <typename T, int A, int B>
 cudaError_t launch_psd(const T* x, float in_gain, const float* win,
                        size_t frame_stride, size_t row_stride, size_t im_off,
                        const float* wa_re, const float* wa_im,
                        const float* wb_re, const float* wb_im,
                        const float* tw_re, const float* tw_im, float* part,
-                       float* psd, int F, float scale, cudaStream_t s) {
+                       float* psd, int F, float scale, cudaStream_t s,
+                       int fb = 1, size_t group_stride = 0,
+                       const float* prev = nullptr, float alpha = 1.0f) {
+    if (group_stride == 0) group_stride = frame_stride * fb;
     constexpr size_t smem = psd_frames_smem(A, B);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -164,10 +177,11 @@ cudaError_t launch_psd(const T* x, float in_gain, const float* win,
         if (e != cudaSuccess) return e;
     }
     psd_frames<T, A, B><<<F, A * B / U, smem, s>>>(
-        x, in_gain, win, frame_stride, row_stride, im_off, wa_re, wa_im,
-        wb_re, wb_im, tw_re, tw_im, part);
+        x, in_gain, win, frame_stride, row_stride, im_off, fb, group_stride,
+        wa_re, wa_im, wb_re, wb_im, tw_re, tw_im, part);
     constexpr int n = A * B;
-    psd_sum<<<(n + 255) / 256, 256, 0, s>>>(part, psd, F, n, scale);
+    psd_sum<<<(n + 255) / 256, 256, 0, s>>>(part, psd, F, n, scale, prev,
+                                            alpha);
     return cudaSuccess;
 }
 

@@ -1,6 +1,8 @@
-"""Four-step (Bailey) PSD: the standalone PSD kernel, its host class
-and the host-side fold (counterpart of ``sigdigger_tpu/kernels/fft.py``
-``PallasPSDConfig``/``PallasPSD``/``_psd_kernel``).
+"""Four-step (Bailey) PSD: the standalone PSD kernel, the PSD read from
+the channelizer's window buffer, their host classes and the host-side
+fold (counterpart of ``sigdigger_tpu/kernels/fft.py``
+``PallasPSDConfig``/``PallasPSD``/``PallasPSDFromXW`` with
+``_psd_kernel``, ``_psd_kernel_xw`` and ``_psd_kernel_xw_ema``).
 
 An N-point FFT with N = A·B is a DFT_A over rows, a twiddle
 ``W_N^{k1·b}`` and a DFT_B over columns; a PSD kernel returns the
@@ -9,13 +11,15 @@ natural order and folds it into a running EMA (:class:`PSDFold`).
 
 :func:`psd_kernel` launches the hand-written kernel in ``csrc/psd.cu``
 on a CUDA tensor and runs :func:`psd_kernel_reference`, the plain
-PyTorch version, on a CPU tensor.  :class:`PSD` frames and windows a
+PyTorch version, on a CPU tensor; :class:`PSD` frames and windows a
 block on the host (``native.frame_psd_packed``), uploads it once and
-launches the kernel; the digital receiver modes use it.  In the fused
-FM receiver the PSD comes out of the channelizer kernel instead
-(``channelizer2.kernel2``).  The PSD read straight from the
-channelizer's window buffer (``_psd_kernel_xw`` and its ``_ema``
-variant) is not ported yet.
+launches it.  :func:`psd_xw_kernel` and :func:`psd_xw_ema_kernel`
+(``csrc/psd_xw.cu``, plain version :func:`psd_xw_kernel_reference`)
+read the frames straight from the channelizer's packed ``[2M, 64]``
+upload and window them in the kernel; :class:`PSDFromXW` drives them,
+the second one folding the EMA on the device.  In the fused FM
+receiver the PSD comes out of the channelizer kernel instead
+(``channelizer2.kernel2``).
 """
 
 from __future__ import annotations
@@ -142,6 +146,13 @@ def psd_kernel_reference(xp: torch.Tensor, consts: dict[str, torch.Tensor],
         xi = xi.float() * p.in_gain
     xr = xr.reshape(a, f, b).permute(1, 0, 2)    # [F, A, B]
     xi = xi.reshape(a, f, b).permute(1, 0, 2)
+    return _frames_power(xr, xi, consts).sum(0) * p.scale
+
+
+def _frames_power(xr: torch.Tensor, xi: torch.Tensor,
+                  consts: dict[str, torch.Tensor]) -> torch.Tensor:
+    """|X|² ``[F, A, B]`` in ``(k1, k2)`` order of the frames ``[F, A,
+    B]`` (element (a, b) is sample a·B + b): DFT_A, twiddle, DFT_B."""
     da_re, da_im = consts["da_re"], consts["da_im"]
     s1r = da_re @ xr - da_im @ xi
     s1i = da_re @ xi + da_im @ xr
@@ -151,14 +162,14 @@ def psd_kernel_reference(xp: torch.Tensor, consts: dict[str, torch.Tensor],
     db_re, db_im = consts["db_re"], consts["db_im"]
     s3r = s2r @ db_re - s2i @ db_im
     s3i = s2r @ db_im + s2i @ db_re
-    return (s3r * s3r + s3i * s3i).sum(0) * p.scale
+    return s3r * s3r + s3i * s3i
 
 
 _IN_KIND = {torch.float32: 0, torch.int16: 1}
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def psd_shape_supported(a: int, b: int) -> bool:
@@ -290,3 +301,227 @@ class PSD(PSDFold):
 
     def feed(self, x: np.ndarray) -> np.ndarray:
         return self.fold(self.feed_async(x).cpu().numpy())
+
+
+@dataclass(frozen=True)
+class PSDXWParams:
+    """Scalars of one :func:`psd_xw_kernel` geometry."""
+
+    a: int
+    b: int               # == the channelizer's taps per window
+    fb: int              # frames per group (the capped frames_per_program)
+    stride: int          # every stride-th group of fb frames is read
+    scale: float         # 1/(fs·Σw²·(F // stride))
+
+
+def psd_xw_frames(f: int, p: PSDXWParams) -> list[int]:
+    """The frames a block of ``f`` reads: group i is frames
+    ``[i·stride·fb, i·stride·fb + fb)`` for i < F // fb // stride
+    (``fft.py:405, 419-423``)."""
+    n_groups = f // p.fb // p.stride
+    return [i * p.stride * p.fb + j for i in range(n_groups)
+            for j in range(p.fb)]
+
+
+def psd_xw_kernel_reference(xw: torch.Tensor,
+                            consts: dict[str, torch.Tensor],
+                            p: PSDXWParams, prev: torch.Tensor | None = None,
+                            alpha: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of ``_psd_kernel_xw`` (``prev`` None) and
+    ``_psd_kernel_xw_ema`` for one block.
+
+    xw: the channelizer's packed ``[2M, B]`` float32/int16/int8 upload;
+    frame f is rows ``[f·A, (f+1)·A)`` of each plane.  Each value is
+    taken as float32 and multiplied by ``w2d`` (the window with the
+    dequantization gain folded in).  Returns the mean PSD ``[A, B]`` in
+    ``(k1, k2)`` order, blended as ``prev + α·(new − prev)`` when
+    ``prev`` is given."""
+    a, b = p.a, p.b
+    m = xw.shape[0] // 2
+    f = m // a
+    kept = torch.tensor(psd_xw_frames(f, p), device=xw.device)
+    w2d = consts["w2d"]
+    xr = xw[:m].reshape(f, a, b)[kept].float() * w2d
+    xi = xw[m:].reshape(f, a, b)[kept].float() * w2d
+    out = _frames_power(xr, xi, consts).sum(0) * p.scale
+    if prev is None:
+        return out
+    alpha32 = torch.tensor(alpha, dtype=torch.float32, device=xw.device)
+    return prev + alpha32 * (out - prev)
+
+
+_XW_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
+
+
+def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
+                 p: PSDXWParams, prev: torch.Tensor | None,
+                 alpha: float) -> torch.Tensor:
+    from sigdigger_tpu_torch.kernels._build import load_library
+
+    a, b = p.a, p.b
+    dev = xw.device
+    if (xw.dtype not in _XW_KIND or xw.dim() != 2 or xw.shape[1] != 64
+            or b != 64 or xw.shape[0] % (2 * a) or xw.shape[0] == 0
+            or not xw.is_contiguous()):
+        raise ValueError(f"psd_xw xw must be a contiguous [2M, 64] "
+                         f"float32/int16/int8 upload with A | M, got "
+                         f"{tuple(xw.shape)} {xw.dtype}, A={a}, B={b}")
+    m = xw.shape[0] // 2
+    f = m // a
+    if a not in (16, 32, 64, 128) or p.fb < 1 or p.stride < 1 \
+            or f % (p.fb * p.stride):
+        raise ValueError(f"psd_xw takes A in 16..128 and F % (fb·stride) "
+                         f"== 0, got A={a}, F={f}, fb={p.fb}, "
+                         f"stride={p.stride}")
+    shapes = {"w2d": (a, b), "wa_re": (a,), "wa_im": (a,), "wb_re": (b,),
+              "wb_im": (b,), "tw_re": (a, b), "tw_im": (a, b)}
+    tensors = {k: consts[k] for k in shapes}
+    if prev is not None:
+        shapes["prev"], tensors["prev"] = (a, b), prev
+    for name, shape in shapes.items():
+        t = tensors[name]
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(
+                f"psd_xw {name}: want contiguous float32 {shape} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = load_library("psd_xw")
+    kept = f // p.stride
+    psd = torch.empty((a, b), device=dev)
+    part = torch.empty((kept, a, b), device=dev)
+    with torch.cuda.device(dev):
+        err = lib.sd_psd_xw(
+            _ptr(xw), _XW_KIND[xw.dtype], _ptr(consts["w2d"]),
+            _ptr(consts["wa_re"]), _ptr(consts["wa_im"]),
+            _ptr(consts["wb_re"]), _ptr(consts["wb_im"]),
+            _ptr(consts["tw_re"]), _ptr(consts["tw_im"]),
+            int(prev is not None), _ptr(prev), alpha, _ptr(psd), _ptr(part),
+            m, a, b, p.fb, p.stride, p.scale,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sd_psd_xw launch failed: CUDA error {err}")
+    return psd
+
+
+def psd_xw_kernel(xw: torch.Tensor, consts: dict[str, torch.Tensor],
+                  p: PSDXWParams) -> torch.Tensor:
+    """One block's mean PSD ``[A, B]`` read from the channelizer's
+    packed upload: the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor.  ``psd_xw_kernel.launches`` counts the CUDA
+    launches."""
+    if xw.device.type == "cuda":
+        out = _psd_xw_cuda(xw, consts, p, None, 1.0)
+        psd_xw_kernel.launches += 1
+        return out
+    if xw.device.type == "cpu":
+        return psd_xw_kernel_reference(xw, consts, p)
+    raise ValueError(f"psd_xw_kernel runs on cuda or cpu, not {xw.device}")
+
+
+def psd_xw_ema_kernel(xw: torch.Tensor, consts: dict[str, torch.Tensor],
+                      p: PSDXWParams, prev: torch.Tensor,
+                      alpha: float) -> torch.Tensor:
+    """:func:`psd_xw_kernel` blended into ``prev`` on the device, ``prev
+    + α·(new − prev)``.  ``psd_xw_ema_kernel.launches`` counts the CUDA
+    launches."""
+    if xw.device.type == "cuda":
+        out = _psd_xw_cuda(xw, consts, p, prev, alpha)
+        psd_xw_ema_kernel.launches += 1
+        return out
+    if xw.device.type == "cpu":
+        return psd_xw_kernel_reference(xw, consts, p, prev, alpha)
+    raise ValueError(f"psd_xw_ema_kernel runs on cuda or cpu, not "
+                     f"{xw.device}")
+
+
+psd_xw_kernel.launches = 0
+psd_xw_ema_kernel.launches = 0
+
+
+class PSDFromXW(PSD):
+    """PSD read from the channelizer's packed window upload
+    (counterpart of ``PallasPSDFromXW``).
+
+    Needs ``cfg.b`` == the channelizer's taps == its decimation (frame f
+    of the PSD is rows ``[f·A, (f+1)·A)`` of each plane of the ``[2M,
+    B]`` buffer), so per block one upload serves both kernels.  The
+    frames lag the raw block by the channelizer's K-1 history samples,
+    a constant shift that a PSD does not see.  ``in_scale`` is the
+    dequantization gain of an integer upload, folded into the window;
+    ``frame_stride=s`` reads every s-th group of ``frames_per_program``
+    frames.  ``feed`` folds on the host; ``feed_ema`` folds on the
+    device and :meth:`shifted` reads that carry.
+    """
+
+    def __init__(self, cfg: PSDConfig, m_rows: int, sample_rate: float,
+                 window: WindowFunction = WindowFunction.BLACKMANN_HARRIS,
+                 alpha: float = 0.25, in_scale: float = 1.0,
+                 frame_stride: int = 1,
+                 device: str | torch.device | None = None) -> None:
+        super().__init__(cfg, sample_rate, window, alpha, device=device)
+        a, b = cfg.a, cfg.b
+        fb = cfg.frames_per_program
+        if m_rows * b != cfg.block_in:
+            raise ValueError(f"xw rows x taps ({m_rows} x {b}) must equal "
+                             f"the PSD block ({cfg.block_in})")
+        # the reference's cap of its block-diagonal DFT_A, with the EMA
+        # weight recomputed from the capped batch (fft.py:364-372; not
+        # PSD's rule)
+        if fb > 8:
+            fb = max(d for d in range(1, 9)
+                     if cfg.frames_per_block % d == 0)
+            cfg = PSDConfig(fft_size=cfg.fft_size,
+                            frames_per_block=cfg.frames_per_block,
+                            frames_per_program=fb, a=cfg.a)
+            self.cfg = cfg
+            self.alpha_block = 1.0 - (1.0 - alpha) ** fb
+        s = max(1, int(frame_stride))
+        if cfg.frames_per_block % (fb * s):
+            raise ValueError(
+                f"frames_per_block {cfg.frames_per_block} not divisible "
+                f"by frames_per_program*stride = {fb}*{s}")
+        self.frame_stride = s
+        wsum2 = float(np.sum(self._taps ** 2))
+        scale = 1.0 / (self.sample_rate * wsum2
+                       * (cfg.frames_per_block // s))
+        w2d = (self._taps.astype(np.float32).reshape(a, b)
+               * np.float32(in_scale))
+        self.consts["w2d"] = torch.as_tensor(w2d, device=self.device)
+        self.xw_params = PSDXWParams(a=a, b=b, fb=fb, stride=s, scale=scale)
+        self._psd_dev = None             # device-resident EMA carry
+
+    def feed_async(self, xw) -> torch.Tensor:
+        """xw: the channelizer's packed ``[2M, K]`` buffer (numpy or
+        tensor; a device tensor adds no upload).  Returns the DEVICE
+        ``(k1, k2)`` PSD block; fold fetched blocks in order."""
+        xw = torch.as_tensor(xw).to(self.device)
+        return psd_xw_kernel(xw, self.consts, self.xw_params)
+
+    def feed(self, xw) -> np.ndarray:
+        return self.fold(self.feed_async(xw).cpu().numpy())
+
+    def feed_ema(self, xw) -> None:
+        """Launch and fold on the device; nothing crosses to the host.
+        Read the folded PSD with :meth:`shifted`."""
+        xw = torch.as_tensor(xw).to(self.device)
+        if self._psd_dev is None or self._count == 0:
+            prev = torch.zeros((self.cfg.a, self.cfg.b), device=self.device)
+            alpha = 1.0                   # first block: copy-in
+        else:
+            prev, alpha = self._psd_dev, self.alpha_block
+        self._psd_dev = psd_xw_ema_kernel(xw, self.consts, self.xw_params,
+                                          prev, alpha)
+        self._count += 1
+
+    def _host_psd(self) -> np.ndarray:
+        if self._psd_dev is not None:
+            self.psd = self.unpermute(
+                self._psd_dev.cpu().numpy()).astype(np.float64)
+        return self.psd
+
+    def shifted(self) -> np.ndarray:
+        return np.fft.fftshift(self._host_psd()).astype(np.float32)
+
+    def reset(self) -> None:
+        super().reset()
+        self._psd_dev = None

@@ -2,19 +2,20 @@
 ``sigdigger_tpu/receiver.py``).
 
 A signal source feeds fixed blocks.  In FM mode the host frames each
-block into one packed window buffer, uploads it once, and one call of
-the fused kernel (``kernels/channelizer2.kernel2``) channelizes,
-FM-demodulates and decimates every channel and computes the block's
-PSD.  In the digital modes (``psk``/``fsk``/``ask``) three kernels run
-per block: the standalone PSD (``kernels/fft.psd_kernel``), the raw
-bank (``kernels/rawbank.raw_kernel``) and the recovery bank
+block into one packed window buffer and uploads it once; one call of
+the FM channelizer kernel (``kernels/channelizer2.kernel2``)
+channelizes, FM-demodulates and decimates every channel.  The PSD comes
+out of the same call on the fused geometry (snapped grid, decimation
+64, ``psd_fft`` 4096, ``m_tile % 256 == 0``); otherwise it is read from
+the same upload by ``kernels/fft.psd_xw_kernel`` when its frames are
+the upload's rows (decimation 64, ``psd_fft`` 2048 or 4096), and
+computed from the raw IQ by ``kernels/fft.psd_kernel`` when they are
+not.  In the digital modes (``psk``/``fsk``/``ask``) three kernels run
+per block: the standalone PSD, the raw bank
+(``kernels/rawbank.raw_kernel``) and the recovery bank
 (``kernels/recovery.recovery_kernel``), whose input planes never leave
 the device.  The host fetches the audio or the symbols and strobes,
 and folds the PSD into a running EMA.
-
-FM runs only on the fused geometry; its unfused geometries raise
-``NotImplementedError`` naming the ROADMAP.md entry that will port
-them.
 """
 
 from __future__ import annotations
@@ -28,11 +29,10 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.kernels.channelizer2 import (
-    UNSUPPORTED,
     MatChannelizer2,
     MatChannelizer2Config,
 )
-from sigdigger_tpu_torch.kernels.fft import PSD, PSDConfig, PSDFold
+from sigdigger_tpu_torch.kernels.fft import PSD, PSDConfig, PSDFold, PSDFromXW
 from sigdigger_tpu_torch.kernels.rawbank import RawBank, RawBankConfig
 from sigdigger_tpu_torch.kernels.recovery import (
     KIND_ASK,
@@ -67,9 +67,12 @@ class ReceiverBlock:
 class KernelReceiver:
     """Multi-channel receiver on the port's CUDA kernels.
 
-    mode: ``"fm"`` (fused channelize + demod + audio + PSD) or
-    ``"psk"``/``"fsk"``/``"ask"`` (PSD, raw bank, then the recovery
-    bank at ``baud`` symbols/s, ``psk_order`` for psk).  Runs on
+    mode: ``"fm"`` (channelize + demod + audio, with the PSD fused or
+    beside it) or ``"psk"``/``"fsk"``/``"ask"`` (PSD, raw bank, then the
+    recovery bank at ``baud`` symbols/s, ``psk_order`` for psk).
+    ``snap_grid`` snaps the FM channel centres to the block-rate grid
+    (table rotator); ``snap_grid=False`` keeps them and carries the
+    rotator phase across blocks (cos/sin rotator).  Runs on
     ``cuda`` unless ``device`` says otherwise; ``device="cpu"`` runs the
     kernels' plain PyTorch versions.
     """
@@ -94,8 +97,6 @@ class KernelReceiver:
     ) -> None:
         if mode != "fm" and mode not in _KINDS:
             raise ValueError(f"mode must be fm, psk, fsk or ask, not {mode!r}")
-        if mode == "fm" and not snap_grid:
-            raise NotImplementedError(UNSUPPORTED)
         self.device = resolve_device(device)
         f0s = np.asarray(f0s, np.float64)
         n_channels = len(f0s)
@@ -105,19 +106,38 @@ class KernelReceiver:
         psd_cfg = PSDConfig(fft_size=psd_fft, frames_per_block=frames,
                             frames_per_program=min(8, frames))
         if mode == "fm":
-            # the fused geometry: the four-step PSD rides the
-            # channelizer's call (the reference's receiver.py:94-96
-            # rule; the config refuses any other geometry)
+            # the reference's receiver.py:94-107 and 146-169: the PSD is
+            # fused on the Bailey geometry, read from the channelizer's
+            # upload when its rows are the PSD's frames (B == taps ==
+            # decimation), and a kernel of its own on the raw IQ else
+            m_tile = min(2048, block_out)
+            fuse = (snap_grid and psd_fft == 4096 and decimation == 64
+                    and m_tile % 256 == 0)
             self.cfg = MatChannelizer2Config(
                 sample_rate=float(sample_rate), n_channels=n_channels,
                 taps=64, decimation=decimation, audio_taps=64,
                 audio_decim=audio_decim, block_out=block_out,
-                m_tile=min(2048, block_out), in_i16=in_i16, in_i8=in_i8,
-                audio_bf16=audio_bf16, psd_fft=psd_fft,
+                m_tile=m_tile, in_i16=in_i16, in_i8=in_i8,
+                audio_bf16=audio_bf16, fuse_psd=fuse, psd_fft=psd_fft,
             )
             self._chan = MatChannelizer2(self.cfg, f0s, bw,
-                                         device=self.device)
-            self._psd = PSDFold(psd_cfg)
+                                         device=self.device,
+                                         snap_grid=snap_grid)
+            self._shared_psd = psd_cfg.b == 64 and decimation == 64
+            if fuse:
+                self._psd = PSDFold(psd_cfg)
+            elif self._shared_psd:
+                in_scale = (1.0 / self.cfg.i8_scale if in_i8
+                            else 1.0 / self.cfg.i16_scale if in_i16
+                            else 1.0)
+                self._psd = PSDFromXW(
+                    psd_cfg, block_out, float(sample_rate),
+                    WindowFunction.BLACKMANN_HARRIS, in_scale=in_scale,
+                    device=self.device)
+            else:
+                self._psd = PSD(psd_cfg, float(sample_rate),
+                                WindowFunction.BLACKMANN_HARRIS,
+                                device=self.device)
             return
         # digital modes: the raw bank's planes chain into the recovery
         # bank on the device; the PSD is its own kernel on the raw IQ
@@ -165,8 +185,16 @@ class KernelReceiver:
         :meth:`drain`; handles MUST be drained in feed order (the PSD
         EMA fold is sequential)."""
         if self.mode == "fm":
-            audio = self._chan.feed_async(x)
-            return (self._chan.psd_block, audio)
+            if self.cfg.fuse_psd:
+                # one upload, one launch: the PSD block comes out of the
+                # channelizer's own call
+                audio = self._chan.feed_async(x)
+                return (self._chan.psd_block, audio)
+            if self._shared_psd:
+                # one upload, two kernels
+                xw = torch.from_numpy(self._chan._frame(x)).to(self.device)
+                return (self._psd.feed_async(xw), self._chan.feed_packed(xw))
+            return (self._psd.feed_async(x), self._chan.feed_async(x))
         psd_h = self._psd.feed_async(x)
         # device-resident chaining: the raw planes never visit the host
         y_re, y_im = self._raw.feed_frames(*self._raw.frame(x), fetch=False)
@@ -214,6 +242,8 @@ class KernelReceiver:
                        prev_re=ch._prev_re.cpu().numpy(),
                        prev_im=ch._prev_im.cpu().numpy(),
                        ftail=ch._ftail.cpu().numpy())
+            if not ch.snap_grid:
+                out["phi"] = ch._phi.copy()
         else:
             st = self._rec.state
             out.update(history=self._raw._history.copy(),
@@ -225,6 +255,7 @@ class KernelReceiver:
     def load_state(self, d: dict) -> None:
         """Restore :meth:`state_dict` output (or the same values read
         off a reference receiver: its channelizer's carries in FM mode,
+        with its rotator phase ``_phi`` when the grid is not snapped,
         its raw bank's ``_history``/``_phi`` and recovery ``state`` in
         the digital modes)."""
         c = self.cfg.n_channels
@@ -249,3 +280,5 @@ class KernelReceiver:
         ch._prev_re = dev("prev_re", (1, c))
         ch._prev_im = dev("prev_im", (1, c))
         ch._ftail = dev("ftail", (ch.cfg.audio_taps - 1, c))
+        if not ch.snap_grid:
+            ch._phi = np.asarray(d["phi"], np.float64).reshape(1, c).copy()

@@ -28,7 +28,11 @@ from sigdigger_tpu.dsp.pll import loop_gains as ref_loop_gains
 from sigdigger_tpu.kernels.audio import (
     _lowpass_columns as ref_lowpass_columns,
 )
-from sigdigger_tpu.kernels.fft import PallasPSD, PallasPSDConfig
+from sigdigger_tpu.kernels.fft import (
+    PallasPSD,
+    PallasPSDConfig,
+    PallasPSDFromXW,
+)
 from sigdigger_tpu.kernels.fft import _dft_matrix as ref_dft_matrix
 from sigdigger_tpu.kernels.rawbank import RawBank as RefRawBank
 from sigdigger_tpu.kernels.rawbank import RawBankConfig as RefRawBankConfig
@@ -56,6 +60,7 @@ from sigdigger_tpu_torch.kernels.channelizer2 import (
 from sigdigger_tpu_torch.kernels.fft import (
     PSD,
     PSDConfig,
+    PSDFromXW,
     _dft_matrix,
     psd_constants,
 )
@@ -351,3 +356,67 @@ def test_recovery_rows_and_initial_state():
             name
     assert np.array_equal(ours._mf, np.asarray(ref.consts["mf"]))
     assert np.array_equal(ours.state, ref.state)
+
+
+def test_make_mat_constants_v1_geometry():
+    """The v1 kernel's constants (``bt``, the global banded audio matrix
+    [Ma, M], among them) at the reference tests' small geometry, where
+    taps, decimation and audio taps differ from the v2 ones."""
+    kw = dict(sample_rate=256_000.0, n_channels=8, taps=32, decimation=8,
+              audio_taps=16, audio_decim=4, block_out=256)
+    f0s = np.linspace(-100e3, 90e3, 8)
+    ours = make_mat_constants(MatChannelizerConfig(**kw), f0s, 8e3)
+    ref = ref_make_mat_constants(RefV1Config(**kw, channel_tile=8), f0s, 8e3)
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        assert np.array_equal(ours[k], ref[k]), k
+    assert ours["bt"].shape == (64, 256)
+
+
+@pytest.mark.parametrize("n,in_scale", [(4096, 1.0), (4096, 1 / 4096.0),
+                                        (2048, 1 / 64.0)])
+def test_xw_psd_constants(n, in_scale):
+    """The xw PSD's window with the dequantization gain folded in
+    (taps as float32 times float32(in_scale)), and its DFT tables, are
+    the reference's first frame block."""
+    frames = 16
+    m = n * frames // 64
+    ref = PallasPSDFromXW(PallasPSDConfig(fft_size=n, frames_per_block=frames,
+                                          frames_per_program=4),
+                          m, 102.4e6, RefWindow.BLACKMANN_HARRIS,
+                          interpret=True, in_scale=in_scale)
+    ours = PSDFromXW(PSDConfig(fft_size=n, frames_per_block=frames,
+                               frames_per_program=4),
+                     m, 102.4e6, in_scale=in_scale, device="cpu")
+    a = n // 64
+    w2d, bd_re, bd_im, tw_re, tw_im, db_re, db_im, _ = (
+        np.asarray(v) for v in ref._const)
+    assert np.array_equal(ours.consts["w2d"].numpy(), w2d[:a])
+    assert np.array_equal(np.tile(ours.consts["w2d"].numpy(), (4, 1)), w2d)
+    for key, want in (("da_re", bd_re[:a, :a]), ("da_im", bd_im[:a, :a]),
+                      ("tw_re", tw_re[:a]), ("tw_im", tw_im[:a]),
+                      ("db_re", db_re), ("db_im", db_im),
+                      ("wa_re", bd_re[1, :a]), ("wb_re", db_re[1])):
+        assert np.array_equal(ours.consts[key].numpy(), want), key
+    assert ours.xw_params.scale == ref._xw_dims[3]
+
+
+@pytest.mark.parametrize("m_tile", [2048, 96])
+def test_phi_tiles(m_tile):
+    """The cos/sin rotator's tile phases: the reference's rows (8 apart,
+    zero padding between them), from float64 ``_phi`` and θ."""
+    fs, f0s, _, _, bw = GEOMETRIES["bench"]
+    block_out = 8192 if m_tile == 2048 else 480
+    kw = dict(_v2_kwargs("bench"), block_out=block_out, m_tile=m_tile)
+    ref = RefChan2(RefChan2Config(**kw, channel_tile=128), f0s, bw,
+                   interpret=True, snap_grid=False)
+    ours = MatChannelizer2(MatChannelizer2Config(**kw, fuse_psd=False),
+                           f0s, bw, device="cpu", snap_grid=False)
+    assert np.array_equal(ours.consts["theta"].numpy(),
+                          np.asarray(ref.consts["theta"]))
+    for blocks in (0, 1, 1000):
+        ours._phi = ref._phi = blocks * ref._theta64[None, :] * block_out
+        want = ref._phi_tiles()
+        assert np.array_equal(ours._phi_tiles(), want[::8])
+        assert not want[np.arange(len(want)) % 8 != 0].any()
+        assert np.array_equal(ours.phi0().numpy(), want[::8])

@@ -1,5 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch versions,
-on the card: the fused FM channelizer, the standalone PSD, the raw bank
+on the card: the FM channelizer v2 (fused table form, unfused table and
+cos/sin forms), the v1 channelizer, the standalone PSD, the PSD read
+from the window buffer (with and without the device EMA), the raw bank
 and the recovery bank.  Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
 
@@ -14,12 +16,14 @@ when |d| > 1e-4 (+ one bf16 step, 2^-7 of the value, for bf16 audio),
 FIR tail elements (unfiltered discriminator output, noisier on
 noise-only channels) when |d| > 1e-3; at most 1e-4 of them, and never
 fewer than 2, may disagree: where the discriminator's phase step sits
-at ±π the summation order picks the branch of atan2.  PSD: every bin
-1e-4 of itself.  Raw bank: planes 1e-5 of the largest value (float32
-summation order; the phase rounds the same way on both sides), power
-1e-5 of itself.  Recovery: the tolerance scheme of
-``test_torch_recovery.py`` (2e-3 up to the first strobe that differs,
-then the strobe count within ±1); the kernel repeats the plain
+at ±π the summation order picks the branch of atan2.  The cos/sin
+rotator rounds its phase once on both sides (an FMA in the kernel, the
+exact float64 value in the plain version), so it takes the same
+tolerances.  PSD: every bin 1e-4 of itself.  Raw bank: planes 1e-5 of
+the largest value (float32 summation order; the phase rounds the same
+way on both sides), power 1e-5 of itself.  Recovery: the tolerance
+scheme of ``test_torch_recovery.py`` (2e-3 up to the first strobe that
+differs, then the strobe count within ±1); the kernel repeats the plain
 version's operations one by one, so the two usually agree bit for bit.
 """
 
@@ -30,6 +34,8 @@ import pytest
 import torch
 
 from sigdigger_tpu_torch import KernelReceiver
+from sigdigger_tpu_torch.kernels import _build
+from sigdigger_tpu_torch.kernels import channelizer as ch1
 from sigdigger_tpu_torch.kernels import channelizer2 as ch2
 from sigdigger_tpu_torch.kernels import fft, rawbank, recovery
 
@@ -299,3 +305,206 @@ def test_new_kernels_refuse_bad_inputs(cuda):
         recovery.recovery_kernel(y.t().contiguous().t(), y, state,
                                  rec.consts["params"], rec.consts["mf"],
                                  rec.params)
+
+
+# -- the FM receiver at every geometry ---------------------------------
+# (snap_grid, block_out, m_tile): live phase (cos/sin), snapped tables
+# unfused, and snapped cos/sin (m_tile % 64 != 0) over a block that is
+# not a multiple of 64 rows
+UNFUSED = {"live256": (False, 512, 256), "live192": (False, 384, 192),
+           "snap128": (True, 512, 128), "snap96_ragged": (True, 480, 96),
+           "live96_ragged": (False, 480, 96),
+           # shorter than the audio FIR's tail (tail_shift)
+           "live32_short": (False, 32, 32)}
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(in_i16=True, audio_bf16=True),
+                                dict(in_i8=True)],
+                         ids=["f32", "i16_bf16", "i8"])
+@pytest.mark.parametrize("geom", list(UNFUSED))
+def test_unfused_kernel_matches_plain_version(cuda, geom, kw):
+    snap, block_out, m_tile = UNFUSED[geom]
+    cfg = ch2.MatChannelizer2Config(
+        sample_rate=FS, n_channels=72, taps=64, decimation=64,
+        audio_taps=64, audio_decim=8, block_out=block_out, m_tile=m_tile,
+        fuse_psd=False, **kw)
+    chan = ch2.MatChannelizer2(cfg, np.linspace(-900e3, 900e3, 72) + 321.0,
+                               50e3, device=cuda, snap_grid=snap)
+    assert chan._table_rot == (snap and m_tile % 64 == 0)
+    x = _signal(chan.f0s, 3 * cfg.block_in, seed=block_out)
+    ck = cp = (chan._prev_re, chan._prev_im, chan._ftail)
+    before = ch2.kernel2.launches
+    for b in range(3):
+        xw = torch.from_numpy(chan._frame(
+            x[b * cfg.block_in:(b + 1) * cfg.block_in])).to(cuda)
+        phi0 = chan.phi0()
+        ok = ch2.kernel2(xw, chan.consts, *ck, chan.params, phi0)
+        op = ch2.kernel2_reference(xw, chan.consts, *cp, chan.params, phi0)
+        torch.cuda.synchronize()
+        assert ok[4] is None and op[4] is None
+        ck, cp = ok[1:4], op[1:4]
+        assert ok[0].dtype == op[0].dtype and ok[0].shape == op[0].shape
+        assert _agrees(ok[0], op[0], 1e-4, cfg.audio_bf16)
+        assert _agrees(ok[3], op[3], 1e-3)
+        pr = torch.cat([op[1], op[2]])
+        assert (torch.cat([ok[1], ok[2]]) - pr).abs().max() <= \
+            1e-4 * pr.abs().max()
+        if not snap:
+            chan._phi = chan._phi + chan._theta64[None, :] * block_out
+    assert ch2.kernel2.launches == before + 3
+
+
+def test_kernel2_refuses_excluded_geometries(cuda):
+    cfg = ch2.MatChannelizer2Config(
+        sample_rate=FS, n_channels=8, taps=64, decimation=64, audio_taps=64,
+        audio_decim=8, block_out=512, m_tile=128, fuse_psd=False)
+    tab = ch2.MatChannelizer2(cfg, np.linspace(-8e5, 7e5, 8), 1e5,
+                              device=cuda)
+    live = ch2.MatChannelizer2(cfg, np.linspace(-8e5, 7e5, 8), 1e5,
+                               device=cuda, snap_grid=False)
+    xw = torch.zeros((1024, 64), dtype=torch.int16, device=cuda)
+    carries = (tab._prev_re, tab._prev_im, tab._ftail)
+    bad = [(live, dict(mt=96)),            # M % mt
+           (live, dict(da=6)),             # mt % da
+           (tab, dict(mt=32))]             # tables need mt % 64
+    for chan, change in bad:
+        p = ch2.Kernel2Params(**dict(vars(chan.params), **change))
+        phi0 = None if p.table_rot else torch.zeros((1, 8), device=cuda)
+        with pytest.raises(ValueError):
+            ch2.kernel2(xw, chan.consts, *carries, p, phi0)
+    # the C entry refuses them by itself, before any launch
+    lib = _build.load_library("channelizer2")
+    null = ch2._ptr(None)
+    for m, mt, da, table in ((512, 96, 8, 0), (512, 128, 6, 0),
+                             (512, 32, 8, 1), (0, 64, 8, 0)):
+        err = lib.sd_kernel2(null, 1, 1.0, null, null, table, null, null,
+                             null, null, null, null, null, null, 0, null,
+                             null, null, null, null, null, 0, null, null,
+                             null, null, null, null, m, 8, mt, 64, da, 1.0,
+                             1.0, null)
+        assert err != 0, (m, mt, da, table)
+
+
+@pytest.mark.parametrize("kind", ["f32", "i16", "i8"])
+@pytest.mark.parametrize("n,stride,fpp", [(4096, 1, 8), (2048, 4, 2),
+                                          (4096, 4, 16), (2048, 1, 8)])
+def test_psd_xw_matches_plain_version(cuda, n, stride, fpp, kind):
+    m = 2048
+    frames = m * 64 // n
+    scale = {"f32": 1.0, "i16": 4096.0, "i8": 64.0}[kind]
+    psd = fft.PSDFromXW(fft.PSDConfig(fft_size=n, frames_per_block=frames,
+                                      frames_per_program=fpp),
+                        m, FS, in_scale=1.0 / scale, frame_stride=stride,
+                        device=cuda)
+    x = _signal(np.array([2e5, -3e5, 7e5]), 3 * m * 64 + 63, seed=n + fpp)
+    framer = {"f32": lambda e: ch2.frame_windows_packed(e, m, 64, 64),
+              "i16": lambda e: ch2.frame_windows_packed_i16(e, m, 64, 64,
+                                                            scale),
+              "i8": lambda e: ch2.frame_windows_packed_i8(e, m, 64, 64,
+                                                          scale)}[kind]
+    prev_k = prev_p = torch.zeros((psd.cfg.a, 64), device=cuda)
+    before = (fft.psd_xw_kernel.launches, fft.psd_xw_ema_kernel.launches)
+    for b in range(3):
+        xw = torch.from_numpy(framer(x[b * m * 64:(b + 1) * m * 64 + 63])
+                              ).to(cuda)
+        got = fft.psd_xw_kernel(xw, psd.consts, psd.xw_params)
+        want = fft.psd_xw_kernel_reference(xw, psd.consts, psd.xw_params)
+        alpha = 1.0 if b == 0 else psd.alpha_block
+        prev_k = fft.psd_xw_ema_kernel(xw, psd.consts, psd.xw_params, prev_k,
+                                       alpha)
+        prev_p = fft.psd_xw_kernel_reference(xw, psd.consts, psd.xw_params,
+                                             prev_p, alpha)
+        torch.cuda.synchronize()
+        assert bool(((got - want).abs() <= 1e-4 * want.abs()).all())
+        assert bool(((prev_k - prev_p).abs() <= 1e-4 * prev_p.abs()).all())
+    assert (fft.psd_xw_kernel.launches, fft.psd_xw_ema_kernel.launches) == \
+        (before[0] + 3, before[1] + 3)
+
+
+def test_psd_xw_refuses_bad_inputs(cuda):
+    psd = fft.PSDFromXW(fft.PSDConfig(fft_size=4096, frames_per_block=32),
+                        2048, FS, device=cuda)
+    p = psd.xw_params
+    with pytest.raises(ValueError):        # float64 upload
+        fft.psd_xw_kernel(torch.zeros((4096, 64), dtype=torch.float64,
+                                      device=cuda), psd.consts, p)
+    with pytest.raises(ValueError):        # rows not 64 wide
+        fft.psd_xw_kernel(torch.zeros((4096, 32), device=cuda), psd.consts,
+                          p)
+    with pytest.raises(ValueError):        # F % (fb·stride)
+        fft.psd_xw_kernel(torch.zeros((4096, 64), device=cuda), psd.consts,
+                          fft.PSDXWParams(a=64, b=64, fb=8, stride=3,
+                                          scale=1.0))
+    with pytest.raises(ValueError):        # prev of the wrong shape
+        fft.psd_xw_ema_kernel(torch.zeros((4096, 64), device=cuda),
+                              psd.consts, p, torch.zeros((64, 32),
+                                                         device=cuda), 0.5)
+
+
+@pytest.mark.parametrize("n_ch,block_out", [(256, 1024), (40, 1000)])
+def test_kernel1_matches_plain_version(cuda, n_ch, block_out):
+    cfg = ch1.MatChannelizerConfig(
+        sample_rate=25_600_000.0, n_channels=n_ch, taps=64, decimation=64,
+        audio_taps=64, audio_decim=8, block_out=block_out)
+    f0s = np.linspace(-12e6, 12e6, n_ch)
+    chan = ch1.MatChannelizer(cfg, f0s, 200e3, device=cuda)
+    x = _signal(f0s * FS / cfg.sample_rate, 3 * cfg.block_in, seed=n_ch)
+    carry_k = carry_p = (torch.zeros((1, n_ch), device=cuda),) * 2
+    before = ch1.kernel1.launches
+    hist = np.zeros(63, np.complex64)
+    for b in range(3):
+        xw, hist = ch1.make_windows(
+            cfg, x[b * cfg.block_in:(b + 1) * cfg.block_in], hist)
+        xr = torch.from_numpy(np.ascontiguousarray(xw.real)).to(cuda)
+        xi = torch.from_numpy(np.ascontiguousarray(xw.imag)).to(cuda)
+        phi0 = torch.from_numpy(np.mod(
+            chan._theta64[None, :] * (b * block_out), 2 * np.pi
+        ).astype(np.float32)).to(cuda)
+        ok = ch1.kernel1(xr, xi, chan.consts, phi0, *carry_k, chan.params)
+        op = ch1.kernel1_reference(xr, xi, chan.consts, phi0, *carry_p,
+                                   chan.params)
+        torch.cuda.synchronize()
+        carry_k, carry_p = ok[1:], op[1:]
+        assert ok[0].shape == op[0].shape == (block_out // 8, n_ch)
+        assert _agrees(ok[0], op[0], 1e-4)
+        pr = torch.cat(op[1:])
+        assert (torch.cat(ok[1:]) - pr).abs().max() <= 1e-4 * pr.abs().max()
+    assert ch1.kernel1.launches == before + 3
+
+
+def test_kernel1_refuses_bad_inputs(cuda):
+    cfg = ch1.MatChannelizerConfig(sample_rate=FS, n_channels=8, taps=64,
+                                   decimation=64, block_out=512)
+    chan = ch1.MatChannelizer(cfg, np.linspace(-8e5, 7e5, 8), 1e5,
+                              device=cuda)
+    z = torch.zeros((1, 8), device=cuda)
+    x = torch.zeros((512, 64), device=cuda)
+    with pytest.raises(ValueError):        # int16 planes
+        chan.feed_device(x.short(), x.short(), z, z, z)
+    with pytest.raises(ValueError):        # 32 taps
+        chan.feed_device(x[:, :32].contiguous(), x[:, :32].contiguous(), z,
+                         z, z)
+    with pytest.raises(ValueError):        # phase row of the wrong width
+        chan.feed_device(x, x, torch.zeros((1, 7), device=cuda), z, z)
+
+
+@pytest.mark.parametrize("kw", [dict(snap_grid=False), dict(psd_fft=2048),
+                                dict(decimation=32), dict(block_out=128)],
+                         ids=["unsnapped", "psd2048", "decim32", "mtile128"])
+def test_fm_receiver_geometries_run_through_the_kernels(cuda, kw):
+    args = dict(sample_rate=FS, f0s=np.linspace(-800e3, 700e3, 8), bw=100e3,
+                block_out=512, in_i16=True, audio_bf16=True)
+    args.update(kw)
+    rx = KernelReceiver(**args)
+    assert not rx.cfg.fuse_psd
+    x = _signal(rx._chan.f0s, 4 * rx.block_in, seed=9)
+    counts = (ch2.kernel2.launches, fft.psd_xw_kernel.launches,
+              fft.psd_kernel.launches)
+    blocks = list(rx.run(_Source(x), pipeline_depth=2))
+    xw_psd = rx._shared_psd
+    assert (ch2.kernel2.launches, fft.psd_xw_kernel.launches,
+            fft.psd_kernel.launches) == (counts[0] + 4,
+                                         counts[1] + 4 * xw_psd,
+                                         counts[2] + 4 * (not xw_psd))
+    assert all(np.all(np.isfinite(b.audio)) and np.all(np.isfinite(b.psd))
+               for b in blocks)

@@ -1,13 +1,20 @@
-"""The port's KernelReceiver (FM with the fused PSD; psk, fsk and ask on
-the PSD, raw and recovery banks) against the reference's in interpret
-mode, plus its pipelining, state carry-across and refusals.
+"""The port's KernelReceiver (FM at every geometry: fused PSD, PSD read
+from the upload or standalone, table or cos/sin rotator; psk, fsk and
+ask on the PSD, raw and recovery banks) against the reference's in
+interpret mode, plus its pipelining, state carry-across and refusals.
 
 Tolerances, with their reason: audio 2e-5 absolute (float32 summation
 order of the channelize product and audio FIR, carried through the
 discriminator; audio is O(0.1..1)), plus one bf16 rounding step (2^-7
 of the value) for bf16 audio; the running PSD 1e-5 relative to its
 largest bin and every bin 1e-4 relative to itself (float32 four-step
-DFT in another order; the noise bins sit some 6e5 below the largest).  Both sides frame
+DFT in another order; the noise bins sit some 6e5 below the largest).
+The cos/sin rotator (unsnapped grid) adds, as in
+``test_torch_channelizer2.py``, up to 1.25 float32 steps of its phase
+(at most ``(m_tile+1)·2π·2^-23`` rad) per row: twice that over π, times
+Σ|a| of the audio taps, on the audio.  Snapped against live phase at
+the snapped centres (the reference's ``test_receiver.py:91-121``) keeps
+that test's rtol 1e-4 / atol 1e-5.  Both sides frame
 with the numpy framers: the reference's optional C++ framer rounds
 exact ties away from zero instead of to even.  The digital modes' symbols
 and strobes follow the tolerance scheme of ``test_torch_recovery.py``
@@ -76,10 +83,11 @@ def make_pair(block_out=512, **kw):
     return ref, port
 
 
-def assert_block_close(ours: ReceiverBlock, ref, bf16: bool):
+def assert_block_close(ours: ReceiverBlock, ref, bf16: bool,
+                       extra: float = 0.0):
     assert ours.audio.dtype == np.float32
     assert ours.audio.shape == ref.audio.shape
-    tol = 2e-5 + (2.0 ** -7 * np.abs(ref.audio) if bf16 else 0.0)
+    tol = 2e-5 + extra + (2.0 ** -7 * np.abs(ref.audio) if bf16 else 0.0)
     assert np.all(np.abs(ours.audio - ref.audio) <= tol), \
         np.abs(ours.audio - ref.audio).max()
     assert ours.psd.shape == ref.psd.shape
@@ -177,16 +185,133 @@ def test_state_dict_round_trip():
     assert np.array_equal(ga.psd, gb.psd)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(snap_grid=False), dict(psd_fft=2048), dict(decimation=32),
-    dict(block_out=128),
-], ids=["unsnapped", "psd2048", "decim32", "mtile128"])
-def test_unported_paths_raise(kw):
-    args = dict(sample_rate=FS, f0s=F0S, bw=BW, block_out=512,
-                device="cpu")
+# the geometries the reference runs unfused: (kwargs, PSD class)
+GEOMETRIES = {
+    "unsnapped": (dict(snap_grid=False), "PSDFromXW"),
+    "psd2048": (dict(psd_fft=2048), "PSDFromXW"),
+    "decim32": (dict(decimation=32), "PSD"),
+    "mtile128": (dict(block_out=128), "PSDFromXW"),
+    # tests/test_receiver.py:10-31
+    "decim32_psd1024": (dict(decimation=32, block_out=1024, psd_fft=1024),
+                        "PSD"),
+    "unsnapped_i16_bf16": (dict(snap_grid=False, in_i16=True,
+                                audio_bf16=True, audio_decim=32), "PSDFromXW"),
+    "unsnapped_i8_psd2048": (dict(snap_grid=False, in_i8=True,
+                                  psd_fft=2048), "PSDFromXW"),
+}
+
+
+def _phase_tol(port) -> float:
+    """Audio allowance of the cos/sin rotator's phase rounding."""
+    if port._chan._table_rot:
+        return 0.0
+    step = (port.cfg.m_tile + 1) * 2 * np.pi * 2.0 ** -23
+    a_sum = float(np.abs(port._chan.consts["ataps"].numpy()).sum())
+    return a_sum * 2 * 1.25 * step / np.pi
+
+
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+def test_fm_geometries_match_reference(geom, monkeypatch):
+    """Every FM geometry the reference runs without the fused PSD, over
+    4 blocks (the port refused these before it ran them)."""
+    monkeypatch.setattr(ref_native, "_lib", None)
+    kw, psd_kind = GEOMETRIES[geom]
+    f0s = F0S + 1234.5                  # off the block-rate grid
+    args = dict(sample_rate=FS, f0s=f0s, bw=BW, mode="fm", block_out=512)
     args.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        KernelReceiver(**args)
+    ref = RefReceiver(interpret=True, **args)
+    port = KernelReceiver(device="cpu", **args)
+    assert not ref._chan.cfg.fuse_psd and not port.cfg.fuse_psd
+    assert type(port._psd).__name__ == psd_kind
+    assert port._shared_psd == ref._shared_psd
+    assert port._chan._table_rot == ref._chan._table_rot
+    assert np.array_equal(port._chan.f0s, ref._chan.f0s)
+    assert port._psd.alpha_block == ref._psd.alpha_block
+    n = port.block_in
+    x = fm_signal(port._chan.f0s, 4 * n, seed=13)
+    extra = _phase_tol(port)
+    for b in range(4):
+        blk = x[b * n:(b + 1) * n]
+        ours, want = port.feed(blk), ref.feed(blk)
+        assert_block_close(ours, want, kw.get("audio_bf16", False), extra)
+    assert np.array_equal(port._chan._phi, ref._chan._phi)
+
+
+def test_snapped_matches_live_phase_at_snapped_centres():
+    """tests/test_receiver.py:91-121 on the port: snap_grid quantizes the
+    centres to fs/block_in (table rotator, constant phase); a live-phase
+    receiver tuned to exactly those centres (cos/sin rotator, phase
+    carried) gives the same audio."""
+    fs = 2_048_000.0
+    block_out, decim = 1024, 32
+    grid = fs / (block_out * decim)
+    f0s_raw = np.array([-500e3 + 0.3 * grid, 300e3 - 0.4 * grid])
+    f0s_snap = np.round(f0s_raw / grid) * grid
+    t = np.arange(3 * block_out * decim) / fs
+    x = np.exp(1j * (2 * np.pi * f0s_snap[1] * t + 2 * np.pi * 8e3
+                     * np.cumsum(np.sin(2 * np.pi * 1e3 * t)) / fs))
+    x = (x + 10 ** (-70 / 20) * np.exp(2j * np.pi * 0.1 * np.arange(len(t)))
+         ).astype(np.complex64)
+
+    def run(f0s, snap):
+        rx = KernelReceiver(fs, f0s, bw=100e3, mode="fm", decimation=decim,
+                            block_out=block_out, psd_fft=1024,
+                            snap_grid=snap, device="cpu")
+        assert rx._chan._table_rot == snap
+        return np.concatenate([b.audio for b in rx.run(ArraySource(x))])
+
+    a = run(f0s_raw, True)
+    b = run(f0s_snap, False)
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_unsnapped_state_dict_round_trip():
+    """state_dict carries the rotator phase with the carries: a fresh
+    receiver loaded mid-stream gives the same next block, bit for bit."""
+    args = dict(sample_rate=FS, f0s=F0S + 500.0, bw=BW, mode="fm",
+                block_out=512, in_i16=True, snap_grid=False, device="cpu")
+    a, b = KernelReceiver(**args), KernelReceiver(**args)
+    n = a.block_in
+    x = fm_signal(a._chan.f0s, 3 * n, seed=8)
+    for i in range(2):
+        a.feed(x[i * n:(i + 1) * n])
+    st = a.state_dict()
+    assert st["phi"].shape == (1, 8) and st["phi"].dtype == np.float64
+    assert np.array_equal(st["phi"], 2 * a._chan._theta64[None, :] * 512)
+    b.load_state(st)
+    ga, gb = a.feed(x[2 * n:]), b.feed(x[2 * n:])
+    assert np.array_equal(ga.audio, gb.audio)
+    assert np.array_equal(ga.psd, gb.psd)
+    # the snapped receiver has no phase to carry
+    snapped = KernelReceiver(**dict(args, snap_grid=True))
+    assert "phi" not in snapped.state_dict()
+
+
+def test_unsnapped_state_carries_across_from_reference(monkeypatch):
+    """Two unsnapped blocks on the reference; its history, carries and
+    rotator phase ``_phi`` load into a fresh port receiver; block 3 on
+    both."""
+    monkeypatch.setattr(ref_native, "_lib", None)
+    args = dict(sample_rate=FS, f0s=F0S + 321.0, bw=BW, mode="fm",
+                block_out=512, in_i16=True, audio_bf16=True,
+                snap_grid=False)
+    ref = RefReceiver(interpret=True, **args)
+    port = KernelReceiver(device="cpu", **args)
+    n = port.block_in
+    x = fm_signal(port._chan.f0s, 3 * n, seed=22)
+    for b in range(2):
+        ref.feed(x[b * n:(b + 1) * n])
+    port.load_state({
+        "history": ref._chan._history,
+        "prev_re": np.asarray(ref._chan._prev_re),
+        "prev_im": np.asarray(ref._chan._prev_im),
+        "ftail": np.asarray(ref._chan._ftail),
+        "phi": ref._chan._phi,
+        "psd": ref._psd.psd,
+        "psd_count": ref._psd._count,
+    })
+    assert_block_close(port.feed(x[2 * n:]), ref.feed(x[2 * n:]), True,
+                       _phase_tol(port))
 
 
 # -- digital modes: the geometry of tests/test_receiver.py:39-41 --------
