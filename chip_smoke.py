@@ -28,7 +28,12 @@ printing the seconds it took:
    device EMA (``psd_xw_ema_kernel``) chained over 3 blocks; the v1
    channelizer (``kernel1``) at ``__graft_entry__.entry()``'s geometry
    (256 channels, 25.6 Msps, decimation 64, M 1024, audio at 1/8)
-   chained over 3 blocks.
+   chained over 3 blocks.  Then the analyzer's kernels: the audio bank
+   (``audio_kernel``) at the engine's bench shapes (1024 slots of every
+   mode, M 8192, m_tile 2048, audio at 1/32, int16 packed upload) over 3
+   chained blocks with the hang AGC and 3 without; the column compactor
+   (``compact_kernel``) on 3 planes [8192, 1024] at width 1024 (every
+   slot) and 64 (a scattered map), float32, bfloat16 and int16, bit-equal.
 3. FM end to end: ``KernelReceiver(mode="fm")`` at the bench geometry
    (1024 channels, 102.4 Msps, block_out 8192, int16 in, bf16 audio,
    fused PSD) over synthetic FM made from a seed, through
@@ -54,6 +59,20 @@ printing the seconds it took:
    uploads, read once with ``shifted()``) and the v1 channelizer
    (``MatChannelizer.feed`` at the entry's geometry over 4 blocks of an
    FM tone).
+3e. the analyzer session: ``KernelAnalyzer`` at ``bench.py:255-259``'s
+   geometry with ``drain_pack=False`` and ``symbol_group=1`` (1024 slots,
+   102.4 Msps, decimation 64, audio at 1/32, PSD 4096, compact width
+   1024, depth 3, threaded drain, int16 upload, bf16 drain) with the
+   bench's 1024-inspector mix, over 12 blocks after 2 warm-up blocks of
+   a ring of distinct synthetic blocks: 1024 OPEN acks with their
+   request ids; the audio, raw, recovery and device-EMA PSD kernels once
+   per block and the compactor twice; FM tones, QPSK concentration, the
+   PSD on the carrier and the carrier's power; block wall time and Msps
+   (the final drain join included) and a synchronous per-layer
+   breakdown; then 3 blocks of a 128-slot session with AM/USB/LSB/RAW
+   audio, raw, unaligned power and a psk inspector with both estimators
+   (the raw compactor and the standalone PSD launch), a retune and a
+   close.
 4. the TPU kernel list (ported or pending, each with its bound: the
    ported ones at the inputs phase 2 timed, the pending ones at the
    bench's shapes) and the ``kernels`` line.
@@ -121,6 +140,25 @@ DIG_PURE = 600
 DIG_BLOCKS = 12
 REC_BLOCK = 1024
 
+# audio bank kernel vs plain version (both float32 on the card): an
+# element disagrees when |d| > 1e-4·(1 + |value|) — the channelize
+# product, the decimating FIR and the DC follower (a recurrence in the
+# kernel, the closed-form Toeplitz in the plain version) sum in other
+# orders; the FM discriminator's atan2 picks its ±π branch, and the hang
+# AGC its |y| > slow branch, by that rounding — so at most 1e-3 of the
+# audio and carry elements (and never fewer than 2) may disagree
+TOL_AUDIO_BANK = 1e-4
+TOL_AUDIO_FRAC = 1e-3
+
+# the analyzer session of phase 3e (bench.py:255-284, drain_pack=False
+# and symbol_group=1): 1024 slots, decimation 64, audio at 1/32, PSD
+# 4096, block 8192·64, compact width 1024, depth 3, threaded drain
+SESSION_BLOCKS = 12
+SESSION_WARM = 2
+FM_SLOTS = {40: 1000.0, 120: 1500.0, 200: 2000.0, 280: 2500.0}
+QPSK_SLOTS = (2, 10, 20)
+CARRIER_POWER_SLOT = 64
+
 TPU_KERNELS = [
     ("kernels/channelizer2.py:126 _kernel2", "ported"),
     ("kernels/fft.py:283 _psd_kernel_xw", "ported"),
@@ -128,9 +166,9 @@ TPU_KERNELS = [
     ("kernels/fft.py:65 _psd_kernel", "ported"),
     ("kernels/rawbank.py:61 _raw_kernel", "ported"),
     ("kernels/recovery.py:90 _recovery_kernel", "ported"),
-    ("kernels/audio.py:193 _audio_kernel", "pending"),
+    ("kernels/audio.py:193 _audio_kernel", "ported"),
     ("kernels/symsqueeze.py:71 _squeeze_kernel", "pending"),
-    ("kernels/compact.py:64 _compact_kernel", "pending"),
+    ("kernels/compact.py:64 _compact_kernel", "ported"),
     ("kernels/drainpack.py:188 _pack_kernel", "pending"),
     ("kernels/tvline.py:54 _tv_kernel", "pending"),
     ("kernels/equalizer.py:42 _cma_kernel", "pending"),
@@ -288,7 +326,8 @@ def phase2_kernel_vs_plain(ch2, torch):
     library_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
     stages = profile_stages(
         lambda: ch2.kernel2(xw, chan.consts, *carries, chan.params),
-        ("chan_rot_disc", "psd_frames", "audio_fir", "psd_sum"))
+        ("chan_rot_disc", "psd_frames", "audio_fir", "tail_copy",
+         "psd_sum"))
     bound, bound_by, ops, nbytes = kernel2_bound_ms(
         BLOCK_OUT, N_CHANNELS, 2, 2, 64, AUDIO_DECIM)
     print(f"phase2 timing: kernel2 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -423,15 +462,14 @@ def recovery_bound(m: int, bank, strobes: int) -> tuple:
 def pending_bounds() -> dict:
     """Least time of each pending TPU kernel's work at the shapes the
     bench uses, keyed by its TPU_KERNELS entry: (shape, ms, bound_by,
-    operations, bytes).  Counted from the function each computes (an FFT
-    at FFT cost, a gather at its live columns), not from the TPU
-    kernel's MXU-shaped work.  The engine kernels take the
+    operations, bytes).  Counted from the function each computes, not
+    from the TPU kernel's MXU-shaped work.  The engine kernels take the
     ``KernelAnalyzer`` session of ``bench.py:255-284``: 1024 slots,
     decimation 64, audio at 1/32, int16 upload, symbol group 4, compact
     width 1024, bf16 drains; 832 audio, 48 psk, 8 fsk, 8 ask and 128
     power inspectors.  Kernels that no bench path runs are marked so,
     with the shape assumed."""
-    m, c, k, da, r = BLOCK_OUT, N_CHANNELS, 64, AUDIO_DECIM, 4
+    m, c, da, r = BLOCK_OUT, N_CHANNELS, AUDIO_DECIM, 4
     live = 48 + 8 + 8                  # live digital columns
     out = {}
 
@@ -439,20 +477,9 @@ def pending_bounds() -> dict:
         out[TPU_KERNELS[row - 1][0]] = (shape, *bound(ops, nbytes), ops,
                                         nbytes)
 
-    # _audio_kernel: channelize (8MKC), ~50 operations per channel
-    # sample (rotator 8, the FM arm's discriminator with atan2 ~30, AM
-    # and SSB arms and AGC ~12), the decimating FIR (2·64 per audio
-    # sample); int16 windows in, f32 audio and block power out
-    put(7, "engine: 1024 slots, audio at 1/32",
-        8 * m * k * c + 50 * m * c + 2 * 64 * (m // da) * c,
-        2 * m * k * 2 + 2 * k * c * 4 + (m // da) * c * 4 + c * 4)
     # _squeeze_kernel: 3 planes [M, C] → [M/R, C], a multiply-add each
     put(8, "engine: 3 x [M, C] f32, R = 4", 2 * 3 * m * c,
         3 * m * c * 4 + 3 * (m // r) * c * 4)
-    # _compact_kernel: the 64 live digital columns of 3 squeezed planes
-    # gathered into [3·M/R, W = 1024] bf16
-    put(9, "engine: 3 x [M/R, C] f32, 64 live columns, W = 1024 bf16", 0,
-        3 * (m // r) * live * 4 + 3 * (m // r) * 1024 * 2)
     # _pack_kernel: the live columns of each section read once, the
     # ~0.69 MB int16 buffer of the bench session written once
     # (drainpack.py:24-25): audio [M/32, 832], status 2 x [1, C], the
@@ -1112,7 +1139,7 @@ def phase2_kernel2_cossin(ch2, torch) -> tuple:
     library_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
     stages = profile_stages(
         lambda: ch2.kernel2(xw, chan.consts, *carries, chan.params, phi0),
-        ("chan_rot_disc", "audio_fir"))
+        ("chan_rot_disc", "audio_fir", "tail_copy"))
     bms, by, ops, nbytes = kernel2_bound_ms(
         BLOCK_OUT, N_CHANNELS, 2, 2, 64, AUDIO_DECIM, fused=False, mt=2048)
     print(f"phase2 kernel2 unfused cos/sin timing: kernel {ms:.4f} ms, plain "
@@ -1491,13 +1518,535 @@ def phase3d_ema_and_v1(ch1, ch2, fftm, torch) -> dict:
     return {"psd_xw_ema": ema_launches, "kernel1": v1_launches}
 
 
+def beyond(got, ref, tol: float) -> tuple[float, float]:
+    """(share of elements with |d| > tol·(1 + |ref|), max abs
+    difference); the share is 0 while at most 2 elements are beyond."""
+    d = (got.float() - ref.float()).abs()
+    bad = int((d > tol * (1.0 + ref.float().abs())).sum())
+    return (0.0 if bad <= 2 else bad / d.numel()), float(d.max())
+
+
+def session_slot_config(i: int) -> dict:
+    """Audio slot i of a mix of every mode: FM, AM, USB, LSB, RAW and
+    disabled; squelch on a quarter, AGC off on a third, agc.ts on a
+    fifth."""
+    return dict(f0=-48e6 + i * 93.75e3, bw=100e3, mode=i % 6,
+                cutoff=5000.0, volume=1.0, squelch=i % 4 == 0,
+                squelch_level=1e-4 * (i % 3), agc=i % 3 != 0,
+                agc_ts=20.0 if i % 5 == 0 else 0.0)
+
+
+# operations of the audio bank per channel sample, counted from
+# kernels/audio.py: the rotator 10 (phase, sin and cos, rotation), the
+# tile power 3, the discriminator 6 and its atan2 ~20, the envelope 5,
+# the one-hot mix of the arms 8, the hang follower 10; per audio sample
+# and plane the decimating FIR (2 per tap) and the slot FIR (2 per tap),
+# then the Weaver shift 8 and the DC follower, gate and volume 6
+AUDIO_SAMPLE_OPS = 62
+AUDIO_OUT_OPS = 14
+
+
+def audio_bound(m: int, c: int, mt: int, da: int, in_bytes: int,
+                hang: bool) -> tuple:
+    """The complex product (8·M·K·C), the per-sample and per-audio-sample
+    work above on both planes; bytes: the windows, the taps and rows, the
+    tile phases and every carry read once, the audio, the carries and
+    the power written once."""
+    k, ka, ka2, ma = 64, 64, 64, m // da
+    per_sample = AUDIO_SAMPLE_OPS - (0 if hang else 10)
+    ops = (8 * m * k * c + per_sample * m * c
+           + ma * c * (2 * (2 * ka + 2 * ka2) + AUDIO_OUT_OPS))
+    carries = (2 + 2 * (ka - 1) + 2 * (ka2 - 1) + 2 + 8) * c * 4
+    nbytes = (2 * m * k * in_bytes + 2 * k * c * 4 + (16 + ka2) * c * 4
+              + ka * 4 + 2 * (m // mt) * c * 4 + 2 * carries
+              + ma * c * 4 + c * 4)
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def audio_bank(audiom, hang: bool):
+    """The engine's audio bank at the bench session's geometry (the
+    shapes kernel_engine.py:355-375 gives it), with the slot mix of
+    session_slot_config."""
+    bank = audiom.AudioBank(audiom.AudioBankConfig(
+        sample_rate=FS, n_channels=N_CHANNELS, decimation=64,
+        audio_decim=AUDIO_DECIM, block_out=BLOCK_OUT, m_tile=2048,
+        enable_ssb=True, in_scale=4096.0, fir_tile=1024,
+        hang_agc=hang), device="cuda")
+    bank.begin_defer()
+    for i in range(N_CHANNELS):
+        bank.configure_channel(i, **session_slot_config(i))
+    bank.end_defer()
+    return bank
+
+
+def phase2_audio(audiom, torch) -> dict:
+    """The audio bank kernel against its plain version at the bench
+    session's shapes on 3 chained int16 packed uploads, hang AGC on, then
+    off: the audio and every carry."""
+    from sigdigger_tpu_torch.native import frame_windows_packed_i16
+
+    max_abs = 0.0
+    for hang in (True, False):
+        worst = {"audio_frac": 0.0, "audio_max": 0.0, "carry_frac": 0.0}
+        bank = audio_bank(audiom, hang)
+        x, _, _ = synth_iq(np.array([session_slot_config(i)["f0"]
+                                     for i in range(N_CHANNELS)]),
+                           3 * bank.cfg.block_in, SEED + 13)
+        ck = cp = tuple(torch.as_tensor(getattr(bank, s)).cuda()
+                        for s in audiom.STATE)
+        hist = np.zeros(63, np.complex64)
+        for b in range(3):
+            ext = np.concatenate([hist, x[b * bank.cfg.block_in:
+                                          (b + 1) * bank.cfg.block_in]])
+            hist = ext[-63:]
+            xw = torch.from_numpy(frame_windows_packed_i16(
+                ext, BLOCK_OUT, 64, 64, 4096.0)).cuda()
+            phi0 = torch.from_numpy(bank._phase_tiles(
+                bank._phi, bank._theta64, 2048)).cuda()
+            phs0 = torch.from_numpy(bank._phase_tiles(
+                bank._phs_a, bank._omega_a64, 2048 // AUDIO_DECIM)).cuda()
+            args = (xw[:BLOCK_OUT], xw[BLOCK_OUT:], bank.consts)
+            ok = audiom.audio_kernel(*args, ck, phi0, phs0, bank.params)
+            op = audiom.audio_kernel_reference(*args, cp, phi0, phs0,
+                                               bank.params)
+            torch.cuda.synchronize()
+            check(all(torch.isfinite(t).all() for t in ok))
+            fa, ma = beyond(ok[0], op[0], TOL_AUDIO_BANK)
+            carry = max(beyond(g, w, TOL_AUDIO_BANK)[0]
+                        for g, w in zip(ok[1:], op[1:]))
+            for key, v in (("audio_frac", fa), ("audio_max", ma),
+                           ("carry_frac", carry)):
+                worst[key] = max(worst[key], v)
+            # chain: the kernel's carries feed the kernel, the plain
+            # version's the plain version (power, ok[9], is not a carry)
+            ck = ok[1:9] + ok[10:]
+            cp = op[1:9] + op[10:]
+            bank._phi = np.mod(bank._phi + bank._theta64 * BLOCK_OUT,
+                               2 * np.pi)
+            bank._phs_a = np.mod(bank._phs_a + bank._omega_a64
+                                 * (BLOCK_OUT // AUDIO_DECIM), 2 * np.pi)
+        if hang:
+            main = (args, ck, phi0, phs0, bank)
+        print(f"phase2 audio (hang_agc {hang}, 3 blocks): audio disagree "
+              f"frac {worst['audio_frac']:.3g} (tol {TOL_AUDIO_FRAC}), "
+              f"audio max abs err {worst['audio_max']:.6g}, carries "
+              f"disagree frac {worst['carry_frac']:.3g}", flush=True)
+        check(worst["audio_frac"] <= TOL_AUDIO_FRAC
+              and worst["carry_frac"] <= TOL_AUDIO_FRAC, worst)
+        max_abs = max(max_abs, worst["audio_max"])
+
+    args, carries, phi0, phs0, bank = main
+    ms = time_ms(lambda: audiom.audio_kernel(*args, carries, phi0, phs0,
+                                             bank.params), 10)
+    plain_ms = time_ms(lambda: audiom.audio_kernel_reference(
+        *args, carries, phi0, phs0, bank.params), 1)
+    xc = torch.complex(args[0].float() / 4096.0, args[1].float() / 4096.0)
+    hc = torch.complex(bank.consts["h_re"], bank.consts["h_im"])
+    yard_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
+    bms, by, ops, nbytes = audio_bound(BLOCK_OUT, N_CHANNELS, 2048,
+                                       AUDIO_DECIM, 2, True)
+    stages = profile_stages(
+        lambda: audiom.audio_kernel(*args, carries, phi0, phs0, bank.params),
+        ("raw_rot", "audio_tiles", "audio_hang", "audio_demod", "audio_fir",
+         "tail_copy", "audio_slot", "audio_dc"))
+    print(f"phase2 audio timing (hang AGC, int16 in): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, channelize matmul (yardstick, part of "
+          f"the function) {yard_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+          f"({ops / 1e9:.3f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); hang AGC "
+          f"{BLOCK_OUT} dependent steps per slot; stages {stages}",
+          flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def compact_bound(m: int, n: int, live: int, w: int, out_bytes: int,
+                  scaled: bool) -> tuple:
+    """Bytes: the mapped columns of each plane read once, the
+    interleaved output and the map written/read once; operations: the
+    int16 scaling and clip (3 per output), else none."""
+    ops = 3 * n * m * w if scaled else 0
+    nbytes = n * m * live * 4 + n * m * w * out_bytes + w * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def phase2_compact(compm, torch) -> dict:
+    """The column compactor against its plain version (bit-equal) on the
+    3 digital planes [8192, 1024]: width 1024 with every slot active (the
+    session's map) and width 64 with a scattered map, float32, bfloat16
+    and int16 with scales."""
+    rng = np.random.default_rng(SEED + 14)
+    planes = tuple(torch.from_numpy(
+        (rng.standard_normal((BLOCK_OUT, N_CHANNELS)) * 0.7).astype(
+            np.float32)).cuda() for _ in range(3))
+    scattered = sorted(rng.choice(N_CHANNELS, 64, replace=False).tolist())
+    outs = (("f32", {}), ("bf16", dict(out_bf16=True)),
+            ("i16", dict(out_i16=True, scales=(8192.0, 8192.0, 4096.0))))
+    max_abs, main = 0.0, None
+    for width, cols in ((N_CHANNELS, list(range(N_CHANNELS))),
+                        (64, scattered)):
+        for name, kw in outs:
+            comp = compm.ColumnCompactor(compm.ColumnCompactorConfig(
+                n_rows=BLOCK_OUT, n_channels=N_CHANNELS, width=width,
+                n_planes=3, **kw), device="cuda")
+            comp.set_mapping(cols)
+            got = compm.compact_kernel(planes, comp._slots, comp.cfg)
+            want = compm.compact_kernel_reference(planes, comp._slots,
+                                                  comp.cfg)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), (width, name))
+            max_abs = max(max_abs, float((got.float() - want.float())
+                                         .abs().max()))
+            if width == N_CHANNELS and name == "bf16":
+                main = comp
+    print(f"phase2 compact (widths 1024 and 64, f32/bf16/int16): bit-equal "
+          f"to the plain version, max abs err {max_abs}", flush=True)
+    comp = main
+    ms = time_ms(lambda: compm.compact_kernel(planes, comp._slots,
+                                              comp.cfg), 20)
+    plain_ms = time_ms(lambda: compm.compact_kernel_reference(
+        planes, comp._slots, comp.cfg), 5)
+    stacked = torch.cat(planes)
+    idx = comp._slots.long()
+    library_ms = time_ms(lambda: torch.index_select(stacked, 1, idx), 20)
+    bms, by, ops, nbytes = compact_bound(BLOCK_OUT, 3, N_CHANNELS,
+                                         N_CHANNELS, 2, False)
+    print(f"phase2 compact timing (3 x [8192, 1024] -> bf16, width 1024): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.index_select "
+          f"of the mapped columns of the 3 planes stacked (library "
+          f"yardstick, float32, no interleave) {library_ms:.4f} ms, bound "
+          f"{bms:.4f} ms by {by} ({nbytes / 2 ** 20:.2f} MiB)", flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
+def ring_source(blocks):
+    """A SignalSource replaying pre-made distinct blocks, one per read
+    (the reference bench's RingSource, bench.py:233-246)."""
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources.base import SignalSource
+
+    class RingSource(SignalSource):
+        def _read_impl(self, n):
+            b = blocks[(self._pos // n) % len(blocks)]
+            check(len(b) == n, (len(b), n))
+            return b
+
+    return RingSource(SourceProfile(type="synth", sample_rate=int(FS)))
+
+
+def session_iq(n: int, seed: int) -> np.ndarray:
+    """FM tones on the FM_SLOTS audio channels, QPSK at 200 kbaud on the
+    QPSK_SLOTS psk channels, a pure carrier on the CARRIER_POWER_SLOT
+    power channel, and noise."""
+    from sigdigger_tpu_torch.dsp.filters import rrc_taps
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64) / FS
+    x = 0.02 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    for slot, tone in FM_SLOTS.items():
+        fc = -48e6 + slot * 115e3
+        x += 0.25 * np.exp(1j * (2 * np.pi * fc * t + 2 * np.pi * 50e3
+                                 * np.cumsum(np.sin(2 * np.pi * tone * t))
+                                 / FS))
+    taps = rrc_taps(8.0, span=8, rolloff=0.35)
+    m = n // 64
+    for slot in QPSK_SLOTS:
+        up = np.zeros(m, np.complex128)
+        up[::8] = np.exp(0.5j * np.pi * rng.integers(0, 4, len(up[::8])))
+        bb = np.convolve(up, taps)[:m]
+        x += 0.25 * np.repeat(bb, 64) * np.exp(
+            2j * np.pi * (1e6 + slot * 500e3) * t)
+    x += 0.5 * np.exp(2j * np.pi * (34e6 + CARRIER_POWER_SLOT * 100e3) * t)
+    return x.astype(np.complex64)
+
+
+def open_bench_mix(an, Channel) -> list:
+    """bench.py:260-284's inspector mix, with request ids 1..1024;
+    returns the handles in opening order."""
+    hs, rid = [], 0
+
+    def opn(kind, fc, bw, cfg):
+        nonlocal rid
+        rid += 1
+        hs.append(an.open_inspector(kind, Channel(fc=fc, bw=bw),
+                                    request_id=rid, config=cfg))
+
+    for i in range(832):
+        opn("audio", -48e6 + i * 115e3, 200e3,
+            {"audio.demodulator": 2, "audio.volume": 1.0,
+             "audio.sample-rate": an.audio_rate})
+    for kind, f0, n, key in (("psk", 1e6, 48, "afc.bits-per-symbol"),
+                             ("fsk", 26e6, 8, "fsk.bits-per-symbol"),
+                             ("ask", 31e6, 8, "ask.bits-per-symbol")):
+        for i in range(n):
+            opn(kind, f0 + i * 500e3, 400e3,
+                {key: 2 if kind == "psk" else 1,
+                 "clock.baud": an.channel_rate / 8.0})
+    for i in range(128):
+        opn("power", 34e6 + i * 100e3, 100e3,
+            {"power.integrate-samples": BLOCK_OUT})
+    return hs
+
+
+def session_layers(an, blocks, torch) -> dict:
+    """Synchronous per-layer breakdown of one session block, as
+    bench.py:310-347 takes it: frame, H2D, dispatch (PSD, banks and
+    compactors, synchronised), fetch (the compacted drain and the status
+    rows to the host) and demap (under the engine lock); medians over 4
+    blocks."""
+    (d, slots), = {
+        k: [s for s in an._inspectors.values()
+            if an._kslots[s.handle].bucket.decimation == k]
+        for k in {an._kslots[s.handle].bucket.decimation
+                  for s in an._inspectors.values()}}.items()
+    bucket = an._buckets[d]
+    times: dict[str, list] = {k: [] for k in
+                              ("frame", "h2d", "dispatch", "fetch",
+                               "demap")}
+    for b in range(4):
+        x = blocks[b]
+        t = [time.perf_counter()]
+        xw = bucket.raw.frame_packed(x, i16=an._in_i16)
+        t.append(time.perf_counter())
+        xw_d = torch.from_numpy(xw).to(an.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        an._spectrum.feed_ema(xw_d)
+        h = an._dispatch_bucket(bucket, slots, x, xw_d)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        fetched = an._fetch(h)
+        t.append(time.perf_counter())
+        with an._lock:
+            an._demap(h, *fetched)
+        t.append(time.perf_counter())
+        check(all(np.all(np.isfinite(a)) for a in fetched
+                  if a is not None))
+        for k, t0, t1 in zip(times, t, t[1:]):
+            times[k].append((t1 - t0) * 1e3)
+    an.poll()
+    return {k: round(sorted(v)[len(v) // 2], 4) for k, v in times.items()}
+
+
+def session_kernels():
+    from sigdigger_tpu_torch.kernels import (
+        audio,
+        compact,
+        fft,
+        rawbank,
+        recovery,
+    )
+
+    return {"audio": audio.audio_kernel, "raw": rawbank.raw_kernel,
+            "recovery": recovery.recovery_kernel,
+            "psd_xw_ema": fft.psd_xw_ema_kernel,
+            "compact": compact.compact_kernel, "psd": fft.psd_kernel}
+
+
+def drain_errors() -> list:
+    """The errors logged since the last call, the log emptied (the
+    session's drain worker logs a block it could not drain and goes
+    on)."""
+    from sigdigger_tpu_torch.utils.logger import Logger, Severity
+
+    return [r.message for r in Logger.instance().drain()
+            if r.severity >= Severity.ERROR]
+
+
+def phase3e_session(torch, card: str) -> dict:
+    """The analyzer session at the bench's 1024-inspector mix over
+    SESSION_BLOCKS blocks after SESSION_WARM warm-up blocks; returns the
+    launches of its kernels over the timed blocks."""
+    from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    drain_errors()                    # start from an empty log
+    n_blocks = SESSION_WARM + SESSION_BLOCKS
+    block = BLOCK_OUT * 64
+    x = session_iq(n_blocks * block, SEED + 15)
+    blocks = [x[i * block:(i + 1) * block] for i in range(n_blocks)]
+    params = AnalyzerParams()
+    params.window_size = 4096
+    an = KernelAnalyzer(source=ring_source(blocks), params=params,
+                        block_size=block, n_slots=1024, decimation=64,
+                        audio_decim=AUDIO_DECIM, compact_cols=1024,
+                        pipeline_depth=3, drain_thread=True)
+    check(an.device.type == "cuda" and an._in_i16 and an._drain_bf16
+          and an._psd_bucket is an._buckets[64])
+    an.poll()
+    t0 = time.perf_counter()
+    with an.bulk_config():
+        hs = open_bench_mix(an, Channel)
+    open_s = time.perf_counter() - t0
+    opens = [m for m in an.poll() if m.kind == MessageKind.INSPECTOR
+             and m.inspector_kind.value == "open"]
+    check(len(opens) == 1024 and [m.request_id for m in opens]
+          == list(range(1, 1025)) and [m.handle for m in opens] == hs,
+          len(opens))
+    check(len(an._buckets[64].cmap) == 1024)
+
+    msgs = []
+    for _ in range(SESSION_WARM):
+        an.step()
+        msgs += an.poll()
+    kernels = session_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SESSION_BLOCKS):
+        an.step()
+        msgs += an.poll()
+    an._drain_q.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    msgs += an.poll()
+    launches = {name: k.launches for name, k in kernels.items()}
+    per_block = {"audio": 1, "raw": 1, "recovery": 1, "psd_xw_ema": 1,
+                 "compact": 2, "psd": 0}
+    check(all(launches[k] == n * SESSION_BLOCKS
+              for k, n in per_block.items()), launches)
+
+    def samples(h):
+        got = [m for m in msgs if m.kind == MessageKind.SAMPLES
+               and m.handle == h]
+        return got
+
+    # the drain worker logs a failed block and goes on: no block may
+    # have failed, and every drained block reached every inspector
+    errors = drain_errors()
+    check(not errors, errors[:3])
+    drained = n_blocks - len(an._inflight)
+    counts = {h: 0 for h in hs}
+    for m in msgs:
+        if m.kind == MessageKind.SAMPLES:
+            counts[m.handle] += 1
+    check(drained == n_blocks - (an._pipeline_depth - 1)
+          and all(n == drained for n in counts.values()),
+          (drained, sorted(set(counts.values()))))
+
+    # FM audio peaks at its tones (after the first two drained blocks)
+    rate = an.audio_rate
+    for slot, tone in FM_SLOTS.items():
+        a = np.concatenate([m.samples for m in samples(hs[slot])][2:])
+        check(a.size and np.all(np.isfinite(a)), slot)
+        spec = np.abs(np.fft.rfft((a - a.mean()) * np.hanning(len(a))))
+        f_pk = (np.argmax(spec[2:]) + 2) * rate / len(a)
+        check(abs(f_pk - tone) <= 2 * rate / len(a), (slot, f_pk, tone))
+    # strobed QPSK symbols concentrate
+    concs = []
+    for slot in QPSK_SLOTS:
+        got = samples(hs[832 + slot])
+        sym = np.concatenate([m.samples for m in got])
+        st = np.concatenate([m.extras["strobes"] for m in got])
+        concs.append(conc(sym, st, 4))
+    check(min(concs) > 0.85, concs)
+    # the PSD peaks on the carrier
+    psd = [m for m in msgs if m.kind == MessageKind.PSD][-1]
+    freqs = np.linspace(-FS / 2, FS / 2, len(psd.data), endpoint=False)
+    f_car = 34e6 + CARRIER_POWER_SLOT * 100e3
+    pk = freqs[int(np.argmax(psd.data))]
+    check(np.all(np.isfinite(psd.data)) and abs(pk - f_car) <= 2 * FS / 4096,
+          (pk, f_car))
+    # power on the carrier's channel above the noise channels'
+    pw = {i: np.concatenate([m.samples for m in samples(hs[896 + i])])
+          for i in range(128)}
+    noise = np.median([v.mean() for i, v in pw.items()
+                       if abs(i - CARRIER_POWER_SLOT) > 3])
+    check(pw[CARRIER_POWER_SLOT].mean() > 10 * noise,
+          (pw[CARRIER_POWER_SLOT].mean(), noise))
+    n_samples = sum(1 for m in msgs if m.kind == MessageKind.SAMPLES)
+    block_ms = wall / SESSION_BLOCKS * 1e3
+    print(f"phase3e analyzer session (1024 inspectors: 832 audio, 48 psk, "
+          f"8 fsk, 8 ask, 128 power; opened in {open_s:.3f} s): "
+          f"{SESSION_BLOCKS} blocks after {SESSION_WARM} warm-up, launches "
+          f"{launches}, block wall {block_ms:.3f} ms (final drain join "
+          f"included), {block / (wall / SESSION_BLOCKS) / 1e6:.2f} Msps; "
+          f"{n_samples} SAMPLES messages ({drained} drained blocks x "
+          f"{len(hs)} inspectors, no drain error); FM tones "
+          f"{sorted(FM_SLOTS.values())} Hz ok, QPSK concentration "
+          f"{[round(c, 4) for c in concs]} (> 0.85), PSD peak {pk:.0f} Hz "
+          f"on carrier {f_car:.0f} Hz, carrier power "
+          f"{pw[CARRIER_POWER_SLOT].mean():.4g} vs noise {noise:.4g} | "
+          f"card: {card}", flush=True)
+    an._drain_thread_on = False
+    print(f"phase3e layers (synchronous, median ms over 4 blocks): "
+          f"{session_layers(an, blocks, torch)}", flush=True)
+    short_session(torch, blocks)
+    return {k: launches[k] for k in ("audio", "compact")}
+
+
+def short_session(torch, blocks) -> None:
+    """3 blocks of a 128-slot session with AM, USB, LSB and RAW audio, a
+    raw inspector, an unaligned power inspector, a psk inspector with
+    the baud and offset estimators, a retune and a close mid-stream: the
+    raw compactor and the PSD kernel (through the estimators) launch."""
+    from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    params = AnalyzerParams()
+    params.window_size = 4096
+    an = KernelAnalyzer(source=ring_source(blocks), params=params,
+                        block_size=BLOCK_OUT * 64, n_slots=128,
+                        decimation=64, audio_decim=AUDIO_DECIM,
+                        compact_cols=32)
+    hs = [an.open_inspector("audio", Channel(fc=-48e6 + i * 115e3, bw=50e3),
+                            config={"audio.demodulator": mode,
+                                    "audio.cutoff": 3000.0,
+                                    "agc.enabled": mode != 5})
+          for i, mode in ((40, 1), (120, 3), (200, 4), (280, 5))]
+    h_raw = an.open_inspector("raw", Channel(fc=-15.8e6, bw=200e3))
+    h_pw = an.open_inspector("power", Channel(fc=40.4e6, bw=100e3),
+                             config={"power.integrate-samples": 3000})
+    h_psk = an.open_inspector("psk", Channel(fc=2e6, bw=400e3),
+                              config={"afc.bits-per-symbol": 2,
+                                      "clock.baud": an.channel_rate / 8.0})
+    an.set_estimator(h_psk, "baud", True)
+    an.set_estimator(h_psk, "offset", True)
+    kernels = session_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    drain_errors()                    # start from an empty log
+    msgs = []
+    for b in range(3):
+        an.step()
+        msgs += an.poll()
+        if b == 0:
+            an.set_inspector_freq(hs[0], -48e6 + 41 * 115e3)
+            an.close_inspector(hs[3])
+    launches = {name: k.launches for name, k in kernels.items()}
+    errors = drain_errors()
+    check(not errors, errors[:3])
+    # one SAMPLES message per block and inspector (a synchronous drain);
+    # the inspector closed after the first block got that block's
+    counts = {h: sum(1 for m in msgs if m.kind == MessageKind.SAMPLES
+                     and m.handle == h)
+              for h in (*hs, h_raw, h_pw, h_psk)}
+    check(counts == {**{h: 3 for h in (*hs[:3], h_raw, h_pw, h_psk)},
+                     hs[3]: 1}, counts)
+    # compactors per block: audio, digital, raw
+    check(launches["compact"] == 9 and launches["psd"] >= 2
+          and launches["audio"] == 3, launches)
+    est = [m for m in msgs if m.kind == MessageKind.INSPECTOR
+           and m.inspector_kind.value == "estimator"]
+    got = {m.handle for m in msgs if m.kind == MessageKind.SAMPLES}
+    check({h_raw, h_pw, h_psk, *hs[:3]} <= got and est, (got, len(est)))
+    check(all(np.all(np.isfinite(m.samples)) for m in msgs
+              if m.kind == MessageKind.SAMPLES))
+    print(f"phase3e short session (128 slots, 3 blocks, AM/USB/LSB/RAW "
+          f"audio, raw, unaligned power, psk with estimators, a retune and "
+          f"a close): launches {launches}, {len(est)} ESTIMATOR messages "
+          f"(baud {[round(m.estimator_value) for m in est if m.estimator_id == 'baud']})",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    from sigdigger_tpu_torch.kernels import _build
+    from sigdigger_tpu_torch.kernels import _build, audio, compact
     from sigdigger_tpu_torch.kernels import channelizer as ch1
     from sigdigger_tpu_torch.kernels import channelizer2 as ch2
     from sigdigger_tpu_torch.kernels import fft, rawbank, recovery
@@ -1525,6 +2074,8 @@ def main() -> int:
     p2["psd_xw"], p2["psd_xw_ema"] = phase2_psd_xw(fft, torch, uploads)
     p2["kernel1"] = phase2_kernel1(ch1, torch)
     del uploads
+    p2["audio"] = phase2_audio(audio, torch)
+    p2["compact"] = phase2_compact(compact, torch)
     print(f"phase2: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     launches = {"kernel2": phase3_end_to_end(ch2, torch, card)}
@@ -1538,6 +2089,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(phase3d_ema_and_v1(ch1, ch2, fft, torch))
     print(f"phase3d: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3e_session(torch, card))
+    print(f"phase3e: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel form: (name, key, source, TPU kernel); the FM forms'
     # library yardstick (the channelize matmul alone) computes part of
@@ -1556,8 +2110,11 @@ def main() -> int:
          "kernels/recovery.py:90"),
         ("kernel1", "kernel1", "channelizer.cu",
          "kernels/channelizer.py:124"),
+        ("audio_kernel", "audio", "audio.cu", "kernels/audio.py:193"),
+        ("compact_kernel", "compact", "compact.cu", "kernels/compact.py:64"),
     ]
-    no_library = ("kernel2", "kernel2_cossin", "raw", "recovery", "kernel1")
+    no_library = ("kernel2", "kernel2_cossin", "raw", "recovery", "kernel1",
+                  "audio")
     check(all(launches[key] > 0 for _, key, _, _ in rows), launches)
 
     # every TPU kernel with its bound: the ported ones at the inputs

@@ -6,20 +6,35 @@ written by hand for ``sm_90a`` (``kernels/csrc/``).  Every entry point
 runs on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU
 each kernel wrapper runs its plain PyTorch version.
 
+Entry points: ``KernelReceiver`` (the wideband receiver) and
+``KernelAnalyzer`` (the dynamic analyzer session, with its ``Analyzer``
+protocol, ``AnalyzerState`` and typed messages).
+
 The package never imports JAX or ``sigdigger_tpu``: it keeps its own
 copy of every constant builder it needs.
 """
 
 from __future__ import annotations
 
-__all__ = ["KernelReceiver", "ReceiverBlock"]
+_RECEIVER = ("KernelReceiver", "ReceiverBlock")
+_ANALYZER = (
+    "Analyzer", "AnalyzerState", "KernelAnalyzer", "ChannelMessage",
+    "InspectorMessage", "InspectorMessageKind", "Message", "MessageKind",
+    "PSDMessage", "SamplesMessage", "SourceInfoMessage", "StatusMessage",
+)
+
+__all__ = [*_RECEIVER, *_ANALYZER]
 
 
 def __getattr__(name):
     # heavy imports resolved lazily so `import sigdigger_tpu_torch`
     # stays light
-    if name in ("KernelReceiver", "ReceiverBlock"):
+    if name in _RECEIVER:
         from sigdigger_tpu_torch import receiver
 
         return getattr(receiver, name)
+    if name in _ANALYZER:
+        from sigdigger_tpu_torch import analyzer
+
+        return getattr(analyzer, name)
     raise AttributeError(name)

@@ -1,0 +1,1071 @@
+"""KernelAnalyzer — the dynamic analyzer session on the port's kernel
+banks (counterpart of ``sigdigger_tpu/analyzer/kernel_engine.py``).
+
+It runs the session protocol of :class:`~.engine.Analyzer` — message
+taxonomy, async inspector acks, the config-key contract (reference
+Suscan/Analyzer.cpp:111-623) — on the hand-written CUDA kernels:
+
+- spectrum → ``kernels/fft.py``: read from the channelizer's shared
+  upload (``PSDFromXW.feed_ema``, the EMA on the device) when a
+  bucket's decimation equals the taps and the PSD's B, else the
+  standalone ``PSD`` on the raw block;
+- channel extraction → ``kernels/rawbank.py`` (raw streams, power,
+  estimators and inspector spectra, and the recovery bank's input);
+- "audio" inspectors → ``kernels/audio.py`` (AM/FM/USB/LSB/RAW with
+  squelch, AGC, cutoff and volume; the su_agc hang follower in the
+  kernel);
+- "psk"/"fsk"/"ask" inspectors → ``kernels/recovery.py``;
+- the drain → ``kernels/compact.py``: only the active slots' columns
+  cross to the host while they fit ``compact_cols``, else the full
+  planes.
+
+Open, retune and close are constant updates of a pre-allocated slot
+shared by the banks.  Per-channel decimation is bucketed: each declared
+decimation class has its own bank trio, and an inspector lands in the
+slowest bucket that covers its bandwidth.  Audio is resampled to
+``audio.sample-rate`` on the host by linear interpolation.
+
+Where the port's signature differs from the reference's:
+- ``device`` takes the place of ``interpret``; ``in_i16`` and
+  ``drain_bf16`` default to on for ``cuda`` and off for ``cpu``.
+- ``drain_pack`` defaults to False, the reference's compactor drain
+  (``kernel_engine.py:1089-1101``); True, the single-fetch int16 pack
+  with the symbol squeeze, raises ``NotImplementedError`` (ROADMAP.md
+  queue 2 items 7 and 9).  ``symbol_group`` is validated as in the
+  reference and, as there, squeezes only on the packed drain.
+- ``mesh`` other than None raises ``NotImplementedError`` (queue 1
+  item 12).
+
+The reference's fault at ``kernel_engine.py:929`` (``ADVICE.md``) is not
+carried over: the threaded drain fetches without the engine lock but
+demaps the slots' state under it, so control calls from other threads
+never race the demap.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Any
+
+import numpy as np
+import torch
+
+from sigdigger_tpu_torch.analyzer.engine import Analyzer, _InspectorSlot
+from sigdigger_tpu_torch.analyzer.estimators import prepare as prepare_est
+from sigdigger_tpu_torch.analyzer.messages import (
+    InspectorMessage,
+    InspectorMessageKind,
+)
+from sigdigger_tpu_torch.config import INSPECTOR_SCHEMAS, Config
+from sigdigger_tpu_torch.kernels.audio import AudioBank, AudioBankConfig
+from sigdigger_tpu_torch.kernels.compact import (
+    ColumnCompactor,
+    ColumnCompactorConfig,
+)
+from sigdigger_tpu_torch.kernels.fft import PSD, PSDConfig, PSDFromXW
+from sigdigger_tpu_torch.kernels.rawbank import RawBank, RawBankConfig
+from sigdigger_tpu_torch.kernels.recovery import (
+    KIND_ASK,
+    KIND_FSK,
+    KIND_PSK,
+    RecoveryBank,
+    RecoveryBankConfig,
+)
+from sigdigger_tpu_torch.types import AnalyzerMode, Channel
+from sigdigger_tpu_torch.utils.logger import Logger
+
+_DIGITAL = {"psk": KIND_PSK, "fsk": KIND_FSK, "ask": KIND_ASK}
+
+
+def ks_schema_keys(slot) -> set[str]:
+    """All schema keys of a slot's inspector class (warn only on keys
+    that exist in the contract yet have no kernel-path effect)."""
+    return {f.name for f in INSPECTOR_SCHEMAS[slot.class_name]}
+
+
+def _largest_divisor(n: int, limit: int) -> int:
+    d = min(n, limit)
+    while n % d:
+        d -= 1
+    return d
+
+
+def _host(a) -> np.ndarray:
+    """A drained array on the host (bank state is numpy until a slot's
+    first block, a tensor after it)."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _decide_phase(syms: np.ndarray, bits: int) -> np.ndarray:
+    levels = 1 << bits
+    sector = np.round(np.angle(syms) * levels / (2.0 * np.pi))
+    return np.mod(sector, levels).astype(np.uint8)
+
+
+def _decide_interval(v: np.ndarray, lo: float, hi: float,
+                     bits: int) -> np.ndarray:
+    levels = 1 << bits
+    idx = np.floor((v - lo) / (hi - lo) * levels)
+    return np.clip(idx, 0, levels - 1).astype(np.uint8)
+
+
+def _decide_amplitude(v: np.ndarray, bits: int,
+                      vmax: float | None = None) -> np.ndarray:
+    if vmax is None:
+        vmax = max(float(np.max(v)) if v.size else 0.0, 1e-12)
+    levels = 1 << bits
+    idx = np.round(v / vmax * (levels - 1))
+    return np.clip(idx, 0, levels - 1).astype(np.uint8)
+
+
+class _HostResampler:
+    """Streaming linear-interpolation rate converter (numpy)."""
+
+    def __init__(self, rate_in: float, rate_out: float) -> None:
+        self.ratio = float(rate_in) / float(rate_out)
+        self._pos = 0.0
+        self._last = 0.0
+
+    def __call__(self, x: np.ndarray) -> np.ndarray:
+        if not len(x):
+            return x
+        ext = np.concatenate([[self._last], np.asarray(x, np.float64)])
+        # output sample k sits at input position _pos + k*ratio (in ext
+        # coordinates, +1 for the carried sample)
+        n_out = int(np.floor((len(ext) - 1 - self._pos) / self.ratio))
+        if n_out <= 0:
+            self._pos -= len(x)
+            self._last = x[-1]
+            return np.zeros(0, np.float32)
+        pos = self._pos + np.arange(n_out) * self.ratio
+        out = np.interp(pos, np.arange(len(ext)) - 1.0, ext)
+        self._pos = self._pos + n_out * self.ratio - len(x)
+        self._last = x[-1]
+        return out.astype(np.float32)
+
+
+class _KernelSlotExtra:
+    """Per-inspector host-side bits the banks don't hold."""
+
+    def __init__(self, idx: int, config: Config) -> None:
+        self.idx = idx
+        self.config = config
+        self.resampler: _HostResampler | None = None
+        self.pw_acc = 0.0
+        self.pw_cnt = 0
+        self.offset = 0.0           # afc.offset / ask.offset (Hz)
+        self.bucket = None          # _Bucket hosting this slot
+        self.agc_ema: float | None = None  # digital drain AGC power EMA
+        # EMA-tracked decision ranges (stable symbol boundaries across
+        # blocks — reference Decider fixed min/max)
+        self.dec_span: float | None = None   # fsk |freq| span
+        self.dec_vmax: float | None = None   # ask amplitude max
+
+
+# config keys each inspector class honors on the kernel path; a set of
+# any OTHER schema key is acknowledged but logged loudly (reference
+# contract: Default/GenericInspector/InspectorCtl/*.cpp)
+_HONORED_KEYS: dict[str, set[str]] = {
+    "audio": {"audio.cutoff", "audio.volume", "audio.sample-rate",
+              "audio.demodulator", "audio.squelch",
+              "audio.squelch-level", "agc.enabled", "agc.gain",
+              "agc.ts"},
+    "psk": {"afc.bits-per-symbol", "afc.costas-order", "afc.loop-bw",
+            "afc.offset", "mf.type", "mf.roll-off", "clock.baud",
+            "clock.gain", "clock.phase", "clock.running", "clock.type",
+            "equalizer.type", "equalizer.rate", "equalizer.locked",
+            "agc.enabled", "agc.gain", "agc.ts"},
+    "fsk": {"fsk.bits-per-symbol", "fsk.phase", "fsk.quad-demod",
+            "mf.type", "mf.roll-off", "clock.baud", "clock.gain",
+            "clock.phase", "clock.running", "clock.type",
+            # the fsk discriminator is amplitude-invariant: the gain-
+            # control contract is honored trivially
+            "agc.enabled", "agc.gain", "agc.ts"},
+    "ask": {"ask.bits-per-symbol", "ask.channel", "ask.loop-bw",
+            "ask.offset", "ask.use-pll", "mf.type", "mf.roll-off",
+            "clock.baud", "clock.gain", "clock.phase", "clock.running",
+            "clock.type", "agc.enabled", "agc.gain", "agc.ts"},
+    "raw": {"agc.enabled", "agc.gain", "agc.ts"},
+    "power": {"power.integrate-samples"},
+}
+
+
+class _Bucket:
+    """One (decimation) class of pre-allocated inspector slots: its own
+    RawBank + AudioBank + RecoveryBank at equiv_rate = fs/decimation
+    (reference per-inspector decimation choice, Tasks/LPFTask.cpp:52-69)."""
+
+    def __init__(self, decimation: int, raw: RawBank, audio: AudioBank,
+                 rec: RecoveryBank, n_slots: int) -> None:
+        self.decimation = decimation
+        self.raw = raw
+        self.audio = audio
+        self.rec = rec
+        self.free = list(range(n_slots - 1, -1, -1))
+        # device-side active-column compaction (kernels/compact.py):
+        # built by the engine when n_slots >= compact_cols; cmap maps
+        # slot idx -> compact column while the active set fits
+        self.comp_digital: ColumnCompactor | None = None
+        self.comp_raw: ColumnCompactor | None = None
+        self.comp_audio: ColumnCompactor | None = None
+        self.cmap: dict[int, int] = {}
+        self.active: list[int] = []
+        # per-section active slot lists ("audio" slots, "digital" =
+        # psk/fsk/ask, "raw" = slots that consume the raw planes on the
+        # host), the packed drain's section maps (ROADMAP.md queue 2
+        # item 9)
+        self.active_by: dict[str, list[int]] = {
+            "audio": [], "digital": [], "raw": []}
+
+    @property
+    def channel_rate(self) -> float:
+        return self.raw.cfg.channel_rate
+
+    @property
+    def audio_rate(self) -> float:
+        return self.audio.cfg.audio_rate
+
+
+class KernelAnalyzer(Analyzer):
+    """Analyzer running its hot path on the port's kernel banks.
+
+    ``decimations`` declares the available (bw, rate) bucket classes —
+    each gets ``n_slots`` pre-allocated inspector slots at
+    equiv_rate = fs / decimation; ``open_inspector`` places each
+    inspector in the slowest bucket that still covers its bandwidth
+    (with a 1.25 guard).  ``decimation`` names the primary bucket.
+    Runs on ``cuda`` unless ``device`` says otherwise.
+    """
+
+    def __init__(self, profile=None, params=None, source=None,
+                 block_size: int | None = None, n_slots: int = 128,
+                 decimation: int = 64, audio_decim: int = 8,
+                 decimations: tuple[int, ...] | None = None,
+                 device=None, mesh=None,
+                 compact_cols: int = 32,
+                 pipeline_depth: int = 1,
+                 in_i16: bool | None = None,
+                 drain_bf16: bool | None = None,
+                 drain_pack: bool = False,
+                 in_i8: bool = False,
+                 symbol_group: int = 1,
+                 drain_thread: bool = False) -> None:
+        if drain_pack:
+            raise NotImplementedError(
+                "drain_pack=True (the single-fetch int16 drain pack and "
+                "the symbol squeeze) is not ported (ROADMAP.md queue 2 "
+                "items 7 and 9); use drain_pack=False")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported (ROADMAP.md queue 1 item 12)")
+        self._compact_cols = int(compact_cols)
+        # int16 packed uploads (in-kernel dequantization at 4096
+        # counts/unit) default on for cuda, off for cpu so CPU runs stay
+        # exact; in_i8 (opt-in) at 64 counts/unit
+        self._in_i16 = in_i16
+        self._in_i8 = bool(in_i8)
+        # bf16 drains of the audio and digital compactors (raw IQ stays
+        # float32); same default policy as in_i16
+        self._drain_bf16 = drain_bf16
+        # depth > 1 overlaps the next block's framing/upload with the
+        # previous block's device compute and drain (messages lag
+        # depth-1 blocks; flushed at EOS)
+        self._pipeline_depth = max(1, int(pipeline_depth))
+        self._inflight: list = []
+        self._symbol_group = max(1, int(symbol_group))
+        # drain_thread moves fetch + demap + message emission to a
+        # worker so the host demap overlaps the next block
+        self._drain_thread_on = bool(drain_thread)
+        self._drain_worker = None
+        self._drain_q = None
+        self._n_slots = int(n_slots)
+        self._defer_compact = False
+        self._decimation = int(decimation)
+        self._audio_decim = int(audio_decim)
+        self._decimations = tuple(sorted(
+            set(decimations or ()) | {int(decimation)}, reverse=True))
+        super().__init__(profile=profile, params=params, source=source,
+                         block_size=block_size, device=device)
+
+    # ------------------------------------------------------------------
+    # DSP construction
+    # ------------------------------------------------------------------
+    def _build_dsp(self) -> None:
+        rate = self.source.sample_rate
+        w = self.params.window_size
+        dev = self.device
+        on_card = dev.type == "cuda"
+        if self._in_i16 is None:
+            self._in_i16 = on_card
+        if self._drain_bf16 is None:
+            self._drain_bf16 = on_card
+        frames = self.block_size // w
+        self._spectrum = PSD(
+            PSDConfig(fft_size=w, frames_per_block=frames,
+                      frames_per_program=_largest_divisor(frames, 8)),
+            rate, self.params.window_function,
+            alpha=self.params.spectrum_avg_alpha, device=dev)
+
+        in_scale = 64.0 if self._in_i8 else 4096.0
+        self._buckets: dict[int, _Bucket] = {}
+        for d in self._decimations:
+            if self.block_size % (d * self._audio_decim):
+                raise ValueError(
+                    f"block_size {self.block_size} must be a multiple "
+                    f"of decimation*audio_decim = "
+                    f"{d * self._audio_decim}")
+            block_out = self.block_size // d
+            m_tile = _largest_divisor(block_out, 2048)
+            if m_tile % self._audio_decim:
+                raise ValueError(
+                    f"derived m_tile {m_tile} not a multiple of audio "
+                    f"decimation {self._audio_decim}")
+            # the reference's FIR chunk choice (kernel_engine.py:364-365)
+            ft = (1024 if m_tile % 1024 == 0
+                  and 1024 % self._audio_decim == 0 else 0)
+            audio = AudioBank(AudioBankConfig(
+                sample_rate=rate, n_channels=self._n_slots,
+                decimation=d, audio_decim=self._audio_decim,
+                block_out=block_out, m_tile=m_tile, enable_ssb=True,
+                in_scale=in_scale, fir_tile=ft, hang_agc=True), device=dev)
+            raw = RawBank(RawBankConfig(
+                sample_rate=rate, n_channels=self._n_slots,
+                decimation=d, block_out=block_out, m_tile=m_tile,
+                in_scale=in_scale), device=dev)
+            rec = RecoveryBank(RecoveryBankConfig(
+                n_channels=self._n_slots, block_len=block_out), device=dev)
+            bucket = _Bucket(d, raw, audio, rec, self._n_slots)
+            if 0 < self._compact_cols <= self._n_slots:
+                cw = self._compact_cols
+                bucket.comp_digital = ColumnCompactor(ColumnCompactorConfig(
+                    n_rows=block_out, n_channels=self._n_slots, width=cw,
+                    n_planes=3, out_bf16=self._drain_bf16), device=dev)
+                bucket.comp_raw = ColumnCompactor(ColumnCompactorConfig(
+                    n_rows=block_out, n_channels=self._n_slots, width=cw,
+                    n_planes=2), device=dev)
+                bucket.comp_audio = ColumnCompactor(ColumnCompactorConfig(
+                    n_rows=block_out // self._audio_decim,
+                    n_channels=self._n_slots, width=cw, n_planes=1,
+                    out_bf16=self._drain_bf16), device=dev)
+            self._buckets[d] = bucket
+
+        # the spectrum shares the channelizer upload when a bucket's
+        # window geometry matches the four-step factorization
+        # (decimation == taps == B): per block the host uploads ONE
+        # buffer for PSD + AudioBank + RawBank
+        self._psd_bucket = None
+        if self.params.mode != AnalyzerMode.WIDE_SPECTRUM:
+            b_fac = self._spectrum.cfg.b
+            for d in self._decimations:
+                if d == b_fac and self._buckets[d].raw.cfg.taps == b_fac:
+                    self._spectrum = PSDFromXW(
+                        self._spectrum.cfg, m_rows=self.block_size // d,
+                        sample_rate=rate,
+                        window=self.params.window_function,
+                        alpha=self.params.spectrum_avg_alpha,
+                        in_scale=(1.0 / 64.0 if self._in_i8
+                                  else 1.0 / 4096.0 if self._in_i16
+                                  else 1.0),
+                        device=dev)
+                    self._psd_bucket = self._buckets[d]
+                    break
+
+        primary = self._buckets[self._decimation]
+        self._audio_bank = primary.audio      # primary-bucket aliases
+        self._raw_bank = primary.raw
+        self._rec_bank = primary.rec
+        self._kslots: dict[int, _KernelSlotExtra] = {}
+
+    @property
+    def channel_rate(self) -> float:
+        return self._raw_bank.cfg.channel_rate
+
+    @property
+    def audio_rate(self) -> float:
+        return self._audio_bank.cfg.audio_rate
+
+    def _pick_bucket(self, bw: float) -> _Bucket:
+        """The slowest bucket (largest decimation) whose channel rate
+        still covers the requested bandwidth with a 1.25 guard,
+        falling back to the fastest bucket."""
+        for d in self._decimations:          # sorted descending
+            b = self._buckets[d]
+            if b.channel_rate >= bw * 1.25 and b.free:
+                return b
+        return self._buckets[self._decimations[-1]]
+
+    def _refresh_compact(self, bucket: _Bucket) -> None:
+        """Rebuild the bucket's slot->compact-column mapping (a rewrite
+        of the compactors' maps).  When the active set outgrows the
+        compact width the drain falls back to full planes."""
+        if bucket.comp_digital is None or self._defer_compact:
+            return
+        active = sorted(ks.idx for ks in self._kslots.values()
+                        if ks.bucket is bucket)
+        if len(active) > bucket.comp_digital.cfg.width:
+            bucket.cmap = {}
+            bucket.active = []
+            return
+        bucket.cmap = {idx: i for i, idx in enumerate(active)}
+        bucket.active = active
+        bucket.active_by = self._active_by(bucket)
+        for comp in (bucket.comp_digital, bucket.comp_raw,
+                     bucket.comp_audio):
+            comp.set_mapping(active)
+
+    def _active_by(self, bucket: _Bucket) -> dict[str, list[int]]:
+        by: dict[str, list[int]] = {"audio": [], "digital": [],
+                                    "raw": []}
+        for slot in self._inspectors.values():
+            ks = self._kslots[slot.handle]
+            if ks.bucket is not bucket:
+                continue
+            if slot.class_name == "audio":
+                by["audio"].append(ks.idx)
+            elif slot.class_name in _DIGITAL:
+                by["digital"].append(ks.idx)
+            if self._needs_host_raw(slot, ks):
+                by["raw"].append(ks.idx)
+        return {k: sorted(v) for k, v in by.items()}
+
+    def _needs_host_raw(self, slot, ks: _KernelSlotExtra) -> bool:
+        """Whether this slot's raw [M] channel column must cross to the
+        host.  Power inspectors whose integration window is a whole
+        number of blocks are served by the device block-power row
+        instead."""
+        if slot.estimators or slot.spectrum_source:
+            return True
+        if slot.class_name == "raw":
+            return True
+        if slot.class_name == "power":
+            n_int = max(1, int(ks.config["power.integrate-samples"]))
+            return n_int % ks.bucket.raw.cfg.block_out != 0
+        return False
+
+    def bulk_config(self):
+        """Context manager batching many open/close/configure calls:
+        per-channel device constant uploads and compact-map refreshes
+        are suspended and flushed ONCE on exit."""
+        @contextmanager
+        def _bulk():
+            banks = [b for bk in self._buckets.values()
+                     for b in (bk.raw, bk.audio, bk.rec)]
+            with self._lock:
+                for b in banks:
+                    b.begin_defer()
+                self._defer_compact = True
+            try:
+                yield
+            finally:
+                with self._lock:
+                    for b in banks:
+                        b.end_defer()
+                    self._defer_compact = False
+                    for bk in self._buckets.values():
+                        self._refresh_compact(bk)
+        return _bulk()
+
+    def set_estimator(self, handle: int, estimator_id: str,
+                      enabled: bool, request_id: int = 0) -> None:
+        super().set_estimator(handle, estimator_id, enabled,
+                              request_id)
+        slot = self._inspectors.get(handle)
+        if slot is None:
+            return
+        ks = self._kslots[handle]
+        if enabled:
+            # build the estimator's PSD now, not on the first drained
+            # block (ADVICE.md, tasks/psdutil.py:58)
+            prepare_est(estimator_id, ks.bucket.raw.cfg.block_out,
+                        slot.equiv_rate, self.device)
+        with self._lock:
+            self._refresh_compact(ks.bucket)
+
+    def set_spectrum_source(self, handle: int, source_id: int,
+                            request_id: int = 0) -> None:
+        super().set_spectrum_source(handle, source_id, request_id)
+        slot = self._inspectors.get(handle)
+        if slot is not None:
+            with self._lock:
+                self._refresh_compact(self._kslots[handle].bucket)
+
+    # ------------------------------------------------------------------
+    # inspector lifecycle (the ack protocol of the base engine)
+    # ------------------------------------------------------------------
+    def open_inspector(self, class_name: str, channel: Channel,
+                       request_id: int = 0,
+                       config: dict[str, Any] | None = None) -> int:
+        if class_name not in INSPECTOR_SCHEMAS:
+            self._emit(InspectorMessage(
+                inspector_kind=InspectorMessageKind.WRONG_KIND,
+                request_id=request_id, class_name=class_name))
+            raise ValueError(f"unknown inspector class {class_name!r}")
+        with self._lock:
+            bw = channel.bw or (channel.f_high - channel.f_low)
+            bw = max(bw, self.sample_rate /
+                     self.params.window_size * 8)
+            if class_name == "audio":
+                bw = min(bw, self.sample_rate / 2.0, 200e3)
+            bucket = self._pick_bucket(bw)
+            if not bucket.free:
+                self._emit(InspectorMessage(
+                    inspector_kind=InspectorMessageKind.WRONG_OBJECT,
+                    request_id=request_id, class_name=class_name))
+                raise RuntimeError(
+                    f"all {self._n_slots} kernel slots of the "
+                    f"1/{bucket.decimation} bucket in use")
+            idx = bucket.free.pop()
+            cfgobj = Config(INSPECTOR_SCHEMAS[class_name])
+            if config:
+                cfgobj.update(config)
+            equiv_rate = bucket.channel_rate
+
+            bucket.raw.configure_channel(
+                idx, f0=channel.fc, bw=bw / 2.0, reset_state=True)
+            handle = self._next_handle
+            self._next_handle += 1
+            slot = _InspectorSlot(
+                handle=handle, inspector_id=handle,
+                class_name=class_name, inspector=None, chan_handle=idx,
+                equiv_rate=equiv_rate, bandwidth=bw, lo=channel.fc,
+                estimators=set(),
+            )
+            ks = _KernelSlotExtra(idx, cfgobj)
+            ks.bucket = bucket
+            self._inspectors[handle] = slot
+            self._by_id[handle] = handle
+            self._kslots[handle] = ks
+            self._apply_config(slot, ks, reset_state=True)
+            self._refresh_compact(bucket)
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.OPEN,
+            request_id=request_id, handle=handle, inspector_id=handle,
+            class_name=class_name, config=cfgobj.copy(),
+            equiv_rate=equiv_rate, bandwidth=bw, lo=channel.fc,
+        ))
+        return handle
+
+    def _apply_config(self, slot: _InspectorSlot, ks: _KernelSlotExtra,
+                      reset_state: bool = False) -> None:
+        c = ks.config
+        name = slot.class_name
+        bucket = ks.bucket
+        if name == "audio":
+            cutoff = min(float(c["audio.cutoff"]),
+                         0.9 * bucket.audio_rate)
+            bucket.audio.configure_channel(
+                ks.idx, f0=slot.lo, bw=slot.bandwidth / 2.0,
+                mode=int(c["audio.demodulator"]), cutoff=cutoff,
+                # manual agc.gain applies when AGC is off (reference
+                # GainControl semantics), folded into the volume row
+                volume=float(c["audio.volume"]) * (
+                    1.0 if bool(c["agc.enabled"])
+                    else float(c["agc.gain"])),
+                squelch=bool(c["audio.squelch"]),
+                squelch_level=float(c["audio.squelch-level"]),
+                agc=bool(c["agc.enabled"]),
+                # 0.0 restores the bank's default squelch-EMA constant
+                agc_ts=(float(c["agc.ts"])
+                        if bool(c["agc.enabled"]) else 0.0),
+                reset_state=reset_state)
+            target = float(c["audio.sample-rate"])
+            ks.resampler = (_HostResampler(bucket.audio_rate, target)
+                            if abs(target - bucket.audio_rate) > 1e-6
+                            else None)
+        elif name in _DIGITAL:
+            kw: dict[str, Any] = {}
+            if name == "psk":
+                bps = max(1, int(c["afc.bits-per-symbol"]))
+                order = int(c["afc.costas-order"])
+                if order not in (2, 4, 8):
+                    order = min(1 << bps, 8)
+                loop_bw = float(c["afc.loop-bw"])
+                ks.offset = float(c["afc.offset"])
+                kw.update(eq_enabled=int(c["equalizer.type"]) == 1,
+                          eq_rate=float(c["equalizer.rate"]),
+                          eq_locked=bool(c["equalizer.locked"]))
+            elif name == "ask":
+                order = 2
+                loop_bw = float(c["ask.loop-bw"])
+                ks.offset = float(c["ask.offset"])
+                kw.update(pll=bool(c["ask.use-pll"]))
+            else:                                # fsk
+                order = 2
+                loop_bw = None    # derived from the baud rate below
+                ks.offset = 0.0
+                kw.update(quad_demod=bool(c["fsk.quad-demod"]),
+                          fsk_phase=float(c["fsk.phase"]))
+            baud = max(float(c["clock.baud"]), 1e-3)
+            sps = max(2.0, bucket.channel_rate / baud)
+            if self._symbol_group > 1 and sps < self._symbol_group + 1:
+                raise ValueError(
+                    f"symbol_group={self._symbol_group} requires "
+                    f"sps >= {self._symbol_group + 1} on every digital "
+                    f"inspector (got sps={sps:.2f}); the squeezed "
+                    "drain would collide strobes")
+            if loop_bw is None:
+                # the fsk contract exposes no loop key; size the
+                # coherent-path PLL at 5% of the symbol rate
+                loop_bw = 0.05 / sps
+            bucket.rec.configure_channel(
+                ks.idx, kind=_DIGITAL[name], sps=sps, order=order,
+                loop_bw=loop_bw,
+                clock_gain=float(c["clock.gain"]),
+                mf_rolloff=float(c["mf.roll-off"]),
+                use_mf=int(c["mf.type"]) == 1,
+                running=bool(c["clock.running"]),
+                manual_clock=int(c["clock.type"]) == 0,
+                clock_phase=float(c["clock.phase"]),
+                reset_state=reset_state, **kw)
+            # manual carrier offset shifts the channel mix (reference
+            # AfcControl/AskControl offset semantics)
+            bucket.raw.configure_channel(
+                ks.idx, f0=slot.lo + ks.offset)
+
+    def set_inspector_config(self, handle: int, config: dict[str, Any],
+                             request_id: int = 0) -> None:
+        slot = self._slot(handle, request_id)
+        if slot is None:
+            return
+        honored = _HONORED_KEYS.get(slot.class_name, set())
+        ignored = [k for k in config
+                   if k not in honored and k in ks_schema_keys(slot)]
+        if ignored:
+            Logger.instance().warning(
+                f"kernel path does not honor {sorted(ignored)} on "
+                f"{slot.class_name!r} inspector {handle} (accepted, "
+                "no effect)", domain="kernel_engine")
+        with self._lock:
+            ks = self._kslots[handle]
+            ks.config.update(config)
+            self._apply_config(slot, ks)
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.SET_CONFIG,
+            request_id=request_id, handle=handle,
+            inspector_id=slot.inspector_id, class_name=slot.class_name,
+            config=ks.config.copy(),
+        ))
+
+    def set_inspector_freq(self, handle: int, freq: float,
+                           request_id: int = 0) -> None:
+        slot = self._slot(handle, request_id)
+        if slot is None:
+            return
+        with self._lock:
+            ks = self._kslots[handle]
+            slot.lo = freq
+            ks.bucket.raw.configure_channel(ks.idx,
+                                            f0=freq + ks.offset)
+            if slot.class_name == "audio":
+                ks.bucket.audio.configure_channel(ks.idx, f0=freq)
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.SET_FREQ,
+            request_id=request_id, handle=handle, lo=freq,
+        ))
+
+    def _retune_channel(self, slot, f0: float) -> None:
+        """Doppler-corrected LO move on the bank constants (the path of
+        set_inspector_freq, without touching the user-visible
+        slot.lo)."""
+        ks = self._kslots[slot.handle]
+        ks.bucket.raw.configure_channel(ks.idx, f0=f0 + ks.offset)
+        if slot.class_name == "audio":
+            ks.bucket.audio.configure_channel(ks.idx, f0=f0)
+
+    def set_inspector_bandwidth(self, handle: int, bw: float,
+                                request_id: int = 0) -> None:
+        slot = self._slot(handle, request_id)
+        if slot is None:
+            return
+        with self._lock:
+            ks = self._kslots[handle]
+            slot.bandwidth = bw
+            ks.bucket.raw.configure_channel(ks.idx, bw=bw / 2.0)
+            if slot.class_name == "audio":
+                ks.bucket.audio.configure_channel(ks.idx, bw=bw / 2.0)
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.SET_BANDWIDTH,
+            request_id=request_id, handle=handle, bandwidth=bw,
+        ))
+
+    def close_inspector(self, handle: int, request_id: int = 0) -> None:
+        slot = self._slot(handle, request_id)
+        if slot is None:
+            return
+        import time as _time
+
+        self._flush_watermark(slot, _time.time())
+        with self._lock:
+            ks = self._kslots.pop(handle)
+            # mask the slot: silence the audio column, then recycle
+            ks.bucket.audio.configure_channel(ks.idx, mode=0,
+                                              volume=0.0)
+            ks.bucket.free.append(ks.idx)
+            self._by_id.pop(slot.inspector_id, None)
+            del self._inspectors[handle]
+            self._refresh_compact(ks.bucket)
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.CLOSE,
+            request_id=request_id, handle=handle,
+            inspector_id=slot.inspector_id,
+        ))
+
+    # ------------------------------------------------------------------
+    # block compute on the kernel banks
+    # ------------------------------------------------------------------
+    def _upload(self, bucket: _Bucket, x: np.ndarray) -> torch.Tensor:
+        """Frame one block into the bucket's packed window buffer
+        (int16/int8 when asked) and upload it once."""
+        return torch.from_numpy(bucket.raw.frame_packed(
+            x, i16=self._in_i16, i8=self._in_i8)).to(self.device)
+
+    def _compute_block(self, x: np.ndarray) -> list:
+        """Depth-``pipeline_depth`` block pipeline: dispatch block n,
+        drain block n-(depth-1).  Messages lag (depth-1) blocks;
+        ``_flush_pipeline`` drains the tail at EOS."""
+        by_bucket: dict[int, list] = {}
+        for slot in self._inspectors.values():
+            ks = self._kslots[slot.handle]
+            by_bucket.setdefault(ks.bucket.decimation, []).append(slot)
+        xw_shared = None
+        if self._psd_bucket is not None:
+            # ONE packed upload feeds the PSD and this bucket's banks;
+            # the EMA folds on the device, fetched when a message is due
+            xw_shared = self._upload(self._psd_bucket, x)
+            self._spectrum.feed_ema(xw_shared)
+        handles = [self._dispatch_bucket(
+            self._buckets[d], slots, x,
+            xw_shared if self._buckets[d] is self._psd_bucket else None)
+            for d, slots in by_bucket.items()]
+        self._inflight.append(handles)
+        if len(self._inflight) < self._pipeline_depth:
+            return []
+        entry = self._inflight.pop(0)
+        if self._drain_thread_on:
+            self._queue_drain(entry)
+            return []
+        return self._drain_entry(entry)
+
+    def _feed_spectrum(self, x: np.ndarray) -> None:
+        if self._psd_bucket is None:
+            super()._feed_spectrum(x)
+        # else: _compute_block feeds the PSD from the shared upload
+
+    def _drain_entry(self, handles) -> list:
+        return [m for hs in handles for m in self._drain_bucket(hs)]
+
+    def _flush_pipeline(self) -> list:
+        out = []
+        while self._inflight:
+            out.extend(self._drain_entry(self._inflight.pop(0)))
+        return out
+
+    def _emit_block_msgs(self, msgs, now: float) -> None:
+        for slot, samples, extras, raw in msgs:
+            self._emit_samples(slot, samples, extras, now)
+            if slot.estimators:
+                self._emit_estimators(slot, raw)
+            if slot.spectrum_source:
+                self._emit_inspector_spectrum(slot, raw)
+
+    # ------------------------------------------------------------------
+    # threaded drain: fetch + demap + emission on a worker, so the host
+    # demap overlaps the next block's framing, upload and compute
+    # ------------------------------------------------------------------
+    def _queue_drain(self, entry) -> None:
+        import queue as _q
+        import threading
+
+        if self._drain_q is None:
+            # maxsize well above the step() throttle point, so the
+            # producer's put() never blocks while it holds the engine
+            # lock (the worker takes that lock to demap and emit)
+            self._drain_q = _q.Queue(
+                maxsize=self._pipeline_depth + 6)
+            self._drain_worker = threading.Thread(
+                target=self._drain_loop, daemon=True,
+                name="kernel-drain")
+            self._drain_worker.start()
+        self._drain_q.put(entry)
+
+    def _drain_loop(self) -> None:
+        import time as _time
+
+        while True:
+            entry = self._drain_q.get()
+            if entry is None:
+                self._drain_q.task_done()
+                return
+            try:
+                msgs = self._drain_entry(entry)
+                self._emit_block_msgs(msgs, _time.time())
+            except Exception as e:  # noqa: BLE001 — worker must live
+                Logger.instance().error(
+                    f"drain worker failed: {e!r}",
+                    domain="kernel_engine")
+            finally:
+                self._drain_q.task_done()
+
+    def step(self) -> bool:
+        import time as _time
+
+        if self._drain_q is not None:
+            # backpressure OUTSIDE the engine lock: never let the
+            # drain queue grow past the pipeline depth + slack
+            while self._drain_q.qsize() > self._pipeline_depth + 2:
+                _time.sleep(0.002)
+        ok = super().step()
+        if not ok and self._inflight:
+            # EOS with blocks still in flight: drain and emit the tail
+            entries = list(self._inflight)
+            self._inflight.clear()
+            if self._drain_thread_on and self._drain_q is not None:
+                for e in entries:
+                    self._drain_q.put(e)
+            else:
+                now = _time.time()
+                for e in entries:
+                    self._emit_block_msgs(self._drain_entry(e), now)
+        if not ok and self._drain_q is not None:
+            self._drain_q.join()   # every queued drain emitted at EOS
+        return ok
+
+    def _dispatch_bucket(self, bucket: _Bucket, slots: list,
+                         x: np.ndarray, xw=None) -> dict:
+        """Frame + dispatch every bank this bucket's slots need; returns
+        a handle of DEVICE tensors (plus the mapping snapshot) for
+        :meth:`_drain_bucket`.  ``xw`` is an already-uploaded packed
+        window buffer (the PSD share in _compute_block); when None the
+        bucket frames and uploads its own — ONE upload feeds both
+        banks."""
+        any_audio = any(s.class_name == "audio" for s in slots)
+        any_digital = any(s.class_name in _DIGITAL for s in slots)
+        # the [M, C] raw planes only cross to the host when a slot
+        # consumes them there (raw payloads, estimators, spectrum
+        # sources, non-block-aligned power); the digital chain and
+        # block-aligned power consume them ON DEVICE
+        need_host_raw = any(
+            self._needs_host_raw(s, self._kslots[s.handle])
+            for s in slots if s.handle in self._kslots)
+        any_power_fast = any(
+            s.class_name == "power"
+            and s.handle in self._kslots
+            and not self._needs_host_raw(s, self._kslots[s.handle])
+            for s in slots)
+        need_raw_compute = need_host_raw or any_digital or any_power_fast
+
+        # device-side column compaction: only active-slot columns cross
+        # to the host; cmap empty = fall back to full planes
+        comp = bool(bucket.cmap) and all(
+            self._kslots[s.handle].idx in bucket.cmap for s in slots)
+
+        h: dict = {"bucket": bucket, "slots": slots, "comp": comp,
+                   "cmap": dict(bucket.cmap)}
+        if xw is None:
+            xw = self._upload(bucket, x)
+        audio = None
+        if any_audio:
+            audio = bucket.audio.feed_packed(xw, fetch=False)
+            h["sq_level"] = bucket.audio._sq_level.copy()
+            h["squelch"] = bucket.audio._squelch.copy()
+        y_re = y_im = None
+        if need_raw_compute:
+            y_re, y_im = bucket.raw.feed_packed(xw, fetch=False)
+        dig = None
+        if any_digital:
+            dig = bucket.rec.feed_planes(y_re, y_im, fetch=False)
+
+        if any_audio:
+            h["audio"] = (bucket.comp_audio.dispatch(audio) if comp
+                          else audio)
+            h["sq"] = bucket.audio._sq        # this block's squelch rows
+        if need_raw_compute:
+            h["power"] = bucket.raw._power_dev
+        if any_digital:
+            h["dig"] = (bucket.comp_digital.dispatch(*dig)
+                        if comp else dig)
+        if need_host_raw:
+            h["raw"] = (bucket.comp_raw.dispatch(y_re, y_im) if comp
+                        else (y_re, y_im))
+        return h
+
+    def _digital_gain(self, ks: _KernelSlotExtra,
+                      sym: np.ndarray) -> float:
+        """Gain-control contract for the drained digital stream
+        (reference InspectorCtl/GainControl.cpp): manual ``agc.gain``
+        when AGC is off; when on, a power-EMA normalizer whose time
+        constant is ``agc.ts`` symbol periods."""
+        c = ks.config
+        if not bool(c["agc.enabled"]):
+            ks.agc_ema = None
+            return float(c["agc.gain"])
+        if not len(sym):
+            return 1.0
+        p = float(np.mean(np.abs(sym) ** 2))
+        baud = max(float(c["clock.baud"]), 1e-3)
+        sps = max(2.0, ks.bucket.channel_rate / baud)
+        tau = max(float(c["agc.ts"]) * sps, 1.0)
+        alpha = 1.0 - np.exp(-len(sym) / tau)
+        if ks.agc_ema is None:
+            ks.agc_ema = p
+        else:
+            ks.agc_ema += alpha * (p - ks.agc_ema)
+        return 1.0 / np.sqrt(max(ks.agc_ema, 1e-12))
+
+    def _drain_bucket(self, h: dict) -> list:
+        """Fetch a dispatched block (without the engine lock, so the
+        transfer overlaps the next block's dispatch), then demap it into
+        per-slot messages with the lock held: the demap reads and
+        updates the slots' config and host state, which control calls
+        on other threads change (ADVICE.md, kernel_engine.py:929)."""
+        fetched = self._fetch(h)
+        with self._lock:
+            return self._demap(h, *fetched)
+
+    def _fetch(self, h: dict) -> tuple:
+        """The host side of one dispatched block: (audio, squelch_open,
+        soft symbol planes (re, im), strobe plane, raw re, raw im, block
+        power), None where the block has no such drain."""
+        bucket: _Bucket = h["bucket"]
+        comp = h["comp"]
+        audio_out = soft = strobe = y_re = y_im = power = None
+        squelch_open = None
+        if "audio" in h:
+            if comp:
+                audio_out = bucket.comp_audio.fetch(h["audio"])[0]
+            else:
+                audio_out = _host(h["audio"])
+            sq = _host(h["sq"])[0]
+            squelch_open = (~h["squelch"]) | (sq >= h["sq_level"])
+        if "dig" in h:
+            # the planes as drained: each slot's column becomes complex
+            # symbols and strobes in the demap, not the whole planes
+            if comp:
+                *soft, strobe = bucket.comp_digital.fetch(h["dig"])
+            else:
+                *soft, strobe = (_host(a) for a in h["dig"])
+        if "raw" in h:
+            if comp:
+                y_re, y_im = bucket.comp_raw.fetch(h["raw"])
+            else:
+                y_re, y_im = (_host(a) for a in h["raw"])
+        # the [1, C] power row crosses whenever the block has one: which
+        # slots read it (raw AGC, block-aligned power) is their config's
+        # at demap time, which a control call may change after the fetch
+        if "power" in h:
+            power = _host(h["power"])[0]
+        return audio_out, squelch_open, soft, strobe, y_re, y_im, power
+
+    def _demap(self, h: dict, audio_out, squelch_open, soft, strobe,
+               y_re, y_im, power) -> list:
+        """Per-slot messages of one fetched block; the caller holds the
+        engine lock."""
+        bucket: _Bucket = h["bucket"]
+        msgs = []
+        for slot in h["slots"]:
+            # a control thread may close a slot while its last block is
+            # in flight (pipeline_depth > 1): closed slots simply stop
+            # producing messages (reference close semantics)
+            ks = self._kslots.get(slot.handle)
+            if ks is None:
+                continue
+            col = h["cmap"][ks.idx] if h["comp"] else ks.idx
+            c = ks.config
+            raw_col = None
+            if y_re is not None and (
+                    slot.class_name in ("raw", "power")
+                    or slot.estimators or slot.spectrum_source):
+                raw_col = (y_re[:, col]
+                           + 1j * y_im[:, col]).astype(np.complex64)
+            name = slot.class_name
+            if name == "audio":
+                aud = audio_out[:, col]
+                if ks.resampler is not None:
+                    aud = ks.resampler(aud)
+                extras = {"squelch_open": bool(squelch_open[ks.idx])}
+                msgs.append((slot, aud, extras, raw_col))
+            elif name == "raw":
+                if bool(c["agc.enabled"]):
+                    # power-EMA follower honoring agc.ts (channel
+                    # samples), seeded by the block power
+                    p = max(float(power[ks.idx]), 1e-12)
+                    tau = max(float(c["agc.ts"]), 1.0)
+                    alpha = 1.0 - np.exp(-len(raw_col) / tau)
+                    if ks.agc_ema is None:
+                        ks.agc_ema = p
+                    else:
+                        ks.agc_ema += alpha * (p - ks.agc_ema)
+                    g = 1.0 / np.sqrt(max(ks.agc_ema, 1e-12))
+                else:
+                    ks.agc_ema = None
+                    g = float(c["agc.gain"])
+                msgs.append((slot, raw_col * np.float32(g), {}, raw_col))
+            elif name == "power":
+                n_int = max(1, int(c["power.integrate-samples"]))
+                out = []
+                if raw_col is None:
+                    # device fast path: block-aligned integration on
+                    # the [1, C] block-power row (mean |y|² × M)
+                    m_blk = bucket.raw.cfg.block_out
+                    ks.pw_acc += float(power[ks.idx]) * m_blk
+                    ks.pw_cnt += m_blk
+                    if ks.pw_cnt >= n_int:
+                        out.append(np.sqrt(ks.pw_acc / n_int))
+                        ks.pw_acc, ks.pw_cnt = 0.0, 0
+                else:
+                    p = (raw_col.real.astype(np.float64) ** 2
+                         + raw_col.imag.astype(np.float64) ** 2)
+                    pos = 0
+                    while pos < len(p):
+                        take = min(n_int - ks.pw_cnt, len(p) - pos)
+                        ks.pw_acc += float(p[pos:pos + take].sum())
+                        ks.pw_cnt += take
+                        pos += take
+                        if ks.pw_cnt == n_int:
+                            out.append(np.sqrt(ks.pw_acc / n_int))
+                            ks.pw_acc, ks.pw_cnt = 0.0, 0
+                msgs.append((slot, np.asarray(out, np.float32), {},
+                             raw_col))
+            else:                              # psk / fsk / ask
+                sym = soft[0][:, col] + 1j * soft[1][:, col]
+                st = strobe[:, col] > 0.5
+                if name != "fsk":              # fsk is amp-invariant
+                    sym = sym * np.float32(self._digital_gain(ks, sym))
+                if name == "psk":
+                    bps = max(1, int(c["afc.bits-per-symbol"]))
+                    ids = _decide_phase(sym, bps)
+                    extras = {"strobes": st, "symbols": ids}
+                    msgs.append((slot, sym, extras, raw_col))
+                elif name == "fsk":
+                    bps = max(1, int(c["fsk.bits-per-symbol"]))
+                    vals = np.real(sym)
+                    if st.any():
+                        # per-slot EMA-tracked decision span: symbol
+                        # boundaries stay put across blocks (reference
+                        # Decider fixed min/max)
+                        m = float(np.max(np.abs(vals[st])))
+                        ks.dec_span = m if ks.dec_span is None else \
+                            ks.dec_span + 0.1 * (m - ks.dec_span)
+                        span = max(ks.dec_span, 1e-12)
+                        ids = _decide_interval(
+                            vals[st], -span * (1 + 1e-6),
+                            span * (1 + 1e-6), bps)
+                    else:
+                        ids = np.zeros(0, np.uint8)
+                    extras = {"strobes": st, "symbols": ids}
+                    msgs.append((slot, vals, extras, raw_col))
+                else:
+                    bps = max(1, int(c["ask.bits-per-symbol"]))
+                    vals = np.real(sym)
+                    if st.any():
+                        m = float(np.max(vals[st]))
+                        ks.dec_vmax = m if ks.dec_vmax is None else \
+                            ks.dec_vmax + 0.1 * (m - ks.dec_vmax)
+                        ids = _decide_amplitude(
+                            vals[st], bps,
+                            vmax=max(ks.dec_vmax, 1e-12))
+                    else:
+                        ids = np.zeros(0, np.uint8)
+                    extras = {"strobes": st, "symbols": ids}
+                    msgs.append((slot, vals, extras, raw_col))
+        return msgs

@@ -31,6 +31,25 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # entry points of each library: name -> argtypes (restype is c_int)
 SIGNATURES = {
+    "audio": {
+        "sd_audio": (
+            [_P, _P, _I, _F]        # xr, xi, in_kind, in_gain
+            + [_P] * 7              # h_re h_im prm taps2 ataps phi0 phs0
+            + [_P] * 9              # carries in (audio.py STATE order)
+            + [_P] * 11             # audio, carries out, power
+            + [_P] * 9              # rr ri pow_part sq_t gain f1 f2 a1 a2
+            + [_I] * 10             # M C K mt ka ka2 da ssb hang seed_tile
+            + [_F] * 3              # quad_gain beta one_m_beta
+            + [_P]),                # stream
+    },
+    "compact": {
+        "sd_compact": (
+            [_P] * 4 + [_I]         # x0..x3, n
+            + [_P, _P, _I]          # slots, out, out_kind
+            + [_F] * 4              # s0..s3
+            + [_I] * 4              # M C W mt
+            + [_P]),                # stream
+    },
     "channelizer": {
         "sd_kernel1": (
             [_P] * 13               # xr xi h_re h_im theta phi0 prev_re

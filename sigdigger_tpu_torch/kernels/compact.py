@@ -1,0 +1,201 @@
+"""Device-side column compaction for bank drains (counterpart of
+``sigdigger_tpu/kernels/compact.py``).
+
+The analyzer banks emit dense ``[M, n_slots]`` planes, but a session
+rarely uses every pre-allocated slot.  The compactor gathers the active
+columns on the device so only they cross to the host:
+
+    out[p·mt + r, w] = X_p[r, slots[w]]   in row tiles of ``m_tile``
+
+with columns that have no slot left 0.  Several planes of one shape
+compact into ONE plane-interleaved output (rows of tile mi are ``[plane
+0 rows | plane 1 rows | ...]``), so a bank drain is one dispatch and one
+fetch; :meth:`ColumnCompactor.fetch` de-interleaves it.  The output is
+float32, bfloat16 (round to nearest even) or int16
+(``clip(v·scale)``, truncated toward zero as a float-to-int16 cast does).
+
+The reference gathers with a one-hot selection matmul (its TPU toolchain
+had no gather); :func:`compact_kernel` launches a gather written by hand
+in ``csrc/compact.cu`` on CUDA tensors and runs
+:func:`compact_kernel_reference` on CPU tensors.  The column map is a
+small device tensor (int32 ``[W]``, -1 for an empty column) rewritten in
+place by :meth:`ColumnCompactor.set_mapping`; nothing is rebuilt.
+
+Non-finite inputs: the gather copies a mapped column's value as it is
+and never reads an unmapped column.  The one-hot matmul also multiplies
+every unmapped column of a row by 0, so an inf or NaN there turns that
+row's whole output into NaN in the reference and not here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from sigdigger_tpu_torch.backend import resolve_device
+
+MAX_PLANES = 4               # planes one kernel launch gathers
+
+
+@dataclass(frozen=True)
+class ColumnCompactorConfig:
+    n_rows: int                  # M
+    n_channels: int              # C (bank slot count)
+    width: int                   # W (compact columns)
+    n_planes: int = 1            # planes compacted per dispatch
+    m_tile: int = 0              # rows per interleaved tile (0 → auto)
+    out_bf16: bool = False       # drain bf16 (halves the D2H bytes)
+    out_i16: bool = False        # drain scaled int16 (per-plane scales)
+    scales: tuple[float, ...] = ()   # quantization scale per plane
+                                     # (required with out_i16)
+
+    def __post_init__(self):
+        if self.out_i16:
+            assert not self.out_bf16
+            assert len(self.scales) == self.n_planes
+        if self.m_tile == 0:
+            mt = min(self.n_rows, 2048)
+            while self.n_rows % mt:
+                mt -= 1
+            object.__setattr__(self, "m_tile", mt)
+        assert self.n_rows % self.m_tile == 0
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return (torch.int16 if self.out_i16
+                else torch.bfloat16 if self.out_bf16 else torch.float32)
+
+
+def _store(v: torch.Tensor, dtype: torch.dtype, scale: float | None
+           ) -> torch.Tensor:
+    if dtype == torch.int16:
+        v = torch.clamp(v * torch.tensor(np.float32(scale)),
+                        -32768.0, 32767.0)
+    return v.to(dtype)
+
+
+def compact_kernel_reference(planes: tuple, slots: torch.Tensor,
+                             cfg: ColumnCompactorConfig) -> torch.Tensor:
+    """Plain PyTorch version of ``_compact_kernel``: ``planes`` are
+    ``n_planes`` float32 ``[M, C]``, ``slots`` int32 ``[W]`` (-1: empty
+    column).  Returns the interleaved ``[n·M, W]`` output in
+    ``cfg.dtype``."""
+    m, w, n, mt = cfg.n_rows, cfg.width, cfg.n_planes, cfg.m_tile
+    idx = slots.long().clamp(min=0)
+    mapped = (slots >= 0)[None, :]
+    out = torch.empty((m // mt, n, mt, w), dtype=cfg.dtype,
+                      device=slots.device)
+    for p, x in enumerate(planes):
+        v = torch.where(mapped, x[:, idx], torch.zeros((), device=x.device))
+        out[:, p] = _store(v, cfg.dtype, cfg.scales[p] if cfg.out_i16
+                           else None).reshape(m // mt, mt, w)
+    return out.reshape(n * m, w)
+
+
+_OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2}
+
+
+def _compact_cuda(planes: tuple, slots: torch.Tensor,
+                  cfg: ColumnCompactorConfig) -> torch.Tensor:
+    from sigdigger_tpu_torch.kernels._build import load_library
+
+    dev = slots.device
+    m, c, w, n = cfg.n_rows, cfg.n_channels, cfg.width, cfg.n_planes
+    if not 1 <= n <= MAX_PLANES or len(planes) != n:
+        raise ValueError(f"compact_kernel takes 1..{MAX_PLANES} planes and "
+                         f"the config's {n}, got {len(planes)}")
+    for p, x in enumerate(planes):
+        if (tuple(x.shape) != (m, c) or x.dtype != torch.float32
+                or x.device != dev or not x.is_contiguous()):
+            raise ValueError(
+                f"compact_kernel plane {p}: want contiguous float32 "
+                f"{(m, c)} on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+    if (tuple(slots.shape) != (w,) or slots.dtype != torch.int32
+            or not slots.is_contiguous()):
+        raise ValueError(f"compact_kernel slots: want contiguous int32 "
+                         f"({w},), got {slots.dtype} {tuple(slots.shape)}")
+    lib = load_library("compact")
+    out = torch.empty((n * m, w), dtype=cfg.dtype, device=dev)
+    ptrs = [ctypes.c_void_p(x.data_ptr()) for x in planes]
+    ptrs += [ctypes.c_void_p(0)] * (MAX_PLANES - n)
+    scales = list(cfg.scales if cfg.out_i16 else ())
+    scales += [1.0] * (MAX_PLANES - len(scales))
+    with torch.cuda.device(dev):
+        err = lib.sd_compact(
+            *ptrs, n, ctypes.c_void_p(slots.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), _OUT_KIND[cfg.dtype],
+            *(float(np.float32(s)) for s in scales), m, c, w, cfg.m_tile,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sd_compact launch failed: CUDA error {err}")
+    compact_kernel.launches += 1
+    return out
+
+
+def compact_kernel(planes: tuple, slots: torch.Tensor,
+                   cfg: ColumnCompactorConfig) -> torch.Tensor:
+    """One compaction: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  ``compact_kernel.launches`` counts the
+    CUDA launches."""
+    if slots.device.type == "cuda":
+        return _compact_cuda(planes, slots, cfg)
+    if slots.device.type == "cpu":
+        return compact_kernel_reference(planes, slots, cfg)
+    raise ValueError(f"compact_kernel runs on cuda or cpu, not "
+                     f"{slots.device}")
+
+
+compact_kernel.launches = 0
+
+
+class ColumnCompactor:
+    """Compacts active slot columns out of dense bank planes.  Runs on
+    ``cuda`` unless ``device`` says otherwise."""
+
+    def __init__(self, cfg: ColumnCompactorConfig,
+                 device: str | torch.device | None = None) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._slots = torch.full((cfg.width,), -1, dtype=torch.int32,
+                                 device=self.device)
+
+    def set_mapping(self, slots: list[int]) -> None:
+        """slots[w] = bank column for compact column w (the device map
+        is rewritten in place, never rebuilt)."""
+        assert len(slots) <= self.cfg.width, (len(slots), self.cfg.width)
+        new = np.full(self.cfg.width, -1, np.int32)
+        new[:len(slots)] = np.asarray(slots, np.int64)
+        self._slots.copy_(torch.from_numpy(new))
+
+    def dispatch(self, *planes) -> torch.Tensor:
+        """Dispatch the compaction; returns the DEVICE interleaved
+        output (fetch deferred — callers pipeline the drain)."""
+        assert len(planes) == self.cfg.n_planes
+        planes = tuple(torch.as_tensor(p).to(self.device) for p in planes)
+        return compact_kernel(planes, self._slots, self.cfg)
+
+    def fetch(self, stacked) -> tuple[np.ndarray, ...]:
+        """ONE device-to-host fetch of a dispatched output,
+        de-interleaved into n_planes float32 ``[M, W]`` arrays."""
+        cfg = self.cfg
+        host = torch.as_tensor(stacked).cpu()
+        i16 = host.dtype == torch.int16
+        stacked = host.float().numpy()
+        m_tiles = cfg.n_rows // cfg.m_tile
+        v = stacked.reshape(m_tiles, cfg.n_planes, cfg.m_tile, cfg.width)
+        planes = [np.ascontiguousarray(v[:, p].reshape(cfg.n_rows,
+                                                       cfg.width))
+                  for p in range(cfg.n_planes)]
+        if i16:
+            for p, scale in enumerate(cfg.scales):
+                planes[p] *= np.float32(1.0 / scale)
+        return tuple(planes)
+
+    def __call__(self, *planes) -> tuple[np.ndarray, ...]:
+        """planes: n_planes ``[M, C]`` float32 tensors → tuple of ``[M,
+        W]`` numpy arrays (dispatch + single fetch)."""
+        return self.fetch(self.dispatch(*planes))

@@ -1,12 +1,18 @@
-// Channelizer stages shared by the v2 FM kernel (channelizer2.cu) and the
-// v1 FM kernel (channelizer.cu).
+// Channelizer stages shared by the v2 FM kernel (channelizer2.cu), the v1
+// FM kernel (channelizer.cu), the raw bank (rawbank.cu) and the audio bank
+// (audio.cu).
 //
 //   chan_rot_disc  channelize Y = Xw·H, rotate, discriminate against the
 //                  previous rotated row (recomputed as a one-row halo, or
-//                  the carried row at m = 0) -> f [M, C], last row and,
-//                  optionally, the last Ka-1 rows of f (the FIR tail)
+//                  the carried row at m = 0) -> f [M, C] and its last row
 //   audio_fir      banded decimating FIR over [ftail_in | f], or over f
 //                  with zeros before the block -> audio [M/Da, C]
+//   tail_copy      the last T rows of [tail | x]: the carried FIR tail of
+//                  a block, however many rows the block has
+//   raw_rot        channelize and rotate (cos/sin) with no demodulation,
+//                  plus power partials of up to 64 rows inside one time
+//                  tile: the raw bank (rawbank.cu) and the audio bank
+//                  (audio.cu)
 //
 // Two rotators, as the TPU kernel has them (channelizer2.py:153-183):
 //   TABLE   e^{-jmθ} = Q[m/64]·R[m%64], both tables float64-built on the
@@ -50,7 +56,7 @@ constexpr int MAX_KA = 256;  // audio taps held in shared memory
 
 // xr, xi: the [M, 64] window planes (the halves of one packed [2M, 64]
 // upload for the v2 kernel).  TABLE reads q [M/64·2, C] and r [128, C];
-// cos/sin reads theta [1, C] and phi0 [M/mt, C].  ftail_out may be null.
+// cos/sin reads theta [1, C] and phi0 [M/mt, C].
 template <typename T, bool TABLE>
 __global__ void __launch_bounds__(256)
 chan_rot_disc(const T* __restrict__ xr, const T* __restrict__ xi,
@@ -61,8 +67,7 @@ chan_rot_disc(const T* __restrict__ xr, const T* __restrict__ xi,
               const float* __restrict__ prev_re,
               const float* __restrict__ prev_im, float* __restrict__ f,
               float* __restrict__ last_re, float* __restrict__ last_im,
-              float* __restrict__ ftail_out, int M, int C, int mt, int ka,
-              float quad_gain) {
+              int M, int C, int mt, float quad_gain) {
     __shared__ float smem[2 * (TM + 1) * YS];
     float* xs_re = smem;
     float* xs_im = xs_re + (TM + 1) * XS;
@@ -192,7 +197,6 @@ chan_rot_disc(const T* __restrict__ xr, const T* __restrict__ xi,
     __syncthreads();
 
     // discriminator: atan2(Y[m]·conj(Y[m-1]))·quad_gain
-    const int tail0 = M - (ka - 1);
     for (int i = tid; i < TM * TC; i += 256) {
         const int lr = 1 + i / TC, cc = i % TC;
         const int c = c0 + cc, m = m0 - 1 + lr;
@@ -202,14 +206,11 @@ chan_rot_disc(const T* __restrict__ xr, const T* __restrict__ xi,
         const float pi = ys_im[(lr - 1) * YS + cc];
         const float dr = rr * pr + ri * pi;
         const float di = ri * pr - rr * pi;
-        const float fv = sd_atan2(di, dr) * quad_gain;
-        f[(size_t)m * C + c] = fv;
+        f[(size_t)m * C + c] = sd_atan2(di, dr) * quad_gain;
         if (m == M - 1) {
             last_re[c] = rr;
             last_im[c] = ri;
         }
-        if (ftail_out != nullptr && m >= tail0)
-            ftail_out[(size_t)(m - tail0) * C + c] = fv;
     }
 }
 
@@ -254,18 +255,161 @@ audio_fir(const float* __restrict__ f, const float* __restrict__ ftail_in,
     }
 }
 
+// The carried tail of a block: out[r] = ext[n + r] over
+// ext = [tail (T rows) | x (n rows)], r < T.  With n >= T it is the last
+// T rows of x; with n < T it starts inside the old tail.
+__global__ void tail_copy(const float* __restrict__ tail,
+                          const float* __restrict__ x,
+                          float* __restrict__ out, int T, int n, int C) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= T * C) return;
+    const int r = k / C, c = k % C;
+    const int e = n + r;
+    out[k] = e < T ? tail[(size_t)e * C + c] : x[(size_t)(e - T) * C + c];
+}
+
+// Row blocks of raw_rot per m-tile (host and device: the power passes
+// sum that many partials per tile).
+__host__ __device__ inline int raw_groups(int mt) {
+    return (mt + TM - 1) / TM;
+}
+
+// Channelize and rotate with no demodulation, the raw bank's stage and the
+// audio bank's first one: Y = Xw·H (K taps, any K, in chunks of KC), row m
+// of m-tile mi times e^{-j(φ0[mi] + m_local·θ_c)} (the phase an explicit
+// __fmaf_rn, rounded once) -> y_re, y_im [M, C].  Each m-tile is covered
+// by gpt = ceil(mt/64) row blocks, the last one ragged when 64 does not
+// divide mt, so no block straddles two tiles: block (mi, g) holds rows
+// mi·mt + 64g .. min(+64, (mi+1)·mt) and writes Σ |y|² of its rows per
+// channel to pow_part [M/mt·gpt, C], row mi·gpt + g.  mt | M.
+template <typename T>
+__global__ void __launch_bounds__(256)
+raw_rot(const T* __restrict__ xr, const T* __restrict__ xi, float in_gain,
+        const float* __restrict__ h_re, const float* __restrict__ h_im,
+        const float* __restrict__ theta, const float* __restrict__ phi0,
+        float* __restrict__ y_re, float* __restrict__ y_im,
+        float* __restrict__ pow_part, int M, int C, int K, int mt) {
+    __shared__ float xs_re[TM * XS];
+    __shared__ float xs_im[TM * XS];
+    __shared__ float hs_re[KC * TC];
+    __shared__ float hs_im[KC * TC];
+    __shared__ float red[16 * TC];
+
+    const int tid = threadIdx.x;
+    const int tx = tid & 15;
+    const int ty = tid >> 4;
+    const int c0 = blockIdx.x * TC;
+    const int gpt = raw_groups(mt);
+    const int mi = blockIdx.y / gpt;
+    const int m0 = mi * mt + (blockIdx.y % gpt) * TM;
+    const int m_end = (mi + 1) * mt;      // rows from here are the next tile's
+
+    float acc_re[4][4], acc_im[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_re[i][j] = acc_im[i][j] = 0.0f;
+
+    for (int k0 = 0; k0 < K; k0 += KC) {
+        for (int i = tid; i < TM * KC; i += 256) {
+            const int lr = i / KC, kk = i % KC;
+            const int k = k0 + kk;
+            const bool in = k < K && m0 + lr < m_end;
+            const size_t at = (size_t)(m0 + lr) * K + k;
+            xs_re[lr * XS + kk] = in ? deq(xr[at], in_gain) : 0.0f;
+            xs_im[lr * XS + kk] = in ? deq(xi[at], in_gain) : 0.0f;
+        }
+        for (int i = tid; i < KC * TC; i += 256) {
+            const int kk = i / TC, c = c0 + i % TC;
+            const bool in = c < C && k0 + kk < K;
+            hs_re[i] = in ? h_re[(size_t)(k0 + kk) * C + c] : 0.0f;
+            hs_im[i] = in ? h_im[(size_t)(k0 + kk) * C + c] : 0.0f;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int kk = 0; kk < KC; ++kk) {
+            float ar[4], ai[4], br[4], bi[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                ar[i] = xs_re[(ty * 4 + i) * XS + kk];
+                ai[i] = xs_im[(ty * 4 + i) * XS + kk];
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                br[j] = hs_re[kk * TC + tx + 16 * j];
+                bi[j] = hs_im[kk * TC + tx + 16 * j];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    acc_re[i][j] += ar[i] * br[j] - ai[i] * bi[j];
+                    acc_im[i][j] += ar[i] * bi[j] + ai[i] * br[j];
+                }
+        }
+        __syncthreads();
+    }
+
+    // rotate: ph = φ0[mi] + m_local·θ, rounded once
+    float psum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx + 16 * j;
+        if (c >= C) continue;
+        const float th = theta[c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int m = m0 + ty * 4 + i;
+            if (m >= m_end) continue;
+            const float ml = static_cast<float>(m - mi * mt);
+            const float ph = __fmaf_rn(ml, th, phi0[(size_t)mi * C + c]);
+            float sn, cs;
+            sincosf(ph, &sn, &cs);
+            const float ci = -sn;
+            const float yr = acc_re[i][j], yi = acc_im[i][j];
+            const float rr = yr * cs - yi * ci;
+            const float ri = yr * ci + yi * cs;
+            y_re[(size_t)m * C + c] = rr;
+            y_im[(size_t)m * C + c] = ri;
+            psum[j] += rr * rr + ri * ri;
+        }
+    }
+    // the block's rows per channel, summed in row-group order
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[ty * TC + tx + 16 * j] = psum[j];
+    __syncthreads();
+    if (tid < TC && c0 + tid < C) {
+        float s = 0.0f;
+        for (int g = 0; g < 16; ++g) s += red[g * TC + tid];
+        pow_part[(size_t)blockIdx.y * C + c0 + tid] = s;
+    }
+}
+
 // Launch chan_rot_disc over the whole block on stream s.
 template <typename T, bool TABLE>
 void launch_chan(const T* xr, const T* xi, float in_gain, const float* h_re,
                  const float* h_im, const float* q, const float* r,
                  const float* theta, const float* phi0,
                  const float* prev_re, const float* prev_im, float* f,
-                 float* last_re, float* last_im, float* ftail_out, int M,
-                 int C, int mt, int ka, float quad_gain, cudaStream_t s) {
+                 float* last_re, float* last_im, int M, int C, int mt,
+                 float quad_gain, cudaStream_t s) {
     const dim3 grid((C + TC - 1) / TC, (M + TM - 1) / TM);
     chan_rot_disc<T, TABLE><<<grid, 256, 0, s>>>(
         xr, xi, in_gain, h_re, h_im, q, r, theta, phi0, prev_re, prev_im, f,
-        last_re, last_im, ftail_out, M, C, mt, ka, quad_gain);
+        last_re, last_im, M, C, mt, quad_gain);
+}
+
+// Launch tail_copy on stream s: out [T, C] = the last T rows of
+// [tail (T rows) | x (n rows)].
+inline void launch_tail(const float* tail, const float* x, float* out, int T,
+                        int n, int C, cudaStream_t s) {
+    const int total = T * C;
+    tail_copy<<<(total + 255) / 256, 256, 0, s>>>(tail, x, out, T, n, C);
+}
+
+// The grid of raw_rot over M rows.
+inline dim3 raw_grid(int M, int C, int mt) {
+    return dim3((C + TC - 1) / TC, (M / mt) * raw_groups(mt));
 }
 
 // Launch audio_fir on stream s (ftail_in null: zeros before the block).

@@ -38,8 +38,8 @@ extern "C" int sd_kernel1(const float* xr, const float* xi,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     chan::launch_chan<float, false>(xr, xi, 1.0f, h_re, h_im, nullptr,
                                     nullptr, theta, phi0, prev_re, prev_im,
-                                    f_scr, last_re, last_im, nullptr, M, C,
-                                    M, 1, quad_gain, s);
+                                    f_scr, last_re, last_im, M, C, M,
+                                    quad_gain, s);
     chan::launch_audio(f_scr, nullptr, ataps, audio, false, M, C, ka, da, s);
     return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,11 @@
 //   (a) chan_rot_disc  channelize Y = Xw·H, rotate (Q[m/64]·R[m%64] or
 //                      cos/sin of φ0[mi] + m_local·θ), discriminate
 //                      against the previous rotated row -> f [M, C],
-//                      last row, f tail (chan.cuh)
+//                      last row (chan.cuh)
 //   (b) audio_fir      banded decimating FIR over [ftail_in | f]
 //                      -> audio [M/Da, C] (f32 or bf16) (chan.cuh)
+//       tail_copy      the last Ka-1 rows of [ftail_in | f], the next
+//                      block's FIR tail, also when M < Ka-1 (chan.cuh)
 //   (c) psd_frames     with the fused PSD: one 4096-point four-step DFT
 //                      per frame of 64 packed rows -> |X|^2 per frame
 //   (d) psd_sum        the partials summed in frame order, times the
@@ -35,30 +37,20 @@
 
 namespace {
 
-// With M < Ka-1 the new tail starts inside the old one:
-// ftail_out[i] = ftail_in[M + i] for i < Ka-1-M (the rest is f).
-__global__ void tail_shift(const float* __restrict__ ftail_in,
-                           float* __restrict__ ftail_out, int rows, int M,
-                           int C) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= rows * C) return;
-    ftail_out[i] = ftail_in[(size_t)M * C + i];
-}
-
 template <typename T, bool TABLE>
 cudaError_t launch_input_stages(
     const void* xw, float in_gain, const float* h_re, const float* h_im,
     const float* q, const float* r, const float* theta, const float* phi0,
     const float* prev_re, const float* prev_im, const float* w2d,
     const float* w64_re, const float* w64_im, const float* tw_re,
-    const float* tw_im, float* last_re, float* last_im, float* ftail_out,
-    float* f_scr, float* psd_part, float* psd, int M, int C, int mt, int ka,
-    float quad_gain, float psd_scale, cudaStream_t s) {
+    const float* tw_im, float* last_re, float* last_im, float* f_scr,
+    float* psd_part, float* psd, int M, int C, int mt, float quad_gain,
+    float psd_scale, cudaStream_t s) {
     const T* x = static_cast<const T*>(xw);
     chan::launch_chan<T, TABLE>(x, x + (size_t)M * chan::K, in_gain, h_re,
                                 h_im, q, r, theta, phi0, prev_re, prev_im,
-                                f_scr, last_re, last_im, ftail_out, M, C, mt,
-                                ka, quad_gain, s);
+                                f_scr, last_re, last_im, M, C, mt, quad_gain,
+                                s);
     if (psd == nullptr) return cudaSuccess;
     // (c) + (d): frame f is rows [64f, 64f+64) of both planes
     return four_step::launch_psd<T, 64, 64>(
@@ -74,18 +66,17 @@ cudaError_t launch_rotator(
     const float* phi0, const float* prev_re, const float* prev_im,
     const float* w2d, const float* w64_re, const float* w64_im,
     const float* tw_re, const float* tw_im, float* last_re, float* last_im,
-    float* ftail_out, float* f_scr, float* psd_part, float* psd, int M,
-    int C, int mt, int ka, float quad_gain, float psd_scale,
-    cudaStream_t s) {
+    float* f_scr, float* psd_part, float* psd, int M, int C, int mt,
+    float quad_gain, float psd_scale, cudaStream_t s) {
     if (table)
         return launch_input_stages<T, true>(
             xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re, prev_im,
-            w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im, ftail_out,
-            f_scr, psd_part, psd, M, C, mt, ka, quad_gain, psd_scale, s);
+            w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im, f_scr,
+            psd_part, psd, M, C, mt, quad_gain, psd_scale, s);
     return launch_input_stages<T, false>(
         xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re, prev_im, w2d,
-        w64_re, w64_im, tw_re, tw_im, last_re, last_im, ftail_out, f_scr,
-        psd_part, psd, M, C, mt, ka, quad_gain, psd_scale, s);
+        w64_re, w64_im, tw_re, tw_im, last_re, last_im, f_scr, psd_part, psd,
+        M, C, mt, quad_gain, psd_scale, s);
 }
 
 }  // namespace
@@ -125,32 +116,25 @@ extern "C" int sd_kernel2(
         e = launch_rotator<float>(
             table, xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
-            ftail_out, f_scr, psd_part, psd_out, M, C, mt, ka, quad_gain,
-            psd_scale, s);
+            f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
         break;
     case 1:
         e = launch_rotator<int16_t>(
             table, xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
-            ftail_out, f_scr, psd_part, psd_out, M, C, mt, ka, quad_gain,
-            psd_scale, s);
+            f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
         break;
     case 2:
         e = launch_rotator<int8_t>(
             table, xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
-            ftail_out, f_scr, psd_part, psd_out, M, C, mt, ka, quad_gain,
-            psd_scale, s);
+            f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
         break;
     default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
-    if (M < ka - 1) {
-        const int rows = ka - 1 - M;
-        tail_shift<<<(rows * C + 255) / 256, 256, 0, s>>>(
-            ftail_in, ftail_out, rows, M, C);
-    }
+    chan::launch_tail(ftail_in, f_scr, ftail_out, ka - 1, M, C, s);
     chan::launch_audio(f_scr, ftail_in, ataps, audio, audio_bf16 != 0, M, C,
                        ka, da, s);
     return static_cast<int>(cudaGetLastError());

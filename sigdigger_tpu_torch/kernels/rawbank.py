@@ -123,9 +123,9 @@ def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams):
             raise ValueError(f"raw_kernel {name}: want contiguous [M, K] "
                              f"float32/int16/int8 like xr on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if m == 0 or m % 64 or p.mt % 64 or m % p.mt:
-        raise ValueError(f"raw_kernel needs M and m_tile multiples of 64 "
-                         f"with m_tile | M, got M={m}, m_tile={p.mt}")
+    if m == 0 or p.mt < 1 or m % p.mt:
+        raise ValueError(f"raw_kernel needs m_tile | M, got M={m}, "
+                         f"m_tile={p.mt}")
     shapes = {"h_re": (h_re, (k, c)), "h_im": (h_im, (k, c)),
               "theta": (theta, (1, c)), "phi0": (phi0, (m // p.mt, c))}
     for name, (t, shape) in shapes.items():
@@ -138,7 +138,8 @@ def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams):
     y_re = torch.empty((m, c), device=dev)
     y_im = torch.empty((m, c), device=dev)
     power = torch.empty((1, c), device=dev)
-    pow_part = torch.empty((m // 64, c), device=dev)
+    # one power partial per row block of up to 64 rows inside a tile
+    pow_part = torch.empty((m // p.mt * -(-p.mt // 64), c), device=dev)
     with torch.cuda.device(dev):
         err = lib.sd_rawbank(
             _ptr(xr), _ptr(xi), _IN_KIND[xr.dtype], p.in_gain,

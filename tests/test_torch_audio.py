@@ -1,0 +1,322 @@
+"""The port's audio bank (``kernels/audio.py``) against the reference's
+``AudioBank`` in interpret mode: every mode (AM, FM, USB, LSB, RAW,
+disabled), squelch, the block and the hang AGC, ``agc.ts``,
+``seed_tile``, float32 frames and the int16/int8 packed upload, over 3
+chained blocks comparing the audio and every carry.
+
+Tolerances, with their reason:
+- audio and the audio-rate FIR tails: 2e-4 absolute (audio is O(1)).
+  The two sides sum the 64-term complex channelize product in different
+  orders (float32 rounding ~1e-6 relative to the terms); on AGC'd RAW
+  and SSB slots whose channel holds only noise, the gain 1/|y| scales
+  that rounding, which is relative to the band's strong terms and not
+  to |y|, by the same factor (measured up to 1.2e-4).
+- decimating-FIR tails (the unfiltered plane): 1e-3 absolute, the same
+  rounding before the FIR averages it (measured up to 3e-4).
+- rotated carry rows: 1e-5 absolute plus 1.25 rotator-phase steps times
+  |y|.  The phase ``φ0 + m_local·θ`` reaches ``m_tile·2π`` rad in
+  float32, where a step is ``m_tile·2π·2^-23``; the port rounds it once,
+  the reference once or twice as XLA fuses it (ROADMAP.md queue 3).
+- squelch EMA and block power: 1e-5 relative (float32 means in another
+  order); the hang follower's levels 1e-4 relative (a branch taken
+  differently, below, decays in them with the follower's weights); the
+  DC level 1e-5 absolute (the
+  kernel runs the closed-form Toeplitz as its recurrence, the plain
+  version as the reference's matrix).
+- At most 1e-3 of the audio and tail elements (and never fewer than 2)
+  may exceed their tolerance.  Two comparisons pick a branch on values
+  the two sides round differently: the FM discriminator's atan2 where
+  the phase step sits at ±π, and the hang follower's ``|y| > slow``
+  where the two sit within rounding (one side then holds the slow level
+  for a few samples while the other lets it rise: measured 0.7% of the
+  gain on 9 samples of one RAW slot, in 12,288 elements).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from sigdigger_tpu.kernels.audio import AudioBank as RefAudioBank
+from sigdigger_tpu.kernels.audio import AudioBankConfig as RefAudioConfig
+from sigdigger_tpu_torch.kernels import audio
+from sigdigger_tpu_torch.kernels.audio import (
+    MODE_AM,
+    MODE_FM,
+    MODE_LSB,
+    MODE_RAW,
+    MODE_USB,
+    STATE,
+    AudioBank,
+    AudioBankConfig,
+)
+from sigdigger_tpu_torch.native import (
+    frame_windows,
+    frame_windows_packed_i8,
+    frame_windows_packed_i16,
+)
+
+FS = 256_000.0
+TOL_AUDIO = 2e-4
+TOL_FTAIL = 1e-3
+TOL_REL = 1e-5
+TOL_FRAC = 1e-3
+
+GEOM = dict(sample_rate=FS, n_channels=128, taps=64, decimation=16,
+            audio_taps=64, audio_decim=8, block_out=512, m_tile=256)
+
+
+def _slot(i: int, ssb: bool = True) -> dict:
+    """A mix of every mode, squelch on some, AGC on and off, agc.ts on
+    some, different centres and volumes."""
+    modes = ((0, MODE_AM, MODE_FM, MODE_USB, MODE_LSB, MODE_RAW) if ssb
+             else (0, MODE_AM, MODE_FM, MODE_RAW))
+    return dict(f0=-100e3 + i * 1.6e3, bw=3e3, mode=modes[i % len(modes)],
+                cutoff=1500.0, volume=0.5 + 0.01 * i, squelch=i % 4 == 0,
+                squelch_level=0.01 * (i % 3), agc=i % 3 != 0,
+                agc_ts=20.0 if i % 5 == 0 else None)
+
+
+def _pair(**kw):
+    geom = dict(GEOM, **kw)
+    # channel_tile is the reference's TPU tile; the port has none
+    ref = RefAudioBank(RefAudioConfig(**geom, channel_tile=geom[
+        "n_channels"]), interpret=True)
+    ours = AudioBank(AudioBankConfig(**geom), device="cpu")
+    for i in range(geom["n_channels"]):
+        cfg = _slot(i, geom.get("enable_ssb", True))
+        ref.configure_channel(i, **cfg)
+        ours.configure_channel(i, **cfg)
+    return ref, ours
+
+
+def _signal(n: int, seed: int) -> np.ndarray:
+    """Noise, an FM carrier, an AM carrier and a tone beside a USB slot."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / FS
+    x = 0.3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    x += 0.8 * np.exp(2j * np.pi * (-60e3 * t + 2e3 / 300.0
+                                    * np.sin(2 * np.pi * 300.0 * t)))
+    x += 0.6 * (1 + 0.5 * np.cos(2 * np.pi * 400 * t)) * \
+        np.exp(2j * np.pi * -98.4e3 * t)
+    x += 0.4 * np.exp(2j * np.pi * (-95.2e3 + 700.0) * t)
+    return x.astype(np.complex64)
+
+
+def _frames(ours: AudioBank, x: np.ndarray, kind: str, hist: np.ndarray):
+    cfg = ours.cfg
+    ext = np.concatenate([hist, x])
+    if kind == "f32":
+        xw = frame_windows(ext, cfg.block_out, cfg.taps, cfg.decimation)
+    elif kind == "i16":
+        xw = frame_windows_packed_i16(ext, cfg.block_out, cfg.taps,
+                                      cfg.decimation, cfg.in_scale)
+    else:
+        xw = frame_windows_packed_i8(ext, cfg.block_out, cfg.taps,
+                                     cfg.decimation, cfg.in_scale)
+    return xw, ext[-(cfg.taps - 1):]
+
+
+def _feed(bank, xw, kind: str):
+    if kind == "f32":
+        return bank.feed_frames(*xw)
+    return bank.feed_packed(xw)
+
+
+def _host(v) -> np.ndarray:
+    return torch.as_tensor(v).numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+def _phase_step(m_tile: int) -> float:
+    return m_tile * 2 * np.pi * 2.0 ** -23
+
+
+def assert_mostly_close(got, want, tol: float, name: str) -> None:
+    assert got.shape == want.shape, name
+    bad = int(np.sum(np.abs(got - want) > tol))
+    assert bad <= max(2, TOL_FRAC * got.size), \
+        (name, bad, float(np.abs(got - want).max()))
+
+
+def assert_bank_close(ours: AudioBank, ref, a_ours, a_ref) -> None:
+    assert a_ours.dtype == np.float32
+    assert_mostly_close(a_ours, a_ref, TOL_AUDIO, "audio")
+    step = _phase_step(ours.cfg.m_tile)
+    mag = np.abs(_host(ref._prev_re) + 1j * _host(ref._prev_im))
+    for name in ("_prev_re", "_prev_im"):
+        d = np.abs(_host(getattr(ours, name)) - _host(getattr(ref, name)))
+        assert np.all(d <= 1e-5 + 1.25 * step * mag), d.max()
+    for name, tol in (("_ftail1", TOL_FTAIL), ("_ftail2", TOL_FTAIL),
+                      ("_atail1", TOL_AUDIO), ("_atail2", TOL_AUDIO)):
+        assert_mostly_close(_host(getattr(ours, name)),
+                            _host(getattr(ref, name)), tol, name)
+    np.testing.assert_allclose(_host(ours._dc), _host(ref._dc), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(_host(ours._sq), _host(ref._sq),
+                               rtol=TOL_REL, atol=1e-12)
+    np.testing.assert_allclose(ours.block_power, ref.block_power,
+                               rtol=TOL_REL, atol=1e-12)
+    agcs, agcs_ref = _host(ours._agcs), _host(ref._agcs)
+    np.testing.assert_allclose(agcs[:2], agcs_ref[:2], rtol=1e-4,
+                               atol=1e-12)
+    np.testing.assert_array_equal(agcs[2:], agcs_ref[2:])
+    np.testing.assert_array_equal(ours.squelch_open(), ref.squelch_open())
+
+
+CASES = {
+    "block_agc": dict(kind="f32", kw=dict()),
+    "hang_agc": dict(kind="f32", kw=dict(hang_agc=True)),
+    "i16_packed_hang": dict(kind="i16", kw=dict(hang_agc=True)),
+    "i8_packed": dict(kind="i8", kw=dict(in_scale=64.0)),
+    "no_ssb": dict(kind="f32", kw=dict(enable_ssb=False)),
+    "seed_tile_hang": dict(kind="f32", kw=dict(hang_agc=True, seed_tile=1,
+                                               block_out=768)),
+    "m_tile_512": dict(kind="i16", kw=dict(block_out=1024, m_tile=512,
+                                           hang_agc=True, fir_tile=128)),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bank_matches_reference(case):
+    kind, kw = CASES[case]["kind"], CASES[case]["kw"]
+    ref, ours = _pair(**kw)
+    n = ours.cfg.block_in
+    x = _signal(3 * n, seed=len(case))
+    hist = np.zeros(ours.cfg.taps - 1, np.complex64)
+    for b in range(3):
+        xw, hist = _frames(ours, x[b * n:(b + 1) * n], kind, hist)
+        assert_bank_close(ours, ref, _feed(ours, xw, kind),
+                          _feed(ref, xw, kind))
+
+
+def test_feed_frames_itself_like_the_reference(monkeypatch):
+    """``feed`` frames with the carried history as the reference does."""
+    import sigdigger_tpu.native as ref_native
+
+    monkeypatch.setattr(ref_native, "_lib", None)
+    ref, ours = _pair(hang_agc=True)
+    n = ours.cfg.block_in
+    x = _signal(2 * n, seed=5)
+    for b in range(2):
+        blk = x[b * n:(b + 1) * n]
+        assert_bank_close(ours, ref, ours.feed(blk), ref.feed(blk))
+
+
+def test_state_carried_from_reference_bank():
+    """A port bank seeded with a reference bank's carries, phases and
+    history continues the reference's stream."""
+    ref, ours = _pair(hang_agc=True)
+    n = ours.cfg.block_in
+    x = _signal(3 * n, seed=11)
+    hist = np.zeros(ours.cfg.taps - 1, np.complex64)
+    for b in range(2):
+        xw, hist = _frames(ours, x[b * n:(b + 1) * n], "f32", hist)
+        ref.feed_frames(*xw)
+    for name in STATE:
+        setattr(ours, name, np.array(getattr(ref, name)))
+    ours._phi, ours._phs_a = ref._phi.copy(), ref._phs_a.copy()
+    xw, _ = _frames(ours, x[2 * n:], "f32", hist)
+    assert_bank_close(ours, ref, ours.feed_frames(*xw), ref.feed_frames(*xw))
+
+
+def test_retune_and_reset_are_constant_updates():
+    """Retuning, changing a slot's mode and resetting its state touch
+    that slot's columns of the constants and carries only, and both
+    banks go on agreeing."""
+    ref, ours = _pair(hang_agc=True)
+    n = ours.cfg.block_in
+    x = _signal(3 * n, seed=3)
+    hist = np.zeros(ours.cfg.taps - 1, np.complex64)
+    xw, hist = _frames(ours, x[:n], "f32", hist)
+    assert_bank_close(ours, ref, ours.feed_frames(*xw), ref.feed_frames(*xw))
+    before = {k: v.clone() for k, v in ours.consts.items()}
+    params_before = ours.params
+    for bank in (ref, ours):
+        bank.configure_channel(7, f0=-60e3, mode=MODE_FM, reset_state=True)
+        bank.configure_channel(9, f0=-95.2e3, bw=2e3, mode=MODE_LSB,
+                               cutoff=1200.0)
+    assert ours.params == params_before
+    for k, v in ours.consts.items():
+        changed = (v != before[k]).reshape(-1, v.shape[-1]).any(0)
+        if v.dim() == 2 and v.shape[-1] == ours.cfg.n_channels:
+            assert set(np.flatnonzero(changed.numpy())) <= {7, 9}, k
+        else:
+            assert not changed.any(), k
+    for name in STATE:
+        assert not np.any(_host(getattr(ours, name))[:, 7])
+    for b in (1, 2):
+        xw, hist = _frames(ours, x[b * n:(b + 1) * n], "f32", hist)
+        assert_bank_close(ours, ref, ours.feed_frames(*xw),
+                          ref.feed_frames(*xw))
+
+
+def test_ssb_needs_the_second_plane():
+    for bank in _pair(enable_ssb=False):
+        with pytest.raises(ValueError):
+            bank.configure_channel(0, mode=MODE_USB)
+
+
+def test_wrapper_runs_the_plain_version_on_cpu():
+    ours = _pair()[1]
+    n = ours.cfg.block_in
+    xw, _ = _frames(ours, _signal(n, 0), "i16",
+                    np.zeros(63, np.complex64))
+    xw = torch.from_numpy(xw)
+    m = ours.cfg.block_out
+    carries = tuple(torch.as_tensor(getattr(ours, s)) for s in STATE)
+    phi0 = torch.from_numpy(ours._phase_tiles(ours._phi, ours._theta64,
+                                              ours.cfg.m_tile))
+    phs0 = torch.from_numpy(ours._phase_tiles(
+        ours._phs_a, ours._omega_a64, ours.cfg.m_tile // 8))
+    args = (xw[:m], xw[m:], ours.consts, carries, phi0, phs0, ours.params)
+    launches = audio.audio_kernel.launches
+    got = audio.audio_kernel(*args)
+    want = audio.audio_kernel_reference(*args)
+    assert audio.audio_kernel.launches == launches
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        audio.audio_kernel(xw[:m].to("meta"), *args[1:])
+
+
+def test_device_none_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        AudioBank(AudioBankConfig(**GEOM))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(enable_ssb=False),
+                                dict(m_tile=512, block_out=1024)])
+def test_flops_and_config_match_reference(kw):
+    ref, ours = _pair(**kw)
+    assert ours.flops_per_block() == ref.flops_per_block()
+    assert ours.cfg.fir_tile == ref.cfg.fir_tile
+    assert ours.cfg.audio_rate == ref.cfg.audio_rate
+    with pytest.raises(AssertionError):
+        AudioBankConfig(**dict(GEOM, m_tile=100))
+
+
+def test_tone_recovered_in_every_audio_mode():
+    """End to end on the plain version: AM and FM slots peak at their
+    modulating tones, USB at the tone's offset from the slot's centre."""
+    ours = _pair(hang_agc=True)[1]
+    n = ours.cfg.block_in
+    x = _signal(6 * n, seed=2)
+    ours.configure_channel(0, f0=-60e3, bw=4e3, mode=MODE_FM,
+                           volume=1.0, squelch=False, agc=False)
+    ours.configure_channel(1, f0=-98.4e3, bw=4e3, mode=MODE_AM,
+                           volume=1.0, cutoff=1000.0, squelch=False,
+                           agc=False)
+    ours.configure_channel(2, f0=-95.2e3, bw=3e3, mode=MODE_USB,
+                           cutoff=1500.0, volume=1.0, squelch=False,
+                           agc=False)
+    out = np.concatenate([ours.feed(x[b * n:(b + 1) * n])
+                          for b in range(6)])[2 * ours.cfg.audio_out:]
+    rate = ours.cfg.audio_rate
+    for col, tone in ((0, 300.0), (1, 400.0), (2, 700.0)):
+        a = out[:, col] - out[:, col].mean()
+        spec = np.abs(np.fft.rfft(a * np.hanning(len(a))))
+        f_pk = (np.argmax(spec[2:]) + 2) * rate / len(a)
+        assert abs(f_pk - tone) <= 2 * rate / len(a), (col, f_pk, tone)

@@ -420,3 +420,198 @@ def test_phi_tiles(m_tile):
         assert np.array_equal(ours._phi_tiles(), want[::8])
         assert not want[np.arange(len(want)) % 8 != 0].any()
         assert np.array_equal(ours.phi0().numpy(), want[::8])
+
+
+# ---------------------------------------------------------------------------
+# the audio bank's constants, the config-key contract, and the types,
+# profiles and messages of the analyzer session
+# ---------------------------------------------------------------------------
+AUDIO_GEOMS = {
+    "small": dict(sample_rate=256_000.0, n_channels=128, decimation=16,
+                  audio_decim=8, block_out=512, m_tile=256),
+    "engine": dict(sample_rate=102_400_000.0, n_channels=1024,
+                   decimation=64, audio_decim=32, block_out=8192,
+                   m_tile=2048, fir_tile=1024, hang_agc=True),
+}
+
+
+def _audio_pair(geom):
+    from sigdigger_tpu.kernels.audio import AudioBank as RefAudioBank
+    from sigdigger_tpu.kernels.audio import AudioBankConfig as RefAudioCfg
+    from sigdigger_tpu_torch.kernels.audio import AudioBank, AudioBankConfig
+
+    kw = AUDIO_GEOMS[geom]
+    ref = RefAudioBank(RefAudioCfg(**kw, channel_tile=128), interpret=True)
+    ours = AudioBank(AudioBankConfig(**kw), device="cpu")
+    c = kw["n_channels"]
+    for i in range(c):
+        cfg = dict(f0=-0.4 * kw["sample_rate"] + i * 0.8
+                   * kw["sample_rate"] / c, bw=2e3 + 37.0 * i,
+                   mode=i % 6, cutoff=900.0 + 13.0 * i, volume=0.1 * i,
+                   squelch=i % 2 == 0, squelch_level=1e-3 * i,
+                   agc=i % 3 == 0, agc_ts=[0.0, 3.5, 120.0][i % 3])
+        ref.configure_channel(i, **cfg)
+        ours.configure_channel(i, **cfg)
+    return ref, ours
+
+
+@pytest.mark.parametrize("geom", list(AUDIO_GEOMS))
+def test_audio_bank_constants(geom):
+    from sigdigger_tpu.kernels.audio import _band_matrix as ref_band
+    from sigdigger_tpu.kernels.audio import _dc_matrices as ref_dc
+    from sigdigger_tpu_torch.kernels.audio import (
+        PARAM_ROWS as AUDIO_ROWS,
+    )
+    from sigdigger_tpu_torch.kernels.audio import _band_matrix, _dc_matrices
+
+    ref, ours = _audio_pair(geom)
+    cfg = ours.cfg
+    assert cfg.fir_tile == ref.cfg.fir_tile
+    bt = _band_matrix(cfg.fir_tile, cfg.audio_taps, cfg.audio_decim)
+    np.testing.assert_array_equal(bt, ref_band(cfg.fir_tile, cfg.audio_taps,
+                                               cfg.audio_decim))
+    np.testing.assert_array_equal(ours.consts["bt"].numpy(), bt)
+    # the kernel's taps are the band's first row, reversed
+    np.testing.assert_array_equal(ours.consts["ataps"].numpy(),
+                                  bt[0, :cfg.audio_taps][::-1])
+    for a, b in zip(_dc_matrices(cfg), ref_dc(ref.cfg)):
+        np.testing.assert_array_equal(a, b)
+    # _rebuild_columns: mix-baked taps, rates, audio-rate FIR
+    np.testing.assert_array_equal(ours._h, ref._h)
+    np.testing.assert_array_equal(ours._theta64, ref._theta64)
+    np.testing.assert_array_equal(ours._omega_a64, ref._omega_a64)
+    np.testing.assert_array_equal(ours._taps2, ref._taps2)
+    np.testing.assert_array_equal(ours._sq_alpha_row(), ref._sq_alpha_row())
+    np.testing.assert_array_equal(ours._agc_hang_rows(),
+                                  ref._agc_hang_rows())
+    # the uploaded rows are the reference's consts, row for row
+    rows = dict(zip(AUDIO_ROWS, ours.consts["params"].numpy()))
+    for name in ("theta", "omega_a", "w_fm", "w_am", "w_re1", "w_ssb",
+                 "agc_w", "vol", "sq_w", "sq_level", "sqa"):
+        np.testing.assert_array_equal(rows[name],
+                                      np.asarray(ref.consts[name])[0])
+    hang = np.asarray(ref.consts["agc_rows"])
+    for r, name in enumerate(AUDIO_ROWS[11:]):
+        np.testing.assert_array_equal(rows[name], hang[r])
+    for k in ("h_re", "h_im", "taps2"):
+        np.testing.assert_array_equal(ours.consts[k].numpy(),
+                                      np.asarray(ref.consts[k]))
+    # per-tile start phases: the reference keeps them 8 rows apart
+    mta = cfg.m_tile // cfg.audio_decim
+    ref._phi[:] = ours._phi[:] = np.linspace(0, 6, cfg.n_channels)
+    for mine, theirs in (
+            (ours._phase_tiles(ours._phi, ours._theta64, cfg.m_tile),
+             ref._phase_tiles(ref._phi, ref._theta64, cfg.m_tile)),
+            (ours._phase_tiles(ours._phi, ours._omega_a64, mta),
+             ref._phase_tiles(ref._phi, ref._omega_a64, mta))):
+        np.testing.assert_array_equal(mine, theirs[::8])
+        assert not np.any(theirs[np.arange(len(theirs)) % 8 != 0])
+
+
+def test_inspector_schemas():
+    from sigdigger_tpu.config import INSPECTOR_SCHEMAS as REF_SCHEMAS
+    from sigdigger_tpu_torch.config import INSPECTOR_SCHEMAS
+
+    assert INSPECTOR_SCHEMAS.keys() == REF_SCHEMAS.keys()
+    for name, schema in INSPECTOR_SCHEMAS.items():
+        mine = [(f.name, f.type, f.default, f.desc) for f in schema]
+        theirs = [(f.name, f.type, f.default, f.desc)
+                  for f in REF_SCHEMAS[name]]
+        assert mine == theirs, name
+
+
+def _dataclass_fields(cls) -> list:
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(cls):
+        default = f.default
+        if f.default_factory is not dataclasses.MISSING:
+            default = ("factory", f.default_factory.__name__)
+        if hasattr(default, "value") and not isinstance(default,
+                                                        (int, float)):
+            default = default.value
+        out.append((f.name, str(f.type), default))
+    return out
+
+
+def _pairs(ref_mod, our_mod, names):
+    import importlib
+
+    ref = importlib.import_module(ref_mod)
+    ours = importlib.import_module(our_mod)
+    return [(getattr(ref, n), getattr(ours, n)) for n in names]
+
+
+@pytest.mark.parametrize("ref_mod,our_mod,names", [
+    ("sigdigger_tpu.types", "sigdigger_tpu_torch.types",
+     ["Channel", "AnalyzerParams", "SourceInfo"]),
+    ("sigdigger_tpu.profiles", "sigdigger_tpu_torch.profiles",
+     ["SourceProfile"]),
+    ("sigdigger_tpu.analyzer.messages", "sigdigger_tpu_torch.analyzer.messages",
+     ["Message", "PSDMessage", "SamplesMessage", "OrbitReport",
+      "InspectorMessage", "SourceInfoMessage", "StatusMessage",
+      "ChannelMessage"]),
+    ("sigdigger_tpu.sources.synth", "sigdigger_tpu_torch.sources.synth",
+     ["Emitter"]),
+])
+def test_dataclasses_match_reference(ref_mod, our_mod, names):
+    for ref, ours in _pairs(ref_mod, our_mod, names):
+        assert _dataclass_fields(ours) == _dataclass_fields(ref), ref
+
+
+@pytest.mark.parametrize("ref_mod,our_mod,names", [
+    ("sigdigger_tpu.types", "sigdigger_tpu_torch.types",
+     ["AnalyzerMode", "WindowFunction", "SampleFormat", "SweepStrategy",
+      "SpectrumPartitioning"]),
+    ("sigdigger_tpu.analyzer.messages", "sigdigger_tpu_torch.analyzer.messages",
+     ["MessageKind", "InspectorMessageKind"]),
+    ("sigdigger_tpu.analyzer.engine", "sigdigger_tpu_torch.analyzer.engine",
+     ["AnalyzerState"]),
+    ("sigdigger_tpu.utils.logger", "sigdigger_tpu_torch.utils.logger",
+     ["Severity"]),
+])
+def test_enums_match_reference(ref_mod, our_mod, names):
+    for ref, ours in _pairs(ref_mod, our_mod, names):
+        assert [(e.name, e.value) for e in ours] == \
+            [(e.name, e.value) for e in ref], ref
+
+
+def test_types_helpers_and_constants_match_reference():
+    import sigdigger_tpu.types as rt
+    import sigdigger_tpu_torch.types as pt
+
+    for n in (0, 1, 2, 3, 4095, 4096, 4097, 1 << 20):
+        assert pt.next_pow2(n) == rt.next_pow2(n)
+    perms = [k for k in vars(rt.SourceInfo) if k.startswith("PERM_")]
+    assert perms and all(getattr(pt.SourceInfo, k) ==
+                         getattr(rt.SourceInfo, k) for k in perms)
+    p = pt.AnalyzerParams(window_size=1024, mode=pt.AnalyzerMode.WIDE_SPECTRUM)
+    assert p.to_dict() == rt.AnalyzerParams.from_dict(p.to_dict()).to_dict()
+    import sigdigger_tpu.profiles as rprof
+    import sigdigger_tpu_torch.profiles as pprof
+
+    prof = pprof.SourceProfile(type="synth", sample_rate=2_000_000,
+                               average=4, gains={"lna": 3.0})
+    assert prof.to_json() == rprof.SourceProfile.from_json(
+        prof.to_json()).to_json()
+    assert prof.effective_rate == 500_000.0
+
+
+def test_detector_matches_reference():
+    from sigdigger_tpu.analyzer.detector import ChannelDetector as RefDet
+    from sigdigger_tpu.types import AnalyzerParams as RefParams
+    from sigdigger_tpu_torch.analyzer.detector import ChannelDetector
+    from sigdigger_tpu_torch.types import AnalyzerParams
+
+    rng = np.random.default_rng(2)
+    ref = RefDet(RefParams(), 1e6, 1024)
+    ours = ChannelDetector(AnalyzerParams(), 1e6, 1024)
+    for _ in range(5):
+        p = rng.random(1024) + 1e-3
+        p[300:320] += 50.0
+        ref.feed(p)
+        ours.feed(p)
+    assert [vars(c) for c in ours.detect(1e8)] == \
+        [vars(c) for c in ref.detect(1e8)]
+    assert ours.detect(1e8)

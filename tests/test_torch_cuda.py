@@ -1,8 +1,9 @@
 """The CUDA kernels of the port against their plain PyTorch versions,
 on the card: the FM channelizer v2 (fused table form, unfused table and
 cos/sin forms), the v1 channelizer, the standalone PSD, the PSD read
-from the window buffer (with and without the device EMA), the raw bank
-and the recovery bank.  Skipped where CUDA is absent; on a machine with
+from the window buffer (with and without the device EMA), the raw bank,
+the recovery bank, the audio bank and the column compactor, and the
+analyzer session through them.  Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
 
     SIGDIGGER_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
@@ -147,8 +148,18 @@ def test_psd_kernel_matches_plain_version(cuda, n, frames, i16):
 
 @pytest.mark.parametrize("packed", [None, "i16", "i8"])
 def test_raw_kernel_matches_plain_version(cuda, packed):
+    _raw_vs_plain(cuda, packed, block_out=2048, m_tile=512)
+
+
+def test_raw_kernel_ragged_tiles_match_plain_version(cuda):
+    """m_tile = 400 is no multiple of the kernel's 64-row blocks: the last
+    block of each tile holds 16 rows and the tile power sums 7 partials."""
+    _raw_vs_plain(cuda, "i16", block_out=1600, m_tile=400)
+
+
+def _raw_vs_plain(cuda, packed, block_out: int, m_tile: int) -> None:
     cfg = rawbank.RawBankConfig(sample_rate=FS, n_channels=200,
-                                block_out=2048, m_tile=512,
+                                block_out=block_out, m_tile=m_tile,
                                 in_scale=64.0 if packed == "i8" else 4096.0)
     bank = rawbank.RawBank(cfg, device=cuda)
     bank.begin_defer()
@@ -289,10 +300,10 @@ def test_new_kernels_refuse_bad_inputs(cuda):
         rawbank.raw_kernel(x, x.half(), bank.consts["h_re"],
                            bank.consts["h_im"], bank.consts["theta"], phi0,
                            bank.params)
-    with pytest.raises(ValueError):        # M not a multiple of 64
+    with pytest.raises(ValueError):        # M not a multiple of m_tile
         rawbank.raw_kernel(x[:500], x[:500], bank.consts["h_re"],
                            bank.consts["h_im"], bank.consts["theta"], phi0,
-                           rawbank.RawParams(mt=500, in_gain=1.0))
+                           bank.params)
     rec = recovery.RecoveryBank(recovery.RecoveryBankConfig(
         n_channels=8, block_len=64), device=cuda)
     y = torch.zeros((64, 8), device=cuda)
@@ -314,7 +325,7 @@ def test_new_kernels_refuse_bad_inputs(cuda):
 UNFUSED = {"live256": (False, 512, 256), "live192": (False, 384, 192),
            "snap128": (True, 512, 128), "snap96_ragged": (True, 480, 96),
            "live96_ragged": (False, 480, 96),
-           # shorter than the audio FIR's tail (tail_shift)
+           # shorter than the audio FIR's tail (tail_copy)
            "live32_short": (False, 32, 32)}
 
 
@@ -508,3 +519,208 @@ def test_fm_receiver_geometries_run_through_the_kernels(cuda, kw):
                                          counts[2] + 4 * (not xw_psd))
     assert all(np.all(np.isfinite(b.audio)) and np.all(np.isfinite(b.psd))
                for b in blocks)
+
+
+# -- the analyzer's kernels: the audio bank and the column compactor ----
+# audio bank kernel vs plain version: an element disagrees when |d| >
+# 1e-4·(1 + |value|) (summation orders of the channelize product, the
+# decimating FIR and the DC follower — a recurrence in the kernel, the
+# closed-form Toeplitz in the plain version); at most 1e-3 of the audio
+# and carry elements (never fewer than 2) may disagree, where the FM
+# discriminator's atan2 or the hang AGC's |y| > slow takes its other
+# branch on that rounding (chip_smoke.py TOL_AUDIO_BANK).  The
+# compactor is bit-equal to its plain version.
+AUDIO_CASES = {
+    "hang_i16": dict(kind="i16", kw=dict(hang_agc=True)),
+    "block_f32": dict(kind="f32", kw=dict()),
+    "hang_i8_seed": dict(kind="i8", kw=dict(hang_agc=True, seed_tile=1,
+                                            in_scale=64.0)),
+    "no_ssb": dict(kind="f32", kw=dict(enable_ssb=False)),
+    # m_tile no multiple of 64: raw_rot's last row block of a tile is
+    # ragged (480 = 7·64 + 32)
+    "ragged_tiles": dict(kind="i16", kw=dict(hang_agc=True, block_out=1920,
+                                             m_tile=480)),
+}
+
+
+def _audio_beyond(got, ref) -> int:
+    d = (got - ref).abs()
+    return int((d > 1e-4 * (1.0 + ref.abs())).sum())
+
+
+@pytest.mark.parametrize("case", list(AUDIO_CASES))
+def test_audio_kernel_matches_plain_version(cuda, case):
+    from sigdigger_tpu_torch.kernels import audio
+    from sigdigger_tpu_torch.native import (
+        frame_windows,
+        frame_windows_packed_i8,
+        frame_windows_packed_i16,
+    )
+
+    kind, kw = AUDIO_CASES[case]["kind"], AUDIO_CASES[case]["kw"]
+    ssb = kw.get("enable_ssb", True)
+    geom = dict(dict(block_out=2048, m_tile=512), **kw)
+    bank = audio.AudioBank(audio.AudioBankConfig(
+        sample_rate=FS, n_channels=256, decimation=64, audio_decim=16,
+        **geom), device=cuda)
+    mt = bank.cfg.m_tile
+    modes = (0, 1, 2, 3, 4, 5) if ssb else (0, 1, 2, 5)
+    f0s = np.linspace(-900e3, 900e3, 256)
+    for i in range(256):
+        bank.configure_channel(i, f0=f0s[i], bw=12e3,
+                               mode=modes[i % len(modes)], cutoff=3e3,
+                               volume=1.0, squelch=i % 4 == 0,
+                               squelch_level=1e-4 * (i % 3),
+                               agc=i % 3 != 0,
+                               agc_ts=20.0 if i % 5 == 0 else 0.0)
+    n = bank.cfg.block_in
+    x = _signal(f0s, 3 * n, seed=len(case))
+    ck = cp = tuple(torch.as_tensor(getattr(bank, s)).to(cuda)
+                    for s in audio.STATE)
+    hist = np.zeros(63, np.complex64)
+    m = bank.cfg.block_out
+    before = audio.audio_kernel.launches
+    for b in range(3):
+        ext = np.concatenate([hist, x[b * n:(b + 1) * n]])
+        hist = ext[-63:]
+        if kind == "f32":
+            xr, xi = (torch.from_numpy(a).to(cuda)
+                      for a in frame_windows(ext, m, 64, 64))
+        else:
+            framer = (frame_windows_packed_i16 if kind == "i16"
+                      else frame_windows_packed_i8)
+            xw = torch.from_numpy(framer(ext, m, 64, 64,
+                                         bank.cfg.in_scale)).to(cuda)
+            xr, xi = xw[:m], xw[m:]
+        phi0 = torch.from_numpy(bank._phase_tiles(
+            bank._phi, bank._theta64, mt)).to(cuda)
+        phs0 = torch.from_numpy(bank._phase_tiles(
+            bank._phs_a, bank._omega_a64, mt // 16)).to(cuda)
+        ok = audio.audio_kernel(xr, xi, bank.consts, ck, phi0, phs0,
+                                bank.params)
+        op = audio.audio_kernel_reference(xr, xi, bank.consts, cp, phi0,
+                                          phs0, bank.params)
+        torch.cuda.synchronize()
+        for g, w in zip(ok, op):
+            assert g.shape == w.shape and torch.isfinite(g).all()
+            assert _audio_beyond(g, w) <= max(2, 1e-3 * g.numel())
+        ck, cp = ok[1:9] + ok[10:], op[1:9] + op[10:]
+        bank._phi = np.mod(bank._phi + bank._theta64 * m, 2 * np.pi)
+        bank._phs_a = np.mod(bank._phs_a + bank._omega_a64 * (m // 16),
+                             2 * np.pi)
+    assert audio.audio_kernel.launches == before + 3
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16", "i16"])
+@pytest.mark.parametrize("width", [256, 16])
+def test_compact_kernel_matches_plain_version(cuda, out, width):
+    from sigdigger_tpu_torch.kernels import compact
+
+    kw = {"f32": {}, "bf16": dict(out_bf16=True),
+          "i16": dict(out_i16=True, scales=(1000.5, 8192.0, 3.3))}[out]
+    comp = compact.ColumnCompactor(compact.ColumnCompactorConfig(
+        n_rows=1024, n_channels=256, width=width, n_planes=3, m_tile=256,
+        **kw), device=cuda)
+    rng = np.random.default_rng(width)
+    cols = sorted(rng.choice(256, min(width, 200), replace=False).tolist())
+    comp.set_mapping(cols)
+    planes = tuple(torch.from_numpy((rng.standard_normal((1024, 256)) * 3.7)
+                                    .astype(np.float32)).to(cuda)
+                   for _ in range(3))
+    before = compact.compact_kernel.launches
+    got = comp.dispatch(*planes)
+    want = compact.compact_kernel_reference(planes, comp._slots, comp.cfg)
+    torch.cuda.synchronize()
+    assert compact.compact_kernel.launches == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_audio_and_compact_refuse_bad_inputs(cuda):
+    from sigdigger_tpu_torch.kernels import audio, compact
+
+    bank = audio.AudioBank(audio.AudioBankConfig(
+        sample_rate=FS, n_channels=128, decimation=64, block_out=512,
+        m_tile=512), device=cuda)
+    carries = tuple(torch.as_tensor(getattr(bank, s)).to(cuda)
+                    for s in audio.STATE)
+    phi = torch.zeros((1, 128), device=cuda)
+    x = torch.zeros((512, 64), device=cuda)
+    with pytest.raises(ValueError):        # re and im of other types
+        audio.audio_kernel(x, x.half(), bank.consts, carries, phi, phi,
+                           bank.params)
+    with pytest.raises(ValueError):        # a carry of the wrong height
+        audio.audio_kernel(x, x, bank.consts, (carries[0][:0],)
+                           + carries[1:], phi, phi, bank.params)
+    with pytest.raises(ValueError):        # M not a multiple of m_tile
+        audio.audio_kernel(x[:500], x[:500], bank.consts, carries, phi,
+                           phi, bank.params)
+    comp = compact.ColumnCompactor(compact.ColumnCompactorConfig(
+        n_rows=64, n_channels=128, width=8), device=cuda)
+    with pytest.raises(ValueError):        # a plane of another type
+        comp.dispatch(torch.zeros((64, 128), dtype=torch.float64,
+                                  device=cuda))
+
+
+def test_analyzer_session_runs_through_the_kernels(cuda):
+    _session_through_the_kernels(cuda, block_size=65536, decimation=64)
+
+
+def test_analyzer_session_at_ragged_tiles_runs_on_the_card(cuda):
+    """block 102400 at decimation 128: 800 channel rows per block and an
+    m_tile of 800, no multiple of the raw stage's 64-row blocks (the
+    reference's engine runs it; the spectrum is the standalone PSD)."""
+    _session_through_the_kernels(cuda, block_size=102400, decimation=128)
+
+
+def _session_through_the_kernels(cuda, block_size: int,
+                                 decimation: int) -> None:
+    """Four blocks of a threaded, pipelined session: every kernel of
+    the path launches once per block (the compactor twice), every
+    drained block reaches each inspector as one SAMPLES message, and the
+    drain worker logs no error."""
+    from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
+    from sigdigger_tpu_torch.kernels import audio, compact, fft, rawbank
+    from sigdigger_tpu_torch.kernels import recovery as rec
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources import Emitter, SynthBandSource
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+    from sigdigger_tpu_torch.utils.logger import Logger, Severity
+
+    src = SynthBandSource(SourceProfile(type="synth", sample_rate=1_024_000,
+                                        noise_db=-60.0),
+                          [Emitter(freq=200e3, fm_rate=500.0, fm_dev=5e3),
+                           Emitter(freq=-100e3, kind="psk", baud=4000.0)])
+    params = AnalyzerParams()
+    params.window_size = 4096
+    an = KernelAnalyzer(source=src, params=params, block_size=block_size,
+                        n_slots=128, decimation=decimation, audio_decim=8,
+                        pipeline_depth=2, drain_thread=True)
+    shared = decimation == 64
+    assert an.device.type == "cuda" and (an._psd_bucket is not None) == shared
+    h_a = an.open_inspector("audio", Channel(fc=200e3, bw=20e3),
+                            config={"audio.demodulator": 2})
+    h_p = an.open_inspector("psk", Channel(fc=-100e3, bw=12e3),
+                            config={"clock.baud": 4000.0})
+    kernels = (audio.audio_kernel, rawbank.raw_kernel, rec.recovery_kernel,
+               fft.psd_xw_ema_kernel if shared else fft.psd_kernel,
+               compact.compact_kernel)
+    before = [k.launches for k in kernels]
+    Logger.instance().drain()
+    msgs = []
+    for _ in range(4):
+        assert an.step()
+        msgs += an.poll()
+    an._drain_q.join()
+    msgs += an.poll()
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [4, 4, 4, 4, 8]
+    drained = 4 - len(an._inflight)
+    for h in (h_a, h_p):
+        got = [m for m in msgs
+               if m.kind == MessageKind.SAMPLES and m.handle == h]
+        assert len(got) == drained
+        assert all(np.all(np.isfinite(m.samples)) and len(m.samples)
+                   for m in got)
+    errors = [r for r in Logger.instance().drain()
+              if r.severity >= Severity.ERROR]
+    assert not errors, errors

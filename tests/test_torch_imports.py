@@ -16,7 +16,17 @@ MODULES = [
     "sigdigger_tpu_torch",
     "sigdigger_tpu_torch.backend",
     "sigdigger_tpu_torch.types",
+    "sigdigger_tpu_torch.config",
+    "sigdigger_tpu_torch.profiles",
     "sigdigger_tpu_torch.native",
+    "sigdigger_tpu_torch.sources",
+    "sigdigger_tpu_torch.sources.base",
+    "sigdigger_tpu_torch.sources.synth",
+    "sigdigger_tpu_torch.sources.tonegen",
+    "sigdigger_tpu_torch.utils",
+    "sigdigger_tpu_torch.utils.logger",
+    "sigdigger_tpu_torch.tasks",
+    "sigdigger_tpu_torch.tasks.psdutil",
     "sigdigger_tpu_torch.dsp",
     "sigdigger_tpu_torch.dsp.window",
     "sigdigger_tpu_torch.dsp.filters",
@@ -30,7 +40,14 @@ MODULES = [
     "sigdigger_tpu_torch.kernels.channelizer2",
     "sigdigger_tpu_torch.kernels.rawbank",
     "sigdigger_tpu_torch.kernels.recovery",
+    "sigdigger_tpu_torch.kernels.compact",
     "sigdigger_tpu_torch.receiver",
+    "sigdigger_tpu_torch.analyzer",
+    "sigdigger_tpu_torch.analyzer.messages",
+    "sigdigger_tpu_torch.analyzer.detector",
+    "sigdigger_tpu_torch.analyzer.estimators",
+    "sigdigger_tpu_torch.analyzer.engine",
+    "sigdigger_tpu_torch.analyzer.kernel_engine",
 ]
 
 _FORBIDDEN = ("jax", "sigdigger_tpu")
@@ -55,6 +72,11 @@ def test_every_module_imports_without_jax_or_reference():
         "    importlib.import_module(m)\n"
         "import sigdigger_tpu_torch as p\n"
         "assert p.KernelReceiver.__module__ == 'sigdigger_tpu_torch.receiver'\n"
+        "assert p.KernelAnalyzer.__module__ == "
+        "'sigdigger_tpu_torch.analyzer.kernel_engine'\n"
+        "assert p.Analyzer.__module__ == 'sigdigger_tpu_torch.analyzer.engine'\n"
+        "assert p.MessageKind.__module__ == "
+        "'sigdigger_tpu_torch.analyzer.messages'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'sigdigger_tpu' or "
         "m.startswith('sigdigger_tpu.'))\n"
