@@ -33,7 +33,12 @@ printing the seconds it took:
    mode, M 8192, m_tile 2048, audio at 1/32, int16 packed upload) over 3
    chained blocks with the hang AGC and 3 without; the column compactor
    (``compact_kernel``) on 3 planes [8192, 1024] at width 1024 (every
-   slot) and 64 (a scattered map), float32, bfloat16 and int16, bit-equal.
+   slot) and 64 (a scattered map), float32, bfloat16 and int16, bit-equal;
+   the symbol squeeze (``squeeze_kernel``) on 3 x [8192, 1024] float32
+   at R 4 with strobes at sps 8, bit-equal; the drain packer
+   (``pack_kernel``) at the bench session's layout (width 1024, 832 live
+   audio columns, the status tile) and at a grouped one (G 2 in every
+   section, squeezed digital rows, a raw section), bit-equal.
 3. FM end to end: ``KernelReceiver(mode="fm")`` at the bench geometry
    (1024 channels, 102.4 Msps, block_out 8192, int16 in, bf16 audio,
    fused PSD) over synthetic FM made from a seed, through
@@ -59,8 +64,9 @@ printing the seconds it took:
    uploads, read once with ``shifted()``) and the v1 channelizer
    (``MatChannelizer.feed`` at the entry's geometry over 4 blocks of an
    FM tone).
-3e. the analyzer session: ``KernelAnalyzer`` at ``bench.py:255-259``'s
-   geometry with ``drain_pack=False`` and ``symbol_group=1`` (1024 slots,
+3e. the analyzer session on the compactor drain: ``KernelAnalyzer`` at
+   ``bench.py:255-259``'s geometry with ``drain_pack=False`` and
+   ``symbol_group=1`` (1024 slots,
    102.4 Msps, decimation 64, audio at 1/32, PSD 4096, compact width
    1024, depth 3, threaded drain, int16 upload, bf16 drain) with the
    bench's 1024-inspector mix, over 12 blocks after 2 warm-up blocks of
@@ -73,6 +79,18 @@ printing the seconds it took:
    audio, raw, unaligned power and a psk inspector with both estimators
    (the raw compactor and the standalone PSD launch), a retune and a
    close.
+3f. ``bench.py:255-259``'s exact session: the same with the packed drain
+   (``drain_pack=True``) and ``symbol_group=4``, over 12 blocks after 2
+   warm-up blocks: 1024 OPEN acks; the audio, raw, recovery, device-EMA
+   PSD, squeeze and pack kernels once per block and the compactor once
+   (the digital section's int16 side); every drained block at every
+   inspector, FM tones, the squeezed QPSK symbols' concentration, the
+   PSD and the carrier's power; block wall time and Msps and the
+   per-layer breakdown with the drain's bytes; then 3 blocks on the int8
+   upload (``bench.py:216``); then a 128-slot packed session read from a
+   capture file in a temporary directory, saved with
+   ``save_checkpoint`` after 2 blocks: the session ``load_checkpoint``
+   restores gives the next 3 blocks bit for bit.
 4. the TPU kernel list (ported or pending, each with its bound: the
    ported ones at the inputs phase 2 timed, the pending ones at the
    bench's shapes) and the ``kernels`` line.
@@ -167,9 +185,9 @@ TPU_KERNELS = [
     ("kernels/rawbank.py:61 _raw_kernel", "ported"),
     ("kernels/recovery.py:90 _recovery_kernel", "ported"),
     ("kernels/audio.py:193 _audio_kernel", "ported"),
-    ("kernels/symsqueeze.py:71 _squeeze_kernel", "pending"),
+    ("kernels/symsqueeze.py:71 _squeeze_kernel", "ported"),
     ("kernels/compact.py:64 _compact_kernel", "ported"),
-    ("kernels/drainpack.py:188 _pack_kernel", "pending"),
+    ("kernels/drainpack.py:188 _pack_kernel", "ported"),
     ("kernels/tvline.py:54 _tv_kernel", "pending"),
     ("kernels/equalizer.py:42 _cma_kernel", "pending"),
     ("kernels/channelizer.py:124 _kernel", "ported"),
@@ -460,32 +478,17 @@ def recovery_bound(m: int, bank, strobes: int) -> tuple:
 
 
 def pending_bounds() -> dict:
-    """Least time of each pending TPU kernel's work at the shapes the
-    bench uses, keyed by its TPU_KERNELS entry: (shape, ms, bound_by,
-    operations, bytes).  Counted from the function each computes, not
-    from the TPU kernel's MXU-shaped work.  The engine kernels take the
-    ``KernelAnalyzer`` session of ``bench.py:255-284``: 1024 slots,
-    decimation 64, audio at 1/32, int16 upload, symbol group 4, compact
-    width 1024, bf16 drains; 832 audio, 48 psk, 8 fsk, 8 ask and 128
-    power inspectors.  Kernels that no bench path runs are marked so,
+    """Least time of each pending TPU kernel's work, keyed by its
+    TPU_KERNELS entry: (shape, ms, bound_by, operations, bytes).  Counted
+    from the function each computes, not from the TPU kernel's
+    MXU-shaped work.  No bench path runs them, so each is marked so,
     with the shape assumed."""
-    m, c, da, r = BLOCK_OUT, N_CHANNELS, AUDIO_DECIM, 4
-    live = 48 + 8 + 8                  # live digital columns
     out = {}
 
     def put(row, shape, ops, nbytes):
         out[TPU_KERNELS[row - 1][0]] = (shape, *bound(ops, nbytes), ops,
                                         nbytes)
 
-    # _squeeze_kernel: 3 planes [M, C] → [M/R, C], a multiply-add each
-    put(8, "engine: 3 x [M, C] f32, R = 4", 2 * 3 * m * c,
-        3 * m * c * 4 + 3 * (m // r) * c * 4)
-    # _pack_kernel: the live columns of each section read once, the
-    # ~0.69 MB int16 buffer of the bench session written once
-    # (drainpack.py:24-25): audio [M/32, 832], status 2 x [1, C], the
-    # squeezed digital planes 3 x [M/R, 64]
-    put(10, "engine: the bench session's drain", 0,
-        (m // da) * 832 * 4 + 2 * c * 4 + 3 * (m // r) * live * 4 + 690_000)
     # not on a bench path: _tv_kernel (assumed: a 625-line frame, 2048
     # samples per line in, 1024 out, 3 operations per output sample)
     put(11, "no bench path; assumed [625, 2048] f32 -> [625, 1024]",
@@ -1719,6 +1722,188 @@ def phase2_compact(compm, torch) -> dict:
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 
 
+def squeeze_bound(m: int, c: int, r: int) -> tuple:
+    """Bytes: 3 planes [M, C] read once, 3 planes [M/R, C] written once;
+    operations: 2 products and 3 sums per input row element."""
+    ops = 5 * m * c
+    nbytes = 3 * m * c * 4 + 3 * (m // r) * c * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def strobe_plane(m: int, c: int, sps: int, rng) -> np.ndarray:
+    """Strobes every ``sps`` rows from a random phase per column, with
+    the Gardner loop's ±1-row jitter on a tenth of them."""
+    st = np.zeros((m, c), np.float32)
+    for col in range(c):
+        rows = np.arange(int(rng.integers(0, sps)), m, sps)
+        jit = rng.integers(-1, 2, len(rows)) * (rng.random(len(rows)) < 0.1)
+        st[np.clip(rows + jit, 0, m - 1), col] = 1.0
+    return st
+
+
+def phase2_squeeze(sqm, torch) -> dict:
+    """The symbol squeeze against its plain version (bit-equal) at the
+    bench shapes: 3 x [8192, 1024] float32, R 4, strobes at sps 8."""
+    rng = np.random.default_rng(SEED + 16)
+    m, c, r = BLOCK_OUT, N_CHANNELS, 4
+    sr, si = (torch.from_numpy((rng.standard_normal((m, c)) * 0.7).astype(
+        np.float32)).cuda() for _ in range(2))
+    st = torch.from_numpy(strobe_plane(m, c, 8, rng)).cuda()
+    got = sqm.squeeze_kernel(sr, si, st, r)
+    want = sqm.squeeze_kernel_reference(sr, si, st, r)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "squeeze")
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(float(got[2].max()) <= 2.0 and float(got[2].sum())
+          == float(st.sum()), "strobe count")
+    ms = time_ms(lambda: sqm.squeeze_kernel(sr, si, st, r), 50)
+    plain_ms = time_ms(lambda: sqm.squeeze_kernel_reference(sr, si, st, r),
+                       10)
+    pre = torch.stack([sr * st, si * st, st]).view(3, m // r, r, c)
+    library_ms = time_ms(lambda: torch.sum(pre, 2), 50)
+    bms, by, ops, nbytes = squeeze_bound(m, c, r)
+    stages = profile_stages(lambda: sqm.squeeze_kernel(sr, si, st, r),
+                            ("::squeeze(",))
+    print(f"phase2 squeeze (3 x [8192, 1024] f32, R 4, sps 8): bit-equal to "
+          f"the plain version, max abs err {max_abs}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.sum over the [M/R, R, C] view of "
+          f"the pre-multiplied planes (library yardstick, reduction only) "
+          f"{library_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+          f"({nbytes / 2 ** 20:.2f} MiB); device time per launch from the "
+          f"trace {stages}", flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
+def pack_bound(cfg, live: dict) -> tuple:
+    """Bytes the pack moves: each section's live source columns read
+    once (``live`` per section), the status rows' mapped columns, the
+    maps, and the int16 buffer written once; operations: the scale and
+    clip of each output element (3) and the residual split (12 per
+    status value)."""
+    rows = {"audio": cfg.audio_rows, "digital": cfg.digital_rows,
+            "raw": cfg.n_rows}
+    planes = {"audio": 1, "digital": 3, "raw": 2}
+    nbytes = cfg.total_tiles * cfg.m_tile * cfg.width * 2
+    nbytes += 2 * live["status"] * 4 + cfg.width * 4
+    for sec, n in live.items():
+        if sec != "status":
+            nbytes += planes[sec] * rows[sec] * n * 4
+            nbytes += getattr(cfg, f"{sec}_width") * 4
+    ops = 3 * cfg.total_tiles * cfg.m_tile * cfg.width + \
+        12 * 2 * live["status"]
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def pack_case(dpm, torch, rng, cfg, live: dict):
+    """A packer at ``cfg`` with ``live[sec]`` random sorted columns per
+    section (every slot on the status tile when ``live["status"]`` is
+    the width); returns (packer, planes, sq, pw)."""
+    c = cfg.n_channels
+    pk = dpm.DrainPacker(cfg, device="cuda")
+    maps = {sec: sorted(rng.choice(c, n, replace=False).tolist())
+            for sec, n in live.items()}
+    pk.set_mappings(maps.pop("status"), **maps)
+
+    def plane(rows, scale=0.7):
+        return torch.from_numpy((rng.standard_normal((rows, c)) * scale)
+                                .astype(np.float32)).cuda()
+
+    planes = {}
+    if cfg.has_audio:
+        planes["audio"] = plane(cfg.audio_rows, 3.0)
+    if cfg.has_digital:
+        planes["d_sr"] = plane(cfg.digital_rows)
+        planes["d_si"] = plane(cfg.digital_rows)
+        planes["d_st"] = torch.from_numpy(strobe_plane(
+            cfg.digital_rows, c, 2, rng)).cuda()
+    if cfg.has_raw:
+        planes["y_re"] = plane(cfg.n_rows, 0.2)
+        planes["y_im"] = plane(cfg.n_rows, 0.2)
+    # powers and squelch EMAs from 1e-1 down to 1e-9
+    pw = torch.from_numpy(np.logspace(-1, -9, c).astype(np.float32)[
+        None, rng.permutation(c)]).cuda()
+    sq = (pw * 0.5).contiguous()
+    return pk, planes, sq, pw
+
+
+def phase2_pack(dpm, torch) -> dict:
+    """The drain packer against its plain version (bit-equal) at the
+    bench session's layout (width 1024: 832 live audio columns in 4
+    tiles of 64 rows, every slot on the status tile; the digital section
+    left for its side compactor) and at a grouped layout (G 2 in every
+    section, squeezed digital rows, a raw section)."""
+    rng = np.random.default_rng(SEED + 17)
+    m, c = BLOCK_OUT, N_CHANNELS
+    bench_cfg = dpm.DrainPackerConfig(
+        n_rows=m, audio_rows=m // AUDIO_DECIM, n_channels=c, width=1024,
+        has_audio=True, has_digital=False, has_raw=False,
+        audio_width=1024, digital_rows=m // 4, m_tile=64)
+    grouped_cfg = dpm.DrainPackerConfig(
+        n_rows=m, audio_rows=m // AUDIO_DECIM, n_channels=c, width=1024,
+        audio_width=512, digital_width=512, raw_width=512,
+        digital_rows=m // 4)
+    check(all(grouped_cfg.group(s) == 2 for s in ("audio", "digital", "raw")))
+    cases = {"bench": (bench_cfg, {"status": 1024, "audio": 832}),
+             "grouped": (grouped_cfg, {"status": 1024, "audio": 400,
+                                       "digital": 300, "raw": 200})}
+    max_abs, out = 0.0, {}
+    for name, (cfg, live) in cases.items():
+        pk, planes, sq, pw = pack_case(dpm, torch, rng, cfg, live)
+        got = dpm.pack_kernel(planes, sq, pw, pk._maps, cfg)
+        want = dpm.pack_kernel_reference(planes, sq, pw, pk._maps, cfg)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), name)
+        max_abs = max(max_abs, float((got.float() - want.float())
+                                     .abs().max()))
+        sec = pk.fetch(got)
+        status = pk._maps["status"].long()
+        np.testing.assert_allclose(sec["power"], pw[0, status].cpu().numpy(),
+                                   rtol=1e-5, atol=4e-12)
+        out[name] = (cfg, live, pk, planes, sq, pw)
+    print(f"phase2 pack (bench layout, width 1024, 832 live audio columns, "
+          f"{bench_cfg.total_tiles} x 64 rows; grouped layout, G 2 in every "
+          f"section, {grouped_cfg.total_tiles} x {grouped_cfg.m_tile} rows): "
+          f"bit-equal to the plain version, max abs err {max_abs}, status "
+          f"powers 1e-1..1e-9 decoded within 1e-5", flush=True)
+    res = {"max_abs_err": max_abs}
+    for name, (cfg, live, pk, planes, sq, pw) in out.items():
+        maps = pk._maps
+        ms = time_ms(lambda: dpm.pack_kernel(planes, sq, pw, maps, cfg), 50)
+        plain_ms = time_ms(lambda: dpm.pack_kernel_reference(
+            planes, sq, pw, maps, cfg), 10)
+        # library yardstick: index_select of each section's live columns,
+        # then the quantize (no lane grouping, no status split)
+        sel = {sec: maps[sec][:n].long() for sec, n in live.items()
+               if sec != "status"}
+        pairs = [(planes[p], sel[dpm._SEL_OF[p]], dpm._SCALES[p])
+                 for p in planes]
+
+        def library():
+            for x, idx, scale in pairs:
+                torch.clamp(torch.index_select(x, 1, idx) * scale,
+                            -32768.0, 32767.0).to(torch.int16)
+
+        library_ms = time_ms(library, 50)
+        bms, by, ops, nbytes = pack_bound(cfg, live)
+        # the event time holds the wrapper's host work; the trace gives
+        # the kernel's own device time
+        stages = profile_stages(
+            lambda: dpm.pack_kernel(planes, sq, pw, maps, cfg), ("::pack(",))
+        print(f"phase2 pack timing ({name} layout): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.index_select of the live "
+              f"columns then the quantize (library yardstick) "
+              f"{library_ms:.4f} ms, bound {bms:.5f} ms by {by} "
+              f"({nbytes / 2 ** 20:.3f} MiB: the buffer "
+              f"{cfg.total_tiles * cfg.m_tile * cfg.width * 2 / 2 ** 10:.0f} "
+              f"KiB); device time per launch from the trace {stages}",
+              flush=True)
+        if name == "bench":
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bms, bound_by=by)
+    return res
+
+
 def ring_source(blocks):
     """A SignalSource replaying pre-made distinct blocks, one per read
     (the reference bench's RingSource, bench.py:233-246)."""
@@ -1790,10 +1975,11 @@ def open_bench_mix(an, Channel) -> list:
 
 def session_layers(an, blocks, torch) -> dict:
     """Synchronous per-layer breakdown of one session block, as
-    bench.py:310-347 takes it: frame, H2D, dispatch (PSD, banks and
-    compactors, synchronised), fetch (the compacted drain and the status
-    rows to the host) and demap (under the engine lock); medians over 4
-    blocks."""
+    bench.py:310-347 takes it: frame, H2D, dispatch (PSD, banks, squeeze,
+    pack and compactors, synchronised), fetch (the drain to the host:
+    the pack and its side compactors, or the compactors and the status
+    rows) and demap (under the engine lock); medians over 4 blocks, and
+    the bytes the drain copies per block."""
     (d, slots), = {
         k: [s for s in an._inspectors.values()
             if an._kslots[s.handle].bucket.decimation == k]
@@ -1825,22 +2011,44 @@ def session_layers(an, blocks, torch) -> dict:
         for k, t0, t1 in zip(times, t, t[1:]):
             times[k].append((t1 - t0) * 1e3)
     an.poll()
-    return {k: round(sorted(v)[len(v) // 2], 4) for k, v in times.items()}
+    out = {k: round(sorted(v)[len(v) // 2], 4) for k, v in times.items()}
+    out.update(drain_bytes(h))
+    return out
+
+
+def drain_bytes(h: dict) -> dict:
+    """Bytes one block's drain copies to the host, by part."""
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    if "pack" in h:
+        return {"pack_bytes": nbytes(h["pack"]),
+                **{f"side_{sec}_bytes": nbytes(out)
+                   for sec, (_, out) in h["sides"].items()}}
+    # the compactor drain: one output per part (the full planes where
+    # the active slots outgrow the compact width)
+    return {f"{k}_bytes": nbytes(*(h[k] if isinstance(h[k], (tuple, list))
+                                   else (h[k],)))
+            for k in ("audio", "sq", "power", "dig", "raw") if k in h}
 
 
 def session_kernels():
     from sigdigger_tpu_torch.kernels import (
         audio,
         compact,
+        drainpack,
         fft,
         rawbank,
         recovery,
+        symsqueeze,
     )
 
     return {"audio": audio.audio_kernel, "raw": rawbank.raw_kernel,
             "recovery": recovery.recovery_kernel,
             "psd_xw_ema": fft.psd_xw_ema_kernel,
-            "compact": compact.compact_kernel, "psd": fft.psd_kernel}
+            "compact": compact.compact_kernel, "psd": fft.psd_kernel,
+            "squeeze": symsqueeze.squeeze_kernel,
+            "pack": drainpack.pack_kernel}
 
 
 def drain_errors() -> list:
@@ -1853,24 +2061,21 @@ def drain_errors() -> list:
             if r.severity >= Severity.ERROR]
 
 
-def phase3e_session(torch, card: str) -> dict:
-    """The analyzer session at the bench's 1024-inspector mix over
-    SESSION_BLOCKS blocks after SESSION_WARM warm-up blocks; returns the
-    launches of its kernels over the timed blocks."""
+def bench_session(blocks, **kw):
+    """``bench.py:255-259``'s ``KernelAnalyzer`` over ``blocks`` with the
+    1024-inspector mix opened in ``bulk_config``; ``kw`` overrides its
+    options.  Returns (analyzer, handles, seconds the opens took)."""
     from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
     from sigdigger_tpu_torch.types import AnalyzerParams, Channel
 
-    drain_errors()                    # start from an empty log
-    n_blocks = SESSION_WARM + SESSION_BLOCKS
-    block = BLOCK_OUT * 64
-    x = session_iq(n_blocks * block, SEED + 15)
-    blocks = [x[i * block:(i + 1) * block] for i in range(n_blocks)]
     params = AnalyzerParams()
     params.window_size = 4096
+    opts = dict(n_slots=1024, decimation=64, audio_decim=AUDIO_DECIM,
+                compact_cols=1024, pipeline_depth=3, symbol_group=4,
+                drain_thread=True)
+    opts.update(kw)
     an = KernelAnalyzer(source=ring_source(blocks), params=params,
-                        block_size=block, n_slots=1024, decimation=64,
-                        audio_decim=AUDIO_DECIM, compact_cols=1024,
-                        pipeline_depth=3, drain_thread=True)
+                        block_size=BLOCK_OUT * 64, **opts)
     check(an.device.type == "cuda" and an._in_i16 and an._drain_bf16
           and an._psd_bucket is an._buckets[64])
     an.poll()
@@ -1884,9 +2089,23 @@ def phase3e_session(torch, card: str) -> dict:
           == list(range(1, 1025)) and [m.handle for m in opens] == hs,
           len(opens))
     check(len(an._buckets[64].cmap) == 1024)
+    return an, hs, open_s
 
+
+def flush(an) -> None:
+    """Drain the blocks still in flight through the drain worker."""
+    for e in an._inflight:
+        an._drain_q.put(e)
+    an._inflight.clear()
+    an._drain_q.join()
+
+
+def drive(an, torch, n_warm: int, n_timed: int) -> tuple:
+    """``n_warm`` blocks, then ``n_timed`` with every kernel's count set
+    to 0 just before; returns (messages, launches, wall seconds of the
+    timed blocks, the final drain join included)."""
     msgs = []
-    for _ in range(SESSION_WARM):
+    for _ in range(n_warm):
         an.step()
         msgs += an.poll()
     kernels = session_kernels()
@@ -1894,23 +2113,26 @@ def phase3e_session(torch, card: str) -> dict:
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(SESSION_BLOCKS):
+    for _ in range(n_timed):
         an.step()
         msgs += an.poll()
     an._drain_q.join()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     msgs += an.poll()
-    launches = {name: k.launches for name, k in kernels.items()}
-    per_block = {"audio": 1, "raw": 1, "recovery": 1, "psd_xw_ema": 1,
-                 "compact": 2, "psd": 0}
-    check(all(launches[k] == n * SESSION_BLOCKS
-              for k, n in per_block.items()), launches)
+    return msgs, {name: k.launches for name, k in kernels.items()}, wall
+
+
+def session_checks(an, hs, msgs, n_blocks: int) -> dict:
+    """The bench mix's outputs: no logged drain error, every drained
+    block at every inspector, FM tones, QPSK concentration (of the
+    squeezed symbols where the drain squeezes), the PSD on the carrier
+    and the carrier's power above the noise channels'."""
+    from sigdigger_tpu_torch import MessageKind
 
     def samples(h):
-        got = [m for m in msgs if m.kind == MessageKind.SAMPLES
-               and m.handle == h]
-        return got
+        return [m for m in msgs if m.kind == MessageKind.SAMPLES
+                and m.handle == h]
 
     # the drain worker logs a failed block and goes on: no block may
     # have failed, and every drained block reached every inspector
@@ -1921,26 +2143,30 @@ def phase3e_session(torch, card: str) -> dict:
     for m in msgs:
         if m.kind == MessageKind.SAMPLES:
             counts[m.handle] += 1
-    check(drained == n_blocks - (an._pipeline_depth - 1)
-          and all(n == drained for n in counts.values()),
+    check(all(n == drained for n in counts.values()),
           (drained, sorted(set(counts.values()))))
-
-    # FM audio peaks at its tones (after the first two drained blocks)
-    rate = an.audio_rate
-    for slot, tone in FM_SLOTS.items():
-        a = np.concatenate([m.samples for m in samples(hs[slot])][2:])
-        check(a.size and np.all(np.isfinite(a)), slot)
-        spec = np.abs(np.fft.rfft((a - a.mean()) * np.hanning(len(a))))
-        f_pk = (np.argmax(spec[2:]) + 2) * rate / len(a)
-        check(abs(f_pk - tone) <= 2 * rate / len(a), (slot, f_pk, tone))
-    # strobed QPSK symbols concentrate
-    concs = []
-    for slot in QPSK_SLOTS:
-        got = samples(hs[832 + slot])
-        sym = np.concatenate([m.samples for m in got])
-        st = np.concatenate([m.extras["strobes"] for m in got])
-        concs.append(conc(sym, st, 4))
-    check(min(concs) > 0.85, concs)
+    check(all(np.all(np.isfinite(m.samples)) for m in msgs
+              if m.kind == MessageKind.SAMPLES))
+    out = {"drained": drained, "n_samples": sum(counts.values())}
+    if drained >= 6:
+        # FM audio peaks at its tones (after the first two drained blocks)
+        rate = an.audio_rate
+        for slot, tone in FM_SLOTS.items():
+            a = np.concatenate([m.samples for m in samples(hs[slot])][2:])
+            spec = np.abs(np.fft.rfft((a - a.mean()) * np.hanning(len(a))))
+            f_pk = (np.argmax(spec[2:]) + 2) * rate / len(a)
+            check(abs(f_pk - tone) <= 2 * rate / len(a), (slot, f_pk, tone))
+        # strobed QPSK symbols concentrate
+        concs = []
+        for slot in QPSK_SLOTS:
+            got = samples(hs[832 + slot])
+            sym = np.concatenate([m.samples for m in got])
+            st = np.concatenate([m.extras["strobes"] for m in got])
+            check(len(st) == drained * BLOCK_OUT // an._symbol_group,
+                  len(st))
+            concs.append(conc(sym, st, 4))
+        check(min(concs) > 0.85, concs)
+        out["concs"] = [round(c, 4) for c in concs]
     # the PSD peaks on the carrier
     psd = [m for m in msgs if m.kind == MessageKind.PSD][-1]
     freqs = np.linspace(-FS / 2, FS / 2, len(psd.data), endpoint=False)
@@ -1955,25 +2181,193 @@ def phase3e_session(torch, card: str) -> dict:
                        if abs(i - CARRIER_POWER_SLOT) > 3])
     check(pw[CARRIER_POWER_SLOT].mean() > 10 * noise,
           (pw[CARRIER_POWER_SLOT].mean(), noise))
-    n_samples = sum(1 for m in msgs if m.kind == MessageKind.SAMPLES)
-    block_ms = wall / SESSION_BLOCKS * 1e3
-    print(f"phase3e analyzer session (1024 inspectors: 832 audio, 48 psk, "
-          f"8 fsk, 8 ask, 128 power; opened in {open_s:.3f} s): "
-          f"{SESSION_BLOCKS} blocks after {SESSION_WARM} warm-up, launches "
-          f"{launches}, block wall {block_ms:.3f} ms (final drain join "
-          f"included), {block / (wall / SESSION_BLOCKS) / 1e6:.2f} Msps; "
-          f"{n_samples} SAMPLES messages ({drained} drained blocks x "
-          f"{len(hs)} inspectors, no drain error); FM tones "
-          f"{sorted(FM_SLOTS.values())} Hz ok, QPSK concentration "
-          f"{[round(c, 4) for c in concs]} (> 0.85), PSD peak {pk:.0f} Hz "
-          f"on carrier {f_car:.0f} Hz, carrier power "
-          f"{pw[CARRIER_POWER_SLOT].mean():.4g} vs noise {noise:.4g} | "
-          f"card: {card}", flush=True)
+    out.update(psd_peak=pk, f_car=f_car,
+               carrier=float(pw[CARRIER_POWER_SLOT].mean()),
+               noise=float(noise))
+    return out
+
+
+def session_line(name: str, open_s: float, launches: dict, wall: float,
+                 n_timed: int, res: dict, card: str) -> str:
+    block_ms = wall / n_timed * 1e3
+    return (f"{name} (1024 inspectors: 832 audio, 48 psk, 8 fsk, 8 ask, "
+            f"128 power; opened in {open_s:.3f} s): {n_timed} timed blocks, "
+            f"launches {launches}, block wall {block_ms:.3f} ms (final drain "
+            f"join included), {BLOCK_OUT * 64 / (wall / n_timed) / 1e6:.2f} "
+            f"Msps; {res['n_samples']} SAMPLES messages ({res['drained']} "
+            f"drained blocks x 1024 inspectors, no drain error); FM tones "
+            f"{sorted(FM_SLOTS.values())} Hz ok, QPSK concentration "
+            f"{res.get('concs')} (> 0.85), PSD peak {res['psd_peak']:.0f} Hz "
+            f"on carrier {res['f_car']:.0f} Hz, carrier power "
+            f"{res['carrier']:.4g} vs noise {res['noise']:.4g} | card: {card}")
+
+
+def session_blocks(n: int, seed: int) -> list:
+    block = BLOCK_OUT * 64
+    x = session_iq(n * block, seed)
+    return [x[i * block:(i + 1) * block] for i in range(n)]
+
+
+def phase3e_session(torch, card: str) -> dict:
+    """The analyzer session at the bench's 1024-inspector mix on the
+    compactor drain (``drain_pack=False``, ``symbol_group=1``) over
+    SESSION_BLOCKS blocks after SESSION_WARM warm-up blocks; returns the
+    launches of its kernels over the timed blocks."""
+    drain_errors()                    # start from an empty log
+    blocks = session_blocks(SESSION_WARM + SESSION_BLOCKS, SEED + 15)
+    an, hs, open_s = bench_session(blocks, drain_pack=False, symbol_group=1)
+    msgs, launches, wall = drive(an, torch, SESSION_WARM, SESSION_BLOCKS)
+    per_block = {"audio": 1, "raw": 1, "recovery": 1, "psd_xw_ema": 1,
+                 "compact": 2, "psd": 0, "squeeze": 0, "pack": 0}
+    check(all(launches[k] == n * SESSION_BLOCKS
+              for k, n in per_block.items()), launches)
+    res = session_checks(an, hs, msgs, SESSION_WARM + SESSION_BLOCKS)
+    check(res["drained"] == SESSION_WARM + SESSION_BLOCKS
+          - (an._pipeline_depth - 1))
+    print(session_line("phase3e analyzer session, compactor drain", open_s,
+                       launches, wall, SESSION_BLOCKS, res, card),
+          flush=True)
     an._drain_thread_on = False
-    print(f"phase3e layers (synchronous, median ms over 4 blocks): "
-          f"{session_layers(an, blocks, torch)}", flush=True)
+    print(f"phase3e layers (synchronous, median ms over 4 blocks; drain "
+          f"bytes per block): {session_layers(an, blocks, torch)}",
+          flush=True)
     short_session(torch, blocks)
     return {k: launches[k] for k in ("audio", "compact")}
+
+
+def phase3f_bench_session(torch, card: str) -> dict:
+    """``bench.py:255-259``'s exact session: the packed drain
+    (``drain_pack=True``) and the symbol squeeze (``symbol_group=4``)
+    with the 1024-inspector mix over SESSION_BLOCKS blocks after
+    SESSION_WARM warm-up blocks, then 3 blocks with the int8 upload,
+    then a checkpoint round trip of a 128-slot packed session from a
+    capture file.  Returns the launches over the timed blocks."""
+    drain_errors()
+    blocks = session_blocks(SESSION_WARM + SESSION_BLOCKS, SEED + 18)
+    an, hs, open_s = bench_session(blocks)
+    check(an._drain_pack and an._buckets[64].squeeze is not None)
+    msgs, launches, wall = drive(an, torch, SESSION_WARM, SESSION_BLOCKS)
+    # the pack holds audio and status; the 64-column digital section
+    # leaves it for its int16 side compactor
+    per_block = {"audio": 1, "raw": 1, "recovery": 1, "psd_xw_ema": 1,
+                 "squeeze": 1, "pack": 1, "compact": 1, "psd": 0}
+    check(all(launches[k] == n * SESSION_BLOCKS
+              for k, n in per_block.items()), launches)
+    res = session_checks(an, hs, msgs, SESSION_WARM + SESSION_BLOCKS)
+    check(res["drained"] == SESSION_WARM + SESSION_BLOCKS
+          - (an._pipeline_depth - 1))
+    bucket = an._buckets[64]
+    (packer,) = bucket.packers.values()
+    cfg = packer.cfg
+    check((cfg.width, cfg.audio_width, cfg.m_tile, cfg.total_tiles,
+           cfg.has_digital, cfg.has_raw) == (1024, 1024, 64, 5, False,
+                                             False), cfg)
+    check([k for k in bucket.sides] == [("digital", 64, BLOCK_OUT // 4)],
+          list(bucket.sides))
+    print(session_line("phase3f bench session, packed drain + squeeze",
+                       open_s, launches, wall, SESSION_BLOCKS, res, card),
+          flush=True)
+    an._drain_thread_on = False
+    print(f"phase3f layers (synchronous, median ms over 4 blocks; drain "
+          f"bytes per block): {session_layers(an, blocks, torch)}",
+          flush=True)
+    del an
+
+    # bench.py:216: the same session on the int8 upload
+    drain_errors()
+    an, hs, _ = bench_session(blocks, in_i8=True)
+    i8_msgs, i8_launches, i8_wall = drive(an, torch, 0, 3)
+    flush(an)
+    i8_msgs += an.poll()
+    check(all(i8_launches[k] == 3 * n for k, n in per_block.items()),
+          i8_launches)
+    res8 = session_checks(an, hs, i8_msgs, 3)
+    check(res8["drained"] == 3)
+    print(f"phase3f int8 upload: 3 blocks, launches {i8_launches}, "
+          f"{res8['n_samples']} SAMPLES messages, PSD peak "
+          f"{res8['psd_peak']:.0f} Hz, carrier power {res8['carrier']:.4g} "
+          f"vs noise {res8['noise']:.4g}", flush=True)
+    del an
+    checkpoint_round_trip(torch, blocks[:6])
+    return {k: launches[k] for k in ("squeeze", "pack")}
+
+
+def checkpoint_round_trip(torch, blocks) -> None:
+    """A 128-slot packed session (FM audio, psk, a raw inspector, an
+    aligned and an unaligned power inspector) read from a capture file:
+    2 blocks, a save, 3 more blocks; the session restored from the save
+    gives those 3 blocks again, bit for bit."""
+    import os
+    import shutil
+    import tempfile
+
+    from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
+    from sigdigger_tpu_torch.analyzer.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cap = os.path.join(tmp, "session.cf32")
+        np.concatenate(blocks).tofile(cap)
+        params = AnalyzerParams()
+        params.window_size = 4096
+        an = KernelAnalyzer(
+            profile=SourceProfile(type="file", path=cap, sample_rate=int(FS)),
+            params=params, block_size=BLOCK_OUT * 64, n_slots=128,
+            decimation=64, audio_decim=AUDIO_DECIM, compact_cols=128,
+            symbol_group=4)
+        for slot in FM_SLOTS:
+            an.open_inspector("audio", Channel(fc=-48e6 + slot * 115e3,
+                                               bw=200e3),
+                              config={"audio.demodulator": 2})
+        for slot in QPSK_SLOTS:
+            an.open_inspector("psk", Channel(fc=1e6 + slot * 500e3,
+                                             bw=400e3),
+                              config={"afc.bits-per-symbol": 2,
+                                      "clock.baud": an.channel_rate / 8.0})
+        an.open_inspector("raw", Channel(fc=-15.8e6, bw=200e3),
+                          config={"agc.enabled": False})
+        f_car = 34e6 + CARRIER_POWER_SLOT * 100e3
+        an.open_inspector("power", Channel(fc=f_car, bw=100e3),
+                          config={"power.integrate-samples": BLOCK_OUT})
+        an.open_inspector("power", Channel(fc=f_car, bw=100e3),
+                          config={"power.integrate-samples": 3000})
+        an.poll()
+
+        def run(a, n):
+            out = []
+            for _ in range(n):
+                check(a.step())
+                out += [(a._inspectors[m.handle].inspector_id, m.samples,
+                         m.extras.get("strobes"))
+                        for m in a.poll() if m.kind == MessageKind.SAMPLES]
+            return out
+
+        run(an, 2)
+        ck = os.path.join(tmp, "session.sdckpt")
+        save_checkpoint(an, ck)
+        want = run(an, 3)
+        # 10 active slots: every section 8 lanes of 16, lane-grouped
+        (packer,) = an._buckets[64].packers.values()
+        check(packer.cfg.has_raw and all(
+            packer.cfg.group(sec) == 2
+            for sec in ("audio", "digital", "raw")), packer.cfg)
+        got = run(load_checkpoint(ck), 3)
+        check(len(got) == len(want) == 3 * 10, (len(got), len(want)))
+        for (i, a, sa), (j, b, sb) in zip(want, got):
+            check(i == j and np.array_equal(a, b)
+                  and (sa is None or np.array_equal(sa, sb)), i)
+        print(f"phase3f checkpoint: a 128-slot packed session (4 FM, 3 psk "
+              f"squeezed, raw, 2 power) from a capture file, saved after 2 "
+              f"blocks: the restored session's next 3 blocks ({len(got)} "
+              f"SAMPLES messages) equal the uninterrupted run's bit for "
+              f"bit", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def short_session(torch, blocks) -> None:
@@ -1989,7 +2383,7 @@ def short_session(torch, blocks) -> None:
     an = KernelAnalyzer(source=ring_source(blocks), params=params,
                         block_size=BLOCK_OUT * 64, n_slots=128,
                         decimation=64, audio_decim=AUDIO_DECIM,
-                        compact_cols=32)
+                        compact_cols=32, drain_pack=False)
     hs = [an.open_inspector("audio", Channel(fc=-48e6 + i * 115e3, bw=50e3),
                             config={"audio.demodulator": mode,
                                     "audio.cutoff": 3000.0,
@@ -2049,7 +2443,13 @@ def main() -> int:
     from sigdigger_tpu_torch.kernels import _build, audio, compact
     from sigdigger_tpu_torch.kernels import channelizer as ch1
     from sigdigger_tpu_torch.kernels import channelizer2 as ch2
-    from sigdigger_tpu_torch.kernels import fft, rawbank, recovery
+    from sigdigger_tpu_torch.kernels import (
+        drainpack,
+        fft,
+        rawbank,
+        recovery,
+        symsqueeze,
+    )
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2076,6 +2476,8 @@ def main() -> int:
     del uploads
     p2["audio"] = phase2_audio(audio, torch)
     p2["compact"] = phase2_compact(compact, torch)
+    p2["squeeze"] = phase2_squeeze(symsqueeze, torch)
+    p2["pack"] = phase2_pack(drainpack, torch)
     print(f"phase2: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     launches = {"kernel2": phase3_end_to_end(ch2, torch, card)}
@@ -2092,6 +2494,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(phase3e_session(torch, card))
     print(f"phase3e: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3f_bench_session(torch, card))
+    print(f"phase3f: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel form: (name, key, source, TPU kernel); the FM forms'
     # library yardstick (the channelize matmul alone) computes part of
@@ -2112,6 +2517,9 @@ def main() -> int:
          "kernels/channelizer.py:124"),
         ("audio_kernel", "audio", "audio.cu", "kernels/audio.py:193"),
         ("compact_kernel", "compact", "compact.cu", "kernels/compact.py:64"),
+        ("squeeze_kernel", "squeeze", "symsqueeze.cu",
+         "kernels/symsqueeze.py:71"),
+        ("pack_kernel", "pack", "drainpack.cu", "kernels/drainpack.py:188"),
     ]
     no_library = ("kernel2", "kernel2_cossin", "raw", "recovery", "kernel1",
                   "audio")

@@ -15,9 +15,14 @@ Suscan/Analyzer.cpp:111-623) — on the hand-written CUDA kernels:
   squelch, AGC, cutoff and volume; the su_agc hang follower in the
   kernel);
 - "psk"/"fsk"/"ask" inspectors → ``kernels/recovery.py``;
-- the drain → ``kernels/compact.py``: only the active slots' columns
-  cross to the host while they fit ``compact_cols``, else the full
-  planes.
+- the drain → ``kernels/drainpack.py``: while the active slots fit
+  ``compact_cols``, one int16 buffer per bucket holds every section at
+  its own width (the digital planes squeezed ``symbol_group``× by
+  ``kernels/symsqueeze.py`` first), and a section too narrow for the
+  buffer's lane grouping drains through its own int16
+  ``kernels/compact.py`` compactor; with ``drain_pack=False`` the
+  compactors drain every section at ``compact_cols``; past that width,
+  the full planes.
 
 Open, retune and close are constant updates of a pre-allocated slot
 shared by the banks.  Per-channel decimation is bucketed: each declared
@@ -28,18 +33,21 @@ slowest bucket that covers its bandwidth.  Audio is resampled to
 Where the port's signature differs from the reference's:
 - ``device`` takes the place of ``interpret``; ``in_i16`` and
   ``drain_bf16`` default to on for ``cuda`` and off for ``cpu``.
-- ``drain_pack`` defaults to False, the reference's compactor drain
-  (``kernel_engine.py:1089-1101``); True, the single-fetch int16 pack
-  with the symbol squeeze, raises ``NotImplementedError`` (ROADMAP.md
-  queue 2 items 7 and 9).  ``symbol_group`` is validated as in the
-  reference and, as there, squeezes only on the packed drain.
+- ``symbol_group`` squeezes only on the packed drain, as in the
+  reference.
 - ``mesh`` other than None raises ``NotImplementedError`` (queue 1
   item 12).
 
-The reference's fault at ``kernel_engine.py:929`` (``ADVICE.md``) is not
-carried over: the threaded drain fetches without the engine lock but
-demaps the slots' state under it, so control calls from other threads
-never race the demap.
+Three faults of the reference are not carried over:
+- ``kernel_engine.py:929`` (``ADVICE.md``): the threaded drain fetches
+  without the engine lock but demaps the slots' state under it, so
+  control calls from other threads never race the demap;
+- ``kernel_engine.py:1084``: the side compactors' planes are selected
+  per section when the section drains, where the reference builds every
+  section's tuple first and ``tuple(dig)`` raises with an audio or raw
+  side and no digital inspector;
+- ``kernel_engine.py:1271``: the side-compactor fetch loop does not
+  rebind the block's compaction flag.
 """
 
 from __future__ import annotations
@@ -62,6 +70,14 @@ from sigdigger_tpu_torch.kernels.compact import (
     ColumnCompactor,
     ColumnCompactorConfig,
 )
+from sigdigger_tpu_torch.kernels.drainpack import (
+    A_SCALE,
+    D_SCALE,
+    R_SCALE,
+    T_SCALE,
+    DrainPacker,
+    DrainPackerConfig,
+)
 from sigdigger_tpu_torch.kernels.fft import PSD, PSDConfig, PSDFromXW
 from sigdigger_tpu_torch.kernels.rawbank import RawBank, RawBankConfig
 from sigdigger_tpu_torch.kernels.recovery import (
@@ -71,7 +87,12 @@ from sigdigger_tpu_torch.kernels.recovery import (
     RecoveryBank,
     RecoveryBankConfig,
 )
+from sigdigger_tpu_torch.kernels.symsqueeze import (
+    SymbolSqueeze,
+    SymbolSqueezeConfig,
+)
 from sigdigger_tpu_torch.types import AnalyzerMode, Channel
+from sigdigger_tpu_torch.utils import largest_divisor
 from sigdigger_tpu_torch.utils.logger import Logger
 
 _DIGITAL = {"psk": KIND_PSK, "fsk": KIND_FSK, "ask": KIND_ASK}
@@ -81,13 +102,6 @@ def ks_schema_keys(slot) -> set[str]:
     """All schema keys of a slot's inspector class (warn only on keys
     that exist in the contract yet have no kernel-path effect)."""
     return {f.name for f in INSPECTOR_SCHEMAS[slot.class_name]}
-
-
-def _largest_divisor(n: int, limit: int) -> int:
-    d = min(n, limit)
-    while n % d:
-        d -= 1
-    return d
 
 
 def _host(a) -> np.ndarray:
@@ -212,10 +226,19 @@ class _Bucket:
         self.active: list[int] = []
         # per-section active slot lists ("audio" slots, "digital" =
         # psk/fsk/ask, "raw" = slots that consume the raw planes on the
-        # host), the packed drain's section maps (ROADMAP.md queue 2
-        # item 9)
+        # host): the packed drain packs each section at its own width
         self.active_by: dict[str, list[int]] = {
             "audio": [], "digital": [], "raw": []}
+        # single-fetch drain packers, keyed by their layout (sections
+        # present, widths, digital rows); a new variant is a new Python
+        # object over the same kernel
+        self.packers: dict[tuple, DrainPacker] = {}
+        # device symbol-rate squeeze of the digital planes (built when
+        # the engine runs with symbol_group > 1)
+        self.squeeze: SymbolSqueeze | None = None
+        # int16 compactors for sections too narrow for the packer's lane
+        # grouping, keyed (section, width, rows)
+        self.sides: dict[tuple, ColumnCompactor] = {}
 
     @property
     def channel_rate(self) -> float:
@@ -246,15 +269,10 @@ class KernelAnalyzer(Analyzer):
                  pipeline_depth: int = 1,
                  in_i16: bool | None = None,
                  drain_bf16: bool | None = None,
-                 drain_pack: bool = False,
+                 drain_pack: bool = True,
                  in_i8: bool = False,
                  symbol_group: int = 1,
                  drain_thread: bool = False) -> None:
-        if drain_pack:
-            raise NotImplementedError(
-                "drain_pack=True (the single-fetch int16 drain pack and "
-                "the symbol squeeze) is not ported (ROADMAP.md queue 2 "
-                "items 7 and 9); use drain_pack=False")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported (ROADMAP.md queue 1 item 12)")
@@ -267,11 +285,18 @@ class KernelAnalyzer(Analyzer):
         # bf16 drains of the audio and digital compactors (raw IQ stays
         # float32); same default policy as in_i16
         self._drain_bf16 = drain_bf16
+        # single-fetch int16 drain packing (kernels/drainpack.py): the
+        # whole per-block drain in ONE device-to-host copy.  Quantization:
+        # audio 1/4096, soft symbols 1/8192, raw IQ 1/4096, strobes exact
+        self._drain_pack = bool(drain_pack)
         # depth > 1 overlaps the next block's framing/upload with the
         # previous block's device compute and drain (messages lag
         # depth-1 blocks; flushed at EOS)
         self._pipeline_depth = max(1, int(pipeline_depth))
         self._inflight: list = []
+        # symbol_group R > 1 squeezes the digital planes R× on the device
+        # before the packed drain (kernels/symsqueeze.py); requires sps
+        # >= R+1 on every digital inspector (validated at configure)
         self._symbol_group = max(1, int(symbol_group))
         # drain_thread moves fetch + demap + message emission to a
         # worker so the host demap overlaps the next block
@@ -302,7 +327,7 @@ class KernelAnalyzer(Analyzer):
         frames = self.block_size // w
         self._spectrum = PSD(
             PSDConfig(fft_size=w, frames_per_block=frames,
-                      frames_per_program=_largest_divisor(frames, 8)),
+                      frames_per_program=largest_divisor(frames, 8)),
             rate, self.params.window_function,
             alpha=self.params.spectrum_avg_alpha, device=dev)
 
@@ -315,7 +340,7 @@ class KernelAnalyzer(Analyzer):
                     f"of decimation*audio_decim = "
                     f"{d * self._audio_decim}")
             block_out = self.block_size // d
-            m_tile = _largest_divisor(block_out, 2048)
+            m_tile = largest_divisor(block_out, 2048)
             if m_tile % self._audio_decim:
                 raise ValueError(
                     f"derived m_tile {m_tile} not a multiple of audio "
@@ -335,6 +360,10 @@ class KernelAnalyzer(Analyzer):
             rec = RecoveryBank(RecoveryBankConfig(
                 n_channels=self._n_slots, block_len=block_out), device=dev)
             bucket = _Bucket(d, raw, audio, rec, self._n_slots)
+            if self._symbol_group > 1:
+                bucket.squeeze = SymbolSqueeze(SymbolSqueezeConfig(
+                    n_rows=block_out, n_channels=self._n_slots,
+                    group=self._symbol_group), device=dev)
             if 0 < self._compact_cols <= self._n_slots:
                 cw = self._compact_cols
                 bucket.comp_digital = ColumnCompactor(ColumnCompactorConfig(
@@ -412,6 +441,20 @@ class KernelAnalyzer(Analyzer):
         for comp in (bucket.comp_digital, bucket.comp_raw,
                      bucket.comp_audio):
             comp.set_mapping(active)
+        ab = bucket.active_by
+        for packer in bucket.packers.values():
+            cfg = packer.cfg
+            if (len(active) <= cfg.width
+                    and len(ab["audio"]) <= cfg.audio_width
+                    and len(ab["digital"]) <= cfg.digital_width
+                    and len(ab["raw"]) <= cfg.raw_width):
+                packer.set_mappings(active, audio=ab["audio"],
+                                    digital=ab["digital"], raw=ab["raw"])
+            # else: a stale variant, which _get_packer's width key no
+            # longer selects
+        for (sec, w, _rows), comp in bucket.sides.items():
+            if len(ab[sec]) <= w:
+                comp.set_mapping(ab[sec])
 
     def _active_by(self, bucket: _Bucket) -> dict[str, list[int]]:
         by: dict[str, list[int]] = {"audio": [], "digital": [],
@@ -875,6 +918,40 @@ class KernelAnalyzer(Analyzer):
         if any_digital:
             dig = bucket.rec.feed_planes(y_re, y_im, fetch=False)
 
+        if comp and self._drain_pack:
+            # single-fetch drain: ONE launch packs audio, squelch, power,
+            # digital and raw active columns as scaled int16; a section
+            # too narrow for the packer's lane grouping drains through
+            # its own int16 compactor (`sides`)
+            if dig is not None and bucket.squeeze is not None:
+                dig = bucket.squeeze.dispatch(*dig)
+                h["squeezed"] = True
+            packer, sides = self._get_packer(
+                bucket, any_audio, any_digital, need_host_raw)
+            h["packer"] = packer
+            # per-section column maps, snapshotted with the dispatch
+            # (a pipelined drain demaps with the maps the pack was
+            # built from)
+            h["pmaps"] = {
+                sec: {idx: col for col, idx in enumerate(cols)}
+                for sec, cols in bucket.active_by.items()}
+            h["pack"] = packer.dispatch(
+                audio=audio if packer.cfg.has_audio else None,
+                sq=bucket.audio._sq if any_audio else None,
+                pw=bucket.raw._power_dev if need_raw_compute else None,
+                dig=dig if packer.cfg.has_digital else None,
+                raw=((y_re, y_im)
+                     if packer.cfg.has_raw and need_host_raw else None))
+            # each side takes its own section's planes: the reference
+            # builds every section's tuple first, and tuple(dig) raises
+            # when an audio or raw side drains with no digital slot
+            # (kernel_engine.py:1084)
+            planes = {"audio": (audio,), "digital": dig,
+                      "raw": (y_re, y_im)}
+            h["sides"] = {sec: (side, side.dispatch(*planes[sec]))
+                          for sec, side in sides.items()}
+            return h
+
         if any_audio:
             h["audio"] = (bucket.comp_audio.dispatch(audio) if comp
                           else audio)
@@ -889,28 +966,121 @@ class KernelAnalyzer(Analyzer):
                         else (y_re, y_im))
         return h
 
-    def _digital_gain(self, ks: _KernelSlotExtra,
-                      sym: np.ndarray) -> float:
+    def _gain_from_power(self, ks: _KernelSlotExtra, p: float | None,
+                         n_elapsed: int) -> float:
         """Gain-control contract for the drained digital stream
         (reference InspectorCtl/GainControl.cpp): manual ``agc.gain``
         when AGC is off; when on, a power-EMA normalizer whose time
-        constant is ``agc.ts`` symbol periods."""
+        constant is ``agc.ts`` symbol periods, fed the power estimate
+        ``p`` over ``n_elapsed`` channel-rate samples (None: no
+        estimate this block, unit gain)."""
         c = ks.config
         if not bool(c["agc.enabled"]):
             ks.agc_ema = None
             return float(c["agc.gain"])
-        if not len(sym):
+        if p is None:
             return 1.0
-        p = float(np.mean(np.abs(sym) ** 2))
         baud = max(float(c["clock.baud"]), 1e-3)
         sps = max(2.0, ks.bucket.channel_rate / baud)
         tau = max(float(c["agc.ts"]) * sps, 1.0)
-        alpha = 1.0 - np.exp(-len(sym) / tau)
+        alpha = 1.0 - np.exp(-n_elapsed / tau)
         if ks.agc_ema is None:
             ks.agc_ema = p
         else:
             ks.agc_ema += alpha * (p - ks.agc_ema)
         return 1.0 / np.sqrt(max(ks.agc_ema, 1e-12))
+
+    def _get_packer(self, bucket: _Bucket, any_audio: bool,
+                    any_digital: bool, need_raw: bool) -> tuple:
+        """The bucket's packer for this block's sections at the widths
+        the active slots need, and the side compactors of the sections
+        that leave it (the reference's rules, kernel_engine.py:1148-1237).
+        A variant seen first builds a Python object; the kernel is the
+        same."""
+        def w8(n: int) -> int:
+            w = 8
+            while w < n:
+                w *= 2
+            return w
+
+        ab = bucket.active_by
+        block_out = bucket.raw.cfg.block_out
+        audio_rows = block_out // self._audio_decim
+        dig_rows = (block_out // self._symbol_group
+                    if bucket.squeeze is not None else block_out)
+        w_a = w8(len(ab["audio"])) if any_audio else 0
+        w_d = w8(len(ab["digital"])) if any_digital else 0
+        w_r = w8(len(ab["raw"])) if need_raw else 0
+        # the status tile carries every active slot; per-section widths
+        # (powers of two × 8) divide it, so lane grouping lines up
+        width = max(w8(len(bucket.active)), w_a, w_d, w_r)
+        # a section narrower than half the buffer leaves the packer for
+        # its own int16 compactor (the reference's rule, kept: it
+        # defines the drain's layout)
+        side_a = any_audio and width > 2 * w_a
+        side_d = any_digital and width > 2 * w_d
+        side_r = need_raw and width > 2 * w_r
+        key = (any_audio and not side_a, any_digital and not side_d,
+               need_raw and not side_r, width,
+               w_a if not side_a else 0, w_d if not side_d else 0,
+               w_r if not side_r else 0, dig_rows)
+        packer = bucket.packers.get(key)
+        if packer is None:
+            # small packer tiles: the 6-row status tile pads to a whole
+            # m_tile of int16 zeros
+            groups = []
+            if any_audio and not side_a:
+                groups.append((audio_rows, width // w_a))
+            if any_digital and not side_d:
+                groups.append((dig_rows, width // w_d))
+            if need_raw and not side_r:
+                groups.append((block_out, width // w_r))
+            m_tile = 0
+            for mt in (64, 32, 16):
+                if (audio_rows % mt or block_out % mt
+                        or dig_rows % mt):
+                    continue
+                if all((rows // mt) % g == 0 for rows, g in groups):
+                    m_tile = mt
+                    break
+            packer = DrainPacker(DrainPackerConfig(
+                n_rows=block_out, audio_rows=audio_rows,
+                n_channels=self._n_slots, width=width,
+                has_audio=any_audio and not side_a,
+                has_digital=any_digital and not side_d,
+                has_raw=need_raw and not side_r,
+                audio_width=w_a if not side_a else 0,
+                digital_width=w_d if not side_d else 0,
+                raw_width=w_r if not side_r else 0,
+                digital_rows=dig_rows, m_tile=m_tile), device=self.device)
+            packer.set_mappings(bucket.active, audio=ab["audio"],
+                                digital=ab["digital"], raw=ab["raw"])
+            bucket.packers[key] = packer
+        sides = {}
+        if side_a:
+            sides["audio"] = self._get_side(
+                bucket, "audio", w_a, audio_rows, (A_SCALE,))
+        if side_d:
+            sides["digital"] = self._get_side(
+                bucket, "digital", w_d, dig_rows,
+                (D_SCALE, D_SCALE, T_SCALE))
+        if side_r:
+            sides["raw"] = self._get_side(
+                bucket, "raw", w_r, block_out, (R_SCALE, R_SCALE))
+        return packer, sides
+
+    def _get_side(self, bucket: _Bucket, section: str, width: int,
+                  rows: int, scales: tuple) -> ColumnCompactor:
+        key = (section, width, rows)
+        comp = bucket.sides.get(key)
+        if comp is None:
+            comp = ColumnCompactor(ColumnCompactorConfig(
+                n_rows=rows, n_channels=self._n_slots, width=width,
+                n_planes=len(scales), out_i16=True, scales=scales),
+                device=self.device)
+            comp.set_mapping(bucket.active_by[section])
+            bucket.sides[key] = comp
+        return comp
 
     def _drain_bucket(self, h: dict) -> list:
         """Fetch a dispatched block (without the engine lock, so the
@@ -926,6 +1096,8 @@ class KernelAnalyzer(Analyzer):
         """The host side of one dispatched block: (audio, squelch_open,
         soft symbol planes (re, im), strobe plane, raw re, raw im, block
         power), None where the block has no such drain."""
+        if "pack" in h:
+            return self._fetch_pack(h)
         bucket: _Bucket = h["bucket"]
         comp = h["comp"]
         audio_out = soft = strobe = y_re = y_im = power = None
@@ -956,11 +1128,43 @@ class KernelAnalyzer(Analyzer):
             power = _host(h["power"])[0]
         return audio_out, squelch_open, soft, strobe, y_re, y_im, power
 
+    def _fetch_pack(self, h: dict) -> tuple:
+        """:meth:`_fetch` of a packed block: one copy of the pack and one
+        per side compactor; the status rows back at full slot width."""
+        sec = h["packer"].fetch(h["pack"])
+        audio_out = sec.get("audio")
+        soft = strobe = None
+        if "soft" in sec:
+            soft = (sec["soft"].real, sec["soft"].imag)
+            strobe = sec["strobe"]
+        y_re, y_im = sec.get("y_re"), sec.get("y_im")
+        for name, (side, out) in h["sides"].items():
+            planes = side.fetch(out)
+            if name == "audio":
+                audio_out = planes[0]
+            elif name == "digital":
+                soft, strobe = planes[:2], planes[2]
+            else:
+                y_re, y_im = planes
+        # the status tile holds every active slot in compact order
+        n = self._n_slots
+        idx = np.fromiter(h["cmap"].keys(), np.int64, len(h["cmap"]))
+        col = np.fromiter(h["cmap"].values(), np.int64, len(h["cmap"]))
+        power = np.zeros(n, np.float32)
+        power[idx] = sec["power"][col]
+        squelch_open = None
+        if audio_out is not None:
+            sq = np.zeros(n, np.float32)
+            sq[idx] = sec["sq"][col]
+            squelch_open = (~h["squelch"]) | (sq >= h["sq_level"])
+        return audio_out, squelch_open, soft, strobe, y_re, y_im, power
+
     def _demap(self, h: dict, audio_out, squelch_open, soft, strobe,
                y_re, y_im, power) -> list:
         """Per-slot messages of one fetched block; the caller holds the
         engine lock."""
         bucket: _Bucket = h["bucket"]
+        pmaps = h.get("pmaps")
         msgs = []
         for slot in h["slots"]:
             # a control thread may close a slot while its last block is
@@ -969,17 +1173,32 @@ class KernelAnalyzer(Analyzer):
             ks = self._kslots.get(slot.handle)
             if ks is None:
                 continue
-            col = h["cmap"][ks.idx] if h["comp"] else ks.idx
+            name = slot.class_name
+            if pmaps is None:
+                a_col = d_col = r_col = (h["cmap"][ks.idx] if h["comp"]
+                                         else ks.idx)
+            else:
+                # the packed drain compacts each section at its own
+                # width: a slot missing from its class's map (membership
+                # changed while the block was in flight) skips this block
+                a_col = pmaps["audio"].get(ks.idx)
+                d_col = pmaps["digital"].get(ks.idx)
+                r_col = pmaps["raw"].get(ks.idx)
+                if ((name == "audio" and a_col is None)
+                        or (name in _DIGITAL and d_col is None)
+                        or (name == "raw" and r_col is None)
+                        or (name == "power" and r_col is None
+                            and self._needs_host_raw(slot, ks))):
+                    continue
             c = ks.config
             raw_col = None
-            if y_re is not None and (
-                    slot.class_name in ("raw", "power")
+            if y_re is not None and r_col is not None and (
+                    name in ("raw", "power")
                     or slot.estimators or slot.spectrum_source):
-                raw_col = (y_re[:, col]
-                           + 1j * y_im[:, col]).astype(np.complex64)
-            name = slot.class_name
+                raw_col = (y_re[:, r_col]
+                           + 1j * y_im[:, r_col]).astype(np.complex64)
             if name == "audio":
-                aud = audio_out[:, col]
+                aud = audio_out[:, a_col]
                 if ks.resampler is not None:
                     aud = ks.resampler(aud)
                 extras = {"squelch_open": bool(squelch_open[ks.idx])}
@@ -1027,10 +1246,21 @@ class KernelAnalyzer(Analyzer):
                 msgs.append((slot, np.asarray(out, np.float32), {},
                              raw_col))
             else:                              # psk / fsk / ask
-                sym = soft[0][:, col] + 1j * soft[1][:, col]
-                st = strobe[:, col] > 0.5
+                sym = soft[0][:, d_col] + 1j * soft[1][:, d_col]
+                st = strobe[:, d_col] > 0.5
                 if name != "fsk":              # fsk is amp-invariant
-                    sym = sym * np.float32(self._digital_gain(ks, sym))
+                    if h.get("squeezed"):
+                        # the device block-power row (pre-MF channel
+                        # power): the squeezed drain has no full-rate
+                        # stream on the host to measure
+                        g = self._gain_from_power(
+                            ks, max(float(power[ks.idx]), 1e-12),
+                            bucket.raw.cfg.block_out)
+                    else:
+                        g = self._gain_from_power(
+                            ks, float(np.mean(np.abs(sym) ** 2))
+                            if len(sym) else None, len(sym))
+                    sym = sym * np.float32(g)
                 if name == "psk":
                     bps = max(1, int(c["afc.bits-per-symbol"]))
                     ids = _decide_phase(sym, bps)

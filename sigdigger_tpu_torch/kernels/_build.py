@@ -71,6 +71,13 @@ SIGNATURES = {
             + [_I] * 5              # M C mt ka da
             + [_F, _F, _P]),        # quad_gain psd_scale stream
     },
+    "drainpack": {
+        "sd_drainpack": (
+            [_P, _I]                # plan (host struct), n_sec
+            + [_P] * 3 + [_I]       # sq pw status status_t0
+            + [_P] + [_I] * 4       # out C W mt total_tiles
+            + [_P]),                # stream
+    },
     "psd": {
         "sd_psd": (
             [_P, _I, _F]            # x, in_kind, in_gain
@@ -104,6 +111,12 @@ SIGNATURES = {
                                     # ext_im mf_re mf_im
             + [_I] * 4              # M C K keq
             + [_F, _F, _P]),        # adc one_m_adc stream
+    },
+    "symsqueeze": {
+        "sd_symsqueeze": (
+            [_P] * 6                # sr si st out_r out_i out_s
+            + [_I] * 3              # M C R
+            + [_P]),                # stream
     },
 }
 

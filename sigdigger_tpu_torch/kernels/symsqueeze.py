@@ -1,0 +1,126 @@
+"""Symbol-rate squeeze of the recovery drain (counterpart of
+``sigdigger_tpu/kernels/symsqueeze.py``).
+
+The recovery bank emits channel-rate ``[M, C]`` soft-symbol planes and a
+strobe plane marking the symbol instants.  Draining them whole at ~1024
+open inspectors moves sps times the bytes the symbols carry, so the
+planes are reduced ``group`` times on the device before the drain:
+
+    out_v[i]  = Σ_{r<R} strobe[i·R + r] · plane[i·R + r]
+    out_st[i] = Σ_{r<R} strobe[i·R + r]
+
+The products come first, as in the reference (``symsqueeze.py:73-75``):
+the strobe multiplies, it does not select.  The reduction is exact when
+every R-row group holds at most one strobe; the engine enforces
+``sps >= R + 1`` on every digital slot of the bucket (Gardner strobe
+spacing jitters ±1 around sps), so a group never holds more than two,
+and a sum of at most two nonzero products rounds once whatever the
+order.
+
+The reference sums each group with a block-diagonal 0/1 matmul in
+chunks (its TPU toolchain had no gather or segmented sum);
+:func:`squeeze_kernel` launches the hand-written ``csrc/symsqueeze.cu``
+on CUDA tensors and runs :func:`squeeze_kernel_reference` on CPU
+tensors.  Neither tiles the planes, so the config has none of the
+reference's ``channel_tile``, ``m_tile`` and ``chunk``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from sigdigger_tpu_torch.backend import resolve_device
+
+
+@dataclass(frozen=True)
+class SymbolSqueezeConfig:
+    n_rows: int                  # M (channel-rate rows per block)
+    n_channels: int              # C
+    group: int                   # R (rows summed per output row)
+
+    def __post_init__(self):
+        assert self.group >= 2
+        assert self.n_rows % self.group == 0
+
+    @property
+    def out_rows(self) -> int:
+        return self.n_rows // self.group
+
+
+def squeeze_kernel_reference(sr: torch.Tensor, si: torch.Tensor,
+                             st: torch.Tensor, group: int) -> tuple:
+    """Plain PyTorch version of ``_squeeze_kernel``: float32 ``[M, C]``
+    soft re, soft im and strobe planes → the three ``[M/R, C]`` group
+    sums."""
+    m, c = st.shape
+    r = group
+
+    def fold(v):
+        return v.reshape(m // r, r, c).sum(1)
+
+    return fold(sr * st), fold(si * st), fold(st)
+
+
+def _squeeze_cuda(sr, si, st, group: int) -> tuple:
+    from sigdigger_tpu_torch.kernels._build import load_library
+
+    dev = st.device
+    shape = tuple(st.shape)
+    for name, t in (("sr", sr), ("si", si), ("st", st)):
+        if (t.dim() != 2 or tuple(t.shape) != shape
+                or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"squeeze_kernel {name}: want contiguous float32 [M, C] "
+                f"like st on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    m, c = shape
+    if group < 2 or m % group:
+        raise ValueError(f"squeeze_kernel needs group >= 2 dividing M, got "
+                         f"M={m}, group={group}")
+    lib = load_library("symsqueeze")
+    outs = tuple(torch.empty((m // group, c), device=dev) for _ in range(3))
+    with torch.cuda.device(dev):
+        err = lib.sd_symsqueeze(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (sr, si, st, *outs)),
+            m, c, group,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"sd_symsqueeze launch failed: CUDA error {err}")
+    squeeze_kernel.launches += 1
+    return outs
+
+
+def squeeze_kernel(sr: torch.Tensor, si: torch.Tensor, st: torch.Tensor,
+                   group: int) -> tuple:
+    """One squeeze: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors.  ``squeeze_kernel.launches`` counts the CUDA
+    launches."""
+    if st.device.type == "cuda":
+        return _squeeze_cuda(sr, si, st, group)
+    if st.device.type == "cpu":
+        return squeeze_kernel_reference(sr, si, st, group)
+    raise ValueError(f"squeeze_kernel runs on cuda or cpu, not {st.device}")
+
+
+squeeze_kernel.launches = 0
+
+
+class SymbolSqueeze:
+    """Device-side R× reduction of (soft_re, soft_im, strobe) planes.
+    Runs on ``cuda`` unless ``device`` says otherwise."""
+
+    def __init__(self, cfg: SymbolSqueezeConfig,
+                 device: str | torch.device | None = None) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def dispatch(self, sr, si, st) -> tuple:
+        """Device-resident (soft_re, soft_im, strobe) → squeezed device
+        planes (same order, ``group``× fewer rows)."""
+        sr, si, st = (torch.as_tensor(p).to(self.device)
+                      for p in (sr, si, st))
+        return squeeze_kernel(sr, si, st, self.cfg.group)

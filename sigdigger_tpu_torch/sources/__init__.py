@@ -2,9 +2,10 @@
 
 ``make_source`` maps a profile's type to a source class through the
 ``register_source`` table of ``sources/registry.py:33-42``.  The port
-registers the types whose modules it carries, ``synth`` and
-``tonegen``; any other type raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+registers the types whose modules it carries, ``file`` (raw captures
+and WAV), ``synth`` and ``tonegen``; any other type (``soapy``,
+``stdin``) raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable
 
 from sigdigger_tpu_torch.profiles import SourceProfile
 from sigdigger_tpu_torch.sources.base import SignalSource
+from sigdigger_tpu_torch.sources.file import FileSource, convert_raw
 from sigdigger_tpu_torch.sources.synth import Emitter, SynthBandSource
 from sigdigger_tpu_torch.sources.tonegen import ToneGenSource
 
@@ -24,6 +26,7 @@ def register_source(type_name: str,
     _REGISTRY[type_name] = ctor
 
 
+register_source("file", FileSource)
 register_source("tonegen", ToneGenSource)
 register_source("synth", SynthBandSource)
 
@@ -43,9 +46,11 @@ def make_source(profile: SourceProfile) -> SignalSource:
 
 __all__ = [
     "Emitter",
+    "FileSource",
     "SignalSource",
     "SynthBandSource",
     "ToneGenSource",
+    "convert_raw",
     "make_source",
     "register_source",
     "source_types",

@@ -2,8 +2,9 @@
 on the card: the FM channelizer v2 (fused table form, unfused table and
 cos/sin forms), the v1 channelizer, the standalone PSD, the PSD read
 from the window buffer (with and without the device EMA), the raw bank,
-the recovery bank, the audio bank and the column compactor, and the
-analyzer session through them.  Skipped where CUDA is absent; on a machine with
+the recovery bank, the audio bank, the column compactor, the symbol
+squeeze and the drain packer, and the analyzer session through them,
+on the compactor drain and on the packed one.  Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
 
     SIGDIGGER_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
@@ -26,6 +27,8 @@ way on both sides), power 1e-5 of itself.  Recovery: the tolerance
 scheme of ``test_torch_recovery.py`` (2e-3 up to the first strobe that
 differs, then the strobe count within ±1); the kernel repeats the plain
 version's operations one by one, so the two usually agree bit for bit.
+Squeeze and packer: none (bit-equal; each is one IEEE operation per
+step on both sides, with no contraction into FMAs).
 """
 
 from __future__ import annotations
@@ -665,6 +668,78 @@ def test_analyzer_session_runs_through_the_kernels(cuda):
     _session_through_the_kernels(cuda, block_size=65536, decimation=64)
 
 
+def test_packed_analyzer_session_runs_through_the_kernels(cuda):
+    """The default drain on the card: the squeeze and the pack launch
+    once per block, the compactor never (no section leaves the pack)."""
+    _session_through_the_kernels(cuda, block_size=65536, decimation=64,
+                                 drain_pack=True)
+
+
+def test_squeeze_kernel_matches_plain_version(cuda):
+    from sigdigger_tpu_torch.kernels import symsqueeze
+
+    rng = np.random.default_rng(21)
+    m, c = 8192, 1024
+    sr, si = (torch.from_numpy(rng.standard_normal((m, c)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    st = np.zeros((m, c), np.float32)
+    for col in range(c):
+        st[int(rng.integers(0, 8))::8, col] = 1.0
+    st = torch.from_numpy(st).to(cuda)
+    for r in (2, 4):
+        got = symsqueeze.squeeze_kernel(sr, si, st, r)
+        want = symsqueeze.squeeze_kernel_reference(sr, si, st, r)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):        # M not a multiple of R
+        symsqueeze.squeeze_kernel(sr[:10], si[:10], st[:10], 4)
+
+
+@pytest.mark.parametrize("layout", ["bench", "grouped"])
+def test_pack_kernel_matches_plain_version(cuda, layout):
+    from sigdigger_tpu_torch.kernels import drainpack
+
+    rng = np.random.default_rng(22)
+    m, c = 8192, 1024
+    if layout == "bench":
+        cfg = drainpack.DrainPackerConfig(
+            n_rows=m, audio_rows=256, n_channels=c, width=1024,
+            has_digital=False, has_raw=False, m_tile=64)
+        live = {"audio": 832}
+    else:
+        cfg = drainpack.DrainPackerConfig(
+            n_rows=m, audio_rows=256, n_channels=c, width=1024,
+            audio_width=512, digital_width=256, raw_width=512,
+            digital_rows=2048)
+        live = {"audio": 400, "digital": 200, "raw": 300}
+    pk = drainpack.DrainPacker(cfg, device=cuda)
+    maps = {k: sorted(rng.choice(c, n, replace=False).tolist())
+            for k, n in live.items()}
+    pk.set_mappings(sorted(rng.choice(c, 1000, replace=False).tolist()),
+                    **maps)
+
+    def plane(rows, scale):
+        return torch.from_numpy((rng.standard_normal((rows, c)) * scale)
+                                .astype(np.float32)).to(cuda)
+
+    planes = {"audio": plane(256, 4.0)}
+    if cfg.has_digital:
+        planes.update(d_sr=plane(2048, 1.5), d_si=plane(2048, 1.5),
+                      d_st=(plane(2048, 1.0) > 1.0).float())
+    if cfg.has_raw:
+        planes.update(y_re=plane(m, 0.3), y_im=plane(m, 0.3))
+    pw = torch.from_numpy(np.logspace(-1, -9, c).astype(np.float32)[
+        None, rng.permutation(c)]).to(cuda)
+    sq = plane(1, 0.01).abs()
+    got = drainpack.pack_kernel(planes, sq, pw, pk._maps, cfg)
+    want = drainpack.pack_kernel_reference(planes, sq, pw, pk._maps, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):        # a plane of the wrong height
+        drainpack.pack_kernel(dict(planes, audio=planes["audio"][:128]),
+                              sq, pw, pk._maps, cfg)
+
+
 def test_analyzer_session_at_ragged_tiles_runs_on_the_card(cuda):
     """block 102400 at decimation 128: 800 channel rows per block and an
     m_tile of 800, no multiple of the raw stage's 64-row blocks (the
@@ -672,14 +747,22 @@ def test_analyzer_session_at_ragged_tiles_runs_on_the_card(cuda):
     _session_through_the_kernels(cuda, block_size=102400, decimation=128)
 
 
-def _session_through_the_kernels(cuda, block_size: int,
-                                 decimation: int) -> None:
+def _session_through_the_kernels(cuda, block_size: int, decimation: int,
+                                 drain_pack: bool = False) -> None:
     """Four blocks of a threaded, pipelined session: every kernel of
-    the path launches once per block (the compactor twice), every
-    drained block reaches each inspector as one SAMPLES message, and the
-    drain worker logs no error."""
+    the path launches once per block (on the compactor drain the
+    compactor twice; on the packed drain, with symbol_group 2, the
+    squeeze and the pack), every drained block reaches each inspector as
+    one SAMPLES message, and the drain worker logs no error."""
     from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
-    from sigdigger_tpu_torch.kernels import audio, compact, fft, rawbank
+    from sigdigger_tpu_torch.kernels import (
+        audio,
+        compact,
+        drainpack,
+        fft,
+        rawbank,
+        symsqueeze,
+    )
     from sigdigger_tpu_torch.kernels import recovery as rec
     from sigdigger_tpu_torch.profiles import SourceProfile
     from sigdigger_tpu_torch.sources import Emitter, SynthBandSource
@@ -694,7 +777,9 @@ def _session_through_the_kernels(cuda, block_size: int,
     params.window_size = 4096
     an = KernelAnalyzer(source=src, params=params, block_size=block_size,
                         n_slots=128, decimation=decimation, audio_decim=8,
-                        pipeline_depth=2, drain_thread=True)
+                        pipeline_depth=2, drain_thread=True,
+                        drain_pack=drain_pack,
+                        symbol_group=2 if drain_pack else 1)
     shared = decimation == 64
     assert an.device.type == "cuda" and (an._psd_bucket is not None) == shared
     h_a = an.open_inspector("audio", Channel(fc=200e3, bw=20e3),
@@ -703,7 +788,8 @@ def _session_through_the_kernels(cuda, block_size: int,
                             config={"clock.baud": 4000.0})
     kernels = (audio.audio_kernel, rawbank.raw_kernel, rec.recovery_kernel,
                fft.psd_xw_ema_kernel if shared else fft.psd_kernel,
-               compact.compact_kernel)
+               compact.compact_kernel, symsqueeze.squeeze_kernel,
+               drainpack.pack_kernel)
     before = [k.launches for k in kernels]
     Logger.instance().drain()
     msgs = []
@@ -713,7 +799,7 @@ def _session_through_the_kernels(cuda, block_size: int,
     an._drain_q.join()
     msgs += an.poll()
     assert [k.launches - b for k, b in zip(kernels, before)] == \
-        [4, 4, 4, 4, 8]
+        ([4, 4, 4, 4, 0, 4, 4] if drain_pack else [4, 4, 4, 4, 8, 0, 0])
     drained = 4 - len(an._inflight)
     for h in (h_a, h_p):
         got = [m for m in msgs
@@ -724,3 +810,38 @@ def _session_through_the_kernels(cuda, block_size: int,
     errors = [r for r in Logger.instance().drain()
               if r.severity >= Severity.ERROR]
     assert not errors, errors
+
+
+def test_new_packer_variant_builds_nothing_on_the_card(cuda, monkeypatch):
+    """A 9th raw inspector outgrows the raw section's width 8: the next
+    block runs a new packer variant through the loaded kernel, and no
+    build is asked for."""
+    from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
+    from sigdigger_tpu_torch.kernels import drainpack
+    from sigdigger_tpu_torch.sources import Emitter, SynthBandSource
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    src = SynthBandSource(SourceProfile(type="synth", sample_rate=1_024_000,
+                                        noise_db=-60.0),
+                          [Emitter(freq=200e3, fm_rate=500.0, fm_dev=5e3)])
+    params = AnalyzerParams()
+    params.window_size = 4096
+    an = KernelAnalyzer(source=src, params=params, block_size=65536,
+                        n_slots=128, decimation=64, audio_decim=8)
+    hs = [an.open_inspector("raw", Channel(fc=-300e3 + 20e3 * i, bw=10e3))
+          for i in range(8)]
+    assert an.step()
+    an.poll()
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel build was asked for")
+
+    monkeypatch.setattr(_build, "build_all", no_build)
+    before = drainpack.pack_kernel.launches
+    hs.append(an.open_inspector("raw", Channel(fc=200e3, bw=10e3)))
+    assert an.step()
+    got = {m.handle for m in an.poll() if m.kind == MessageKind.SAMPLES}
+    assert got == set(hs)
+    assert drainpack.pack_kernel.launches == before + 1
+    assert len(an._buckets[64].packers) == 2

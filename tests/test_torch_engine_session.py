@@ -1,13 +1,15 @@
 """The port's ``KernelAnalyzer`` session on its own (``device="cpu"``):
 the compact drain equals the full-plane drain, the pipelined and the
-threaded drains equal the synchronous one, the bulk configuration, the
-pump thread, the options this slice refuses, and the two faults of the
-reference that the port does not carry over (``ADVICE.md``:
-``kernel_engine.py:929`` and ``tasks/psdutil.py:58``).
+threaded drains equal the synchronous one (packed and compacted), the
+bulk configuration, the pump thread, the packed drain by default, the
+options the port refuses, and the two faults of the reference that the
+port does not carry over (``ADVICE.md``: ``kernel_engine.py:929`` and
+``tasks/psdutil.py:58``).
 
 The drains are compared for equality: the banks are deterministic on
-the CPU, and the compactor gathers the same float32 values the full
-planes hold.
+the CPU, the compactor gathers the same float32 values the full planes
+hold, and the packer quantizes the same values the same way whatever
+the pipeline.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ def assert_same(a: dict, b: dict):
 
 def test_compact_drain_equals_full_drain():
     full = make_engine([FM, PSK], compact_cols=0)
-    comp = make_engine([FM, PSK], compact_cols=8)
+    comp = make_engine([FM, PSK], compact_cols=8, drain_pack=False)
     assert full._buckets[16].comp_digital is None
     for an in (full, comp):
         open_mix(an, digital=True)
@@ -121,17 +123,19 @@ def test_compact_falls_back_to_full_planes_when_active_exceeds_width():
     assert set(collect(an, 1)) == {hs[0]}
 
 
-@pytest.mark.parametrize("depth,thread", [(2, False), (3, True)])
-def test_pipelined_and_threaded_drains_equal_sync(depth, thread):
-    sync = make_engine(compact_cols=8)
+@pytest.mark.parametrize("depth,thread,pack", [
+    (2, False, False), (3, True, False), (2, False, True), (3, True, True)])
+def test_pipelined_and_threaded_drains_equal_sync(depth, thread, pack):
+    sync = make_engine(compact_cols=8, drain_pack=pack)
     piped = make_engine(compact_cols=8, pipeline_depth=depth,
-                        drain_thread=thread)
+                        drain_thread=thread, drain_pack=pack)
     for an in (sync, piped):
         open_mix(an)
     want = collect(sync, 3)
     got = collect(piped, 3, flush=True)
     assert_same(got, want)
     assert (piped._drain_worker is not None) == thread
+    assert bool(piped._buckets[16].packers) == pack
 
 
 def test_drain_worker_demaps_under_the_engine_lock(monkeypatch):
@@ -281,15 +285,23 @@ def test_pump_thread_start_and_halt():
 
 
 def test_refused_options_name_their_roadmap_item(monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 2 items 7 and 9"):
-        make_engine(drain_pack=True)
+    # drain_pack=True is the default and runs the packed drain
+    an = make_engine([FM, PSK], drain_pack=True, symbol_group=4)
+    hs = open_mix(an, digital=True)
+    got = collect(an, 1)
+    assert set(got) == set(hs)
+    (packer,) = an._buckets[16].packers.values()
+    assert packer.cfg.digital_rows == BLOCK // 16 // 4
+    assert len(got[hs[3]]) == BLOCK // 16 // 4     # squeezed 4x
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         make_engine(mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1 items 4-5"):
         engine.Analyzer(source=make_source(SourceProfile(
             type="tonegen", sample_rate=FS)), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        make_source(SourceProfile(type="file"))
+        make_source(SourceProfile(type="soapy"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        make_source(SourceProfile(type="stdin"))
     # symbol_group is validated as in the reference
     an = make_engine(symbol_group=4)
     with pytest.raises(ValueError, match="symbol_group"):
@@ -308,3 +320,29 @@ def test_defaults_follow_the_device():
     assert an._buckets[16].audio.cfg.hang_agc
     assert isinstance(make_source(SourceProfile(type="synth")),
                       SynthBandSource)
+
+
+def test_new_packer_variant_is_a_python_object(monkeypatch):
+    """The reference's lifecycle contract (``kernel_engine.py:1184-1187``):
+    a section outgrowing its width selects a new packer variant, a new
+    ``DrainPacker`` over the same kernel, and the old one stays cached;
+    nothing is built (no CUDA build is asked for)."""
+    from sigdigger_tpu_torch.kernels import _build
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel build was asked for")
+
+    monkeypatch.setattr(_build, "build_all", no_build)
+    an = make_engine(n_slots=32, compact_cols=32)
+    hs = [an.open_inspector("raw", Channel(fc=-80e3 + 5e3 * i, bw=3e3))
+          for i in range(8)]
+    an.poll()
+    assert set(collect(an, 1)) == set(hs)
+    bucket = an._buckets[16]
+    (first,) = bucket.packers.values()
+    assert first.cfg.raw_width == 8
+    hs.append(an.open_inspector("raw", Channel(fc=60e3, bw=3e3)))
+    an.poll()
+    assert set(collect(an, 1)) == set(hs)
+    assert len(bucket.packers) == 2 and first in bucket.packers.values()
+    assert {p.cfg.raw_width for p in bucket.packers.values()} == {8, 16}

@@ -21,8 +21,11 @@ MODULES = [
     "sigdigger_tpu_torch.native",
     "sigdigger_tpu_torch.sources",
     "sigdigger_tpu_torch.sources.base",
+    "sigdigger_tpu_torch.sources.file",
     "sigdigger_tpu_torch.sources.synth",
     "sigdigger_tpu_torch.sources.tonegen",
+    "sigdigger_tpu_torch.io",
+    "sigdigger_tpu_torch.io.wav",
     "sigdigger_tpu_torch.utils",
     "sigdigger_tpu_torch.utils.logger",
     "sigdigger_tpu_torch.tasks",
@@ -41,6 +44,8 @@ MODULES = [
     "sigdigger_tpu_torch.kernels.rawbank",
     "sigdigger_tpu_torch.kernels.recovery",
     "sigdigger_tpu_torch.kernels.compact",
+    "sigdigger_tpu_torch.kernels.symsqueeze",
+    "sigdigger_tpu_torch.kernels.drainpack",
     "sigdigger_tpu_torch.receiver",
     "sigdigger_tpu_torch.analyzer",
     "sigdigger_tpu_torch.analyzer.messages",
@@ -48,6 +53,7 @@ MODULES = [
     "sigdigger_tpu_torch.analyzer.estimators",
     "sigdigger_tpu_torch.analyzer.engine",
     "sigdigger_tpu_torch.analyzer.kernel_engine",
+    "sigdigger_tpu_torch.analyzer.checkpoint",
 ]
 
 _FORBIDDEN = ("jax", "sigdigger_tpu")
