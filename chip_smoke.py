@@ -38,7 +38,11 @@ printing the seconds it took:
    at R 4 with strobes at sps 8, bit-equal; the drain packer
    (``pack_kernel``) at the bench session's layout (width 1024, 832 live
    audio columns, the status tile) and at a grouped one (G 2 in every
-   section, squeezed digital rows, a raw section), bit-equal.
+   section, squeezed digital rows, a raw section), bit-equal.  Then the
+   TV line resampler (``tv_kernel``) at ``cli tv``'s geometry (W 512, px
+   384) on 3 dispatches of 64 lines and one of 256, within 2e-6, and the
+   CMA bank (``cma_kernel``) at 1024 lanes x 1024 symbols, K 5, over 3
+   chained blocks, bit-equal.
 3. FM end to end: ``KernelReceiver(mode="fm")`` at the bench geometry
    (1024 channels, 102.4 Msps, block_out 8192, int16 in, bf16 audio,
    fused PSD) over synthetic FM made from a seed, through
@@ -91,9 +95,21 @@ printing the seconds it took:
    capture file in a temporary directory, saved with
    ``save_checkpoint`` after 2 blocks: the session ``load_checkpoint``
    restores gives the next 3 blocks bit for bit.
-4. the TPU kernel list (ported or pending, each with its bound: the
-   ported ones at the inputs phase 2 timed, the pending ones at the
-   bench's shapes) and the ``kernels`` line.
+3g. the analog-TV decode as users run it: ``cli.main(["tv", ...])`` on
+   a 26-field synthetic AM PAL capture (8 Msps complex, carrier at +1
+   MHz, ``tests/test_tv_pal.py``'s field pattern, noise from a seed) in
+   a temporary directory, at the CLI's defaults (312 lines, 384 pixels,
+   25 frames): exit 0 and 25 PNGs, the line resampler launched, the
+   white band and the row gradient of the PNGs read back; fields per
+   second; then the decode again per layer, synchronously: the device
+   backend, one line resampler launch per analyzer block that produced
+   lines (each block after lock), the device frames held against the
+   host backend's on the same luminance; then 3 fields in FM.
+3h. the CMA bank through its own entry point (``CMABank``; no path of
+   the system launches it): 1024 lanes, 1024 symbols, 5 taps, 3 blocks
+   of QPSK through ISI; its modulus error must halve.
+4. the TPU kernel list (all 13 ported, each with its bound at the inputs
+   phase 2 timed) and the ``kernels`` line.
 5. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA and the rest of the repository; it prints no result without
@@ -188,8 +204,8 @@ TPU_KERNELS = [
     ("kernels/symsqueeze.py:71 _squeeze_kernel", "ported"),
     ("kernels/compact.py:64 _compact_kernel", "ported"),
     ("kernels/drainpack.py:188 _pack_kernel", "ported"),
-    ("kernels/tvline.py:54 _tv_kernel", "pending"),
-    ("kernels/equalizer.py:42 _cma_kernel", "pending"),
+    ("kernels/tvline.py:54 _tv_kernel", "ported"),
+    ("kernels/equalizer.py:42 _cma_kernel", "ported"),
     ("kernels/channelizer.py:124 _kernel", "ported"),
 ]
 
@@ -475,29 +491,6 @@ def recovery_bound(m: int, bank, strobes: int) -> tuple:
     nbytes = (2 * m * c + 2 * rows * c + 20 * c + bank._mf.size
               + 3 * m * c) * 4
     return bound(ops, nbytes) + (ops, nbytes)
-
-
-def pending_bounds() -> dict:
-    """Least time of each pending TPU kernel's work, keyed by its
-    TPU_KERNELS entry: (shape, ms, bound_by, operations, bytes).  Counted
-    from the function each computes, not from the TPU kernel's
-    MXU-shaped work.  No bench path runs them, so each is marked so,
-    with the shape assumed."""
-    out = {}
-
-    def put(row, shape, ops, nbytes):
-        out[TPU_KERNELS[row - 1][0]] = (shape, *bound(ops, nbytes), ops,
-                                        nbytes)
-
-    # not on a bench path: _tv_kernel (assumed: a 625-line frame, 2048
-    # samples per line in, 1024 out, 3 operations per output sample)
-    put(11, "no bench path; assumed [625, 2048] f32 -> [625, 1024]",
-        3 * 625 * 1024, 625 * 2048 * 4 + 625 * 1024 * 4)
-    # _cma_kernel (assumed: 64 channels, 2048 symbols, 5 complex taps,
-    # ~180 operations per symbol as in the fused CMA)
-    put(12, "no bench path; assumed [2048, 64] complex, 5 taps",
-        180 * 2048 * 64, 2 * 2048 * 64 * 4 * 2 + 2 * 5 * 64 * 4 * 2)
-    return out
 
 
 def phase2_psd(fftm, torch) -> dict:
@@ -2434,6 +2427,392 @@ def short_session(torch, blocks) -> None:
           flush=True)
 
 
+# the analog-TV decode of phase 3g at cli tv's defaults (8 Msps complex,
+# 15625 Hz lines of 512 samples, 312-line fields, 384 pixels, 25 frames)
+TV_FS = 8_000_000.0
+TV_SPL = 512
+TV_FIELDS = 26
+TV_FRAMES = 25
+TV_FM_FRAMES = 3
+TV_STEP = TV_SPL * 0.85 / 384        # pixel step at the nominal period
+# tv kernel vs plain version: three-term sums in another order than the
+# plain version's two matmuls, on luminance in [0, 1]
+TOL_TV = 2e-6
+# the CMA bank: the psk receiver's 1024 lanes at 8 samples per symbol
+# give 1024 symbols per 8192-sample block; 5 taps
+CMA_C, CMA_T, CMA_K = 1024, 1024, 5
+
+
+def pal_fields(n: int) -> np.ndarray:
+    """``n`` clean 312-line PAL fields at 8 Msps, ``tests/test_tv_pal.py``'s
+    pattern: 3 broad vsync lines, then lines of a 4.7 µs hsync tip, a back
+    porch at blanking, and a horizontal ramp whose brightness grows with
+    the row, with a white band at rows 100-120."""
+    hsync, blank, white = int(4.7e-6 * TV_FS), 0.30, 0.95
+    lines = np.zeros((312, TV_SPL), np.float32)
+    lines[:3, int(0.7 * TV_SPL):] = blank
+    ramp = np.linspace(0.0, 1.0, TV_SPL - hsync - 20, dtype=np.float32)
+    for i in range(3, 312):
+        row = i - 3
+        video = blank + (white - blank) * ramp * (0.3 + 0.7 * row / 312)
+        if 100 <= row < 120:
+            video = np.full_like(ramp, white)
+        lines[i, hsync:hsync + 20] = blank
+        lines[i, hsync + 20:] = video
+    return np.tile(lines.reshape(-1), n)
+
+
+def tv_capture(path: str, n_fields: int, mode: str, seed: int) -> None:
+    """The fields on a carrier at +1 MHz, AM (the luminance as envelope)
+    or FM (±75 kHz over the luminance range), plus noise at -40 dB made
+    from ``seed``; written as complex64 to ``path``."""
+    v = pal_fields(n_fields).astype(np.float64)
+    t = np.arange(len(v)) / TV_FS
+    if mode == "am":
+        x = v * np.exp(2j * np.pi * 1e6 * t)
+    else:
+        x = np.exp(1j * (2 * np.pi * 1e6 * t
+                         + 2 * np.pi * np.cumsum(150e3 * (v - 0.5)) / TV_FS))
+    rng = np.random.default_rng(seed)
+    x = x + 0.01 * (rng.standard_normal(len(v))
+                    + 1j * rng.standard_normal(len(v))) / np.sqrt(2.0)
+    x.astype(np.complex64).tofile(path)
+
+
+def tv_bound(lines: int, k: np.ndarray) -> tuple:
+    """For the pixel table's columns ``k`` (−1 for a zero column): bytes,
+    the framed columns the pixels touch (0 .. max k + 2) and the lines'
+    offsets read once, the table (k and five weights) read once, the
+    pixels written once; operations, 6 products and 4 sums per live
+    pixel."""
+    live = int((k >= 0).sum())
+    cols = int(k.max()) + 3 if live else 0
+    ops = 10 * lines * live
+    nbytes = lines * cols * 4 + lines * 4 + len(k) * 24 + lines * len(k) * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def phase2_tv(tvm, torch) -> dict:
+    """The line resampler against its plain version (the two products
+    X@W0 + frac ⊙ X@W1) at cli tv's geometry (W 512, px 384): 3
+    dispatches of 64 lines (one analyzer block's worth) and one of 256
+    lines."""
+    rs = tvm.LineResampler(tvm.LineResamplerConfig(512, 384), device="cuda")
+    rs.set_step(TV_STEP)
+    rng = np.random.default_rng(SEED + 30)
+    max_abs = 0.0
+    inputs = []
+    for n in (64, 64, 64, 256):
+        x = torch.from_numpy(rng.random((n, 512)).astype(np.float32)).cuda()
+        frac = torch.from_numpy(rng.random(n).astype(np.float32)).cuda()
+        got = tvm.tv_kernel(x, frac, rs.weights)
+        want = tvm.tv_kernel_reference(x, frac, rs.weights)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= TOL_TV, ("tv_kernel", n, err))
+        max_abs = max(max_abs, err)
+        inputs.append((x, frac))
+    x, frac = inputs[0]
+    w0, w1 = rs.weights.w0, rs.weights.w1
+    ms = time_ms(lambda: tvm.tv_kernel(x, frac, rs.weights), 200)
+    plain_ms = time_ms(
+        lambda: tvm.tv_kernel_reference(x, frac, rs.weights), 200)
+    library_ms = time_ms(lambda: x @ w0 + frac[:, None] * (x @ w1), 200)
+    x256, f256 = inputs[3]
+    ms256 = time_ms(lambda: tvm.tv_kernel(x256, f256, rs.weights), 200)
+    bms, by, ops, nbytes = tv_bound(64, rs.weights.k.cpu().numpy())
+    stages = profile_stages(lambda: tvm.tv_kernel(x, frac, rs.weights),
+                            ("::tvline(",), reps=20)
+    print(f"phase2 tv_kernel (W 512, px 384; 3 x 64 lines and 256 lines): "
+          f"max abs err {max_abs:.3g} (tolerance {TOL_TV}); 64 lines: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the two torch.matmul "
+          f"form X@W0 + frac*(X@W1) (library yardstick) {library_ms:.4f} "
+          f"ms, bound {bms:.6f} ms by {by} ({nbytes / 2 ** 10:.1f} KiB, "
+          f"{ops} operations); 256 lines: kernel {ms256:.4f} ms; device "
+          f"time per launch from the trace {stages}", flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
+def cma_bound(t: int, c: int, k: int) -> tuple:
+    """Operations per lane and symbol: the K-tap complex product (8K),
+    |y|² and the error (7), its magnitude, clip and scale (8), the power
+    (4K), the gain (2) and the tap update (10K); bytes: the symbol planes
+    read once, the output planes written once, the taps in and out, the
+    rate and lock rows."""
+    ops = (22 * k + 17) * t * c
+    nbytes = 4 * t * c * 4 + 4 * k * c * 4 + 2 * c * 4
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def cma_symbols(t: int, c: int, rng) -> np.ndarray:
+    """QPSK [C, T] through mild static ISI (0.3 of the previous symbol,
+    0.1j of the one before)."""
+    s = np.exp(1j * (rng.integers(0, 4, (c, t)) * 2 + 1) * np.pi / 4)
+    return (s + 0.3 * np.roll(s, 1, axis=1)
+            - 0.1j * np.roll(s, 2, axis=1)).astype(np.complex64)
+
+
+def phase2_cma(eqm, torch) -> dict:
+    """The CMA bank against its plain version at C 1024, T 1024, K 5:
+    QPSK through mild ISI, per-channel rates, a quarter of the lanes
+    locked, chained over 3 blocks; bit-equal."""
+    rng = np.random.default_rng(SEED + 31)
+    c, t, k = CMA_C, CMA_T, CMA_K
+    rate = torch.from_numpy(rng.uniform(1e-3, 4e-3, c).astype(
+        np.float32)).cuda()
+    locked = torch.from_numpy((np.arange(c) % 4 == 0).astype(
+        np.float32)).cuda()
+    tr = torch.zeros((k, c), device="cuda")
+    tr[k // 2] = 1.0
+    taps_k = taps_p = (tr, torch.zeros((k, c), device="cuda"))
+    max_abs, plain_ms = 0.0, None
+    for _ in range(3):
+        x = cma_symbols(t, c, rng).T.copy()
+        xr = torch.from_numpy(x.real.copy()).cuda()
+        xi = torch.from_numpy(x.imag.copy()).cuda()
+        got = eqm.cma_kernel(xr, xi, *taps_k, rate, locked)
+        ms_p, want = time_once_ms(lambda: eqm.cma_kernel_reference(
+            xr, xi, *taps_p, rate, locked))
+        plain_ms = ms_p if plain_ms is None else min(plain_ms, ms_p)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              ("cma_kernel", err))
+        max_abs = max(max_abs, err)
+        taps_k, taps_p = got[2:], want[2:]
+    ms = time_ms(lambda: eqm.cma_kernel(xr, xi, *taps_k, rate, locked), 20)
+    bms, by, ops, nbytes = cma_bound(t, c, k)
+    stages = profile_stages(
+        lambda: eqm.cma_kernel(xr, xi, *taps_k, rate, locked), ("::cma<",),
+        reps=5)
+    print(f"phase2 cma_kernel (C 1024, T 1024, K 5; QPSK through ISI, "
+          f"per-lane rates, a quarter locked, 3 chained blocks): bit-equal "
+          f"to the plain version, max abs err {max_abs}; kernel {ms:.4f} ms "
+          f"({ms * 1e6 / t:.1f} ns per dependent step), plain "
+          f"{plain_ms:.1f} ms (a Python loop over the symbols), no library "
+          f"call computes it; bound {bms:.5f} ms by {by} "
+          f"({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); device "
+          f"time per launch from the trace {stages}", flush=True)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def frame_quality(frames) -> tuple:
+    """(median row-mean vs row-index correlation, median white-band row)
+    over ``frames``, skipping the band itself in the correlation."""
+    sel = np.r_[10:90, 130:290]
+    corrs, bands = [], []
+    for f in frames:
+        m = f.mean(axis=1)
+        corrs.append(float(np.corrcoef(m[sel], sel)[0, 1]))
+        bands.append(int(np.argmax(np.convolve(m, np.ones(20) / 20,
+                                               "valid"))))
+    return float(np.median(corrs)), int(np.median(bands))
+
+
+def read_png(path: str) -> np.ndarray:
+    """The grey plane of an RGB8 PNG as ``utils/waterfall.write_png``
+    writes it (filter 0 on every row), scaled to [0, 1]."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        b = f.read()
+    i, data = 8, b""
+    while i < len(b):
+        n = struct.unpack(">I", b[i:i + 4])[0]
+        tag = b[i + 4:i + 8]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", b[i + 8:i + 16])
+        elif tag == b"IDAT":
+            data += b[i + 8:i + 8 + n]
+        i += 12 + n
+    raw = np.frombuffer(zlib.decompress(data), np.uint8).reshape(h, 1 + 3 * w)
+    return raw[:, 1:].reshape(h, w, 3)[:, :, 0].astype(np.float64) / 255.0
+
+
+def tv_cli(torch, tmp: str, mode: str, n_fields: int, frames: int,
+           seed: int):
+    """Write a capture and run ``cli.main`` on it as a user would: exit
+    code 0, ``frames`` PNGs, the line resampler launched.  Returns (the
+    frames read back from the PNGs, seconds, line-resampler launches,
+    the capture's path)."""
+    import os
+
+    from sigdigger_tpu_torch import cli
+    from sigdigger_tpu_torch.kernels import tvline
+
+    path = os.path.join(tmp, "tv_8000000.cf32")
+    tv_capture(path, n_fields, mode, seed)
+    prefix = os.path.join(tmp, f"{mode}_")
+    tvline.tv_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(["tv", path, "--freq", "1e6", "--rate", "8e6", "--mode",
+                   mode, "--max-frames", str(frames), "-o", prefix])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tvline.tv_kernel.launches
+    pngs = sorted(f for f in os.listdir(tmp) if f.startswith(f"{mode}_"))
+    check(rc == 0 and len(pngs) == frames and launches >= 1,
+          (rc, len(pngs), launches))
+    return ([read_png(os.path.join(tmp, f)) for f in pngs], wall, launches,
+            path)
+
+
+def tv_layers(path: str, torch) -> dict:
+    """The decode again, synchronously per layer (median ms per analyzer
+    block): source read, spectrum, channelizer, audio inspector, the rest
+    of the analyzer step (message and fetch), the TV host work, and the
+    line resample (upload, kernel, fetch); with a host-backend processor
+    fed the same luminance beside the device one.  The device processor
+    must take the device backend and launch the line resampler once for
+    every block that gave lines, each block after lock.  Returns the
+    layers, the device and host frames."""
+    from sigdigger_tpu_torch.analyzer import Analyzer, MessageKind
+    from sigdigger_tpu_torch.dsp.tv import TVProcessor, TVProcessorParams
+    from sigdigger_tpu_torch.kernels import tvline
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    an = Analyzer(profile=SourceProfile(type="file", path=path,
+                                        sample_rate=int(TV_FS)),
+                  params=AnalyzerParams(psd_update_interval=1e9))
+    an.open_inspector("audio", Channel(fc=1e6, bw=6e6), config={
+        "audio.demodulator": 1, "audio.sample-rate": int(TV_FS),
+        "audio.cutoff": 3e6, "audio.volume": 1.0, "agc.enabled": False})
+    params = TVProcessorParams(sample_rate=TV_FS)
+    dev = TVProcessor(params)
+    host = TVProcessor(params, backend="host")
+    check(dev.backend == "device", dev.backend)
+    tvline.tv_kernel.launches = 0
+    acc: dict[str, list] = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    an.source.read = timed("read", an.source.read)
+    an._spectrum.feed = timed("spectrum", an._spectrum.feed)
+    an._channelizer.feed = timed("channelizer", an._channelizer.feed)
+    (slot,) = an._inspectors.values()
+    slot.inspector.process = timed("inspector", slot.inspector.process)
+    step = timed("step", an.step)
+    feed = timed("tv", dev.feed)
+    wrapped = False
+    while step():
+        for m in an.poll():
+            if m.kind == MessageKind.SAMPLES:
+                lum = np.real(m.samples)
+                feed(lum)
+                host.feed(lum)
+                if dev._resampler is not None and not wrapped:
+                    dev._resampler.resample = timed(
+                        "resample", dev._resampler.resample)
+                    wrapped = True
+    launches = tvline.tv_kernel.launches
+    check(launches == dev.line_feeds == dev.feeds - dev.locked_at >= 1,
+          (launches, dev.feeds, dev.line_feeds, dev.locked_at))
+    n = len(acc["step"]) - 1         # the last step reads the EOS
+    med = {k: float(np.median(v[:n] if k in ("step", "read") else v))
+           for k, v in acc.items()}
+    layers = {k: round(med[k], 4) for k in ("read", "spectrum",
+                                            "channelizer", "inspector")}
+    layers["step_other"] = round(med["step"] - sum(layers.values()), 4)
+    layers["tv_host"] = round(med["tv"] - med.get("resample", 0.0), 4)
+    layers["resample"] = round(med.get("resample", 0.0), 4)
+    layers["blocks"] = n
+    layers["launches"] = launches
+    layers["locked_at"] = dev.locked_at
+    return layers, dev.frames, host.frames
+
+
+def phase3g_tv(torch, card: str) -> dict:
+    """The analog-TV decode as users run it: ``cli.main(["tv", ...])`` on
+    a 26-field synthetic AM PAL capture (8 Msps, carrier at +1 MHz) at
+    the CLI's defaults (25 frames), its PNGs read back; then the decode
+    again per layer, with the device processor's launches and the device
+    frames against the host backend's; then 3 fields in FM.  Returns the
+    line resampler's launches over the AM run."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        frames, wall, launches, path = tv_cli(torch, tmp, "am", TV_FIELDS,
+                                              TV_FRAMES, SEED + 32)
+        check(all(f.shape == (312, 384) for f in frames))
+        corr, band = frame_quality(frames)
+        check(corr > 0.8 and 90 <= band <= 130, (corr, band))
+        fps = TV_FRAMES / wall
+        print(f"phase3g cli tv (AM, {TV_FIELDS} fields at 8 Msps, carrier "
+              f"+1 MHz, defaults): exit 0, {TV_FRAMES} PNGs, tv_kernel "
+              f"launches {launches}; PNGs: median row correlation "
+              f"{corr:.4f} (> 0.8), white band at row {band}; {wall:.3f} s, "
+              f"{fps:.2f} fields/s (real time 50) | card: {card}",
+              flush=True)
+        layers, fd, fh = tv_layers(path, torch)
+        check(len(fd) == len(fh) >= TV_FRAMES, (len(fd), len(fh)))
+        check(launches <= layers["launches"], (launches, layers))
+        cs = [float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+              for a, b in zip(fh, fd)]
+        ma = [float(np.mean(np.abs(a - b))) for a, b in zip(fh, fd)]
+        check(min(cs) > 0.995 and max(ma) < 0.02, (min(cs), max(ma)))
+        print(f"phase3g layers (synchronous, median ms per analyzer block "
+              f"of 32768 samples; the whole capture, backend device, "
+              f"tv_kernel launches = feeds with lines = feeds after lock): "
+              f"{layers}; device vs host frames on the "
+              f"same luminance: correlation min {min(cs):.5f} (> 0.995), "
+              f"mean abs max {max(ma):.5f} (< 0.02) over {len(fd)} frames",
+              flush=True)
+        frames, wall, fm_launches, _ = tv_cli(
+            torch, tmp, "fm", TV_FM_FRAMES + 1, TV_FM_FRAMES, SEED + 33)
+        corr, band = frame_quality(frames)
+        check(corr > 0.8 and 90 <= band <= 130, (corr, band))
+        print(f"phase3g cli tv (FM, ±75 kHz): exit 0, {TV_FM_FRAMES} PNGs, "
+              f"tv_kernel launches {fm_launches}; PNGs: median row "
+              f"correlation {corr:.4f}, white band at row {band}; "
+              f"{wall:.3f} s", flush=True)
+    return {"tv": launches}
+
+
+def phase3h_cma(torch) -> dict:
+    """The CMA bank through its entry point (``CMABank``; no path of the
+    system launches it, as in the reference): C 1024 lanes, T 1024, K 5,
+    per-lane rates, over 3 blocks of QPSK through ISI; the modulus error
+    must halve.  Returns its launches."""
+    from sigdigger_tpu_torch.kernels import equalizer
+
+    rng = np.random.default_rng(SEED + 34)
+    bank = equalizer.CMABank(
+        equalizer.CMABankConfig(CMA_C, CMA_T, n_taps=CMA_K),
+        rate=rng.uniform(2e-3, 4e-3, CMA_C).astype(np.float32))
+    check(bank.device.type == "cuda")
+    xs = [cma_symbols(CMA_T, CMA_C, rng) for _ in range(3)]
+    equalizer.cma_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in xs:
+        y = bank(x).cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = equalizer.cma_kernel.launches
+    check(launches == 3, launches)
+    evm_in = float(np.abs(np.abs(x[:, 256:]) - 1.0).mean())
+    evm_out = float(np.abs(np.abs(y[:, 256:]) - 1.0).mean())
+    check(np.all(np.isfinite(y)) and evm_out < 0.5 * evm_in,
+          (evm_in, evm_out))
+    print(f"phase3h CMABank (1024 lanes, 1024 symbols, 5 taps, 3 blocks): "
+          f"launches {launches}, modulus error {evm_in:.4f} -> "
+          f"{evm_out:.4f}, {wall * 1e3 / 3:.3f} ms per block (upload, "
+          f"kernel, fetch)", flush=True)
+    return {"cma": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2445,10 +2824,12 @@ def main() -> int:
     from sigdigger_tpu_torch.kernels import channelizer2 as ch2
     from sigdigger_tpu_torch.kernels import (
         drainpack,
+        equalizer,
         fft,
         rawbank,
         recovery,
         symsqueeze,
+        tvline,
     )
 
     card = card_line()
@@ -2478,6 +2859,8 @@ def main() -> int:
     p2["compact"] = phase2_compact(compact, torch)
     p2["squeeze"] = phase2_squeeze(symsqueeze, torch)
     p2["pack"] = phase2_pack(drainpack, torch)
+    p2["tv"] = phase2_tv(tvline, torch)
+    p2["cma"] = phase2_cma(equalizer, torch)
     print(f"phase2: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     launches = {"kernel2": phase3_end_to_end(ch2, torch, card)}
@@ -2497,6 +2880,12 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(phase3f_bench_session(torch, card))
     print(f"phase3f: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3g_tv(torch, card))
+    print(f"phase3g: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3h_cma(torch))
+    print(f"phase3h: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel form: (name, key, source, TPU kernel); the FM forms'
     # library yardstick (the channelize matmul alone) computes part of
@@ -2520,27 +2909,22 @@ def main() -> int:
         ("squeeze_kernel", "squeeze", "symsqueeze.cu",
          "kernels/symsqueeze.py:71"),
         ("pack_kernel", "pack", "drainpack.cu", "kernels/drainpack.py:188"),
+        ("tv_kernel", "tv", "tvline.cu", "kernels/tvline.py:54"),
+        ("cma_kernel", "cma", "cma.cu", "kernels/equalizer.py:42"),
     ]
     no_library = ("kernel2", "kernel2_cossin", "raw", "recovery", "kernel1",
-                  "audio")
+                  "audio", "cma")
     check(all(launches[key] > 0 for _, key, _, _ in rows), launches)
 
-    # every TPU kernel with its bound: the ported ones at the inputs
-    # phase 2 timed, the pending ones at the bench's shapes
-    pending = pending_bounds()
+    # every TPU kernel with its bound at the inputs phase 2 timed
     ported = {tpu: key for _, key, _, tpu in rows if key != "kernel2_cossin"}
+    check(all(s == "ported" for _, s in TPU_KERNELS))
     listing = []
     for r, s in TPU_KERNELS:
-        entry = {"replaces": f"sigdigger_tpu/{r}", "status": s}
-        key = ported.get(r.split(" ")[0])
-        if s == "ported":
-            entry.update(bound_ms=p2[key]["bound_ms"],
-                         bound_by=p2[key]["bound_by"])
-        else:
-            shape, ms, by, ops, nbytes = pending[r]
-            entry.update(shape=shape, bound_ms=ms, bound_by=by,
-                         gflop=ops / 1e9, mib=nbytes / 2 ** 20)
-        listing.append(entry)
+        key = ported[r.split(" ")[0]]
+        listing.append({"replaces": f"sigdigger_tpu/{r}", "status": s,
+                        "bound_ms": p2[key]["bound_ms"],
+                        "bound_by": p2[key]["bound_by"]})
     print(json.dumps({"tpu_kernels": listing}))
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -6,9 +6,12 @@ written by hand for ``sm_90a`` (``kernels/csrc/``).  Every entry point
 runs on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU
 each kernel wrapper runs its plain PyTorch version.
 
-Entry points: ``KernelReceiver`` (the wideband receiver) and
-``KernelAnalyzer`` (the dynamic analyzer session, with its ``Analyzer``
-protocol, ``AnalyzerState`` and typed messages).
+Entry points: ``KernelReceiver`` (the wideband receiver),
+``KernelAnalyzer`` (the dynamic analyzer session on the kernel banks),
+``Analyzer`` (the same session protocol on the class path: channelizer,
+spectrum and ``inspectors/``), with ``AnalyzerState`` and the typed
+messages, and the command line, ``python -m sigdigger_tpu_torch tv``
+(``cli.py``: analog TV decode through ``dsp/tv.py``).
 
 The package never imports JAX or ``sigdigger_tpu``: it keeps its own
 copy of every constant builder it needs.

@@ -20,9 +20,9 @@ type on load and checked for its shape, and the device PSD EMA is
 rebuilt from the natural-order PSD in the kernels' digit layout, as the
 reference rebuilds its own (``checkpoint.py:224-229``).
 
-The reference's generic ``Analyzer`` format (channelizer tail and
-per-slot phases) belongs to the class path, which is not ported: saving
-such an analyzer or loading such a checkpoint raises
+The reference's generic ``Analyzer`` format (the class path's
+channelizer tail, per-slot phases and inspector state) is not ported:
+saving a class-path analyzer or loading such a checkpoint raises
 ``NotImplementedError`` (ROADMAP.md queue 1 items 4-5).
 
 The reference's fault at ``checkpoint.py:89-92`` is not carried over: a
@@ -51,8 +51,8 @@ _AUDIO_CARRIES = ("_history", "_prev_re", "_prev_im", "_ftail1",
                   "_ftail2", "_atail1", "_atail2", "_sq", "_dc",
                   "_agcs", "_phi", "_phs_a")
 
-_CLASS_PATH = ("the generic Analyzer checkpoint belongs to the class "
-               "path, which is not ported (ROADMAP.md queue 1 items 4-5)")
+_CLASS_PATH = ("the generic Analyzer checkpoint format of the class path "
+               "is not ported (ROADMAP.md queue 1 items 4-5)")
 
 
 def save_checkpoint(analyzer, path: str) -> None:

@@ -15,11 +15,12 @@ acknowledged with InspectorMessages carrying the request id.
 :class:`Analyzer` carries everything a subclass inherits: the message
 queue, the source setters, ``step`` with the PSD and channel messages,
 the wide-spectrum hop, watermarks, Doppler tracking, estimators,
-inspector spectra and the pump thread.  Its own DSP, the class path
-(``_build_dsp`` and ``_compute_block`` on ``dsp.channelizer``,
-``dsp.spectrum`` and ``inspectors/``), and with it the class path's
-inspector lifecycle, is ROADMAP.md queue 1 items 4-5; the port runs the
-session on the kernel banks (``kernel_engine.KernelAnalyzer``).
+inspector spectra and the pump thread.  Its own DSP is the class path:
+``_build_dsp`` and ``_compute_block`` on ``dsp.channelizer`` and
+``dsp.spectrum``, with one ``inspectors/`` chain per open inspector
+(the ``audio`` class; the others raise ``NotImplementedError`` naming
+their ROADMAP item).  ``kernel_engine.KernelAnalyzer`` overrides the
+DSP and the inspector lifecycle to run the session on the kernel banks.
 """
 
 from __future__ import annotations
@@ -47,11 +48,16 @@ from sigdigger_tpu_torch.analyzer.messages import (
     StatusMessage,
 )
 from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.config import INSPECTOR_SCHEMAS
+from sigdigger_tpu_torch.dsp.channelizer import Channelizer
+from sigdigger_tpu_torch.dsp.spectrum import SpectrumEstimator
+from sigdigger_tpu_torch.inspectors import inspector_class
 from sigdigger_tpu_torch.profiles import SourceProfile
 from sigdigger_tpu_torch.sources import SignalSource, make_source
 from sigdigger_tpu_torch.types import (
     AnalyzerMode,
     AnalyzerParams,
+    Channel,
     SourceInfo,
     next_pow2,
 )
@@ -97,11 +103,7 @@ class Analyzer:
     Synchronous core: ``step()`` processes one block and enqueues
     messages.  Live mode: ``start()``/``halt()`` run the pump thread,
     messages drained with ``read(timeout)``.  Runs on ``cuda`` unless
-    ``device`` says otherwise.  A subclass provides the DSP
-    (``_build_dsp``, ``_compute_block``) and the inspector lifecycle
-    (``open_inspector``, ``set_inspector_config``,
-    ``set_inspector_freq``, ``set_inspector_bandwidth``,
-    ``close_inspector``, ``_retune_channel``).
+    ``device`` says otherwise.
     """
 
     DEFAULT_FRAMES_PER_BLOCK = 8
@@ -176,21 +178,37 @@ class Analyzer:
 
     # ------------------------------------------------------------------
     # DSP strategy hooks — the kernel-path engine (analyzer/
-    # kernel_engine.py KernelAnalyzer) implements these on the banks.
+    # kernel_engine.py KernelAnalyzer) overrides these to run the same
+    # session protocol on the bank kernels.
     # ------------------------------------------------------------------
     def _build_dsp(self) -> None:
         """Construct the spectrum estimator and channel machinery."""
-        raise NotImplementedError(
-            "the class-path Analyzer (dsp.channelizer, dsp.spectrum, "
-            "inspectors/) is not ported (ROADMAP.md queue 1 items 4-5); "
-            "use KernelAnalyzer")
+        self._spectrum = SpectrumEstimator(
+            self.params.window_size, self.source.sample_rate,
+            self.params.window_function, self.params.spectrum_avg_alpha,
+            device=self.device)
+        self._channelizer = Channelizer(
+            self.source.sample_rate, fft_size=self.params.window_size,
+            device=self.device)
 
     def _compute_block(self, x: np.ndarray) -> list:
         """Channelize + run every inspector chain over one block.
-        Returns [(slot, samples, extras, raw_baseband), ...]."""
-        raise NotImplementedError(
-            "the class-path Analyzer is not ported (ROADMAP.md queue 1 "
-            "items 4-5); use KernelAnalyzer")
+        Returns [(slot, samples, extras, raw_baseband), ...]; the raw
+        baseband is fetched only for a slot with estimators or an
+        inspector spectrum, the messages that read it."""
+        outputs = self._channelizer.feed(x)
+        sample_msgs = []
+        for slot in self._inspectors.values():
+            y = outputs.get(slot.chan_handle)
+            if y is None:
+                continue
+            result = slot.inspector.process(y[None, :])
+            samples = result.pop("samples")[0].cpu().numpy()
+            extras = {k: np.asarray(v)[0] for k, v in result.items()}
+            raw = (y.cpu().numpy()
+                   if slot.estimators or slot.spectrum_source else None)
+            sample_msgs.append((slot, samples, extras, raw))
+        return sample_msgs
 
     def install_baseband_filter(self, fn) -> None:
         """Register ``fn(samples: np.ndarray) -> None`` on the raw
@@ -423,6 +441,48 @@ class Analyzer:
     # ------------------------------------------------------------------
     # inspector API (async protocol, reference Suscan/Analyzer.cpp:411-598)
     # ------------------------------------------------------------------
+    def open_inspector(self, class_name: str, channel: Channel,
+                       request_id: int = 0,
+                       config: dict[str, Any] | None = None) -> int:
+        """Open a demod chain on ``channel``; returns the handle
+        immediately and acknowledges with an OPEN InspectorMessage
+        carrying ``request_id`` (reference open_ex_async semantics)."""
+        if class_name not in INSPECTOR_SCHEMAS:
+            self._emit(InspectorMessage(
+                inspector_kind=InspectorMessageKind.WRONG_KIND,
+                request_id=request_id, class_name=class_name))
+            raise ValueError(f"unknown inspector class {class_name!r}")
+        cls = inspector_class(class_name)   # raises for unported classes
+        with self._lock:
+            bw = channel.bw or (channel.f_high - channel.f_low)
+            bw = max(bw, self.sample_rate / self.params.window_size * 8)
+            # audio channels are capped like the reference's
+            # min(fs/2, 200 kHz) rule (Default/Audio/AudioProcessor.cpp:117)
+            if class_name == "audio":
+                bw = min(bw, self.sample_rate / 2.0, 200e3)
+            ch = self._channelizer.open(channel.fc, bw)
+            equiv_rate = self._channelizer.output_rate(ch)
+            insp = cls(equiv_rate, 1, device=self.device)
+            if config:
+                insp.set_config(config)
+            handle = self._next_handle
+            self._next_handle += 1
+            slot = _InspectorSlot(
+                handle=handle, inspector_id=handle,
+                class_name=class_name, inspector=insp, chan_handle=ch,
+                equiv_rate=equiv_rate, bandwidth=bw, lo=channel.fc,
+                estimators=set(),
+            )
+            self._inspectors[handle] = slot
+            self._by_id[handle] = handle
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.OPEN,
+            request_id=request_id, handle=handle, inspector_id=handle,
+            class_name=class_name, config=insp.config.copy(),
+            equiv_rate=equiv_rate, bandwidth=bw, lo=channel.fc,
+        ))
+        return handle
+
     def _slot(self, handle: int, request_id: int = 0) -> _InspectorSlot | None:
         slot = self._inspectors.get(handle)
         if slot is None:
@@ -430,6 +490,20 @@ class Analyzer:
                 inspector_kind=InspectorMessageKind.WRONG_HANDLE,
                 request_id=request_id, handle=handle))
         return slot
+
+    def set_inspector_config(self, handle: int, config: dict[str, Any],
+                             request_id: int = 0) -> None:
+        slot = self._slot(handle, request_id)
+        if slot is None:
+            return
+        with self._lock:
+            slot.inspector.set_config(config)
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.SET_CONFIG,
+            request_id=request_id, handle=handle,
+            inspector_id=slot.inspector_id, class_name=slot.class_name,
+            config=slot.inspector.config.copy(),
+        ))
 
     def set_inspector_id(self, handle: int, inspector_id: int,
                          request_id: int = 0) -> None:
@@ -443,6 +517,32 @@ class Analyzer:
         self._emit(InspectorMessage(
             inspector_kind=InspectorMessageKind.SET_ID,
             request_id=request_id, handle=handle, inspector_id=inspector_id,
+        ))
+
+    def set_inspector_freq(self, handle: int, freq: float,
+                           request_id: int = 0) -> None:
+        slot = self._slot(handle, request_id)
+        if slot is None:
+            return
+        with self._lock:
+            self._channelizer.set_frequency(slot.chan_handle, freq)
+            slot.lo = freq
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.SET_FREQ,
+            request_id=request_id, handle=handle, lo=freq,
+        ))
+
+    def set_inspector_bandwidth(self, handle: int, bw: float,
+                                request_id: int = 0) -> None:
+        slot = self._slot(handle, request_id)
+        if slot is None:
+            return
+        with self._lock:
+            self._channelizer.set_bandwidth(slot.chan_handle, bw)
+            slot.bandwidth = bw
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.SET_BANDWIDTH,
+            request_id=request_id, handle=handle, bandwidth=bw,
         ))
 
     def set_inspector_watermark(self, handle: int, watermark: int,
@@ -492,6 +592,11 @@ class Analyzer:
             if slot.orbit_corr:
                 slot.orbit_corr = 0.0
                 self._retune_channel(slot, slot.lo)
+
+    def _retune_channel(self, slot: _InspectorSlot, f0: float) -> None:
+        """Move a slot's channel center WITHOUT changing the
+        user-visible ``slot.lo`` (Doppler tracking)."""
+        self._channelizer.set_frequency(slot.chan_handle, f0)
 
     def _rx_time(self) -> float:
         """Stream-anchored unix time: capture start + stream position.
@@ -609,6 +714,21 @@ class Analyzer:
         if slot is None:
             return
         slot.spectrum_source = int(source_id)
+
+    def close_inspector(self, handle: int, request_id: int = 0) -> None:
+        slot = self._slot(handle, request_id)
+        if slot is None:
+            return
+        self._flush_watermark(slot, time.time())
+        with self._lock:
+            self._channelizer.close(slot.chan_handle)
+            self._by_id.pop(slot.inspector_id, None)
+            del self._inspectors[handle]
+        self._emit(InspectorMessage(
+            inspector_kind=InspectorMessageKind.CLOSE,
+            request_id=request_id, handle=handle,
+            inspector_id=slot.inspector_id,
+        ))
 
     # ------------------------------------------------------------------
     # pipeline

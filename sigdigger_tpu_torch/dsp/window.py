@@ -39,3 +39,9 @@ def window_taps(kind: WindowFunction, n: int) -> np.ndarray:
     else:
         raise ValueError(f"unknown window {kind}")
     return w.astype(np.float32)
+
+
+def window_energy(kind: WindowFunction, n: int) -> float:
+    """Sum of squared taps (PSD normalization factor)."""
+    w = window_taps(kind, n)
+    return float(np.sum(w.astype(np.float64) ** 2))

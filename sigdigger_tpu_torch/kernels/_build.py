@@ -112,18 +112,31 @@ SIGNATURES = {
             + [_I] * 4              # M C K keq
             + [_F, _F, _P]),        # adc one_m_adc stream
     },
+    "cma": {
+        "sd_cma": (
+            [_P] * 10               # x_re x_im taps_re taps_im rate locked
+                                    # y_re y_im taps_re_out taps_im_out
+            + [_I] * 3              # T C K
+            + [_P]),                # stream
+    },
     "symsqueeze": {
         "sd_symsqueeze": (
             [_P] * 6                # sr si st out_r out_i out_s
             + [_I] * 3              # M C R
             + [_P]),                # stream
     },
+    "tvline": {
+        "sd_tvline": (
+            [_P] * 5                # x frac kcol taps out
+            + [_I] * 3              # L W P
+            + [_P]),                # stream
+    },
 }
 
-# flags of one library only: the recovery loops feed back, so its
-# arithmetic must round as the plain version's separate multiply and
-# add do (no FMA contraction)
-EXTRA_FLAGS = {"recovery": ["-fmad=false"]}
+# flags of one library only: the recovery and CMA loops feed back, so
+# their arithmetic must round as the plain version's separate multiply
+# and add do (no FMA contraction)
+EXTRA_FLAGS = {"recovery": ["-fmad=false"], "cma": ["-fmad=false"]}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -5,7 +5,8 @@
 registers the types whose modules it carries, ``file`` (raw captures
 and WAV), ``synth`` and ``tonegen``; any other type (``soapy``,
 ``stdin``) raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+ports it.  ``guess_metadata`` (``sources/registry.py``) builds a file
+profile from a capture's name.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Callable
 from sigdigger_tpu_torch.profiles import SourceProfile
 from sigdigger_tpu_torch.sources.base import SignalSource
 from sigdigger_tpu_torch.sources.file import FileSource, convert_raw
+from sigdigger_tpu_torch.sources.registry import guess_metadata
 from sigdigger_tpu_torch.sources.synth import Emitter, SynthBandSource
 from sigdigger_tpu_torch.sources.tonegen import ToneGenSource
 
@@ -51,6 +53,7 @@ __all__ = [
     "SynthBandSource",
     "ToneGenSource",
     "convert_raw",
+    "guess_metadata",
     "make_source",
     "register_source",
     "source_types",

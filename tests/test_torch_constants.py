@@ -615,3 +615,54 @@ def test_detector_matches_reference():
     assert [vars(c) for c in ours.detect(1e8)] == \
         [vars(c) for c in ref.detect(1e8)]
     assert ours.detect(1e8)
+
+
+@pytest.mark.parametrize("l,k,scale", [(16, 8, 1.0), (441, 8, 0.441),
+                                       (2, 8, 1.0), (160, 4, 0.5)])
+def test_polyphase_bank(l, k, scale):
+    from sigdigger_tpu.dsp.resample import polyphase_bank as ref_bank
+    from sigdigger_tpu_torch.dsp.resample import polyphase_bank
+
+    np.testing.assert_array_equal(polyphase_bank(l, k, scale),
+                                  ref_bank(l, k, scale))
+
+
+@pytest.mark.parametrize("n_sub,pass_bins", [(256, 51.2), (64, 16.0),
+                                             (8, 4.0), (4096, 2048.0),
+                                             (512, 700.0)])
+def test_channel_filter_response(n_sub, pass_bins):
+    from sigdigger_tpu.dsp.channelizer import (
+        channel_filter_response as ref_response,
+    )
+    from sigdigger_tpu_torch.dsp.channelizer import channel_filter_response
+
+    np.testing.assert_array_equal(channel_filter_response(n_sub, pass_bins),
+                                  ref_response(n_sub, pass_bins))
+
+
+@pytest.mark.parametrize("step,width,pixels", [
+    (512 * 0.85 / 384, 512, 384),        # cli tv at 8 Msps
+    (1.9, 512, 384),                     # past the width: zero columns
+    (0.7, 256, 256), (2.5, 1024, 128)])
+def test_line_resampler_weights(step, width, pixels):
+    from sigdigger_tpu.kernels.tvline import LineResampler as RefResampler
+    from sigdigger_tpu.kernels.tvline import (
+        LineResamplerConfig as RefConfig,
+    )
+    from sigdigger_tpu_torch.kernels.tvline import build_weights
+
+    ref = RefResampler(RefConfig(width=width, pixels=pixels),
+                       interpret=True)
+    ref.set_step(step)
+    w0, w1 = build_weights(step, width, pixels)
+    np.testing.assert_array_equal(w0, np.asarray(ref._w0))
+    np.testing.assert_array_equal(w1, np.asarray(ref._w1))
+
+
+@pytest.mark.parametrize("kind", list(WindowFunction))
+def test_window_energy(kind):
+    from sigdigger_tpu.dsp.window import window_energy as ref_energy
+    from sigdigger_tpu_torch.dsp.window import window_energy
+
+    assert window_energy(kind, 1024) == ref_energy(RefWindow(kind.value),
+                                                   1024)

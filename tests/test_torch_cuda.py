@@ -3,8 +3,9 @@ on the card: the FM channelizer v2 (fused table form, unfused table and
 cos/sin forms), the v1 channelizer, the standalone PSD, the PSD read
 from the window buffer (with and without the device EMA), the raw bank,
 the recovery bank, the audio bank, the column compactor, the symbol
-squeeze and the drain packer, and the analyzer session through them,
-on the compactor drain and on the packed one.  Skipped where CUDA is absent; on a machine with
+squeeze, the drain packer, the TV line resampler and the CMA bank, the
+analyzer session through them, on the compactor drain and on the packed
+one, and ``cli tv`` on the line resampler.  Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
 
     SIGDIGGER_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
@@ -27,8 +28,10 @@ way on both sides), power 1e-5 of itself.  Recovery: the tolerance
 scheme of ``test_torch_recovery.py`` (2e-3 up to the first strobe that
 differs, then the strobe count within ±1); the kernel repeats the plain
 version's operations one by one, so the two usually agree bit for bit.
-Squeeze and packer: none (bit-equal; each is one IEEE operation per
-step on both sides, with no contraction into FMAs).
+Squeeze, packer and CMA bank: none (bit-equal; each is one IEEE
+operation per step on both sides, with no contraction into FMAs).  TV
+line resampler: 2e-6 on luminance in [0, 1] (three-term sums in another
+order than the plain version's two matmuls).
 """
 
 from __future__ import annotations
@@ -845,3 +848,130 @@ def test_new_packer_variant_builds_nothing_on_the_card(cuda, monkeypatch):
     assert got == set(hs)
     assert drainpack.pack_kernel.launches == before + 1
     assert len(an._buckets[64].packers) == 2
+
+
+@pytest.mark.parametrize("n_lines,step", [(64, 512 * 0.85 / 384),
+                                          (256, 512 * 0.85 / 384),
+                                          (7, 1.9),
+                                          (70000, 512 * 0.85 / 384)])
+def test_tv_kernel_matches_plain_version(cuda, n_lines, step):
+    """The line resampler at cli tv's geometry (W 512, px 384), with
+    zero columns past the width, and with more lines than a grid has
+    rows: within 2e-6 on luminance in [0, 1] (the X·W1 sum has three
+    terms, summed in another order)."""
+    from sigdigger_tpu_torch.kernels import tvline
+
+    rs = tvline.LineResampler(tvline.LineResamplerConfig(512, 384),
+                              device=cuda)
+    rs.set_step(step)
+    rng = np.random.default_rng(n_lines)
+    x = torch.from_numpy(rng.random((n_lines, 512)).astype(
+        np.float32)).to(cuda)
+    frac = torch.from_numpy(rng.random(n_lines).astype(np.float32)).to(cuda)
+    before = tvline.tv_kernel.launches
+    got = tvline.tv_kernel(x, frac, rs.weights)
+    want = tvline.tv_kernel_reference(x, frac, rs.weights)
+    torch.cuda.synchronize()
+    assert tvline.tv_kernel.launches == before + 1
+    assert float((got - want).abs().max()) <= 2e-6
+    with pytest.raises(ValueError):            # width not the weights'
+        tvline.tv_kernel(x[:, :256].contiguous(), frac, rs.weights)
+
+
+def test_cma_kernel_matches_plain_version(cuda):
+    """The CMA bank (K 5) over 2 chained blocks, a quarter of the lanes
+    locked, per-lane rates: bit-equal (-fmad=false; IEEE division and
+    square root on both sides).  Other K raise on the card."""
+    from sigdigger_tpu_torch.kernels import equalizer
+
+    c, t, k = 256, 128, 5
+    rng = np.random.default_rng(k)
+    rate = torch.from_numpy(rng.uniform(1e-3, 4e-3, c).astype(
+        np.float32)).to(cuda)
+    locked = torch.from_numpy((np.arange(c) % 4 == 0).astype(
+        np.float32)).to(cuda)
+    tr = torch.zeros((k, c), device=cuda)
+    tr[k // 2] = 1.0
+    ti = torch.zeros((k, c), device=cuda)
+    taps_k = taps_p = (tr, ti)
+    for _ in range(2):
+        s = (rng.integers(0, 4, (t, c)) * 2 + 1) * np.pi / 4
+        x = np.exp(1j * s)
+        x = x + 0.3 * np.roll(x, 1, axis=0)
+        xr = torch.from_numpy(x.real.astype(np.float32)).to(cuda)
+        xi = torch.from_numpy(x.imag.astype(np.float32)).to(cuda)
+        got = equalizer.cma_kernel(xr, xi, *taps_k, rate, locked)
+        want = equalizer.cma_kernel_reference(xr, xi, *taps_p, rate, locked)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        taps_k, taps_p = got[2:], want[2:]
+    for other in (3, 4):                       # only K = 5 is built
+        z = torch.zeros((other, c), device=cuda)
+        with pytest.raises(ValueError, match="K = 5"):
+            equalizer.cma_kernel(xr, xi, z, z, rate, locked)
+
+
+def _pal_fields(n: int) -> np.ndarray:
+    """``tests/test_tv_pal.py``'s clean 312-line fields at 8 Msps (that
+    module imports the JAX package, which the card machine lacks)."""
+    spl, hsync, blank, white = 512, 37, 0.30, 0.95
+    lines = np.zeros((312, spl), np.float32)
+    lines[:3, int(0.7 * spl):] = blank
+    ramp = np.linspace(0.0, 1.0, spl - hsync - 20, dtype=np.float32)
+    for i in range(3, 312):
+        row = i - 3
+        video = blank + (white - blank) * ramp * (0.3 + 0.7 * row / 312)
+        if 100 <= row < 120:
+            video = np.full_like(ramp, white)
+        lines[i, hsync:hsync + 20] = blank
+        lines[i, hsync + 20:] = video
+    return np.tile(lines.reshape(-1), n)
+
+
+def test_cli_tv_runs_through_the_kernel(cuda, tmp_path):
+    """``cli tv`` on the card: the device backend, one line-resampler
+    launch per analyzer block that produced lines, and the device frames
+    against the host backend's on the same luminance (the reference's
+    own bounds, ``tests/test_tv_pal.py:128-150``)."""
+    from sigdigger_tpu_torch import cli
+    from sigdigger_tpu_torch.analyzer import Analyzer, MessageKind
+    from sigdigger_tpu_torch.dsp.tv import TVProcessor, TVProcessorParams
+    from sigdigger_tpu_torch.kernels import tvline
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    v = _pal_fields(4)
+    x = (v * np.exp(2j * np.pi * 1e6 * np.arange(len(v)) / 8e6)).astype(
+        np.complex64)
+    path = str(tmp_path / "tv_8000000.cf32")
+    x.tofile(path)
+    argv = ["tv", path, "--freq", "1e6", "--rate", "8e6", "--mode", "am",
+            "-o", str(tmp_path / "f_")]
+    before = tvline.tv_kernel.launches
+    assert cli.main(argv) == 0
+    assert len(list(tmp_path.glob("f_*.png"))) == 3
+    launches = tvline.tv_kernel.launches - before
+    run = cli.decode_tv(cli.build_parser().parse_args(argv))
+    assert run.saved == 3 and run.tv.backend == "device"
+    assert launches == run.tv.line_feeds >= 1
+    assert run.tv.line_feeds == run.tv.feeds - run.tv.locked_at
+
+    an = Analyzer(profile=SourceProfile(type="file", path=path,
+                                        sample_rate=8_000_000),
+                  params=AnalyzerParams(psd_update_interval=1e9),
+                  device=cuda)
+    an.open_inspector("audio", Channel(fc=1e6, bw=6e6), config={
+        "audio.demodulator": 1, "audio.sample-rate": 8_000_000,
+        "audio.cutoff": 3e6, "audio.volume": 1.0, "agc.enabled": False})
+    tvs = {b: TVProcessor(TVProcessorParams(sample_rate=8e6), backend=b,
+                          device=cuda) for b in ("device", "host")}
+    while an.step():
+        for m in an.poll():
+            if m.kind == MessageKind.SAMPLES:
+                for tv in tvs.values():
+                    tv.feed(np.real(m.samples))
+    fd, fh = tvs["device"].frames, tvs["host"].frames
+    assert len(fd) == len(fh) >= 3
+    a, b = fh[1], fd[1]
+    assert np.corrcoef(a.ravel(), b.ravel())[0, 1] > 0.995
+    assert float(np.mean(np.abs(a - b))) < 0.02

@@ -24,16 +24,28 @@ MODULES = [
     "sigdigger_tpu_torch.sources.file",
     "sigdigger_tpu_torch.sources.synth",
     "sigdigger_tpu_torch.sources.tonegen",
+    "sigdigger_tpu_torch.sources.registry",
     "sigdigger_tpu_torch.io",
     "sigdigger_tpu_torch.io.wav",
     "sigdigger_tpu_torch.utils",
     "sigdigger_tpu_torch.utils.logger",
+    "sigdigger_tpu_torch.utils.waterfall",
     "sigdigger_tpu_torch.tasks",
     "sigdigger_tpu_torch.tasks.psdutil",
     "sigdigger_tpu_torch.dsp",
     "sigdigger_tpu_torch.dsp.window",
     "sigdigger_tpu_torch.dsp.filters",
     "sigdigger_tpu_torch.dsp.pll",
+    "sigdigger_tpu_torch.dsp.ncqo",
+    "sigdigger_tpu_torch.dsp.quad",
+    "sigdigger_tpu_torch.dsp.resample",
+    "sigdigger_tpu_torch.dsp.agc",
+    "sigdigger_tpu_torch.dsp.spectrum",
+    "sigdigger_tpu_torch.dsp.channelizer",
+    "sigdigger_tpu_torch.dsp.tv",
+    "sigdigger_tpu_torch.inspectors",
+    "sigdigger_tpu_torch.inspectors.base",
+    "sigdigger_tpu_torch.inspectors.audio",
     "sigdigger_tpu_torch.kernels",
     "sigdigger_tpu_torch.kernels._build",
     "sigdigger_tpu_torch.kernels.ops",
@@ -46,6 +58,8 @@ MODULES = [
     "sigdigger_tpu_torch.kernels.compact",
     "sigdigger_tpu_torch.kernels.symsqueeze",
     "sigdigger_tpu_torch.kernels.drainpack",
+    "sigdigger_tpu_torch.kernels.tvline",
+    "sigdigger_tpu_torch.kernels.equalizer",
     "sigdigger_tpu_torch.receiver",
     "sigdigger_tpu_torch.analyzer",
     "sigdigger_tpu_torch.analyzer.messages",
@@ -54,6 +68,8 @@ MODULES = [
     "sigdigger_tpu_torch.analyzer.engine",
     "sigdigger_tpu_torch.analyzer.kernel_engine",
     "sigdigger_tpu_torch.analyzer.checkpoint",
+    "sigdigger_tpu_torch.cli",
+    "sigdigger_tpu_torch.__main__",
 ]
 
 _FORBIDDEN = ("jax", "sigdigger_tpu")
