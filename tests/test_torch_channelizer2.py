@@ -12,6 +12,15 @@ Tolerances, with their reason:
   the same rounding is a larger phase error before the FIR averages
   it; where a test holds the tail of those channels separately, it
   allows 5e-3 there (their |Y| is some 40 times below the carriers').
+  Where the chained test holds every channel's tail element by element,
+  it adds each element's conditioning (``tail_tol``): a 64-term
+  channelize sum rounds to about √64·u·S in float32 (u = 2^-24, S the
+  sum of its terms' magnitudes, the random-walk estimate), which turns
+  the row's angle by that over |Y|, and the discriminator takes the
+  difference of two rows' angles: 1e-4 + quad_gain·8u·(S_t/|Y_t| +
+  S_{t-1}/|Y_{t-1}|).  A noise-only row whose |Y| falls to 1e-4 of S
+  (one in the f32-512 case, 2.9e-5 against S = 0.82) moves its tail
+  element by ~1e-4.
 - rotated carry row: 1e-5 relative to its largest magnitude (same
   summation-order rounding).
 - cos/sin rotator, on top: the phase ``φ0 + m_local·θ`` reaches about
@@ -82,6 +91,22 @@ def fm_signal(f0s, n, seed):
     return x.astype(np.complex64)
 
 
+def tail_tol(xw, consts, p):
+    """Per-element bound on the FIR tail (module docstring): 1e-4 plus
+    the discriminator's conditioning on the last Ka-1 rows of ``xw``."""
+    m = xw.shape[0] // 2
+    x = xw.double() * (1.0 if xw.dtype == torch.float32 else p.in_gain)
+    xr, xi = x[:m], x[m:]
+    h_re, h_im = consts["h_re"].double(), consts["h_im"].double()
+    y = torch.hypot(xr @ h_re - xi @ h_im, xr @ h_im + xi @ h_re)
+    s = (xr.abs() + xi.abs()) @ (h_re.abs() + h_im.abs())
+    kappa = (s / y).numpy()
+    tail = m - (p.ka - 1)
+    u = 2.0 ** -24
+    return 1e-4 + abs(p.quad_gain) * 8 * u * (kappa[tail:]
+                                                + kappa[tail - 1:-1])
+
+
 def assert_audio_close(ours, ref, bf16):
     ours = ours.float().numpy() if isinstance(ours, torch.Tensor) else ours
     ref = np.asarray(ref).astype(np.float32)
@@ -118,8 +143,8 @@ def test_kernel2_reference_matches_reference(variant, block_out,
                              np.asarray(ref._prev_im)])
         op = torch.cat([prev_re, prev_im]).numpy()
         assert np.abs(op - rp).max() <= 1e-5 * np.abs(rp).max()
-        np.testing.assert_allclose(ftail.numpy(), np.asarray(ref._ftail),
-                                   rtol=0, atol=1e-4)
+        d = np.abs(ftail.numpy() - np.asarray(ref._ftail))
+        assert np.all(d <= tail_tol(xw, port.consts, port.params)), d.max()
         rpsd = np.asarray(ref.psd_block)
         assert psd.shape == (64, 64)
         assert np.abs(psd.numpy() - rpsd).max() <= 1e-5 * rpsd.max()
