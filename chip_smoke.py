@@ -13,14 +13,19 @@ printing the seconds it took:
    times of the kernel, its plain version and a library yardstick:
    the fused FM channelizer (``kernel2``) over 3 chained blocks at the
    full bench width, f32 in / f32 audio and int16 in / bf16 audio; the
-   standalone PSD (``psd_kernel``) at N = 4096, F = 128 over 3 blocks;
-   the raw bank (``raw_kernel``) at 1024 channels, M = 8192 over 3
+   standalone PSD (``psd_kernel``) at N = 4096, F = 128 over 3 blocks
+   (yardsticks: the FFT alone, and the PyTorch composition of window,
+   FFT, |X|² and frame sum); the raw bank (``raw_kernel``) at 1024 channels, M = 8192 over 3
    chained blocks; the recovery bank (``recovery_kernel``) with the psk
    receiver's own 1024 lanes (sps 8, RRC matched filter) on QPSK at the
    main path's M = 8192, chained into a block of 1024, and with 1024
    lanes of every kind over 2 chained blocks of 1024 (the plain version
    is a Python loop of ~150 small operations per sample: ~35 s for the
-   full block).  Then the forms this slice added: kernel2 unfused with
+   full block), then at 100 lanes (ragged) over blocks of 1000 and 40
+   rows, keq 1 and 8, and K = 1, every case bit-equal; its time beside
+   its latency floor, from the cycles a step of its carrier loop,
+   Gardner clock and CMA (timed with clock64) at the SM clock.  Then the
+   forms this slice added: kernel2 unfused with
    the cos/sin rotator, live phase chained over 3 blocks at the full
    bench width (int16 in, bf16 audio); the PSD read from the window
    buffer (``psd_xw_kernel``) at N 4096 (A 64) and N 2048 (A 32) on the
@@ -33,9 +38,12 @@ printing the seconds it took:
    mode, M 8192, m_tile 2048, audio at 1/32, int16 packed upload) over 3
    chained blocks with the hang AGC and 3 without; the column compactor
    (``compact_kernel``) on 3 planes [8192, 1024] at width 1024 (every
-   slot) and 64 (a scattered map), float32, bfloat16 and int16, bit-equal;
-   the symbol squeeze (``squeeze_kernel``) on 3 x [8192, 1024] float32
-   at R 4 with strobes at sps 8, bit-equal; the drain packer
+   slot), 64 (a scattered map), 77 (a tail run) and 1024 shifted by one
+   column (no aligned run), float32, bfloat16 and int16, bit-equal, timed
+   in turns with ``torch.index_select``; the symbol squeeze
+   (``squeeze_kernel``) on 3 x [8192, 1024] float32 at R 4 with strobes
+   at sps 8, bit-equal, timed in turns with ``torch.sum`` (medians of
+   21); the drain packer
    (``pack_kernel``) at the bench session's layout (width 1024, 832 live
    audio columns, the status tile) and at a grouped one (G 2 in every
    section, squeezed digital rows, a raw section), bit-equal.  Then the
@@ -286,6 +294,30 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def interleaved_ms(fns: dict, reps: int = 21, calls: int = 5) -> dict:
+    """Median CUDA-event time of one call of each function of ``fns``,
+    the functions taking turns ``reps`` times (``calls`` calls a turn,
+    after one warm-up call each), so that drift in clocks and power
+    reaches them alike."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end) / calls)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
 def disagree(got, ref, tol: float, bf16: bool) -> tuple[float, float]:
     """(share of elements that disagree beyond their allowance, max abs
     difference); the share is 0 while at most 2 elements disagree."""
@@ -493,6 +525,15 @@ def recovery_bound(m: int, bank, strobes: int) -> tuple:
     return bound(ops, nbytes) + (ops, nbytes)
 
 
+def psd_composed(frames, win):
+    """The PSD's function as PyTorch calls (a yardstick only): window the
+    complex [F, N] frames, FFT, |X|² and the sum over frames."""
+    import torch
+
+    spec = torch.fft.fft(frames * win)
+    return (spec.real * spec.real + spec.imag * spec.imag).sum(0)
+
+
 def phase2_psd(fftm, torch) -> dict:
     """The standalone PSD kernel against its plain version, N = 4096,
     F = 128 (the digital receiver's PSD at the bench width), 3 blocks."""
@@ -522,13 +563,18 @@ def phase2_psd(fftm, torch) -> dict:
         (blk.reshape(frames, n) * psd._taps.astype(np.float32)).astype(
             np.complex64)).cuda()
     library_ms = time_ms(lambda: torch.fft.fft(frames_c), 20)
+    raw = torch.from_numpy(blk.reshape(frames, n)).cuda()
+    win = torch.from_numpy(psd._taps.astype(np.float32)).cuda()
+    composed_ms = time_ms(lambda: psd_composed(raw, win), 20)
     bms, by, ops, nbytes = psd_bound(n, frames, 4)
     stages = profile_stages(
         lambda: fftm.psd_kernel(xp, psd.consts, psd.params),
         ("psd_frames", "psd_sum"))
     print(f"phase2 psd timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
           f" torch.fft.fft of the [{frames}, {n}] windowed frames (library "
-          f"yardstick, FFT only) {library_ms:.4f} ms, bound {bms:.5f} ms by "
+          f"yardstick, FFT only) {library_ms:.4f} ms, the PyTorch "
+          f"composition (second yardstick: window, torch.fft.fft, |X|², "
+          f"frame sum) {composed_ms:.4f} ms, bound {bms:.5f} ms by "
           f"{by} ({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); "
           f"stages {stages}", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -715,6 +761,62 @@ def agreement_line(r: dict, ag: dict) -> str:
             f"{ag['dconc']:.3g} (tol 0.02)")
 
 
+# the recovery kernel beyond the main path's shape: (what it holds,
+# lanes, chained block lengths, matched-filter taps K, equalizer taps keq)
+# on lanes of the ten kinds of REC_VARIANTS; the kernel walks rows in
+# chunks of 64 and lanes in groups of 16
+REC_CASES = [
+    ("ragged lanes, M not a multiple of the chunk, M < K", 100, (1000, 40),
+     64, 5),
+    ("keq 1", 128, (700,), 64, 1),
+    ("keq 8", 128, (700,), 64, 8),
+    ("K 1", 96, (517,), 1, 5),
+]
+
+
+def recovery_case(recm, torch, lanes: int, lens, k: int, keq: int,
+                  seed: int) -> bool:
+    """The recovery kernel and its plain version from one state over
+    chained blocks of ``lens`` rows on ``lanes`` lanes of every kind, K
+    ``k`` and keq ``keq``: whether every output and state row is equal.
+    At K = 1 no lane has a matched filter (its single tap is 1), and the
+    state is the bank's without the filter's tail rows."""
+    n = -(-sum(lens) // 8) * 8
+    y, var = recovery_lanes(n, seed)
+    y = y[:sum(lens), :lanes]
+    bank = recm.RecoveryBank(recm.RecoveryBankConfig(
+        n_channels=lanes, block_len=lens[0], mf_taps_max=max(k, 64),
+        eq_taps=keq), device="cuda")
+    bank.begin_defer()
+    for lane in range(lanes):
+        name, kw, sig, _ = REC_VARIANTS[var[lane]]
+        kw = dict(kw, use_mf=False) if k == 1 else kw
+        bank.configure_channel(lane, sps=4.0 if sig == "psk" else 8.0,
+                               loop_bw=0.005, clock_gain=0.08, **kw)
+    bank.end_defer()
+    state, mf, p = np.asarray(bank.state), bank.consts["mf"], bank.params
+    if k == 1:
+        state = np.concatenate([state[:16], state[16 + 2 * 63:]])
+        mf = torch.ones((1, lanes), device="cuda")
+        p = recm.RecoveryParams(k=1, keq=keq, adc=p.adc,
+                                one_m_adc=p.one_m_adc)
+    sk = sp = torch.from_numpy(np.ascontiguousarray(state)).cuda()
+    yr = torch.from_numpy(np.ascontiguousarray(y.real)).cuda()
+    yi = torch.from_numpy(np.ascontiguousarray(y.imag)).cuda()
+    equal, start = True, 0
+    for m in lens:
+        a = yr[start:start + m].contiguous()
+        b = yi[start:start + m].contiguous()
+        start += m
+        ok = recm.recovery_kernel(a, b, sk, bank.consts["params"], mf, p)
+        op = recm.recovery_kernel_reference(a, b, sp, bank.consts["params"],
+                                            mf, p)
+        torch.cuda.synchronize()
+        equal &= all(torch.equal(u, v) for u, v in zip(ok, op))
+        sk, sp = ok[3], op[3]
+    return equal
+
+
 def qpsk_lanes(n: int, sps: int, seed: int) -> np.ndarray:
     """[n, 1024] complex64: QPSK at ``sps`` samples per symbol with RRC
     shaping (roll-off 0.35), a small carrier offset per lane, and light
@@ -751,6 +853,7 @@ def phase2_recovery(recm, torch) -> dict:
     y_main = qpsk_lanes(BLOCK_OUT + REC_BLOCK, DIG_SPS, SEED + 6)
     r = recovery_compare(recm, torch, bank, y_main, (BLOCK_OUT, REC_BLOCK))
     ag = recovery_agreement(r, [4] * N_CHANNELS)
+    check(r["bit_equal"], "recovery psk lanes")
     concs = [conc(r["sym_k"][:BLOCK_OUT, i], r["st_k"][:BLOCK_OUT, i], 4)
              for i in range(N_CHANNELS)]
     print(f"phase2 recovery, psk receiver lanes: {N_CHANNELS} lanes x "
@@ -771,6 +874,7 @@ def phase2_recovery(recm, torch) -> dict:
     mixed.end_defer()
     rm = recovery_compare(recm, torch, mixed, y, (REC_BLOCK, REC_BLOCK))
     agm = recovery_agreement(rm, [REC_VARIANTS[v][3] for v in var])
+    check(rm["bit_equal"], "recovery every kind")
     sym_k, st_k, sym_p, st_p = rm["sym_k"], rm["st_k"], rm["sym_p"], rm["st_p"]
     # ASK: the DC tracker (pole 0.9995) has not settled in 2048 samples,
     # so the envelope statistics are held against the plain version's
@@ -795,27 +899,42 @@ def phase2_recovery(recm, torch) -> dict:
     check(fsk_bimodal > 0.9 and dask <= 0.02, (fsk_bimodal, dask))
     max_err = max(max_err, agm["max_err"])
 
+    # the fused kernel's edges: lanes, rows, taps and equalizer lengths
+    for i, (name, lanes, lens, k, keq) in enumerate(REC_CASES):
+        check(recovery_case(recm, torch, lanes, lens, k, keq,
+                            SEED + 30 + i), name)
+        print(f"phase2 recovery, {name}: {lanes} lanes of every kind, "
+              f"blocks of {lens} rows, K {k}, keq {keq}: bit-equal to the "
+              f"plain version", flush=True)
+
     # timing at the main path's shape and lanes
     consts = (bank.consts["params"], bank.consts["mf"], bank.params)
     yr = torch.from_numpy(np.ascontiguousarray(y_main[:BLOCK_OUT].real))
     yi = torch.from_numpy(np.ascontiguousarray(y_main[:BLOCK_OUT].imag))
     yr, yi = yr.cuda(), yi.cuda()
     state0 = torch.as_tensor(bank.state).cuda()
-    ms = time_ms(lambda: recm.recovery_kernel(yr, yi, state0, *consts), 3)
+    ms = time_ms(lambda: recm.recovery_kernel(yr, yi, state0, *consts), 5)
     strobes = int(r["st_k"][:BLOCK_OUT].sum())
     bms, by, ops, nbytes = recovery_bound(BLOCK_OUT, bank, strobes)
-    step_ns = ms * 1e6 / (2 * BLOCK_OUT)
+    cyc = recm.recovery_step_cycles(yr, yi, state0, consts[0], bank.params)
+    lane_strobes = int(r["st_k"][:BLOCK_OUT].sum(0).max())
+    floor_ms = recm.latency_floor_ms(cyc, BLOCK_OUT, lane_strobes)
     stages = profile_stages(
         lambda: recm.recovery_kernel(yr, yi, state0, *consts),
-        ("rec_front", "rec_mf", "rec_gardner"), reps=2)
+        ("rec_fused",), reps=3)
     print(f"phase2 recovery timing at M = {BLOCK_OUT}, psk receiver lanes: "
-          f"kernel {ms:.4f} ms, plain (one call) {r['plain_ms']:.1f} ms, "
-          f"bound {bms:.4f} ms by {by} ({ops / 1e9:.3f} GFLOP at {strobes} "
-          f"strobes, {nbytes / 2 ** 20:.1f} MiB); latency: {2 * BLOCK_OUT} "
-          f"dependent steps per lane (front end, then Gardner) at "
-          f"{step_ns:.1f} ns per step; stages {stages}", flush=True)
+          f"kernel {ms:.4f} ms ({ms * 1e6 / BLOCK_OUT:.1f} ns a row), plain "
+          f"(one call) {r['plain_ms']:.1f} ms, bound {bms:.4f} ms by {by} "
+          f"({ops / 1e9:.3f} GFLOP at {strobes} strobes, "
+          f"{nbytes / 2 ** 20:.1f} MiB); latency floor {floor_ms:.4f} ms: "
+          f"the carrier loop {cyc['front']:.1f}, the Gardner clock "
+          f"{cyc['clock']:.1f} cycles a row, the CMA {cyc['cma']:.1f} "
+          f"cycles a strobe ({lane_strobes} on the busiest lane) at "
+          f"{cyc['ghz']:.3f} GHz; device time per launch from the trace "
+          f"{stages}", flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=r["plain_ms"],
-                library_ms=None, bound_ms=bms, bound_by=by)
+                library_ms=None, bound_ms=bms, bound_by=by,
+                floor_ms=floor_ms)
 
 
 def conc(sym: np.ndarray, strobe: np.ndarray, power: int) -> float:
@@ -1224,6 +1343,9 @@ def phase2_psd_xw(fftm, torch, uploads) -> tuple:
     xi = xw[BLOCK_OUT:].reshape(frames, 4096).float() * win
     frames_c = torch.complex(xr, xi)
     library_ms = time_ms(lambda: torch.fft.fft(frames_c), 20)
+    xs = xw.reshape(2, frames, 4096)
+    composed_ms = time_ms(lambda: psd_composed(
+        torch.complex(xs[0].float(), xs[1].float()), win), 20)
     bms, by, ops, nbytes = psd_xw_bound(4096, frames, 2, False)
     ems, eby, eops, ebytes = psd_xw_bound(4096, frames, 2, True)
     stages = profile_stages(lambda: fftm.psd_xw_kernel(xw, c, p),
@@ -1232,8 +1354,10 @@ def phase2_psd_xw(fftm, torch, uploads) -> tuple:
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, ema kernel {ema_ms:.4f} "
           f"ms, ema plain {ema_plain_ms:.4f} ms, torch.fft.fft of the "
           f"[{frames}, 4096] windowed frames (library yardstick, FFT only) "
-          f"{library_ms:.4f} ms, bound {bms:.5f} ms by {by} "
-          f"({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB), ema bound "
+          f"{library_ms:.4f} ms, the PyTorch composition from the upload "
+          f"(second yardstick: int16 to complex, window, torch.fft.fft, "
+          f"|X|², frame sum) {composed_ms:.4f} ms, bound {bms:.5f} ms by "
+          f"{by} ({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB), ema bound "
           f"{ems:.5f} ms by {eby}; stages {stages}", flush=True)
     return (dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=bms, bound_by=by),
@@ -1667,50 +1791,66 @@ def compact_bound(m: int, n: int, live: int, w: int, out_bytes: int,
 
 def phase2_compact(compm, torch) -> dict:
     """The column compactor against its plain version (bit-equal) on the
-    3 digital planes [8192, 1024]: width 1024 with every slot active (the
-    session's map) and width 64 with a scattered map, float32, bfloat16
-    and int16 with scales."""
+    3 digital planes [8192, 1024], in float32, bfloat16 and int16 with
+    scales: width 1024 with every slot active (the session's map: every
+    run of columns read with vector loads), width 64 with a scattered
+    map, width 77 (a tail run of 5 columns, stores column by column) and
+    width 1024 shifted by one column (no run aligned).  Then the kernel
+    at the session's map and ``torch.index_select`` timed in turns."""
     rng = np.random.default_rng(SEED + 14)
     planes = tuple(torch.from_numpy(
         (rng.standard_normal((BLOCK_OUT, N_CHANNELS)) * 0.7).astype(
             np.float32)).cuda() for _ in range(3))
     scattered = sorted(rng.choice(N_CHANNELS, 64, replace=False).tolist())
+    maps = (("width 1024, every slot", N_CHANNELS, list(range(N_CHANNELS))),
+            ("width 64, scattered", 64, scattered),
+            ("width 77", 77, list(range(8, 85))),
+            ("width 1024, shifted by one", N_CHANNELS,
+             list(range(1, N_CHANNELS)) + [0]))
     outs = (("f32", {}), ("bf16", dict(out_bf16=True)),
             ("i16", dict(out_i16=True, scales=(8192.0, 8192.0, 4096.0))))
     max_abs, main = 0.0, None
-    for width, cols in ((N_CHANNELS, list(range(N_CHANNELS))),
-                        (64, scattered)):
+    for label, width, cols in maps:
         for name, kw in outs:
             comp = compm.ColumnCompactor(compm.ColumnCompactorConfig(
                 n_rows=BLOCK_OUT, n_channels=N_CHANNELS, width=width,
                 n_planes=3, **kw), device="cuda")
             comp.set_mapping(cols)
-            got = compm.compact_kernel(planes, comp._slots, comp.cfg)
+            got = compm.compact_kernel(planes, comp._slots, comp._runs,
+                                       comp.cfg)
             want = compm.compact_kernel_reference(planes, comp._slots,
                                                   comp.cfg)
             torch.cuda.synchronize()
-            check(torch.equal(got, want), (width, name))
+            check(torch.equal(got, want), (label, name))
             max_abs = max(max_abs, float((got.float() - want.float())
                                          .abs().max()))
-            if width == N_CHANNELS and name == "bf16":
+            if label.endswith("every slot") and name == "bf16":
                 main = comp
-    print(f"phase2 compact (widths 1024 and 64, f32/bf16/int16): bit-equal "
-          f"to the plain version, max abs err {max_abs}", flush=True)
+        print(f"phase2 compact, {label} (f32/bf16/int16, "
+              f"{int(comp._runs.sum())} of {comp._runs.numel()} runs "
+              f"vector-loaded in int16): bit-equal to the plain version",
+              flush=True)
     comp = main
-    ms = time_ms(lambda: compm.compact_kernel(planes, comp._slots,
-                                              comp.cfg), 20)
-    plain_ms = time_ms(lambda: compm.compact_kernel_reference(
-        planes, comp._slots, comp.cfg), 5)
     stacked = torch.cat(planes)
     idx = comp._slots.long()
-    library_ms = time_ms(lambda: torch.index_select(stacked, 1, idx), 20)
+    t = interleaved_ms({
+        "kernel": lambda: compm.compact_kernel(planes, comp._slots,
+                                               comp._runs, comp.cfg),
+        "library": lambda: torch.index_select(stacked, 1, idx)})
+    ms, library_ms = t["kernel"], t["library"]
+    plain_ms = time_ms(lambda: compm.compact_kernel_reference(
+        planes, comp._slots, comp.cfg), 5)
     bms, by, ops, nbytes = compact_bound(BLOCK_OUT, 3, N_CHANNELS,
                                          N_CHANNELS, 2, False)
-    print(f"phase2 compact timing (3 x [8192, 1024] -> bf16, width 1024): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.index_select "
-          f"of the mapped columns of the 3 planes stacked (library "
-          f"yardstick, float32, no interleave) {library_ms:.4f} ms, bound "
-          f"{bms:.4f} ms by {by} ({nbytes / 2 ** 20:.2f} MiB)", flush=True)
+    stages = profile_stages(lambda: compm.compact_kernel(
+        planes, comp._slots, comp._runs, comp.cfg), ("compact<",))
+    print(f"phase2 compact timing (3 x [8192, 1024] -> bf16, width 1024), "
+          f"medians of 21 turns: kernel {ms:.4f} ms, torch.index_select of "
+          f"the mapped columns of the 3 planes stacked (library yardstick, "
+          f"float32, no interleave) {library_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+          f"({nbytes / 2 ** 20:.2f} MiB, {bms / ms:.0%} of it reached); "
+          f"device time per launch from the trace {stages}", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 
@@ -1749,19 +1889,21 @@ def phase2_squeeze(sqm, torch) -> dict:
     max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
     check(float(got[2].max()) <= 2.0 and float(got[2].sum())
           == float(st.sum()), "strobe count")
-    ms = time_ms(lambda: sqm.squeeze_kernel(sr, si, st, r), 50)
+    pre = torch.stack([sr * st, si * st, st]).view(3, m // r, r, c)
+    t = interleaved_ms({"kernel": lambda: sqm.squeeze_kernel(sr, si, st, r),
+                        "library": lambda: torch.sum(pre, 2)})
+    ms, library_ms = t["kernel"], t["library"]
     plain_ms = time_ms(lambda: sqm.squeeze_kernel_reference(sr, si, st, r),
                        10)
-    pre = torch.stack([sr * st, si * st, st]).view(3, m // r, r, c)
-    library_ms = time_ms(lambda: torch.sum(pre, 2), 50)
     bms, by, ops, nbytes = squeeze_bound(m, c, r)
     stages = profile_stages(lambda: sqm.squeeze_kernel(sr, si, st, r),
                             ("::squeeze(",))
     print(f"phase2 squeeze (3 x [8192, 1024] f32, R 4, sps 8): bit-equal to "
-          f"the plain version, max abs err {max_abs}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, torch.sum over the [M/R, R, C] view of "
+          f"the plain version, max abs err {max_abs}; medians of 21 turns: "
+          f"kernel {ms:.4f} ms, torch.sum over the [M/R, R, C] view of "
           f"the pre-multiplied planes (library yardstick, reduction only) "
-          f"{library_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+          f"{library_ms:.4f} ms; plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+          f"by {by} "
           f"({nbytes / 2 ** 20:.2f} MiB); device time per launch from the "
           f"trace {stages}", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,

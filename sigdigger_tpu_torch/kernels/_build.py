@@ -45,7 +45,8 @@ SIGNATURES = {
     "compact": {
         "sd_compact": (
             [_P] * 4 + [_I]         # x0..x3, n
-            + [_P, _P, _I]          # slots, out, out_kind
+            + [_P, _P, _I]          # slots, runs, vec_loads
+            + [_P, _I]              # out, out_kind
             + [_F] * 4              # s0..s3
             + [_I] * 4              # M C W mt
             + [_P]),                # stream
@@ -106,11 +107,15 @@ SIGNATURES = {
     },
     "recovery": {
         "sd_recovery": (
-            [_P] * 13               # y_re y_im state prm taps sym_re
-                                    # sym_im strobe state_out ext_re
-                                    # ext_im mf_re mf_im
+            [_P] * 9                # y_re y_im state prm taps sym_re
+                                    # sym_im strobe state_out
             + [_I] * 4              # M C K keq
             + [_F, _F, _P]),        # adc one_m_adc stream
+        "sd_recovery_smem_bytes": [_I],    # K
+        "sd_recovery_chain": (
+            [_P] * 4                # y_re y_im state prm
+            + [_I] * 4              # C K keq steps
+            + [_F, _F, _P, _P]),    # adc one_m_adc out stream
     },
     "cma": {
         "sd_cma": (

@@ -19,7 +19,10 @@ had no gather); :func:`compact_kernel` launches a gather written by hand
 in ``csrc/compact.cu`` on CUDA tensors and runs
 :func:`compact_kernel_reference` on CPU tensors.  The column map is a
 small device tensor (int32 ``[W]``, -1 for an empty column) rewritten in
-place by :meth:`ColumnCompactor.set_mapping`; nothing is rebuilt.
+place by :meth:`ColumnCompactor.set_mapping`; nothing is rebuilt.  Beside
+it lies the map's run table (:func:`run_table`): the kernel moves runs of
+consecutive output columns, one 16-byte store each, and reads a run whose
+source columns are consecutive and 16-byte aligned with vector loads.
 
 Non-finite inputs: the gather copies a mapped column's value as it is
 and never reads an unmapped column.  The one-hot matmul also multiplies
@@ -98,7 +101,32 @@ def compact_kernel_reference(planes: tuple, slots: torch.Tensor,
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2}
 
 
-def _compact_cuda(planes: tuple, slots: torch.Tensor,
+def run_width(dtype: torch.dtype) -> int:
+    """Output columns of one 16-byte store: 4 float32, else 8."""
+    return 4 if dtype == torch.float32 else 8
+
+
+def run_table(slots, n_channels: int, dtype: torch.dtype) -> np.ndarray:
+    """The kernel's run table of a column map: int32 ``[ceil(W / V)]``,
+    1 where run j (output columns ``j·V .. j·V+V-1``, V =
+    :func:`run_width`) lies wholly inside the map and its source columns
+    are consecutive, mapped and start at a multiple of 4 in rows of a
+    multiple of 4 floats (so its loads are 16-byte aligned float4s), else
+    0 (the kernel gathers that run column by column)."""
+    slots = np.asarray(slots, np.int64)
+    v = run_width(dtype)
+    n_runs = -(-len(slots) // v)
+    table = np.zeros(n_runs, np.int32)
+    if n_channels % 4:
+        return table
+    full = len(slots) // v
+    runs = slots[:full * v].reshape(full, v)
+    table[:full] = (np.all(runs == runs[:, :1] + np.arange(v), axis=1)
+                    & (runs[:, 0] >= 0) & (runs[:, 0] % 4 == 0))
+    return table
+
+
+def _compact_cuda(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
                   cfg: ColumnCompactorConfig) -> torch.Tensor:
     from sigdigger_tpu_torch.kernels._build import load_library
 
@@ -118,6 +146,14 @@ def _compact_cuda(planes: tuple, slots: torch.Tensor,
             or not slots.is_contiguous()):
         raise ValueError(f"compact_kernel slots: want contiguous int32 "
                          f"({w},), got {slots.dtype} {tuple(slots.shape)}")
+    n_runs = -(-w // run_width(cfg.dtype))
+    if (tuple(runs.shape) != (n_runs,) or runs.dtype != torch.int32
+            or runs.device != dev or not runs.is_contiguous()):
+        raise ValueError(f"compact_kernel runs: want contiguous int32 "
+                         f"({n_runs},) on {dev}, got {runs.dtype} "
+                         f"{tuple(runs.shape)} on {runs.device}")
+    # the run table's float4 loads need 16-byte aligned planes
+    vec_loads = int(all(x.data_ptr() % 16 == 0 for x in planes))
     lib = load_library("compact")
     out = torch.empty((n * m, w), dtype=cfg.dtype, device=dev)
     ptrs = [ctypes.c_void_p(x.data_ptr()) for x in planes]
@@ -127,6 +163,7 @@ def _compact_cuda(planes: tuple, slots: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.sd_compact(
             *ptrs, n, ctypes.c_void_p(slots.data_ptr()),
+            ctypes.c_void_p(runs.data_ptr()), vec_loads,
             ctypes.c_void_p(out.data_ptr()), _OUT_KIND[cfg.dtype],
             *(float(np.float32(s)) for s in scales), m, c, w, cfg.m_tile,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
@@ -136,13 +173,14 @@ def _compact_cuda(planes: tuple, slots: torch.Tensor,
     return out
 
 
-def compact_kernel(planes: tuple, slots: torch.Tensor,
+def compact_kernel(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
                    cfg: ColumnCompactorConfig) -> torch.Tensor:
-    """One compaction: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  ``compact_kernel.launches`` counts the
-    CUDA launches."""
+    """One compaction through the map ``slots`` and its :func:`run_table`
+    ``runs``: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors (which reads no run table).
+    ``compact_kernel.launches`` counts the CUDA launches."""
     if slots.device.type == "cuda":
-        return _compact_cuda(planes, slots, cfg)
+        return _compact_cuda(planes, slots, runs, cfg)
     if slots.device.type == "cpu":
         return compact_kernel_reference(planes, slots, cfg)
     raise ValueError(f"compact_kernel runs on cuda or cpu, not "
@@ -162,21 +200,25 @@ class ColumnCompactor:
         self.device = resolve_device(device)
         self._slots = torch.full((cfg.width,), -1, dtype=torch.int32,
                                  device=self.device)
+        self._runs = torch.zeros(-(-cfg.width // run_width(cfg.dtype)),
+                                 dtype=torch.int32, device=self.device)
 
     def set_mapping(self, slots: list[int]) -> None:
         """slots[w] = bank column for compact column w (the device map
-        is rewritten in place, never rebuilt)."""
+        and its run table are rewritten in place, never rebuilt)."""
         assert len(slots) <= self.cfg.width, (len(slots), self.cfg.width)
         new = np.full(self.cfg.width, -1, np.int32)
         new[:len(slots)] = np.asarray(slots, np.int64)
         self._slots.copy_(torch.from_numpy(new))
+        self._runs.copy_(torch.from_numpy(
+            run_table(new, self.cfg.n_channels, self.cfg.dtype)))
 
     def dispatch(self, *planes) -> torch.Tensor:
         """Dispatch the compaction; returns the DEVICE interleaved
         output (fetch deferred — callers pipeline the drain)."""
         assert len(planes) == self.cfg.n_planes
         planes = tuple(torch.as_tensor(p).to(self.device) for p in planes)
-        return compact_kernel(planes, self._slots, self.cfg)
+        return compact_kernel(planes, self._slots, self._runs, self.cfg)
 
     def fetch(self, stacked) -> tuple[np.ndarray, ...]:
         """ONE device-to-host fetch of a dispatched output,

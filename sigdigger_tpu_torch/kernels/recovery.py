@@ -9,11 +9,13 @@ or phase detector and phase offset, coherent or envelope ASK, and the
 fused symbol-rate CMA equalizer.  The configuration lives in parameter
 rows on the device, so a slot is reconfigured without a rebuild.
 
-Per block, each lane runs three passes in time order: the front end
+Per block, each lane runs three stages in time order: the front end
 (carrier loop, FSK and ASK detectors), the per-channel matched filter,
 and the Gardner clock with the fused CMA.  :func:`recovery_kernel`
 launches the hand-written kernel in ``csrc/recovery.cu`` on a CUDA
-tensor and runs :func:`recovery_kernel_reference`, the plain PyTorch
+tensor (one launch: a front warp, matched-filter warps and a Gardner
+warp per group of lanes, pipelined over chunks of rows in shared
+memory) and runs :func:`recovery_kernel_reference`, the plain PyTorch
 version, on a CPU tensor.  The state rows keep the reference's layout
 (its ``recovery.py:98-102``), so state moves between the packages.
 
@@ -224,9 +226,32 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _recovery_cuda(y_re, y_im, state, params, mf, p: RecoveryParams):
-    from sigdigger_tpu_torch.kernels._build import load_library
+# the fused kernel's geometry (csrc/recovery.cu): lanes per block, rows
+# per chunk, and the shared memory one block may take
+REC_LANES = 16
+REC_CHUNK = 64
+MAX_SMEM_BYTES = 232448
 
+
+def recovery_smem_bytes(k: int) -> int:
+    """Shared memory of one block of the fused kernel at ``k``
+    matched-filter taps (``csrc/recovery.cu``'s ``smem_bytes``): input,
+    matched-filter and FSK-detector chunks, the ext rows with their K-1
+    row tail and the strobe queue (interpolants, rows, counts), each
+    double-buffered, and the taps."""
+    lanes, t = REC_LANES, REC_CHUNK
+    floats = (2 * t * lanes * 2 + 2 * t * lanes * 2
+              + 2 * (k - 1 + t) * lanes * 2 + 2 * t * lanes + k * lanes
+              + 2 * t * lanes * 3 + 2 * lanes)
+    return 4 * floats + 16
+
+
+def check_launch(y_re, y_im, state, params, mf,
+                 p: RecoveryParams) -> tuple[int, int]:
+    """The arguments :func:`recovery_kernel` hands the CUDA kernel, held
+    to what it takes: contiguous float32 on one device, the state rows of
+    ``p``'s K and keq, keq in 1..8, M >= 1 and K within the shared
+    memory.  Returns ``(M, C)``; raises ``ValueError``."""
     dev = y_re.device
     m, c = y_re.shape if y_re.dim() == 2 else (0, 0)
     rows = 16 + 2 * (p.k - 1) + 4 * p.keq
@@ -234,6 +259,10 @@ def _recovery_cuda(y_re, y_im, state, params, mf, p: RecoveryParams):
         raise ValueError(f"recovery_kernel takes 1..8 equalizer taps, "
                          f"K >= 1 and M >= 1; got keq={p.keq}, K={p.k}, "
                          f"M={m}")
+    if recovery_smem_bytes(p.k) > MAX_SMEM_BYTES:
+        raise ValueError(f"recovery_kernel: K={p.k} matched-filter taps "
+                         f"need {recovery_smem_bytes(p.k)} bytes of shared "
+                         f"memory a block, more than {MAX_SMEM_BYTES}")
     shapes = {"y_re": (y_re, (m, c)), "y_im": (y_im, (m, c)),
               "state": (state, (rows, c)),
               "params": (params, (len(PARAM_ROWS), c)),
@@ -244,26 +273,72 @@ def _recovery_cuda(y_re, y_im, state, params, mf, p: RecoveryParams):
             raise ValueError(
                 f"recovery_kernel {name}: want contiguous float32 {shape} "
                 f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return m, c
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _recovery_cuda(y_re, y_im, state, params, mf, p: RecoveryParams):
+    from sigdigger_tpu_torch.kernels._build import load_library
+
+    m, c = check_launch(y_re, y_im, state, params, mf, p)
+    dev = y_re.device
     lib = load_library("recovery")
     sym_re = torch.empty((m, c), device=dev)
     sym_im = torch.empty((m, c), device=dev)
     strobe = torch.empty((m, c), device=dev)
-    state_out = torch.empty((rows, c), device=dev)
-    ext_re = torch.empty((m + p.k - 1, c), device=dev)
-    ext_im = torch.empty((m + p.k - 1, c), device=dev)
-    mf_re = torch.empty((m, c), device=dev)
-    mf_im = torch.empty((m, c), device=dev)
+    state_out = torch.empty_like(state)
     with torch.cuda.device(dev):
         err = lib.sd_recovery(
             _ptr(y_re), _ptr(y_im), _ptr(state), _ptr(params), _ptr(mf),
             _ptr(sym_re), _ptr(sym_im), _ptr(strobe), _ptr(state_out),
-            _ptr(ext_re), _ptr(ext_im), _ptr(mf_re), _ptr(mf_im),
-            m, c, p.k, p.keq, p.adc, p.one_m_adc,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            m, c, p.k, p.keq, p.adc, p.one_m_adc, _stream(dev))
     if err != 0:
         raise RuntimeError(f"sd_recovery launch failed: CUDA error {err}")
     recovery_kernel.launches += 1
     return sym_re, sym_im, strobe, state_out
+
+
+def recovery_step_cycles(y_re, y_im, state, params, p: RecoveryParams,
+                         steps: int = 8192) -> dict:
+    """Cycles one dependent step of the CUDA kernel's chains takes: the
+    carrier loop (``front``), the Gardner clock (``clock``) and the CMA
+    update of one strobe (``cma``), each timed with ``clock64()`` on one
+    warp of lanes 0..15 of the bank over ``steps`` steps (inputs cycled
+    from the first 64 rows of ``y_re``, ``y_im``), and the SM clock in
+    GHz (``ghz``): what sets the kernel's latency floor.  A diagnostic on
+    CUDA tensors; it launches no ``recovery_kernel``."""
+    from sigdigger_tpu_torch.kernels._build import load_library
+
+    m, c = check_launch(y_re, y_im, state, params,
+                        torch.zeros((p.k, y_re.shape[1]), device=y_re.device),
+                        p)
+    if y_re.device.type != "cuda" or m < REC_CHUNK or c < REC_LANES:
+        raise ValueError(f"recovery_step_cycles needs CUDA planes of at "
+                         f"least [{REC_CHUNK}, {REC_LANES}], got {m, c} on "
+                         f"{y_re.device}")
+    dev = y_re.device
+    out = torch.zeros(4 + 2 * REC_LANES, device=dev)
+    with torch.cuda.device(dev):
+        err = load_library("recovery").sd_recovery_chain(
+            _ptr(y_re), _ptr(y_im), _ptr(state), _ptr(params), c, p.k,
+            p.keq, int(steps), p.adc, p.one_m_adc, _ptr(out), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"sd_recovery_chain failed: CUDA error {err}")
+    front, clock, cma, ghz = out[:4].tolist()
+    return {"front": front, "clock": clock, "cma": cma, "ghz": ghz}
+
+
+def latency_floor_ms(cycles: dict, m: int, strobes: int) -> float:
+    """The fused kernel's latency floor for a block of ``m`` rows holding
+    at most ``strobes`` strobes on one lane: its slowest chain (the
+    carrier loop and the clock step every row, the CMA every strobe), at
+    the clock of ``cycles`` (:func:`recovery_step_cycles`)."""
+    chain = max(cycles["front"] * m, cycles["clock"] * m,
+                cycles["cma"] * strobes)
+    return chain / (cycles["ghz"] * 1e9) * 1e3
 
 
 def recovery_kernel(y_re: torch.Tensor, y_im: torch.Tensor,

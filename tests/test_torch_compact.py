@@ -128,12 +128,91 @@ def test_wrapper_runs_the_plain_version_on_cpu():
     ours.set_mapping(COLS)
     planes = tuple(torch.from_numpy(p) for p in _planes(3, seed=1))
     launches = compact.compact_kernel.launches
-    got = compact.compact_kernel(planes, ours._slots, ours.cfg)
+    got = compact.compact_kernel(planes, ours._slots, ours._runs, ours.cfg)
     want = compact.compact_kernel_reference(planes, ours._slots, ours.cfg)
     assert compact.compact_kernel.launches == launches
     assert torch.equal(got, want)
     with pytest.raises(ValueError):
-        compact.compact_kernel(planes, ours._slots.to("meta"), ours.cfg)
+        compact.compact_kernel(planes, ours._slots.to("meta"), ours._runs,
+                               ours.cfg)
+
+
+# column maps of the run-table tests, on 256 bank columns: (width, map)
+MAPS = {
+    "identity": (64, list(range(64))),
+    "scattered": (64, sorted(np.random.default_rng(5).choice(
+        256, 64, replace=False).tolist())),
+    "holes": (64, [c if c % 11 else -1 for c in range(64)]),
+    "unaligned": (64, list(range(1, 65))),
+    "odd_width": (77, list(range(8, 80))),
+}
+
+
+def _plain_runs(slots, n_channels, v):
+    """The run table by its definition, one run at a time."""
+    table = []
+    for j in range(-(-len(slots) // v)):
+        run = list(slots[j * v:(j + 1) * v])
+        table.append(int(
+            len(run) == v and n_channels % 4 == 0 and run[0] >= 0
+            and run[0] % 4 == 0
+            and run == list(range(run[0], run[0] + v))))
+    return table
+
+
+@pytest.mark.parametrize("out", list(OUTS))
+@pytest.mark.parametrize("name", list(MAPS))
+def test_run_table_matches_its_definition(name, out):
+    width, cols = MAPS[name]
+    comp = ColumnCompactor(ColumnCompactorConfig(
+        n_rows=64, n_channels=256, width=width, n_planes=3, **OUTS[out]),
+        device="cpu")
+    runs = comp._runs
+    comp.set_mapping(cols)
+    assert comp._runs is runs                 # rewritten in place
+    full = cols + [-1] * (width - len(cols))
+    v = compact.run_width(comp.cfg.dtype)
+    assert v == (4 if out == "f32" else 8)
+    assert comp._runs.tolist() == _plain_runs(full, 256, v)
+    assert compact.run_table(full, 98, comp.cfg.dtype).sum() == 0
+    if name == "identity":
+        assert comp._runs.all()
+    if name in ("unaligned", "scattered", "holes"):
+        assert not comp._runs.all()
+
+
+@pytest.mark.parametrize("out", list(OUTS))
+@pytest.mark.parametrize("name", list(MAPS))
+def test_compactor_gathers_every_run_map(name, out):
+    """The compactor on the CPU (``compact_kernel``'s plain version) for
+    each map against a plain numpy gather, and, where the map has no
+    interior -1 (the reference selects its last column for one), against
+    the reference."""
+    width, cols = MAPS[name]
+    geom = dict(n_rows=512, n_channels=256, width=width, n_planes=3,
+                m_tile=128, **OUTS[out])
+    ours = ColumnCompactor(ColumnCompactorConfig(**geom), device="cpu")
+    ours.set_mapping(cols)
+    planes = _planes(3, seed=width)
+    got = ours(*planes)
+    full = np.asarray(cols + [-1] * (width - len(cols)))
+    for p, x in enumerate(planes):
+        want = np.where(full >= 0, x[:, np.maximum(full, 0)], 0.0)
+        if out == "bf16":
+            want = torch.from_numpy(want.astype(np.float32)).to(
+                torch.bfloat16).float().numpy()
+        elif out == "i16":
+            scale = np.float32(OUTS[out]["scales"][p])
+            q = np.clip(want.astype(np.float32) * scale, -32768, 32767)
+            want = q.astype(np.int16).astype(np.float32) * np.float32(
+                1.0 / scale)
+        np.testing.assert_array_equal(got[p], want.astype(np.float32))
+    if -1 not in cols:
+        ref = RefCompactor(RefCompactorConfig(**geom, channel_tile=128),
+                           interpret=True)
+        ref.set_mapping(cols)
+        for a, b in zip(got, ref(*planes)):
+            np.testing.assert_array_equal(a, _as_f32(b))
 
 
 def test_config_matches_reference():

@@ -27,7 +27,8 @@ the largest value (float32 summation order; the phase rounds the same
 way on both sides), power 1e-5 of itself.  Recovery: the tolerance
 scheme of ``test_torch_recovery.py`` (2e-3 up to the first strobe that
 differs, then the strobe count within ±1); the kernel repeats the plain
-version's operations one by one, so the two usually agree bit for bit.
+version's operations one by one, so the two agree bit for bit, held in
+``test_recovery_kernel_is_bit_equal_to_plain_version``.
 Squeeze, packer and CMA bank: none (bit-equal; each is one IEEE
 operation per step on both sides, with no contraction into FMAs).  TV
 line resampler: 2e-6 on luminance in [0, 1] (three-term sums in another
@@ -251,6 +252,90 @@ def test_recovery_kernel_matches_plain_version(cuda):
     assert np.all(np.abs(ag["count_a"] - ag["count_b"]) <= 1)
     pk, pp = sk[7].cpu().numpy(), sp[7].cpu().numpy()
     assert np.all(np.abs(pk - pp) <= 0.01 * pp)
+
+
+def _lanes_of_every_kind(bank, c, m, rng, k):
+    """Configure ``c`` lanes of PSK (orders 2/4/8, some equalized, one in
+    eleven on a manual clock, one in thirteen stopped), FSK and ASK, and
+    return [m, c] signals of each lane's kind with light noise.  At K = 1
+    no lane has a matched filter."""
+    y = np.zeros((m, c), np.complex64)
+    t = np.arange(m)
+    bank.begin_defer()
+    for i in range(c):
+        kind = i % 3
+        bank.configure_channel(i, kind=kind, sps=4.0, order=(2, 4, 8)[i % 3],
+                               use_mf=kind == 0 and k > 1,
+                               eq_enabled=i % 5 == 0,
+                               manual_clock=i % 11 == 0, running=i % 13 != 0)
+        sym = np.exp(1j * np.pi / 2 * rng.integers(0, 4, -(-m // 4)))
+        if kind == 0:
+            y[:, i] = np.repeat(sym, 4)[:m] * np.exp(2j * np.pi * 1e-3 * t)
+        elif kind == 1:
+            y[:, i] = np.exp(1j * np.cumsum(np.repeat(
+                np.sign(sym.real), 4)[:m] * 0.1 * np.pi))
+        else:
+            y[:, i] = np.repeat(0.4 + 0.6 * (sym.real > 0), 4)[:m]
+    bank.end_defer()
+    return y + 0.01 * (rng.standard_normal(y.shape)
+                       + 1j * rng.standard_normal(y.shape))
+
+
+# (lanes, chained block lengths, K, keq): ragged lanes (the kernel takes
+# lanes in groups of 16), rows not a multiple of its 64-row chunk and
+# fewer than K, K = 1, and every keq
+FUSED_CASES = ([(100, (150, 40), 64, 5), (96, (131,), 1, 5)]
+               + [(48, (200,), 64, keq) for keq in range(1, 9)])
+
+
+@pytest.mark.parametrize("c,lens,k,keq", FUSED_CASES)
+def test_recovery_kernel_is_bit_equal_to_plain_version(cuda, c, lens, k,
+                                                       keq):
+    """The fused kernel (one launch a block) equals its plain version in
+    every output and state row, chained over blocks."""
+    bank = recovery.RecoveryBank(recovery.RecoveryBankConfig(
+        n_channels=c, block_len=lens[0], mf_taps_max=max(k, 64),
+        eq_taps=keq), device=cuda)
+    y = _lanes_of_every_kind(bank, c, sum(lens),
+                             np.random.default_rng(c + keq), k)
+    state, mf, p = np.asarray(bank.state), bank.consts["mf"], bank.params
+    if k == 1:
+        state = np.concatenate([state[:16], state[16 + 2 * 63:]])
+        mf = torch.ones((1, c), device=cuda)
+        p = recovery.RecoveryParams(k=1, keq=keq, adc=p.adc,
+                                    one_m_adc=p.one_m_adc)
+    sk = sp = torch.from_numpy(np.ascontiguousarray(state)).to(cuda)
+    before, start = recovery.recovery_kernel.launches, 0
+    for m in lens:
+        yr = torch.from_numpy(np.ascontiguousarray(
+            y[start:start + m].real)).to(cuda)
+        yi = torch.from_numpy(np.ascontiguousarray(
+            y[start:start + m].imag)).to(cuda)
+        start += m
+        ok = recovery.recovery_kernel(yr, yi, sk, bank.consts["params"], mf,
+                                      p)
+        op = recovery.recovery_kernel_reference(yr, yi, sp,
+                                                bank.consts["params"], mf, p)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(ok, op))
+        sk, sp = ok[3], op[3]
+    assert recovery.recovery_kernel.launches == before + len(lens)
+
+
+def test_recovery_chain_cycles_and_floor(cuda):
+    """The chain timer reads a positive cycle count for each chain and a
+    clock near the card's; the floor follows from them."""
+    bank = recovery.RecoveryBank(recovery.RecoveryBankConfig(
+        n_channels=16, block_len=64), device=cuda)
+    y = torch.ones((64, 16), device=cuda)
+    state = torch.as_tensor(bank.state).to(cuda)
+    cyc = recovery.recovery_step_cycles(y, y * 0.5, state,
+                                        bank.consts["params"], bank.params,
+                                        steps=512)
+    assert all(cyc[k] > 10 for k in ("front", "clock", "cma"))
+    assert 0.5 < cyc["ghz"] < 3.0
+    floor = recovery.latency_floor_ms(cyc, 8192, 1024)
+    assert floor >= cyc["front"] * 8192 / (cyc["ghz"] * 1e9) * 1e3
 
 
 def test_digital_receiver_runs_through_the_kernels(cuda):
@@ -641,6 +726,40 @@ def test_compact_kernel_matches_plain_version(cuda, out, width):
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+COMPACT_MAPS = {
+    "identity": (256, list(range(256))),
+    "shifted": (256, list(range(1, 256)) + [0]),
+    "odd_width": (77, list(range(8, 85))),
+    "holes": (256, [c if c % 7 else -1 for c in range(256)]),
+}
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16", "i16"])
+@pytest.mark.parametrize("name", list(COMPACT_MAPS))
+def test_compact_kernel_runs_match_plain_version(cuda, out, name):
+    """Vector-loaded runs (identity), none aligned (shifted), a tail run
+    with column-by-column stores (width 77) and runs broken by -1 holes,
+    against the plain version, bit for bit, with a plane of its own."""
+    from sigdigger_tpu_torch.kernels import compact
+
+    width, cols = COMPACT_MAPS[name]
+    kw = {"f32": {}, "bf16": dict(out_bf16=True),
+          "i16": dict(out_i16=True, scales=(1000.5, 8192.0, 3.3))}[out]
+    comp = compact.ColumnCompactor(compact.ColumnCompactorConfig(
+        n_rows=1000, n_channels=256, width=width, n_planes=3, m_tile=200,
+        **kw), device=cuda)
+    comp.set_mapping(cols)
+    rng = np.random.default_rng(width)
+    planes = tuple(torch.from_numpy((rng.standard_normal((1000, 256)) * 3.7)
+                                    .astype(np.float32)).to(cuda)
+                   for _ in range(3))
+    got = compact.compact_kernel(planes, comp._slots, comp._runs, comp.cfg)
+    want = compact.compact_kernel_reference(planes, comp._slots, comp.cfg)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert bool(comp._runs.all()) == (name == "identity")
+
+
 def test_audio_and_compact_refuse_bad_inputs(cuda):
     from sigdigger_tpu_torch.kernels import audio, compact
 
@@ -665,6 +784,9 @@ def test_audio_and_compact_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):        # a plane of another type
         comp.dispatch(torch.zeros((64, 128), dtype=torch.float64,
                                   device=cuda))
+    with pytest.raises(ValueError):        # a run table of another width
+        compact.compact_kernel((torch.zeros((64, 128), device=cuda),),
+                               comp._slots, comp._runs[:0], comp.cfg)
 
 
 def test_analyzer_session_runs_through_the_kernels(cuda):

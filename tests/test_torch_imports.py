@@ -60,6 +60,7 @@ MODULES = [
     "sigdigger_tpu_torch.kernels.drainpack",
     "sigdigger_tpu_torch.kernels.tvline",
     "sigdigger_tpu_torch.kernels.equalizer",
+    "sigdigger_tpu_torch.kernels.sass_report",
     "sigdigger_tpu_torch.receiver",
     "sigdigger_tpu_torch.analyzer",
     "sigdigger_tpu_torch.analyzer.messages",

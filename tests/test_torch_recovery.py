@@ -315,3 +315,72 @@ def test_kernel_reference_is_the_banks_call():
     for u, v in zip(a, b):
         assert torch.equal(u, v)
     assert torch.equal(state, before) and a[3] is not state
+
+
+def _launch_args(c=24, m=100, k=64, keq=5):
+    bank = RecoveryBank(RecoveryBankConfig(n_channels=c, block_len=m,
+                                           mf_taps_max=k, eq_taps=keq),
+                        device="cpu")
+    y = torch.zeros((m, c))
+    return [y, y.clone(), torch.as_tensor(bank.state).clone(),
+            bank.consts["params"], bank.consts["mf"], bank.params]
+
+
+# what the CUDA kernel refuses, held on the CPU: (name, edit of the args)
+BAD_LAUNCHES = {
+    "keq_0": lambda a: a.__setitem__(5, recovery.RecoveryParams(
+        k=64, keq=0, adc=a[5].adc, one_m_adc=a[5].one_m_adc)),
+    "keq_9": lambda a: a.__setitem__(5, recovery.RecoveryParams(
+        k=64, keq=9, adc=a[5].adc, one_m_adc=a[5].one_m_adc)),
+    "no_rows": lambda a: (a.__setitem__(0, a[0][:0]),
+                          a.__setitem__(1, a[1][:0])),
+    "state_height": lambda a: a.__setitem__(2, a[2][:-1].contiguous()),
+    "float64_plane": lambda a: a.__setitem__(1, a[1].double()),
+    "strided_plane": lambda a: a.__setitem__(
+        0, a[0].t().contiguous().t()),
+    "taps_rows": lambda a: a.__setitem__(4, a[4][:-1].contiguous()),
+    "params_lanes": lambda a: a.__setitem__(3, a[3][:, :-1].contiguous()),
+}
+
+
+@pytest.mark.parametrize("name", list(BAD_LAUNCHES))
+def test_launch_checks_refuse_what_the_kernel_cannot_take(name):
+    args = _launch_args()
+    assert recovery.check_launch(*args) == (100, 24)
+    BAD_LAUNCHES[name](args)
+    with pytest.raises(ValueError):
+        recovery.check_launch(*args)
+
+
+@pytest.mark.parametrize("keq", [1, 8])
+@pytest.mark.parametrize("k", [1, 64, 100])
+def test_launch_checks_take_any_lanes_rows_taps_and_keq(k, keq):
+    """Ragged lane counts, rows not a multiple of the kernel's chunk,
+    K = 1 and keq at both ends pass; K past the shared memory does not."""
+    c, m = 100, recovery.REC_CHUNK + 37
+    p = recovery.RecoveryParams(k=k, keq=keq, adc=0.9995, one_m_adc=5e-4)
+    rows = 16 + 2 * (k - 1) + 4 * keq
+    y = torch.zeros((m, c))
+    args = (y, y, torch.zeros((rows, c)), torch.zeros((len(PARAM_ROWS), c)),
+            torch.zeros((k, c)))
+    assert recovery.check_launch(*args, p) == (m, c)
+    big = recovery.RecoveryParams(k=600, keq=keq, adc=0.9995,
+                                  one_m_adc=5e-4)
+    assert recovery.recovery_smem_bytes(600) > recovery.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        recovery.check_launch(y, y, torch.zeros((16 + 2 * 599 + 4 * keq, c)),
+                              args[3], torch.zeros((600, c)), big)
+
+
+def test_shared_memory_of_a_block():
+    """The fused kernel's layout (csrc/recovery.cu): y, mf and the FSK
+    detector double-buffered over a chunk of rows, ext with its K-1 row
+    tail double-buffered, the strobe queue and the taps, for REC_LANES
+    lanes."""
+    lanes, t = recovery.REC_LANES, recovery.REC_CHUNK
+    for k in (1, 49, 64):
+        floats = (4 * t * lanes + 4 * t * lanes + 4 * (k - 1 + t) * lanes
+                  + 2 * t * lanes + k * lanes
+                  + 6 * t * lanes + 2 * lanes)    # strobe queue
+        assert recovery.recovery_smem_bytes(k) == 4 * floats + 16
+    assert recovery.recovery_smem_bytes(64) < 104 * 1024
