@@ -916,12 +916,12 @@ def phase2_recovery(recm, torch) -> dict:
     ms = time_ms(lambda: recm.recovery_kernel(yr, yi, state0, *consts), 5)
     strobes = int(r["st_k"][:BLOCK_OUT].sum())
     bms, by, ops, nbytes = recovery_bound(BLOCK_OUT, bank, strobes)
+    stages = profile_stages(
+        lambda: recm.recovery_kernel(yr, yi, state0, *consts),
+        ("rec_fused",), reps=2)
     cyc = recm.recovery_step_cycles(yr, yi, state0, consts[0], bank.params)
     lane_strobes = int(r["st_k"][:BLOCK_OUT].sum(0).max())
     floor_ms = recm.latency_floor_ms(cyc, BLOCK_OUT, lane_strobes)
-    stages = profile_stages(
-        lambda: recm.recovery_kernel(yr, yi, state0, *consts),
-        ("rec_fused",), reps=3)
     print(f"phase2 recovery timing at M = {BLOCK_OUT}, psk receiver lanes: "
           f"kernel {ms:.4f} ms ({ms * 1e6 / BLOCK_OUT:.1f} ns a row), plain "
           f"(one call) {r['plain_ms']:.1f} ms, bound {bms:.4f} ms by {by} "

@@ -13,8 +13,9 @@ Per block, each lane runs three stages in time order: the front end
 (carrier loop, FSK and ASK detectors), the per-channel matched filter,
 and the Gardner clock with the fused CMA.  :func:`recovery_kernel`
 launches the hand-written kernel in ``csrc/recovery.cu`` on a CUDA
-tensor (one launch: a front warp, matched-filter warps and a Gardner
-warp per group of lanes, pipelined over chunks of rows in shared
+tensor (one launch: per group of lanes a warp each for the carrier
+loop, the Gardner clock and the CMA, and two that load the input and
+run the matched filter, pipelined over chunks of rows in shared
 memory) and runs :func:`recovery_kernel_reference`, the plain PyTorch
 version, on a CPU tensor.  The state rows keep the reference's layout
 (its ``recovery.py:98-102``), so state moves between the packages.

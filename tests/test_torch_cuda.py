@@ -198,31 +198,38 @@ def _raw_vs_plain(cuda, packed, block_out: int, m_tile: int) -> None:
     assert rawbank.raw_kernel.launches == before + 2
 
 
-def test_recovery_kernel_matches_plain_version(cuda):
-    c, m = 96, 512
-    bank = recovery.RecoveryBank(recovery.RecoveryBankConfig(
-        n_channels=c, block_len=m), device=cuda)
-    rng = np.random.default_rng(7)
-    y = np.zeros((2 * m, c), np.complex64)
-    t = np.arange(2 * m)
+def _lanes_of_every_kind(bank, c, m, rng, k):
+    """Configure ``c`` lanes of PSK (orders 2/4/8, some equalized, one in
+    eleven on a manual clock, one in thirteen stopped), FSK and ASK, and
+    return [m, c] signals of each lane's kind with light noise.  At K = 1
+    no lane has a matched filter."""
+    y = np.zeros((m, c), np.complex64)
+    t = np.arange(m)
     bank.begin_defer()
     for i in range(c):
         kind = i % 3
         bank.configure_channel(i, kind=kind, sps=4.0, order=(2, 4, 8)[i % 3],
-                               use_mf=kind == 0, eq_enabled=i % 5 == 0,
-                               manual_clock=i % 11 == 0,
-                               running=i % 13 != 0)
-        sym = np.exp(1j * np.pi / 2 * rng.integers(0, 4, 2 * m // 4))
+                               use_mf=kind == 0 and k > 1,
+                               eq_enabled=i % 5 == 0,
+                               manual_clock=i % 11 == 0, running=i % 13 != 0)
+        sym = np.exp(1j * np.pi / 2 * rng.integers(0, 4, -(-m // 4)))
         if kind == 0:
-            y[:, i] = np.repeat(sym, 4) * np.exp(2j * np.pi * 1e-3 * t)
+            y[:, i] = np.repeat(sym, 4)[:m] * np.exp(2j * np.pi * 1e-3 * t)
         elif kind == 1:
             y[:, i] = np.exp(1j * np.cumsum(np.repeat(
-                np.sign(sym.real), 4) * 0.1 * np.pi))
+                np.sign(sym.real), 4)[:m] * 0.1 * np.pi))
         else:
-            y[:, i] = np.repeat(0.4 + 0.6 * (sym.real > 0), 4)
+            y[:, i] = np.repeat(0.4 + 0.6 * (sym.real > 0), 4)[:m]
     bank.end_defer()
-    y += 0.01 * (rng.standard_normal(y.shape)
-                 + 1j * rng.standard_normal(y.shape))
+    return (y + 0.01 * (rng.standard_normal(y.shape) + 1j
+                        * rng.standard_normal(y.shape))).astype(np.complex64)
+
+
+def test_recovery_kernel_matches_plain_version(cuda):
+    c, m = 96, 512
+    bank = recovery.RecoveryBank(recovery.RecoveryBankConfig(
+        n_channels=c, block_len=m), device=cuda)
+    y = _lanes_of_every_kind(bank, c, 2 * m, np.random.default_rng(7), 64)
     yr = torch.from_numpy(np.ascontiguousarray(y.real)).to(cuda)
     yi = torch.from_numpy(np.ascontiguousarray(y.imag)).to(cuda)
     sk = sp = torch.as_tensor(bank.state).to(cuda)
@@ -252,33 +259,6 @@ def test_recovery_kernel_matches_plain_version(cuda):
     assert np.all(np.abs(ag["count_a"] - ag["count_b"]) <= 1)
     pk, pp = sk[7].cpu().numpy(), sp[7].cpu().numpy()
     assert np.all(np.abs(pk - pp) <= 0.01 * pp)
-
-
-def _lanes_of_every_kind(bank, c, m, rng, k):
-    """Configure ``c`` lanes of PSK (orders 2/4/8, some equalized, one in
-    eleven on a manual clock, one in thirteen stopped), FSK and ASK, and
-    return [m, c] signals of each lane's kind with light noise.  At K = 1
-    no lane has a matched filter."""
-    y = np.zeros((m, c), np.complex64)
-    t = np.arange(m)
-    bank.begin_defer()
-    for i in range(c):
-        kind = i % 3
-        bank.configure_channel(i, kind=kind, sps=4.0, order=(2, 4, 8)[i % 3],
-                               use_mf=kind == 0 and k > 1,
-                               eq_enabled=i % 5 == 0,
-                               manual_clock=i % 11 == 0, running=i % 13 != 0)
-        sym = np.exp(1j * np.pi / 2 * rng.integers(0, 4, -(-m // 4)))
-        if kind == 0:
-            y[:, i] = np.repeat(sym, 4)[:m] * np.exp(2j * np.pi * 1e-3 * t)
-        elif kind == 1:
-            y[:, i] = np.exp(1j * np.cumsum(np.repeat(
-                np.sign(sym.real), 4)[:m] * 0.1 * np.pi))
-        else:
-            y[:, i] = np.repeat(0.4 + 0.6 * (sym.real > 0), 4)[:m]
-    bank.end_defer()
-    return y + 0.01 * (rng.standard_normal(y.shape)
-                       + 1j * rng.standard_normal(y.shape))
 
 
 # (lanes, chained block lengths, K, keq): ragged lanes (the kernel takes
@@ -324,7 +304,8 @@ def test_recovery_kernel_is_bit_equal_to_plain_version(cuda, c, lens, k,
 
 def test_recovery_chain_cycles_and_floor(cuda):
     """The chain timer reads a positive cycle count for each chain and a
-    clock near the card's; the floor follows from them."""
+    clock near the card's; the floor follows from them; the wrapper's
+    shared-memory formula is the kernel's."""
     bank = recovery.RecoveryBank(recovery.RecoveryBankConfig(
         n_channels=16, block_len=64), device=cuda)
     y = torch.ones((64, 16), device=cuda)
@@ -336,6 +317,10 @@ def test_recovery_chain_cycles_and_floor(cuda):
     assert 0.5 < cyc["ghz"] < 3.0
     floor = recovery.latency_floor_ms(cyc, 8192, 1024)
     assert floor >= cyc["front"] * 8192 / (cyc["ghz"] * 1e9) * 1e3
+    lib = _build.load_library("recovery")
+    for k in (1, 49, 64, 500):
+        assert lib.sd_recovery_smem_bytes(k) == \
+            recovery.recovery_smem_bytes(k)
 
 
 def test_digital_receiver_runs_through_the_kernels(cuda):
