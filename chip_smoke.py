@@ -36,14 +36,21 @@ printing the seconds it took:
    chained over 3 blocks.  Then the analyzer's kernels: the audio bank
    (``audio_kernel``) at the engine's bench shapes (1024 slots of every
    mode, M 8192, m_tile 2048, audio at 1/32, int16 packed upload) over 3
-   chained blocks with the hang AGC and 3 without; the column compactor
+   chained blocks with the hang AGC and 3 without, its hang walk's gain
+   plane and carry rows bit-equal to the plain recurrence on the
+   kernel's own rotated planes at seed_tile 0 and 1, its branch-free
+   square root and reciprocal against the IEEE intrinsics on every
+   float32 of their ranges, and the walker's clock64 cycles a step with
+   the latency floor they set; the column compactor
    (``compact_kernel``) on 3 planes [8192, 1024] at width 1024 (every
    slot), 64 (a scattered map), 77 (a tail run) and 1024 shifted by one
    column (no aligned run), float32, bfloat16 and int16, bit-equal, timed
    in turns with ``torch.index_select``; the symbol squeeze
-   (``squeeze_kernel``) on 3 x [8192, 1024] float32 at R 4 with strobes
-   at sps 8, bit-equal, timed in turns with ``torch.sum`` (medians of
-   21); the drain packer
+   (``squeeze_kernel``) bit-equal at R 2, 4 and 8 on 3 x [8192, 1024]
+   float32 with strobes at sps 8 (the float4 path), at C 1022 and on
+   views one column into their buffers (the scalar path), then timed at
+   R 4 in turns with ``torch.sum`` (medians of 21) and both traced; the
+   drain packer
    (``pack_kernel``) at the bench session's layout (width 1024, 832 live
    audio columns, the status tile) and at a grouped one (G 2 in every
    section, squeezed digital rows, a raw section), bit-equal.  Then the
@@ -126,6 +133,7 @@ them.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1756,6 +1764,34 @@ def phase2_audio(audiom, torch) -> dict:
         max_abs = max(max_abs, worst["audio_max"])
 
     args, carries, phi0, phs0, bank = main
+    # the hang walk bit for bit: the gain plane and the carry rows against
+    # the plain recurrence (on the host) fed the kernel's own rotated
+    # planes, with the carried follower state entering at tile 0 and 1
+    for seed_tile in (0, 1):
+        p = dataclasses.replace(bank.params, seed_tile=seed_tile)
+        scratch = {}
+        out = audiom.audio_kernel(*args, carries, phi0, phs0, p, scratch)
+        torch.cuda.synchronize()
+        gain, agcs = audiom.hang_agc_reference(
+            audiom.magnitude(scratch["rr"].cpu(), scratch["ri"].cpu()),
+            bank.consts["params"].cpu(), carries[-1].cpu(), seed_tile * 2048)
+        check(torch.equal(scratch["gain"].cpu(), gain)
+              and torch.equal(out[10].cpu(), agcs), ("hang walk", seed_tile))
+        del scratch
+    ops = audiom.hang_ops_mismatches()
+    check(ops["sqrt_mismatches"] == 0 and ops["rcp_mismatches"] == 0, ops)
+    print(f"phase2 audio hang walk: the gain plane and the carry rows "
+          f"bit-equal to the plain recurrence on the kernel's own rr, ri at "
+          f"seed_tile 0 and 1; its branch-free square root and reciprocal "
+          f"equal the IEEE intrinsics on all {ops['sqrt_checked']} and "
+          f"{ops['rcp_checked']} float32 values of their ranges", flush=True)
+    rot = {}
+    audiom.audio_kernel(*args, carries, phi0, phs0, bank.params, rot)
+    cyc = audiom.audio_hang_step_cycles(rot["rr"], rot["ri"],
+                                        bank.consts["params"], carries[-1],
+                                        steps=BLOCK_OUT)
+    floor_ms = audiom.hang_floor_ms(cyc, BLOCK_OUT)
+    del rot
     ms = time_ms(lambda: audiom.audio_kernel(*args, carries, phi0, phs0,
                                              bank.params), 10)
     plain_ms = time_ms(lambda: audiom.audio_kernel_reference(
@@ -1767,14 +1803,15 @@ def phase2_audio(audiom, torch) -> dict:
                                        AUDIO_DECIM, 2, True)
     stages = profile_stages(
         lambda: audiom.audio_kernel(*args, carries, phi0, phs0, bank.params),
-        ("raw_rot", "audio_tiles", "audio_hang", "audio_demod", "audio_fir",
-         "tail_copy", "audio_slot", "audio_dc"))
+        ("raw_rot", "audio_tiles", "audio_hang_ws", "audio_demod",
+         "audio_fir", "tail_copy", "audio_slot", "audio_dc"))
     print(f"phase2 audio timing (hang AGC, int16 in): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, channelize matmul (yardstick, part of "
           f"the function) {yard_ms:.4f} ms, bound {bms:.4f} ms by {by} "
           f"({ops / 1e9:.3f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); hang AGC "
-          f"{BLOCK_OUT} dependent steps per slot; stages {stages}",
-          flush=True)
+          f"{BLOCK_OUT} dependent steps per slot, the walker's chain "
+          f"{cyc['cycles']:.2f} cycles a step at {cyc['ghz']:.3f} GHz: "
+          f"latency floor {floor_ms:.4f} ms; stages {stages}", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bms, bound_by=by)
 
@@ -1874,19 +1911,44 @@ def strobe_plane(m: int, c: int, sps: int, rng) -> np.ndarray:
     return st
 
 
+def squeeze_planes(torch, rng, m: int, c: int, offset: int) -> tuple:
+    """sr, si and a strobe plane at sps 8, float32 [m, c] on the card,
+    each a view starting ``offset`` elements into its own buffer."""
+    bufs = [torch.from_numpy((rng.standard_normal(m * c + offset) * 0.7)
+                             .astype(np.float32)).cuda() for _ in range(2)]
+    st = np.concatenate([np.zeros(offset, np.float32),
+                         strobe_plane(m, c, 8, rng).ravel()])
+    bufs.append(torch.from_numpy(st).cuda())
+    return tuple(b[offset:].view(m, c) for b in bufs)
+
+
 def phase2_squeeze(sqm, torch) -> dict:
-    """The symbol squeeze against its plain version (bit-equal) at the
-    bench shapes: 3 x [8192, 1024] float32, R 4, strobes at sps 8."""
+    """The symbol squeeze against its plain version (bit-equal) at R 2, 4
+    and 8 on the float4 path (3 x [8192, 1024] float32, strobes at sps
+    8), the scalar path for C % 4 != 0 (C 1022) and for inputs that are
+    not 16-byte aligned (views one column into their buffers); then the
+    bench shape at R 4 timed in turns with ``torch.sum``, and both
+    traced."""
     rng = np.random.default_rng(SEED + 16)
     m, c, r = BLOCK_OUT, N_CHANNELS, 4
-    sr, si = (torch.from_numpy((rng.standard_normal((m, c)) * 0.7).astype(
-        np.float32)).cuda() for _ in range(2))
-    st = torch.from_numpy(strobe_plane(m, c, 8, rng)).cuda()
+    max_abs = 0.0
+    for label, cc, offset, path in (
+            ("C 1024", c, 0, "vector"), ("C 1022", c - 2, 0, "scalar"),
+            ("C 1024 one column into the buffers", c, 1, "scalar")):
+        sr, si, st = squeeze_planes(torch, rng, m, cc, offset)
+        for rr in (2, 4, 8):
+            got = sqm.squeeze_kernel(sr, si, st, rr)
+            want = sqm.squeeze_kernel_reference(sr, si, st, rr)
+            torch.cuda.synchronize()
+            check(sqm.squeeze_kernel.path == path, (label, rr))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  ("squeeze", label, rr))
+            max_abs = max(max_abs, max(float((g - w).abs().max())
+                                       for g, w in zip(got, want)))
+        print(f"phase2 squeeze, {label}: {path} path, bit-equal to the "
+              f"plain version at R 2, 4 and 8", flush=True)
+    sr, si, st = squeeze_planes(torch, rng, m, c, 0)
     got = sqm.squeeze_kernel(sr, si, st, r)
-    want = sqm.squeeze_kernel_reference(sr, si, st, r)
-    torch.cuda.synchronize()
-    check(all(torch.equal(g, w) for g, w in zip(got, want)), "squeeze")
-    max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
     check(float(got[2].max()) <= 2.0 and float(got[2].sum())
           == float(st.sum()), "strobe count")
     pre = torch.stack([sr * st, si * st, st]).view(3, m // r, r, c)
@@ -1897,15 +1959,17 @@ def phase2_squeeze(sqm, torch) -> dict:
                        10)
     bms, by, ops, nbytes = squeeze_bound(m, c, r)
     stages = profile_stages(lambda: sqm.squeeze_kernel(sr, si, st, r),
-                            ("::squeeze(",))
-    print(f"phase2 squeeze (3 x [8192, 1024] f32, R 4, sps 8): bit-equal to "
-          f"the plain version, max abs err {max_abs}; medians of 21 turns: "
-          f"kernel {ms:.4f} ms, torch.sum over the [M/R, R, C] view of "
-          f"the pre-multiplied planes (library yardstick, reduction only) "
-          f"{library_ms:.4f} ms; plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-          f"by {by} "
-          f"({nbytes / 2 ** 20:.2f} MiB); device time per launch from the "
-          f"trace {stages}", flush=True)
+                            ("::squeeze<",), reps=21)
+    lib_stages = profile_stages(lambda: torch.sum(pre, 2),
+                                ("reduce_kernel",), reps=21)
+    print(f"phase2 squeeze timing (3 x [8192, 1024] f32, R 4, sps 8, "
+          f"{sqm.squeeze_kernel.path} path): max abs err {max_abs}; medians "
+          f"of 21 turns: kernel {ms:.4f} ms, torch.sum over the [M/R, R, C] "
+          f"view of the pre-multiplied planes (library yardstick, "
+          f"reduction only) {library_ms:.4f} ms; plain {plain_ms:.4f} ms, "
+          f"bound {bms:.4f} ms by {by} ({nbytes / 2 ** 20:.2f} MiB); device "
+          f"time per launch from the trace: kernel {stages}, torch.sum "
+          f"{lib_stages}", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 

@@ -7,6 +7,14 @@ in ``csrc/`` is newer than it.  All stale sources compile in parallel,
 one ``nvcc`` each.  The libraries are bound with ``ctypes``: every
 pointer and the stream are ``c_void_p``, and each entry point returns
 ``cudaGetLastError()`` for the wrapper to check.
+
+The lean call (:func:`launch`, :func:`checked_once`) keeps a wrapper's
+host work off the launch path: pointers go as the plain ints of
+``data_ptr()`` (the bound ``argtypes`` convert them), the stream handle
+comes from ``torch._C._cuda_getCurrentRawStream`` with no ``Stream``
+object, the device is made current only when the tensors lie on another
+one, and the shape checks run once per distinct argument signature.
+The squeeze and the audio bank call through it.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
@@ -41,6 +51,11 @@ SIGNATURES = {
             + [_I] * 10             # M C K mt ka ka2 da ssb hang seed_tile
             + [_F] * 3              # quad_gain beta one_m_beta
             + [_P]),                # stream
+        "sd_audio_hang_chain": (
+            [_P] * 4                # rr ri prm agcs
+            + [_I] * 2              # C steps
+            + [_P, _P]),            # out stream
+        "sd_audio_hang_ops_check": [_P, _P],    # counts stream
     },
     "compact": {
         "sd_compact": (
@@ -127,7 +142,7 @@ SIGNATURES = {
     "symsqueeze": {
         "sd_symsqueeze": (
             [_P] * 6                # sr si st out_r out_i out_s
-            + [_I] * 3              # M C R
+            + [_I] * 4              # M C R vec
             + [_P]),                # stream
     },
     "tvline": {
@@ -219,3 +234,25 @@ def load_library(name: str = "channelizer2") -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def launch(fn, dev: torch.device, *args) -> int:
+    """Call the entry point ``fn`` with ``args`` and the handle of
+    ``dev``'s current stream last, with ``dev`` current: a
+    ``torch.cuda.device`` context is entered only when another device is
+    current.  Returns ``fn``'s error code."""
+    cur = torch.cuda.current_device()
+    if dev.index is None or dev.index == cur:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(cur))
+    with torch.cuda.device(dev.index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+def checked_once(memo: set, key, check) -> None:
+    """Run ``check()``, which raises ``ValueError`` on arguments a kernel
+    does not take, the first time ``key`` is seen; ``key`` enters
+    ``memo`` only once ``check()`` has passed.  ``key`` must hold every
+    property ``check`` reads (shapes, strides, dtypes, devices, sizes)."""
+    if key not in memo:
+        check()
+        memo.add(key)

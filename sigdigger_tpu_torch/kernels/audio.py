@@ -40,7 +40,6 @@ state carried from a reference bank work unchanged.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,6 +47,7 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.filters import fir_lowpass
+from sigdigger_tpu_torch.kernels._build import launch, load_library
 from sigdigger_tpu_torch.kernels.ops import atan2
 
 _TWO_PI = 2.0 * np.pi
@@ -226,10 +226,59 @@ def _slot_fir(a: torch.Tensor, tail: torch.Tensor, taps2: torch.Tensor):
     return g, ext[ext.shape[0] - k1:]
 
 
+# the hang AGC's rows of the parameter rows: the fast-rise, fast-fall,
+# slow-rise and slow-fall EMA weights and the hang time
+AGC_ROWS = tuple(PARAM_ROWS.index(n) for n in (
+    "agc_fr", "agc_ff", "agc_sr", "agc_sf", "agc_hang"))
+
+
+def magnitude(rr: torch.Tensor, ri: torch.Tensor) -> torch.Tensor:
+    """``|y|`` of the rotated planes, the hang follower's input: one
+    rounding per multiply, add and square root, the square root the
+    correctly rounded (IEEE) one.  It is taken in float64 and rounded
+    once to float32, which gives exactly that: a backend's own float32
+    square root may not (PyTorch's CPU one, through a vector math
+    library, is off by an ulp on about a sixth of inputs)."""
+    return torch.sqrt((rr * rr + ri * ri).double()).float()
+
+
+def hang_agc_reference(mag: torch.Tensor, params: torch.Tensor,
+                       agcs: torch.Tensor, seed_row: int) -> tuple:
+    """Plain version of the su_agc hang follower over ``mag [M, C]``:
+    (gain ``[M, C]``, carry ``[8, C]``: rows 0-2 fast, slow and the hang
+    count, rows 3-7 zero).  The walk starts from zero and takes the
+    carried ``agcs`` at row ``seed_row`` (from the start when it is 0);
+    ``params`` are the bank's ``[len(PARAM_ROWS), C]`` rows.  Only fast,
+    slow and the hang count feed back, so the walk yields the level
+    ``max(fast, slow)`` of every sample and the gain ``min(1 / max(level,
+    1e-6), 1e4)`` follows from the levels: the CUDA kernel's walker warp
+    steps exactly the walk and its helper warps take the gain."""
+    fr, ff, sr, sf, hang_t = (params[i] for i in AGC_ROWS)
+    zero = torch.zeros_like(fr)
+    fast, slow, hng = ((agcs[0], agcs[1], agcs[2]) if seed_row == 0
+                       else (zero, zero, zero))
+    level = torch.empty_like(mag)
+    for i in range(mag.shape[0]):
+        if seed_row and i == seed_row:
+            fast, slow, hng = agcs[0], agcs[1], agcs[2]
+        mv = mag[i]
+        fast = fast + torch.where(mv > fast, fr, ff) * (mv - fast)
+        rising = mv > slow
+        slow_up = slow + sr * (mv - slow)
+        slow_dn = torch.where(hng >= hang_t, slow + sf * (mv - slow), slow)
+        slow = torch.where(rising, slow_up, slow_dn)
+        hng = torch.where(rising, zero, hng + 1.0)
+        level[i] = torch.maximum(fast, slow)
+    agcs_out = torch.zeros_like(agcs)
+    agcs_out[0], agcs_out[1], agcs_out[2] = fast, slow, hng
+    gain = torch.clamp(1.0 / torch.clamp(level, min=1e-6), max=1e4)
+    return gain, agcs_out
+
+
 def audio_kernel_reference(xr: torch.Tensor, xi: torch.Tensor,
                            consts: dict[str, torch.Tensor], carries: tuple,
                            phi0: torch.Tensor, phs0: torch.Tensor,
-                           p: AudioParams):
+                           p: AudioParams, scratch: dict | None = None):
     """Plain PyTorch version of ``_audio_kernel`` for a whole block.
 
     xr, xi: ``[M, K]`` float32/int16/int8 window planes; consts: h_re,
@@ -238,7 +287,9 @@ def audio_kernel_reference(xr: torch.Tensor, xi: torch.Tensor,
     ftail2 ``[Ka-1, C]``, atail1, atail2 ``[Ka2-1, C]``, sq, dc ``[1,
     C]``, agcs ``[8, C]``; phi0, phs0 ``[M/mt, C]``.  Returns (audio
     ``[M/Da, C]``, last_re, last_im, ftail1, ftail2, atail1, atail2, sq,
-    dc, power, agcs), the reference's output order."""
+    dc, power, agcs), the reference's output order.  A ``scratch`` dict
+    receives the rotated planes ``rr``, ``ri`` and the hang ``gain``
+    (None without the hang AGC)."""
     prev_re, prev_im, ftail1, ftail2, atail1, atail2, sq, dc, agcs = carries
     m, c = xr.shape[0], consts["h_re"].shape[1]
     mt, st0 = p.mt, p.seed_tile
@@ -272,35 +323,18 @@ def audio_kernel_reference(xr: torch.Tensor, xi: torch.Tensor,
     power = (acc * (1.0 / (m_tiles - st0)))[None]
 
     agc_w = row["agc_w"]
-    agcs_out = torch.zeros_like(agcs)
     if p.hang:
-        mag = torch.sqrt(rr * rr + ri * ri)
-        r = [row[n][0] for n in ("agc_fr", "agc_ff", "agc_sr", "agc_sf",
-                                 "agc_hang")]
-        zero = torch.zeros_like(r[0])
-        fast, slow, hng = ((agcs[0], agcs[1], agcs[2]) if st0 == 0
-                           else (zero, zero, zero))
-        gain = torch.empty_like(mag)
-        for i in range(m):
-            if st0 and i == st0 * mt:
-                fast, slow, hng = agcs[0], agcs[1], agcs[2]
-            mv = mag[i]
-            fast = fast + torch.where(mv > fast, r[0], r[1]) * (mv - fast)
-            rising = mv > slow
-            slow_up = slow + r[2] * (mv - slow)
-            slow_dn = torch.where(hng >= r[4], slow + r[3] * (mv - slow),
-                                  slow)
-            slow = torch.where(rising, slow_up, slow_dn)
-            hng = torch.where(rising, zero, hng + 1.0)
-            level = torch.maximum(fast, slow)
-            gain[i] = torch.clamp(1.0 / torch.clamp(level, min=1e-6),
-                                  max=1e4)
-        agcs_out[0], agcs_out[1], agcs_out[2] = fast, slow, hng
+        gain, agcs_out = hang_agc_reference(magnitude(rr, ri),
+                                            consts["params"], agcs, st0 * mt)
         g = agc_w * gain + (1.0 - agc_w)
     else:
+        agcs_out = torch.zeros_like(agcs)
+        gain = None
         g_tile = agc_w[0] * torch.rsqrt(torch.clamp(sq_t, min=1e-9)) \
             + (1.0 - agc_w[0])
         g = g_tile.repeat_interleave(mt, dim=0)
+    if scratch is not None:
+        scratch.update(rr=rr, ri=ri, gain=gain)
 
     # demodulator arms, one-hot mixed into the FIR plane(s)
     pr = torch.cat([prev_re, rr[:-1]])
@@ -347,13 +381,12 @@ _IN_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 MAX_KA = 256                 # decimating FIR taps the kernel stages
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
-def _audio_cuda(xr, xi, consts, carries, phi0, phs0, p: AudioParams):
-    from sigdigger_tpu_torch.kernels._build import load_library
-
+def _audio_cuda(xr, xi, consts, carries, phi0, phs0, p: AudioParams,
+                scratch: dict | None = None):
     dev = xr.device
     m, k = xr.shape if xr.dim() == 2 else (0, 0)
     for name, t in (("xr", xr), ("xi", xi)):
@@ -405,35 +438,102 @@ def _audio_cuda(xr, xi, consts, carries, phi0, phs0, p: AudioParams):
     a2 = new(ma, c) if p.ssb else None
     # one power partial per row block of up to 64 rows inside a tile
     pow_part, sq_t = new(m_tiles * -(-p.mt // 64), c), new(m_tiles, c)
-    with torch.cuda.device(dev):
-        err = lib.sd_audio(
-            _ptr(xr), _ptr(xi), _IN_KIND[xr.dtype], p.in_gain,
-            _ptr(consts["h_re"]), _ptr(consts["h_im"]),
-            _ptr(consts["params"]), _ptr(consts["taps2"]),
-            _ptr(consts["ataps"]), _ptr(phi0), _ptr(phs0),
-            *(_ptr(t) for t in carries), *(_ptr(t) for t in outs),
-            _ptr(rot_re), _ptr(rot_im), _ptr(pow_part), _ptr(sq_t),
-            _ptr(gain), _ptr(f1), _ptr(f2), _ptr(a1), _ptr(a2),
-            m, c, k, p.mt, p.ka, p.ka2, p.da, int(p.ssb), int(p.hang),
-            p.seed_tile, p.quad_gain, p.beta, p.one_m_beta,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    err = launch(
+        lib.sd_audio, dev,
+        _ptr(xr), _ptr(xi), _IN_KIND[xr.dtype], p.in_gain,
+        _ptr(consts["h_re"]), _ptr(consts["h_im"]),
+        _ptr(consts["params"]), _ptr(consts["taps2"]),
+        _ptr(consts["ataps"]), _ptr(phi0), _ptr(phs0),
+        *(_ptr(t) for t in carries), *(_ptr(t) for t in outs),
+        _ptr(rot_re), _ptr(rot_im), _ptr(pow_part), _ptr(sq_t),
+        _ptr(gain), _ptr(f1), _ptr(f2), _ptr(a1), _ptr(a2),
+        m, c, k, p.mt, p.ka, p.ka2, p.da, int(p.ssb), int(p.hang),
+        p.seed_tile, p.quad_gain, p.beta, p.one_m_beta)
     if err != 0:
         raise RuntimeError(f"sd_audio launch failed: CUDA error {err}")
     audio_kernel.launches += 1
+    if scratch is not None:
+        scratch.update(rr=rot_re, ri=rot_im, gain=gain)
     return outs
+
+
+def audio_hang_step_cycles(rr: torch.Tensor, ri: torch.Tensor,
+                           params: torch.Tensor, agcs: torch.Tensor,
+                           steps: int = 8192) -> dict:
+    """Cycles one dependent step of the CUDA kernel's hang walker takes
+    alone (``cycles``), timed with ``clock64()`` on the walker's lanes
+    over slots 0..15 of the bank and ``steps`` steps (rounded down to a
+    multiple of 64; magnitudes of the first 64 rows of ``rr``, ``ri``
+    from shared memory, walked by the walker's own code), and the SM
+    clock in GHz (``ghz``): what sets the walk's latency floor
+    (:func:`hang_floor_ms`).  A diagnostic on CUDA tensors; it launches
+    no ``audio_kernel``."""
+    c = params.shape[1]
+    for name, t, shape in (("rr", rr, None), ("ri", ri, None),
+                           ("params", params, (len(PARAM_ROWS), c)),
+                           ("agcs", agcs, (8, c))):
+        if (t.device.type != "cuda" or t.dtype != torch.float32
+                or not t.is_contiguous() or t.dim() != 2
+                or (shape is not None and tuple(t.shape) != shape)
+                or (shape is None and (t.shape[0] < 64 or t.shape[1] != c))):
+            raise ValueError(
+                f"audio_hang_step_cycles {name}: want contiguous CUDA "
+                f"float32 {shape or ('>= 64', c)}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if c < 16 or steps < 64:
+        raise ValueError(f"audio_hang_step_cycles needs C >= 16 and steps "
+                         f">= 64, got C={c}, steps={steps}")
+    out = torch.zeros(2 + 32, device=rr.device)
+    err = launch(load_library("audio").sd_audio_hang_chain, rr.device,
+                 _ptr(rr), _ptr(ri), _ptr(params), _ptr(agcs), c,
+                 int(steps), _ptr(out))
+    if err != 0:
+        raise RuntimeError(f"sd_audio_hang_chain failed: CUDA error {err}")
+    cycles, ghz = out[:2].tolist()
+    return {"cycles": cycles, "ghz": ghz}
+
+
+def hang_ops_mismatches(device: str | torch.device = "cuda") -> dict:
+    """The CUDA hang walk's branch-free square root and reciprocal (the
+    helper warps' magnitudes and gains) against the IEEE intrinsics
+    ``__fsqrt_rn`` and ``__fdiv_rn(1, x)`` on every float32 of the
+    ranges where the walk takes them: ``sqrt_mismatches`` and
+    ``rcp_mismatches`` (both 0 when the walk is bit-equal to the plain
+    version on every input), and the values checked.  A check on the
+    card; it launches no ``audio_kernel``."""
+    dev = torch.device(device)
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    err = launch(load_library("audio").sd_audio_hang_ops_check, dev,
+                 counts.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"sd_audio_hang_ops_check failed: CUDA error "
+                           f"{err}")
+    bad_s, bad_r, n_s, n_r = counts.tolist()
+    return {"sqrt_mismatches": bad_s, "rcp_mismatches": bad_r,
+            "sqrt_checked": n_s, "rcp_checked": n_r}
+
+
+def hang_floor_ms(cycles: dict, m: int) -> float:
+    """The hang walk's latency floor for a block of ``m`` rows: ``m``
+    dependent steps at the cycles and clock of ``cycles``
+    (:func:`audio_hang_step_cycles`)."""
+    return cycles["cycles"] * m / (cycles["ghz"] * 1e9) * 1e3
 
 
 def audio_kernel(xr: torch.Tensor, xi: torch.Tensor,
                  consts: dict[str, torch.Tensor], carries: tuple,
-                 phi0: torch.Tensor, phs0: torch.Tensor, p: AudioParams):
+                 phi0: torch.Tensor, phs0: torch.Tensor, p: AudioParams,
+                 scratch: dict | None = None):
     """One audio-bank block: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns what :func:`audio_kernel_reference`
-    returns.  ``audio_kernel.launches`` counts the CUDA launches."""
+    returns; a ``scratch`` dict receives the rotated planes and the hang
+    gain (``rr``, ``ri``, ``gain``).  ``audio_kernel.launches`` counts
+    the CUDA launches."""
     if xr.device.type == "cuda":
-        return _audio_cuda(xr, xi, consts, carries, phi0, phs0, p)
+        return _audio_cuda(xr, xi, consts, carries, phi0, phs0, p, scratch)
     if xr.device.type == "cpu":
         return audio_kernel_reference(xr, xi, consts, carries, phi0, phs0,
-                                      p)
+                                      p, scratch)
     raise ValueError(f"audio_kernel runs on cuda or cpu, not {xr.device}")
 
 

@@ -27,12 +27,16 @@ reference's ``channel_tile``, ``m_tile`` and ``chunk``.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.kernels._build import (
+    checked_once,
+    launch,
+    load_library,
+)
 
 
 @dataclass(frozen=True)
@@ -64,9 +68,11 @@ def squeeze_kernel_reference(sr: torch.Tensor, si: torch.Tensor,
     return fold(sr * st), fold(si * st), fold(st)
 
 
-def _squeeze_cuda(sr, si, st, group: int) -> tuple:
-    from sigdigger_tpu_torch.kernels._build import load_library
+# argument signatures whose shapes _squeeze_cuda has checked
+_CHECKED: set = set()
 
+
+def _check(sr, si, st, group: int) -> None:
     dev = st.device
     shape = tuple(st.shape)
     for name, t in (("sr", sr), ("si", si), ("st", st)):
@@ -78,27 +84,44 @@ def _squeeze_cuda(sr, si, st, group: int) -> tuple:
                 f"like st on {dev}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
     m, c = shape
-    if group < 2 or m % group:
-        raise ValueError(f"squeeze_kernel needs group >= 2 dividing M, got "
-                         f"M={m}, group={group}")
-    lib = load_library("symsqueeze")
-    outs = tuple(torch.empty((m // group, c), device=dev) for _ in range(3))
-    with torch.cuda.device(dev):
-        err = lib.sd_symsqueeze(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (sr, si, st, *outs)),
-            m, c, group,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if group < 2 or m % group or (m // group) * c >= 2 ** 31:
+        raise ValueError(f"squeeze_kernel needs group >= 2 dividing M and "
+                         f"fewer than 2^31 outputs a plane, got M={m}, "
+                         f"C={c}, group={group}")
+
+
+def _squeeze_cuda(sr, si, st, group: int) -> tuple:
+    # the key holds everything _check reads: shapes and strides (so
+    # contiguity), dtypes, devices and the group
+    key = (sr.shape, si.shape, st.shape, sr.stride(), si.stride(),
+           st.stride(), sr.dtype, si.dtype, st.dtype, sr.device, si.device,
+           st.device, group)
+    checked_once(_CHECKED, key, lambda: _check(sr, si, st, group))
+    m, c = st.shape
+    # one allocation for the three planes (each a contiguous view); a new
+    # one every call, since the threaded drain holds earlier blocks'
+    out = torch.empty((3, m // group, c), device=st.device)
+    ptrs = (sr.data_ptr(), si.data_ptr(), st.data_ptr())
+    # the float4 path: C a multiple of 4 (so the planes of `out` stay
+    # 16-byte aligned) and the inputs' base pointers 16-byte aligned
+    vec = int(c % 4 == 0 and (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0)
+    o, plane = out.data_ptr(), (m // group) * c * 4
+    err = launch(load_library("symsqueeze").sd_symsqueeze, st.device,
+                 *ptrs, o, o + plane, o + 2 * plane, m, c, group, vec)
     if err != 0:
         raise RuntimeError(f"sd_symsqueeze launch failed: CUDA error {err}")
     squeeze_kernel.launches += 1
-    return outs
+    squeeze_kernel.path = "vector" if vec else "scalar"
+    return out.unbind(0)
 
 
 def squeeze_kernel(sr: torch.Tensor, si: torch.Tensor, st: torch.Tensor,
                    group: int) -> tuple:
     """One squeeze: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors.  ``squeeze_kernel.launches`` counts the CUDA
-    launches."""
+    launches; ``squeeze_kernel.path`` says which path the last one took:
+    ``"vector"`` (float4, C % 4 == 0 and 16-byte aligned inputs) or
+    ``"scalar"``."""
     if st.device.type == "cuda":
         return _squeeze_cuda(sr, si, st, group)
     if st.device.type == "cpu":
@@ -107,6 +130,7 @@ def squeeze_kernel(sr: torch.Tensor, si: torch.Tensor, st: torch.Tensor,
 
 
 squeeze_kernel.launches = 0
+squeeze_kernel.path = None
 
 
 class SymbolSqueeze:

@@ -320,3 +320,99 @@ def test_tone_recovered_in_every_audio_mode():
         spec = np.abs(np.fft.rfft(a * np.hanning(len(a))))
         f_pk = (np.argmax(spec[2:]) + 2) * rate / len(a)
         assert abs(f_pk - tone) <= 2 * rate / len(a), (col, f_pk, tone)
+
+
+def _inline_hang(mag, params, agcs, seed_row: int):
+    """The hang recurrence as audio_kernel_reference wrote it inline from
+    the magnitude before it was split into the level walk and the gain:
+    the oracle of the split form."""
+    row = dict(zip(audio.PARAM_ROWS, params[:, None, :]))
+    r = [row[n][0] for n in ("agc_fr", "agc_ff", "agc_sr", "agc_sf",
+                             "agc_hang")]
+    zero = torch.zeros_like(r[0])
+    fast, slow, hng = ((agcs[0], agcs[1], agcs[2]) if seed_row == 0
+                       else (zero, zero, zero))
+    gain = torch.empty_like(mag)
+    for i in range(mag.shape[0]):
+        if seed_row and i == seed_row:
+            fast, slow, hng = agcs[0], agcs[1], agcs[2]
+        mv = mag[i]
+        fast = fast + torch.where(mv > fast, r[0], r[1]) * (mv - fast)
+        rising = mv > slow
+        slow_up = slow + r[2] * (mv - slow)
+        slow_dn = torch.where(hng >= r[4], slow + r[3] * (mv - slow),
+                              slow)
+        slow = torch.where(rising, slow_up, slow_dn)
+        hng = torch.where(rising, zero, hng + 1.0)
+        level = torch.maximum(fast, slow)
+        gain[i] = torch.clamp(1.0 / torch.clamp(level, min=1e-6), max=1e4)
+    agcs_out = torch.zeros_like(agcs)
+    agcs_out[0], agcs_out[1], agcs_out[2] = fast, slow, hng
+    return gain, agcs_out
+
+
+AGC_CASES = [(seed_tile, hang) for seed_tile in (0, 1)
+             for hang in (True, False)]
+
+
+@pytest.mark.parametrize("seed_tile,hang", AGC_CASES)
+def test_hang_split_form_equals_inline_recurrence(seed_tile, hang):
+    """The plain version's hang AGC, split into magnitude, level walk and
+    gain (the CUDA kernel's helper/walker split), equals the former
+    inline recurrence bit for bit on the bank's own rotated planes, with
+    carried follower state entering at ``seed_tile``; its magnitude is
+    the correctly rounded float32 square root (numpy's, IEEE) of the
+    rounded sum of squares; without the hang AGC the bank emits no gain
+    and a zero carry."""
+    ours = _pair(hang_agc=hang, seed_tile=seed_tile, block_out=768)[1]
+    n = ours.cfg.block_in
+    x = _signal(2 * n, seed=5 + seed_tile)
+    hist = np.zeros(ours.cfg.taps - 1, np.complex64)
+    for b in range(2):
+        xw, hist = _frames(ours, x[b * n:(b + 1) * n], "f32", hist)
+        carries = tuple(torch.as_tensor(getattr(ours, s)) for s in STATE)
+        agcs_in = carries[-1]
+        phi0 = torch.from_numpy(ours._phase_tiles(
+            ours._phi, ours._theta64, ours.cfg.m_tile))
+        phs0 = torch.from_numpy(ours._phase_tiles(
+            ours._phs_a, ours._omega_a64,
+            ours.cfg.m_tile // ours.cfg.audio_decim))
+        scratch = {}
+        out = audio.audio_kernel(*(torch.from_numpy(a) for a in xw),
+                                 ours.consts, carries, phi0, phs0,
+                                 ours.params, scratch)
+        rows = seed_tile * ours.cfg.m_tile
+        params = ours.consts["params"]
+        rr, ri = scratch["rr"], scratch["ri"]
+        mag = audio.magnitude(rr, ri)
+        np.testing.assert_array_equal(
+            mag.numpy(), np.sqrt((rr * rr + ri * ri).numpy()))
+        want_gain, want_agcs = _inline_hang(mag, params, agcs_in, rows)
+        got_gain, got_agcs = audio.hang_agc_reference(mag, params, agcs_in,
+                                                      rows)
+        assert torch.equal(got_gain, want_gain)
+        assert torch.equal(got_agcs, want_agcs)
+        if hang:
+            assert torch.equal(scratch["gain"], want_gain)
+            assert torch.equal(out[10], want_agcs)
+            # the second block starts from a carried, nonzero state
+            assert b == 0 or bool((agcs_in[:2] > 0).any())
+        else:
+            assert scratch["gain"] is None
+            assert not out[10].any()
+        ours.feed_frames(*xw)
+
+
+@pytest.mark.parametrize("seed_tile,hang", AGC_CASES)
+def test_bank_matches_reference_by_agc_and_seed_tile(seed_tile, hang):
+    """The bank against the reference's ``AudioBank(interpret=True)``
+    with the hang AGC on and off, seeds entering at tile 0 and 1, over 3
+    chained blocks, at the module's tolerances."""
+    ref, ours = _pair(hang_agc=hang, seed_tile=seed_tile, block_out=768)
+    n = ours.cfg.block_in
+    x = _signal(3 * n, seed=11 + 2 * seed_tile + hang)
+    hist = np.zeros(ours.cfg.taps - 1, np.complex64)
+    for b in range(3):
+        xw, hist = _frames(ours, x[b * n:(b + 1) * n], "f32", hist)
+        assert_bank_close(ours, ref, _feed(ours, xw, "f32"),
+                          _feed(ref, xw, "f32"))

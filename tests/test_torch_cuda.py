@@ -2,8 +2,8 @@
 on the card: the FM channelizer v2 (fused table form, unfused table and
 cos/sin forms), the v1 channelizer, the standalone PSD, the PSD read
 from the window buffer (with and without the device EMA), the raw bank,
-the recovery bank, the audio bank, the column compactor, the symbol
-squeeze, the drain packer, the TV line resampler and the CMA bank, the
+the recovery bank, the audio bank (and its hang walk bit for bit),
+the column compactor, the symbol squeeze, the drain packer, the TV line resampler and the CMA bank, the
 analyzer session through them, on the compactor drain and on the packed
 one, and ``cli tv`` on the line resampler.  Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
@@ -786,23 +786,121 @@ def test_packed_analyzer_session_runs_through_the_kernels(cuda):
 
 
 def test_squeeze_kernel_matches_plain_version(cuda):
+    """Bit-equal at R 2, 4 and 8 on the float4 path (C 1024), the scalar
+    path for C % 4 != 0 (C 1022) and for inputs that are not 16-byte
+    aligned (each plane a view starting one element into its buffer)."""
     from sigdigger_tpu_torch.kernels import symsqueeze
 
     rng = np.random.default_rng(21)
-    m, c = 8192, 1024
-    sr, si = (torch.from_numpy(rng.standard_normal((m, c)).astype(
-        np.float32)).to(cuda) for _ in range(2))
-    st = np.zeros((m, c), np.float32)
-    for col in range(c):
-        st[int(rng.integers(0, 8))::8, col] = 1.0
-    st = torch.from_numpy(st).to(cuda)
-    for r in (2, 4):
-        got = symsqueeze.squeeze_kernel(sr, si, st, r)
-        want = symsqueeze.squeeze_kernel_reference(sr, si, st, r)
-        torch.cuda.synchronize()
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    m = 8192
+    for c, offset, path in ((1024, 0, "vector"), (1022, 0, "scalar"),
+                            (1024, 1, "scalar")):
+        bufs = [torch.from_numpy(rng.standard_normal(m * c + offset).astype(
+            np.float32)).to(cuda) for _ in range(2)]
+        st = np.zeros((m, c), np.float32)
+        for col in range(c):
+            st[int(rng.integers(0, 8))::8, col] = 1.0
+        bufs.append(torch.cat([torch.zeros(offset), torch.from_numpy(
+            st.ravel())]).to(cuda))
+        sr, si, st = (b[offset:].view(m, c) for b in bufs)
+        for r in (2, 4, 8):
+            got = symsqueeze.squeeze_kernel(sr, si, st, r)
+            want = symsqueeze.squeeze_kernel_reference(sr, si, st, r)
+            torch.cuda.synchronize()
+            assert symsqueeze.squeeze_kernel.path == path, (c, offset)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert all(g.is_contiguous() and g.shape == (m // r, c)
+                       for g in got)
     with pytest.raises(ValueError):        # M not a multiple of R
         symsqueeze.squeeze_kernel(sr[:10], si[:10], st[:10], 4)
+
+
+# (seed_tile, slots, m_tile, block_out): the seed at a chunk boundary;
+# inside a 64-row chunk (row 480); inside a chunk with a short last chunk
+# (1200 rows), 250 slots (C % 4 != 0: 4-byte copies; a ragged last block
+# of 26 slots)
+HANG_CASES = {"seed0": (0, 256, 512, 2048), "seed1": (1, 256, 480, 1920),
+              "seed1_ragged": (1, 250, 400, 1200)}
+
+
+@pytest.mark.parametrize("case", list(HANG_CASES))
+def test_hang_walk_is_bit_equal_to_plain_recurrence(cuda, case):
+    """The kernel's hang walk (gain plane and carry rows) equals the plain
+    recurrence, run on the CPU, fed the kernel's own rotated planes, bit
+    for bit, over 2 chained blocks."""
+    from sigdigger_tpu_torch.kernels import audio
+
+    seed_tile, c, mt, m = HANG_CASES[case]
+    bank = audio.AudioBank(audio.AudioBankConfig(
+        sample_rate=FS, n_channels=c, decimation=64, audio_decim=16,
+        block_out=m, m_tile=mt, hang_agc=True, seed_tile=seed_tile),
+        device=cuda)
+    f0s = np.linspace(-900e3, 900e3, c)
+    for i in range(c):
+        bank.configure_channel(i, f0=f0s[i], bw=12e3, mode=1 + i % 5,
+                               cutoff=3e3, volume=1.0, agc=True,
+                               agc_ts=20.0 if i % 5 == 0 else 0.0)
+    n = bank.cfg.block_in
+    x = _signal(f0s, 2 * n, seed=7 + seed_tile)
+    for b in range(2):
+        agcs_in = torch.as_tensor(bank._agcs).to(cuda)
+        scratch = {}
+        xw = bank.frame(x[b * n:(b + 1) * n])
+        carries = tuple(torch.as_tensor(getattr(bank, s)).to(cuda)
+                        for s in audio.STATE)
+        phi0 = torch.from_numpy(bank._phase_tiles(
+            bank._phi, bank._theta64, mt)).to(cuda)
+        phs0 = torch.from_numpy(bank._phase_tiles(
+            bank._phs_a, bank._omega_a64, mt // 16)).to(cuda)
+        out = audio.audio_kernel(*(torch.from_numpy(a).to(cuda) for a in xw),
+                                 bank.consts, carries, phi0, phs0,
+                                 bank.params, scratch)
+        torch.cuda.synchronize()
+        gain, agcs = audio.hang_agc_reference(
+            audio.magnitude(scratch["rr"].cpu(), scratch["ri"].cpu()),
+            bank.consts["params"].cpu(), agcs_in.cpu(), seed_tile * mt)
+        assert torch.equal(scratch["gain"].cpu(), gain)
+        assert torch.equal(out[10].cpu(), agcs)
+        bank._agcs = out[10]
+        bank._phi = np.mod(bank._phi + bank._theta64 * m, 2 * np.pi)
+        bank._phs_a = np.mod(bank._phs_a + bank._omega_a64 * (m // 16),
+                             2 * np.pi)
+    assert bool((bank._agcs[:2] > 0).any())
+
+
+def test_hang_walk_fast_ops_are_ieee(cuda):
+    """The walk's branch-free square root and reciprocal equal the IEEE
+    intrinsics on every float32 of the ranges where the walk takes
+    them (it falls back to the intrinsics outside them)."""
+    from sigdigger_tpu_torch.kernels import audio
+
+    got = audio.hang_ops_mismatches(cuda)
+    assert got["sqrt_mismatches"] == 0 and got["rcp_mismatches"] == 0, got
+    # every positive float from 2^-101 up, and from 1e-6 to 2^121
+    assert got["sqrt_checked"] == 0x7f7fffff - 0x0d000000 + 1
+    assert got["rcp_checked"] > 1_000_000_000
+
+
+def test_audio_hang_chain_cycles_and_floor(cuda):
+    """The chain timer reads a positive cycle count a step and a clock
+    near the card's; the floor follows from them."""
+    from sigdigger_tpu_torch.kernels import audio
+
+    bank = audio.AudioBank(audio.AudioBankConfig(
+        sample_rate=FS, n_channels=64, decimation=64, block_out=512,
+        m_tile=512, hang_agc=True), device=cuda)
+    rng = np.random.default_rng(3)
+    rr, ri = (torch.from_numpy(rng.standard_normal((64, 64)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    agcs = torch.zeros((8, 64), device=cuda)
+    cyc = audio.audio_hang_step_cycles(rr, ri, bank.consts["params"], agcs,
+                                       steps=4096)
+    assert 2 < cyc["cycles"] < 1000 and 0.5 < cyc["ghz"] < 3.0
+    assert audio.hang_floor_ms(cyc, 8192) == pytest.approx(
+        cyc["cycles"] * 8192 / (cyc["ghz"] * 1e9) * 1e3)
+    with pytest.raises(ValueError):        # fewer than 64 rows
+        audio.audio_hang_step_cycles(rr[:32], ri[:32],
+                                     bank.consts["params"], agcs)
 
 
 @pytest.mark.parametrize("layout", ["bench", "grouped"])

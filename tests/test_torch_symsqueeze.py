@@ -41,7 +41,8 @@ def _planes(m: int, c: int, sps: int, seed: int):
 
 
 @pytest.mark.parametrize("m,c,r,sps", [(256, 128, 4, 5), (512, 256, 2, 3),
-                                       (1024, 128, 4, 8), (96, 32, 3, 4)])
+                                       (1024, 128, 4, 8), (96, 32, 3, 4),
+                                       (1024, 128, 8, 9), (256, 30, 4, 5)])
 def test_matches_reference(m, c, r, sps):
     sr, si, st = _planes(m, c, sps, seed=m + r)
     # channel_tile is the reference's TPU tile; the port has none
