@@ -2,22 +2,35 @@
 """Smoke run of the PyTorch/CUDA port (sigdigger_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pairs PARENT_TREE N
+
+The second form runs only the end-to-end phases (3, 3b, 3c, 3f, 3g) of
+another checkout (its own chip_smoke.py's phase functions, e.g. the
+parent commit unpacked with ``git archive``) and of this one in turns, N
+pairs in fresh processes on the same card, and prints each metric's
+runs, medians and the pairs the change won.
 
 Phases, each fatal on failure (any exception exits nonzero), each
 printing the seconds it took:
 
 1. device and build: the card's name and power limit; every CUDA
    kernel of the port built with nvcc from ``kernels/csrc`` (one nvcc
-   per source, all at once).
+   per source, all at once); the HGMMA (tensor-core) instructions in
+   the SASS of each tensor-core stage (``raw_rot_tc``,
+   ``chan_rot_disc_tc``), which must all hold some.
 2. each kernel against its plain version on the card, with CUDA-event
-   times of the kernel, its plain version and a library yardstick:
-   the fused FM channelizer (``kernel2``) over 3 chained blocks at the
-   full bench width, f32 in / f32 audio and int16 in / bf16 audio; the
-   standalone PSD (``psd_kernel``) at N = 4096, F = 128 over 3 blocks
-   (yardsticks: the FFT alone, and the PyTorch composition of window,
-   FFT, |X|² and frame sum); the raw bank (``raw_kernel``) at 1024 channels, M = 8192 over 3
-   chained blocks; the recovery bank (``recovery_kernel``) with the psk
-   receiver's own 1024 lanes (sps 8, RRC matched filter) on QPSK at the
+   times of the kernel, its plain version and a library yardstick, and
+   for the tensor-core forms their bound at the TF32 peak beside the
+   bound of the same work on the CUDA cores: the fused FM channelizer
+   (``kernel2``) over 3 chained blocks at the full bench width, f32 in /
+   f32 audio and int16 in / bf16 audio; the standalone PSD
+   (``psd_kernel``) at N = 4096, F = 128 over 3 blocks (yardsticks: the
+   FFT alone, and the PyTorch composition of window, FFT, |X|² and
+   frame sum), then at N 16, 64, 128, 1536 and 32768 (the factorings
+   outside the templated stages; 32768 in two passes); the raw bank
+   (``raw_kernel``) at 1024 channels, M = 8192 over 3 chained blocks;
+   the recovery bank (``recovery_kernel``) with the psk receiver's own
+   1024 lanes (sps 8, RRC matched filter) on QPSK at the
    main path's M = 8192, chained into a block of 1024, and with 1024
    lanes of every kind over 2 chained blocks of 1024 (the plain version
    is a Python loop of ~150 small operations per sample: ~35 s for the
@@ -151,9 +164,13 @@ AUDIO_DECIM = 32
 E2E_BLOCKS = 12
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA
-# cores and HBM3 bandwidth
+# cores, dense TF32 on the tensor cores and HBM3 bandwidth
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# TF32 passes of the tensor-core channelize product (hi·hi, hi·lo, lo·hi:
+# kernels/tcsplit.py)
+TC_PASSES = 3
 
 # kernel vs plain version on the card (both float32, no TF32):
 # - PSD block, rotated carry row: 1e-4 of the largest value (summation
@@ -258,18 +275,20 @@ def synth_iq(f0s_snapped: np.ndarray, n: int, seed: int):
 def kernel2_bound_ms(m, c, in_bytes, audio_bytes, ka, da, fused=True,
                      mt=None) -> tuple:
     """Least time of one block on the card: the larger of the
-    operations over the float32 peak and the bytes (inputs read once,
-    outputs written once) over the memory rate.  The fused PSD counts at
-    the cost of an FFT, 5·N·log2(N) per frame, not the dense DFT
-    products the kernel does.  ``mt`` set: the cos/sin rotator with
-    that tile (phase 2, sin and cos 2, rotation 6 per element, θ and the
-    tile phases read) instead of the Q·R tables (table product 6,
-    rotation 6)."""
+    operations (the channelize product, 8·M·K·C, on the tensor cores at
+    the TF32 peak in TC_PASSES passes, the rest over the float32 peak)
+    and the bytes (inputs read once, outputs written once) over the
+    memory rate.  The fused PSD counts at the cost of an FFT,
+    5·N·log2(N) per frame, not the dense DFT products the kernel does.
+    ``mt`` set: the cos/sin rotator with that tile (phase 2, sin and cos
+    2, rotation 6 per element, θ and the tile phases read) instead of
+    the Q·R tables (table product 6, rotation 6).  Returns
+    :func:`tc_bounds`."""
     k, n = 64, 4096
     frames = m // 64
     rot = 36 if mt else 38               # rotator, discriminator, atan2
-    ops = (8 * m * k * c                 # channelize, complex product
-           + rot * m * c
+    product = 8 * m * k * c              # channelize, complex product
+    ops = (rot * m * c
            + 2 * ka * (m // da) * c)     # audio FIR
     nbytes = (2 * m * k * in_bytes               # packed windows
               + 2 * k * c * 4                    # H
@@ -284,7 +303,7 @@ def kernel2_bound_ms(m, c, in_bytes, audio_bytes, ka, da, fused=True,
                          + 3 * n          # |X|²
                          + n)             # frame sum
         nbytes += 4 * 4096 * 4 + 4096 * 4   # PSD constants, PSD block
-    return bound(ops, nbytes) + (ops, nbytes)
+    return tc_bounds(product, ops, nbytes)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -400,14 +419,13 @@ def phase2_kernel_vs_plain(ch2, torch):
     library_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
     stages = profile_stages(
         lambda: ch2.kernel2(xw, chan.consts, *carries, chan.params),
-        ("chan_rot_disc", "psd_frames", "audio_fir", "tail_copy",
+        ("chan_rot_disc_tc", "psd_frames", "audio_fir", "tail_copy",
          "psd_sum"))
-    bound, bound_by, ops, nbytes = kernel2_bound_ms(
-        BLOCK_OUT, N_CHANNELS, 2, 2, 64, AUDIO_DECIM)
+    bounds = kernel2_bound_ms(BLOCK_OUT, N_CHANNELS, 2, 2, 64, AUDIO_DECIM)
+    bound, bound_by = bounds[:2]
     print(f"phase2 timing: kernel2 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"channelize matmul (library yardstick) {library_ms:.4f} ms, "
-          f"bound {bound:.4f} ms by {bound_by} ({ops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 2 ** 20:.2f} MiB); stages {stages}", flush=True)
+          f"{bound_line(*bounds)}; stages {stages}", flush=True)
     return dict(max_abs_err=results["i16_bf16"]["audio_max"], ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                 bound_by=bound_by)
@@ -452,13 +470,32 @@ def time_once_ms(fn) -> tuple:
     return start.elapsed_time(end), out
 
 
-def bound(ops: float, nbytes: float) -> tuple:
-    """(least time in ms, what bounds it): operations over the float32
-    peak or bytes over the memory rate, whichever is larger."""
-    ops_ms = ops / PEAK_F32 * 1e3
+def bound(ops: float, nbytes: float, tf32_ops: float = 0.0) -> tuple:
+    """(least time in ms, what bounds it): the operations (``tf32_ops``
+    of them on the tensor cores at the TF32 peak, the rest over the
+    float32 peak) or the bytes over the memory rate, whichever is
+    larger."""
+    ops_ms = (ops / PEAK_F32 + tf32_ops / PEAK_TF32) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
+
+
+def tc_bounds(product: float, rest: float, nbytes: float) -> tuple:
+    """A stage whose complex product (``product`` flops, 8·M·K·C) runs on
+    the tensor cores in TC_PASSES TF32 passes and the rest on the CUDA
+    cores: (bound ms, what bounds it, operations, bytes, the bound the
+    same work has all on the CUDA cores)."""
+    ms, by = bound(rest, nbytes, TC_PASSES * product)
+    simt_ms, _ = bound(product + rest, nbytes)
+    return ms, by, TC_PASSES * product + rest, nbytes, simt_ms
+
+
+def bound_line(bms, by, ops, nbytes, simt_ms) -> str:
+    return (f"bound {bms:.4f} ms by {by} ({ops / 1e9:.3f} GFLOP with the "
+            f"product's {TC_PASSES} TF32 passes at {PEAK_TF32 / 1e12:.0f} "
+            f"TFLOP/s, {nbytes / 2 ** 20:.2f} MiB), CUDA-core bound "
+            f"{simt_ms:.4f} ms")
 
 
 def psd_bound(n: int, frames: int, in_bytes: int) -> tuple:
@@ -473,14 +510,14 @@ def psd_bound(n: int, frames: int, in_bytes: int) -> tuple:
 
 
 def raw_bound(m: int, k: int, c: int, m_tiles: int) -> tuple:
-    """The complex product (8·M·K·C) plus 13 per output element: phase
-    (2), sin and cos (2), rotation (6), |y|² and its sum (3); bytes:
-    both window planes, the taps, θ and φ0 read once, both output planes
-    and the power written once."""
-    ops = 8 * m * k * c + 13 * m * c
+    """The complex product (8·M·K·C, on the tensor cores) plus 13 per
+    output element: phase (2), sin and cos (2), rotation (6), |y|² and
+    its sum (3); bytes: both window planes, the taps, θ and φ0 read
+    once, both output planes and the power written once.  Returns
+    :func:`tc_bounds`."""
     nbytes = 2 * m * k * 4 + 2 * k * c * 4 + c * 4 + m_tiles * c * 4 \
         + 2 * m * c * 4 + c * 4
-    return bound(ops, nbytes) + (ops, nbytes)
+    return tc_bounds(8 * m * k * c, 13 * m * c, nbytes)
 
 
 # operations of the recovery bank, counted from kernels/recovery.py at
@@ -589,6 +626,67 @@ def phase2_psd(fftm, torch) -> dict:
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 
 
+# the four-step PSD at factorings outside the fast path's powers of two
+# in [16, 128]: (N, frames, A or 0 for the reference's rule)
+PSD_SIZES = [(16, 8, 0), (64, 8, 0), (128, 8, 0), (1536, 8, 0),
+             (32768, 4, 0)]
+
+
+def phase2_psd_sizes(fftm, torch) -> None:
+    """The standalone PSD kernel against its plain version at N 16 (A 4),
+    64 and 128 (A 8, the offset estimator's sizes), 1536 (B 48) and
+    32768 (B 256, the two-pass form).  Every bin within TOL_PSD_BIN of
+    itself; at B 256 each magnitude within 1e-5 of itself plus 1e-6 of
+    the largest (tests/test_torch_psd.py: a 256-term float32 sum rounds
+    the tone's terms into noise bins some 1e7 below it)."""
+    rng = np.random.default_rng(SEED + 11)
+    out = []
+    for n, frames, a in PSD_SIZES:
+        p = fftm.PSD(fftm.PSDConfig(fft_size=n, frames_per_block=frames,
+                                    a=a, frames_per_program=frames), FS,
+                     device="cuda")
+        k = np.arange(n * frames)
+        x = (0.05 * (rng.standard_normal(len(k)) + 1j * rng.standard_normal(
+            len(k))) + 0.8 * np.exp(2j * np.pi * 0.2 * k)).astype(
+                np.complex64)
+        xp = torch.from_numpy(p.prepare(x)).cuda()
+        before = fftm.psd_kernel.launches
+        got = fftm.psd_kernel(xp, p.consts, p.params)
+        want = fftm.psd_kernel_reference(xp, p.consts, p.params)
+        torch.cuda.synchronize()
+        check(fftm.psd_kernel.launches == before + 1, n)
+        check(got.shape == (p.cfg.a, p.cfg.b) and torch.isfinite(got).all())
+        if p.cfg.b >= 256:
+            mg, mw = got.double().sqrt(), want.double().sqrt()
+            err = float(((mg - mw).abs() / (1e-5 * mw + 1e-6 * mw.max()))
+                        .max())
+        else:
+            err = float(((got - want).abs() / (TOL_PSD_BIN * want.abs()))
+                        .max())
+        check(err <= 1.0, (n, err))
+        form = ", two passes" if fftm.psd_two_pass(p.cfg.a, p.cfg.b) else ""
+        out.append(f"N {n} (A {p.cfg.a}, B {p.cfg.b}{form}): {err:.3g} of "
+                   f"its tolerance")
+    print("phase2 psd at every factoring: " + "; ".join(out), flush=True)
+
+
+def sass_hgmma(srcs: dict) -> dict:
+    """HGMMA instructions in the SASS of each tensor-core stage
+    (``kernels/sass_report.py``), the reports of all sources at once."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sigdigger_tpu_torch.kernels import _build, sass_report
+
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        reports = dict(zip(srcs, pool.map(
+            lambda f: sass_report.report(os.path.join(_build.CSRC, f)),
+            srcs)))
+    return {f"{src}:{k['kernel'][:60]}": k["hgmma"]
+            for src, stage in srcs.items() for k in reports[src]
+            if stage in k["kernel"]}
+
+
 def phase2_raw(rawm, torch) -> dict:
     """The raw bank kernel against its plain version at 1024 channels,
     M = 8192 (m_tile 2048), two float32 planes, 3 chained blocks."""
@@ -608,7 +706,7 @@ def phase2_raw(rawm, torch) -> dict:
         phi0 = torch.from_numpy(bank._phi_tiles()).cuda()
         args = (xr, xi, bank.consts["h_re"], bank.consts["h_im"],
                 bank.consts["theta"], phi0, bank.params)
-        got = rawm.raw_kernel(*args)
+        got = rawm.raw_kernel(*args, bank.consts["bmat"])
         want = rawm.raw_kernel_reference(*args)
         torch.cuda.synchronize()
         top = max(float(want[0].abs().max()), float(want[1].abs().max()))
@@ -627,20 +725,20 @@ def phase2_raw(rawm, torch) -> dict:
           f"{worst_pow:.3g} (tol {TOL_RAW})", flush=True)
     check(worst_plane <= TOL_RAW and worst_pow <= TOL_RAW,
           (worst_plane, worst_pow))
-    ms = time_ms(lambda: rawm.raw_kernel(*args), 20)
+    bmat = bank.consts["bmat"]
+    ms = time_ms(lambda: rawm.raw_kernel(*args, bmat), 20)
     plain_ms = time_ms(lambda: rawm.raw_kernel_reference(*args), 3)
     xc = torch.complex(xr, xi)
     hc = torch.complex(bank.consts["h_re"], bank.consts["h_im"])
     yard_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
-    bms, by, ops, nbytes = raw_bound(BLOCK_OUT, 64, N_CHANNELS,
-                                     BLOCK_OUT // 2048)
-    stages = profile_stages(lambda: rawm.raw_kernel(*args),
-                            ("raw_rot", "raw_power"))
+    bounds = raw_bound(BLOCK_OUT, 64, N_CHANNELS, BLOCK_OUT // 2048)
+    bms, by = bounds[:2]
+    stages = profile_stages(lambda: rawm.raw_kernel(*args, bmat),
+                            ("raw_rot_tc", "raw_power"))
     print(f"phase2 raw timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"channelize matmul (yardstick, no rotator or power) "
-          f"{yard_ms:.4f} ms, bound {bms:.4f} ms by {by} "
-          f"({ops / 1e9:.3f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); stages "
-          f"{stages}", flush=True)
+          f"{yard_ms:.4f} ms, {bound_line(*bounds)}; stages {stages}",
+          flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bms, bound_by=by)
 
@@ -1262,14 +1360,14 @@ def phase2_kernel2_cossin(ch2, torch) -> tuple:
     library_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
     stages = profile_stages(
         lambda: ch2.kernel2(xw, chan.consts, *carries, chan.params, phi0),
-        ("chan_rot_disc", "audio_fir", "tail_copy"))
-    bms, by, ops, nbytes = kernel2_bound_ms(
-        BLOCK_OUT, N_CHANNELS, 2, 2, 64, AUDIO_DECIM, fused=False, mt=2048)
+        ("chan_rot_disc_tc", "audio_fir", "tail_copy"))
+    bounds = kernel2_bound_ms(BLOCK_OUT, N_CHANNELS, 2, 2, 64, AUDIO_DECIM,
+                              fused=False, mt=2048)
+    bms, by = bounds[:2]
     print(f"phase2 kernel2 unfused cos/sin timing: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, channelize matmul (library yardstick) "
-          f"{library_ms:.4f} ms, bound {bms:.4f} ms by {by} "
-          f"({ops / 1e9:.3f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); stages "
-          f"{stages}", flush=True)
+          f"{library_ms:.4f} ms, {bound_line(*bounds)}; stages {stages}",
+          flush=True)
     return dict(max_abs_err=worst["audio_max"], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by), uploads
 
@@ -3019,12 +3117,82 @@ def phase3h_cma(torch) -> dict:
     return {"cma": launches}
 
 
+# the end-to-end phases of one tree, run in a child process by
+# e2e_pairs: the phase functions of the tree's own chip_smoke.py
+_E2E_CHILD = """
+import sys
+sys.path.insert(0, {tree!r})
+import torch
+import chip_smoke as cs
+from sigdigger_tpu_torch.kernels import _build, fft
+from sigdigger_tpu_torch.kernels import channelizer2 as ch2
+_build.build_all()
+card = cs.card_line()
+cs.phase3_end_to_end(ch2, torch, card)
+cs.phase3b_digital(torch, card)
+cs.phase3c_every_geometry(ch2, fft, torch, card)
+cs.phase3f_bench_session(torch, card)
+cs.phase3g_tv(torch, card)
+"""
+
+# (metric, the line it is read from) of the end-to-end phases
+E2E_METRICS = [
+    ("fm block ms", r"^phase3 e2e: .*block wall ([0-9.]+) ms"),
+    ("psk block ms", r"^phase3b psk e2e: .*block wall ([0-9.]+) ms"),
+    ("fm-live block ms",
+     r"^phase3c fm unsnapped e2e: .*block wall ([0-9.]+) ms"),
+    ("session block ms", r"^phase3f bench session.*block wall ([0-9.]+) ms"),
+    ("tv fields/s", r"^phase3g cli tv \(AM.* ([0-9.]+) fields/s"),
+]
+
+
+def e2e_pairs(parent: str, pairs: int) -> int:
+    """The end-to-end phases (3, 3b, 3c, 3f, 3g) of the tree at
+    ``parent`` and of this one in turns, ``pairs`` times, the order
+    alternating (parent first in even pairs), each run a fresh process
+    on the same card; prints every run's metrics, then each metric's
+    medians and how many pairs the change won."""
+    import os
+    import re
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    runs = {"parent": [], "change": []}
+    for i in range(pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        for side in order:
+            out = subprocess.run(
+                [sys.executable, "-c", _E2E_CHILD.format(tree=trees[side])],
+                cwd=trees[side], capture_output=True, text=True, timeout=900)
+            check(out.returncode == 0, (side, out.stderr[-3000:]))
+            got = {}
+            for name, pattern in E2E_METRICS:
+                m = re.search(pattern, out.stdout, re.M)
+                check(m is not None, (side, name))
+                got[name] = float(m.group(1))
+            runs[side].append(got)
+            print(f"pair {i} {side}: {json.dumps(got)}", flush=True)
+    for name, _ in E2E_METRICS:
+        p = [r[name] for r in runs["parent"]]
+        c = [r[name] for r in runs["change"]]
+        better = (lambda a, b: a > b) if "/s" in name else (
+            lambda a, b: a < b)
+        wins = sum(better(cv, pv) for cv, pv in zip(c, p))
+        print(f"e2e {name}: parent median {np.median(p):.3f} "
+              f"(runs {p}), change median {np.median(c):.3f} (runs {c}), "
+              f"change better in {wins} of {pairs} pairs", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--pairs"]:
+        print(card_line(), flush=True)
+        return e2e_pairs(sys.argv[2], int(sys.argv[3]))
     from sigdigger_tpu_torch.kernels import _build, audio, compact
     from sigdigger_tpu_torch.kernels import channelizer as ch1
     from sigdigger_tpu_torch.kernels import channelizer2 as ch2
@@ -3051,12 +3219,20 @@ def main() -> int:
             for line in fh:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    hg = sass_hgmma({"rawbank.cu": "raw_rot_tc",
+                     "channelizer2.cu": "chan_rot_disc_tc"})
+    print(f"phase1 HGMMA instructions per tensor-core stage "
+          f"({time.perf_counter() - t0:.2f} s): {hg}", flush=True)
+    check({k.split(":")[0] for k in hg} == {"rawbank.cu", "channelizer2.cu"}
+          and all(v > 0 for v in hg.values()), hg)
 
     t0 = time.perf_counter()
     p2 = {"kernel2": phase2_kernel_vs_plain(ch2, torch),
           "psd": phase2_psd(fft, torch),
           "raw": phase2_raw(rawbank, torch),
           "recovery": phase2_recovery(recovery, torch)}
+    phase2_psd_sizes(fft, torch)
     p2["kernel2_cossin"], uploads = phase2_kernel2_cossin(ch2, torch)
     p2["psd_xw"], p2["psd_xw_ema"] = phase2_psd_xw(fft, torch, uploads)
     p2["kernel1"] = phase2_kernel1(ch1, torch)

@@ -77,7 +77,7 @@ SIGNATURES = {
     "channelizer2": {
         "sd_kernel2": (
             [_P, _I, _F]            # xw, in_kind, in_gain
-            + [_P, _P]              # h_re h_im
+            + [_P]                  # bmat
             + [_I] + [_P] * 4       # table_rot q r theta phi0
             + [_P] * 4              # prev_re prev_im ftail ataps
             + [_I] + [_P] * 5       # fuse_psd w2d w64_re w64_im tw_re tw_im
@@ -97,8 +97,8 @@ SIGNATURES = {
     "psd": {
         "sd_psd": (
             [_P, _I, _F]            # x, in_kind, in_gain
-            + [_P] * 8              # wa_re wa_im wb_re wb_im tw_re tw_im
-                                    # psd part
+            + [_P] * 9              # wa_re wa_im wb_re wb_im tw_re tw_im
+                                    # psd part scratch
             + [_I] * 3              # A B F
             + [_F, _P]),            # scale stream
     },
@@ -108,15 +108,15 @@ SIGNATURES = {
             + [_P] * 7              # w2d wa_re wa_im wb_re wb_im tw_re
                                     # tw_im
             + [_I, _P, _F]          # ema prev alpha
-            + [_P, _P]              # psd part
+            + [_P] * 3              # psd part scratch
             + [_I] * 5              # M A B fb stride
             + [_F, _P]),            # scale stream
     },
     "rawbank": {
         "sd_rawbank": (
             [_P, _P, _I, _F]        # xr, xi, in_kind, in_gain
-            + [_P] * 8              # h_re h_im theta phi0 y_re y_im
-                                    # power pow_part
+            + [_P] * 7              # bmat theta phi0 y_re y_im power
+                                    # pow_part
             + [_I] * 4              # M C K mt
             + [_P]),                # stream
     },

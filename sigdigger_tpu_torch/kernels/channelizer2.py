@@ -20,7 +20,9 @@ samples and C channels:
    of both planes.
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/channelizer2.cu``; on a CPU tensor it runs
+``csrc/channelizer2.cu``, whose channelize product runs on the tensor
+cores (3xTF32; it reads the taps as ``consts["bmat"]``,
+``kernels/tcsplit.py``); on a CPU tensor it runs
 :func:`kernel2_reference`, the plain PyTorch version of the same math.
 The cos/sin phase is rounded to float32 once, as a fused multiply-add
 does (``kernels/rawbank.py`` explains why).
@@ -43,6 +45,7 @@ from sigdigger_tpu_torch.kernels.channelizer import (
 )
 from sigdigger_tpu_torch.kernels.fft import _dft_matrix
 from sigdigger_tpu_torch.kernels.ops import atan2
+from sigdigger_tpu_torch.kernels.tcsplit import tc_bmat, tc_product
 from sigdigger_tpu_torch.native import (
     frame_windows_packed,
     frame_windows_packed_i8,
@@ -237,7 +240,8 @@ class Kernel2Params:
 def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
                       prev_re: torch.Tensor, prev_im: torch.Tensor,
                       ftail: torch.Tensor, p: Kernel2Params,
-                      phi0: torch.Tensor | None = None):
+                      phi0: torch.Tensor | None = None,
+                      passes: int | None = None):
     """Plain PyTorch version of ``_kernel2`` for a whole block.
 
     xw: packed ``[2M, K]`` float32/int16/int8; prev_re, prev_im
@@ -245,7 +249,10 @@ def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
     rotator's tile start phases (unused with the table rotator).
     Returns ``(audio [M/Da, C]`` float32 or bfloat16``, last_re,
     last_im, ftail_out, psd)`` with the fused PSD ``[64, 64]`` in
-    ``(k1, k2)`` order, or None without ``p.fuse_psd``.
+    ``(k1, k2)`` order, or None without ``p.fuse_psd``.  With
+    ``passes`` the channelize product is the one the kernel's tensor
+    cores compute (:func:`tcsplit.tc_product` with that many TF32
+    passes), for the tests.
     """
     m = xw.shape[0] // 2
     c = prev_re.shape[1]
@@ -255,8 +262,11 @@ def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
         xr = xr.float() * p.in_gain
         xi = xi.float() * p.in_gain
     h_re, h_im = consts["h_re"], consts["h_im"]
-    yr = xr @ h_re - xi @ h_im
-    yi = xr @ h_im + xi @ h_re
+    if passes is None:
+        yr = xr @ h_re - xi @ h_im
+        yi = xr @ h_im + xi @ h_re
+    else:
+        yr, yi = tc_product(xr, xi, tc_bmat(h_re, h_im), passes=passes)
 
     if p.table_rot:
         # e^{-j m θ_c} = Q[m // 64]·R[m % 64] (channelizer2.py:164-176)
@@ -354,7 +364,7 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
     shapes = {
         "prev_re": (prev_re, (1, c)), "prev_im": (prev_im, (1, c)),
         "ftail": (ftail, (p.ka - 1, c)),
-        "h_re": (consts["h_re"], (64, c)), "h_im": (consts["h_im"], (64, c)),
+        "bmat": (consts.get("bmat"), (2 * c, 128)),
         "ataps": (consts["ataps"], (p.ka,)),
     }
     if p.table_rot:
@@ -391,8 +401,7 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
     # scratch by PyTorch's stream-ordered allocator) while the launch runs
     with torch.cuda.device(dev):
         err = lib.sd_kernel2(
-            _ptr(xw), _IN_KIND[xw.dtype], p.in_gain,
-            _ptr(consts["h_re"]), _ptr(consts["h_im"]),
+            _ptr(xw), _IN_KIND[xw.dtype], p.in_gain, _ptr(consts["bmat"]),
             int(tab), _ptr(opt("q", tab)), _ptr(opt("r", tab)),
             _ptr(opt("theta", not tab)), _ptr(None if tab else phi0),
             _ptr(prev_re), _ptr(prev_im), _ptr(ftail),
@@ -477,6 +486,9 @@ class MatChannelizer2:
         self.consts = {k: torch.as_tensor(np.ascontiguousarray(v),
                                           device=self.device)
                        for k, v in host.items()}
+        # the taps as the tensor-core product reads them
+        self.consts["bmat"] = tc_bmat(self.consts["h_re"],
+                                      self.consts["h_im"])
         # snapped cos/sin: the per-block phase advance is ≡ 0 mod 2π, so
         # the tile phases are one device constant
         self._phi0_dev = (torch.as_tensor(self._phi_tiles(),

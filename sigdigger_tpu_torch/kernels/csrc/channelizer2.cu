@@ -9,10 +9,11 @@
 // stage runs over the whole block in parallel and only the block
 // boundary carries state:
 //
-//   (a) chan_rot_disc  channelize Y = Xw·H, rotate (Q[m/64]·R[m%64] or
-//                      cos/sin of φ0[mi] + m_local·θ), discriminate
-//                      against the previous rotated row -> f [M, C],
-//                      last row (chan.cuh)
+//   (a) chan_rot_disc_tc  channelize Y = Xw·H on the tensor cores
+//                      (3xTF32, chan.cuh namespace tc), rotate
+//                      (Q[m/64]·R[m%64] or cos/sin of φ0[mi] +
+//                      m_local·θ), discriminate against the previous
+//                      rotated row -> f [M, C], last row
 //   (b) audio_fir      banded decimating FIR over [ftail_in | f]
 //                      -> audio [M/Da, C] (f32 or bf16) (chan.cuh)
 //       tail_copy      the last Ka-1 rows of [ftail_in | f], the next
@@ -25,9 +26,13 @@
 //   window applied in the kernel; without the fused PSD they are skipped.
 //
 // Carries are written to fresh output buffers, never over an input
-// another block still reads.  Everything is float32 on the CUDA cores
-// (no TF32).  The plain PyTorch version is
-// sigdigger_tpu_torch/kernels/channelizer2.py::kernel2_reference.
+// another block still reads.  The channelize product runs on the TF32
+// tensor cores as three passes of hi/lo parts (3xTF32: within float32
+// rounding of the plain version, see chan.cuh); everything else is
+// float32 on the CUDA cores.  Bound (stage (a) alone): 3 × 8·M·K·C
+// flops at the TF32 peak, 0.026 ms at M 8192, C 1024, beside the 2 MiB
+// of int16 windows and the 32 MiB f scratch.  The plain PyTorch version
+// is sigdigger_tpu_torch/kernels/channelizer2.py::kernel2_reference.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,19 +44,18 @@ namespace {
 
 template <typename T, bool TABLE>
 cudaError_t launch_input_stages(
-    const void* xw, float in_gain, const float* h_re, const float* h_im,
-    const float* q, const float* r, const float* theta, const float* phi0,
+    const void* xw, float in_gain, const float* bmat, const float* q,
+    const float* r, const float* theta, const float* phi0,
     const float* prev_re, const float* prev_im, const float* w2d,
     const float* w64_re, const float* w64_im, const float* tw_re,
     const float* tw_im, float* last_re, float* last_im, float* f_scr,
     float* psd_part, float* psd, int M, int C, int mt, float quad_gain,
     float psd_scale, cudaStream_t s) {
     const T* x = static_cast<const T*>(xw);
-    chan::launch_chan<T, TABLE>(x, x + (size_t)M * chan::K, in_gain, h_re,
-                                h_im, q, r, theta, phi0, prev_re, prev_im,
-                                f_scr, last_re, last_im, M, C, mt, quad_gain,
-                                s);
-    if (psd == nullptr) return cudaSuccess;
+    const cudaError_t e = chan::tc::launch_chan<T, TABLE>(
+        x, x + (size_t)M * chan::K, in_gain, bmat, q, r, theta, phi0,
+        prev_re, prev_im, f_scr, last_re, last_im, M, C, mt, quad_gain, s);
+    if (e != cudaSuccess || psd == nullptr) return e;
     // (c) + (d): frame f is rows [64f, 64f+64) of both planes
     return four_step::launch_psd<T, 64, 64>(
         x, in_gain, w2d, (size_t)64 * chan::K, chan::K,
@@ -61,28 +65,29 @@ cudaError_t launch_input_stages(
 
 template <typename T>
 cudaError_t launch_rotator(
-    bool table, const void* xw, float in_gain, const float* h_re,
-    const float* h_im, const float* q, const float* r, const float* theta,
-    const float* phi0, const float* prev_re, const float* prev_im,
-    const float* w2d, const float* w64_re, const float* w64_im,
-    const float* tw_re, const float* tw_im, float* last_re, float* last_im,
-    float* f_scr, float* psd_part, float* psd, int M, int C, int mt,
-    float quad_gain, float psd_scale, cudaStream_t s) {
+    bool table, const void* xw, float in_gain, const float* bmat,
+    const float* q, const float* r, const float* theta, const float* phi0,
+    const float* prev_re, const float* prev_im, const float* w2d,
+    const float* w64_re, const float* w64_im, const float* tw_re,
+    const float* tw_im, float* last_re, float* last_im, float* f_scr,
+    float* psd_part, float* psd, int M, int C, int mt, float quad_gain,
+    float psd_scale, cudaStream_t s) {
     if (table)
         return launch_input_stages<T, true>(
-            xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re, prev_im,
-            w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im, f_scr,
+            xw, in_gain, bmat, q, r, theta, phi0, prev_re, prev_im, w2d,
+            w64_re, w64_im, tw_re, tw_im, last_re, last_im, f_scr,
             psd_part, psd, M, C, mt, quad_gain, psd_scale, s);
     return launch_input_stages<T, false>(
-        xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re, prev_im, w2d,
-        w64_re, w64_im, tw_re, tw_im, last_re, last_im, f_scr, psd_part, psd,
-        M, C, mt, quad_gain, psd_scale, s);
+        xw, in_gain, bmat, q, r, theta, phi0, prev_re, prev_im, w2d,
+        w64_re, w64_im, tw_re, tw_im, last_re, last_im, f_scr, psd_part,
+        psd, M, C, mt, quad_gain, psd_scale, s);
 }
 
 }  // namespace
 
 // One block of the FM receiver.  xw is the packed [2M, 64] upload
-// (in_kind 0 float32, 1 int16, 2 int8, dequantized by in_gain).  The
+// (in_kind 0 float32, 1 int16, 2 int8, dequantized by in_gain); bmat
+// [2C, 128] the taps as the tensor-core product reads them.  The
 // rotator is the table one (table_rot: q [M/64·2, C], r [128, C]) or the
 // cos/sin one (theta [1, C], phi0 [M/mt, C]); the carries are prev_re /
 // prev_im [1, C] and ftail_in [Ka−1, C]; outputs go to fresh buffers.
@@ -93,8 +98,8 @@ cudaError_t launch_rotator(
 // the fused PSD.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int sd_kernel2(
-    const void* xw, int in_kind, float in_gain, const float* h_re,
-    const float* h_im, int table_rot, const float* q, const float* r,
+    const void* xw, int in_kind, float in_gain, const float* bmat,
+    int table_rot, const float* q, const float* r,
     const float* theta, const float* phi0, const float* prev_re,
     const float* prev_im, const float* ftail_in, const float* ataps,
     int fuse_psd, const float* w2d, const float* w64_re,
@@ -114,19 +119,19 @@ extern "C" int sd_kernel2(
     switch (in_kind) {
     case 0:
         e = launch_rotator<float>(
-            table, xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re,
+            table, xw, in_gain, bmat, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
             f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
         break;
     case 1:
         e = launch_rotator<int16_t>(
-            table, xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re,
+            table, xw, in_gain, bmat, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
             f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
         break;
     case 2:
         e = launch_rotator<int8_t>(
-            table, xw, in_gain, h_re, h_im, q, r, theta, phi0, prev_re,
+            table, xw, in_gain, bmat, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
             f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
         break;

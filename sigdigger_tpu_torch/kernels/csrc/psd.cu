@@ -32,15 +32,18 @@
 
 // One block's PSD.  x is [2A, F·B] (in_kind 0 float32, 1 int16); wa/wb
 // are W_A^n and W_B^n (n < A, n < B); tw [A, B] the twiddles; part
-// [F, A, B] is scratch; psd [A, B] the output.  Launches on `stream`
-// without synchronising and returns cudaGetLastError().
+// [F, A, B] is scratch, and so is scratch [F, 2, A·B] (read only when
+// four_step::psd_two_pass(A, B), else it may be null); psd [A, B] the
+// output.  Any A, B >= 1: the template stages at powers of two in
+// [16, 128], the general form (psd.cuh) at the others.  Launches on
+// `stream` without synchronising and returns cudaGetLastError().
 extern "C" int sd_psd(const void* x, int in_kind, float in_gain,
                       const float* wa_re, const float* wa_im,
                       const float* wb_re, const float* wb_im,
                       const float* tw_re, const float* tw_im, float* psd,
-                      float* part, int A, int B, int F, float scale,
-                      void* stream) {
-    if (!four_step::psd_shape_ok(A, B) || F < 1)
+                      float* part, float* scratch, int A, int B, int F,
+                      float scale, void* stream) {
+    if (A < 1 || B < 1 || F < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const size_t row = (size_t)F * B;
@@ -50,14 +53,14 @@ extern "C" int sd_psd(const void* x, int in_kind, float in_gain,
     case 0:
         e = four_step::launch_psd_any<float>(
             static_cast<const float*>(x), in_gain, nullptr, B, row, im_off,
-            wa_re, wa_im, wb_re, wb_im, tw_re, tw_im, part, psd, A, B, F,
-            scale, s);
+            wa_re, wa_im, wb_re, wb_im, tw_re, tw_im, part, scratch, psd, A,
+            B, F, scale, s);
         break;
     case 1:
         e = four_step::launch_psd_any<int16_t>(
             static_cast<const int16_t*>(x), in_gain, nullptr, B, row,
-            im_off, wa_re, wa_im, wb_re, wb_im, tw_re, tw_im, part, psd, A,
-            B, F, scale, s);
+            im_off, wa_re, wa_im, wb_re, wb_im, tw_re, tw_im, part, scratch,
+            psd, A, B, F, scale, s);
         break;
     default:
         return static_cast<int>(cudaErrorInvalidValue);

@@ -39,28 +39,18 @@ cudaError_t launch_xw(const void* xw, const float* w2d, const float* wa_re,
                       const float* wa_im, const float* wb_re,
                       const float* wb_im, const float* tw_re,
                       const float* tw_im, const float* prev, float alpha,
-                      float* psd, float* part, int M, int A, int fb,
-                      int stride, float scale, cudaStream_t s) {
+                      float* psd, float* part, float* scratch, int M, int A,
+                      int fb, int stride, float scale, cudaStream_t s) {
     constexpr int B = 64;
     const T* x = static_cast<const T*>(xw);
     const size_t frame = (size_t)A * B;
     const size_t group = frame * fb * stride;
     const size_t im_off = (size_t)M * B;
     const int kept = M / A / stride;
-#define SD_PSD_XW(AA)                                                      \
-    case AA:                                                               \
-        return four_step::launch_psd<T, AA, B>(                            \
-            x, 1.0f, w2d, frame, B, im_off, wa_re, wa_im, wb_re, wb_im,    \
-            tw_re, tw_im, part, psd, kept, scale, s, fb, group, prev,      \
-            alpha);
-    switch (A) {
-        SD_PSD_XW(16)
-        SD_PSD_XW(32)
-        SD_PSD_XW(64)
-        SD_PSD_XW(128)
-    }
-#undef SD_PSD_XW
-    return cudaErrorInvalidValue;
+    return four_step::launch_psd_any<T>(
+        x, 1.0f, w2d, frame, B, im_off, wa_re, wa_im, wb_re, wb_im, tw_re,
+        tw_im, part, scratch, psd, A, B, kept, scale, s, fb, group, prev,
+        alpha);
 }
 
 }  // namespace
@@ -71,16 +61,18 @@ cudaError_t launch_xw(const void* xw, const float* w2d, const float* wa_re,
 // Reads the M/A frames in groups of fb, every stride-th group; part
 // [M/A/stride, A, 64] is scratch; psd [A, 64] the output, in (k1, k2)
 // order, scaled by scale and, with ema, blended into prev [A, 64] by
-// alpha.  Launches on `stream` without synchronising and returns
-// cudaGetLastError().
+// alpha.  Any A >= 1 (the general form of psd.cuh outside A in 16..128
+// powers of two; scratch [M/A/stride, 2, A·64] read only when
+// four_step::psd_two_pass(A, 64), else it may be null).  Launches on
+// `stream` without synchronising and returns cudaGetLastError().
 extern "C" int sd_psd_xw(const void* xw, int in_kind, const float* w2d,
                          const float* wa_re, const float* wa_im,
                          const float* wb_re, const float* wb_im,
                          const float* tw_re, const float* tw_im, int ema,
                          const float* prev, float alpha, float* psd,
-                         float* part, int M, int A, int B, int fb,
-                         int stride, float scale, void* stream) {
-    if (B != 64 || A < 16 || A > 128 || (A & (A - 1)) || M < A || M % A ||
+                         float* part, float* scratch, int M, int A, int B,
+                         int fb, int stride, float scale, void* stream) {
+    if (B != 64 || A < 1 || M < A || M % A ||
         fb < 1 || stride < 1 || (M / A) % (fb * stride) ||
         (ema && prev == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
@@ -90,18 +82,18 @@ extern "C" int sd_psd_xw(const void* xw, int in_kind, const float* w2d,
     switch (in_kind) {
     case 0:
         e = launch_xw<float>(xw, w2d, wa_re, wa_im, wb_re, wb_im, tw_re,
-                             tw_im, pv, alpha, psd, part, M, A, fb, stride,
-                             scale, s);
+                             tw_im, pv, alpha, psd, part, scratch, M, A, fb,
+                             stride, scale, s);
         break;
     case 1:
         e = launch_xw<int16_t>(xw, w2d, wa_re, wa_im, wb_re, wb_im, tw_re,
-                               tw_im, pv, alpha, psd, part, M, A, fb,
-                               stride, scale, s);
+                               tw_im, pv, alpha, psd, part, scratch, M, A,
+                               fb, stride, scale, s);
         break;
     case 2:
         e = launch_xw<int8_t>(xw, w2d, wa_re, wa_im, wb_re, wb_im, tw_re,
-                              tw_im, pv, alpha, psd, part, M, A, fb, stride,
-                              scale, s);
+                              tw_im, pv, alpha, psd, part, scratch, M, A, fb,
+                              stride, scale, s);
         break;
     default:
         return static_cast<int>(cudaErrorInvalidValue);

@@ -172,9 +172,25 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def psd_shape_supported(a: int, b: int) -> bool:
-    """The kernel takes A and B powers of two in [16, 128]."""
-    return all(16 <= v <= 128 and v & (v - 1) == 0 for v in (a, b))
+# shared memory of one block on sm_90 (csrc/psd.cuh SMEM_MAX)
+_SMEM_MAX = 232448
+
+
+def psd_two_pass(a: int, b: int) -> bool:
+    """Whether the kernel runs the general form in two passes over device
+    scratch (``csrc/psd.cuh::psd_two_pass``): A or B outside the fast
+    path's powers of two in [16, 128], and a frame and its DFT_A output
+    (16·A·B bytes) past a block's shared memory."""
+    fast = all(16 <= v <= 128 and v & (v - 1) == 0 for v in (a, b))
+    return not fast and 16 * a * b > _SMEM_MAX
+
+
+def _psd_scratch(a: int, b: int, frames: int,
+                 dev: torch.device) -> torch.Tensor | None:
+    """The two-pass form's ``[F, 2, A·B]`` scratch, or None."""
+    if not psd_two_pass(a, b):
+        return None
+    return torch.empty((frames, 2, a * b), device=dev)
 
 
 def _psd_cuda(xp: torch.Tensor, consts: dict[str, torch.Tensor],
@@ -189,9 +205,6 @@ def _psd_cuda(xp: torch.Tensor, consts: dict[str, torch.Tensor],
         raise ValueError(f"psd xp must be contiguous [2A, F·B] = "
                          f"[{2 * a}, F·{b}] float32/int16, got "
                          f"{tuple(xp.shape)} {xp.dtype}")
-    if not psd_shape_supported(a, b):
-        raise ValueError(f"psd kernel takes A, B powers of two in "
-                         f"[16, 128], got A={a}, B={b}")
     shapes = {"wa_re": (a,), "wa_im": (a,), "wb_re": (b,), "wb_im": (b,),
               "tw_re": (a, b), "tw_im": (a, b)}
     for name, shape in shapes.items():
@@ -205,13 +218,14 @@ def _psd_cuda(xp: torch.Tensor, consts: dict[str, torch.Tensor],
     lib = load_library("psd")
     psd = torch.empty((a, b), device=dev)
     part = torch.empty((f, a, b), device=dev)
+    scratch = _psd_scratch(a, b, f, dev)
     with torch.cuda.device(dev):
         err = lib.sd_psd(
             _ptr(xp), _IN_KIND[xp.dtype], p.in_gain,
             _ptr(consts["wa_re"]), _ptr(consts["wa_im"]),
             _ptr(consts["wb_re"]), _ptr(consts["wb_im"]),
             _ptr(consts["tw_re"]), _ptr(consts["tw_im"]),
-            _ptr(psd), _ptr(part), a, b, f, p.scale,
+            _ptr(psd), _ptr(part), _ptr(scratch), a, b, f, p.scale,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"sd_psd launch failed: CUDA error {err}")
@@ -257,10 +271,6 @@ class PSD(PSDFold):
         self.i16_scale = float(i16_scale)
         self.sample_rate = float(sample_rate)
         a, b, n = cfg.a, cfg.b, cfg.fft_size
-        if not psd_shape_supported(a, b):
-            raise NotImplementedError(
-                f"the port's PSD kernel takes A, B powers of two in "
-                f"[16, 128] (N from 256 to 16384), got A={a}, B={b}")
         fb = cfg.frames_per_program
         if fb * b > 1024:
             # the reference caps its frame batch to keep its block-
@@ -368,11 +378,9 @@ def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
                          f"{tuple(xw.shape)} {xw.dtype}, A={a}, B={b}")
     m = xw.shape[0] // 2
     f = m // a
-    if a not in (16, 32, 64, 128) or p.fb < 1 or p.stride < 1 \
-            or f % (p.fb * p.stride):
-        raise ValueError(f"psd_xw takes A in 16..128 and F % (fb·stride) "
-                         f"== 0, got A={a}, F={f}, fb={p.fb}, "
-                         f"stride={p.stride}")
+    if p.fb < 1 or p.stride < 1 or f % (p.fb * p.stride):
+        raise ValueError(f"psd_xw takes F % (fb·stride) == 0, got A={a}, "
+                         f"F={f}, fb={p.fb}, stride={p.stride}")
     shapes = {"w2d": (a, b), "wa_re": (a,), "wa_im": (a,), "wb_re": (b,),
               "wb_im": (b,), "tw_re": (a, b), "tw_im": (a, b)}
     tensors = {k: consts[k] for k in shapes}
@@ -389,6 +397,7 @@ def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
     kept = f // p.stride
     psd = torch.empty((a, b), device=dev)
     part = torch.empty((kept, a, b), device=dev)
+    scratch = _psd_scratch(a, b, kept, dev)
     with torch.cuda.device(dev):
         err = lib.sd_psd_xw(
             _ptr(xw), _XW_KIND[xw.dtype], _ptr(consts["w2d"]),
@@ -396,7 +405,7 @@ def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
             _ptr(consts["wb_re"]), _ptr(consts["wb_im"]),
             _ptr(consts["tw_re"]), _ptr(consts["tw_im"]),
             int(prev is not None), _ptr(prev), alpha, _ptr(psd), _ptr(part),
-            m, a, b, p.fb, p.stride, p.scale,
+            _ptr(scratch), m, a, b, p.fb, p.stride, p.scale,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"sd_psd_xw launch failed: CUDA error {err}")

@@ -10,12 +10,15 @@ bank on the device.
 :func:`raw_kernel` launches the hand-written kernel in
 ``csrc/rawbank.cu`` on a CUDA tensor and runs
 :func:`raw_kernel_reference`, the plain PyTorch version, on a CPU
-tensor.  The rotator phase keeps the reference's per-``m_tile`` form,
-``φ0[mi] + m_local·θ`` in float32 with ``φ0`` built in float64 (mod
-2π) per tile: ``m_tile`` changes the numbers, so it stays in the
-config.  The phase is rounded to float32 once, as a fused multiply-add
-does: the reference's expression compiles to one on XLA's CPU backend,
-and at ``m_tile·2π`` rad one rounding step is ~1e-3 rad.
+tensor.  The kernel's product runs on the tensor cores (3xTF32,
+``kernels/tcsplit.py``) and reads the taps as ``bmat``, built once with
+the other constants.  The rotator phase keeps the reference's
+per-``m_tile`` form, ``φ0[mi] + m_local·θ`` in float32 with ``φ0``
+built in float64 (mod 2π) per tile: ``m_tile`` changes the numbers, so
+it stays in the config.  The phase is rounded to float32 once, as a
+fused multiply-add does: the reference's expression compiles to one on
+XLA's CPU backend, and at ``m_tile·2π`` rad one rounding step is ~1e-3
+rad.
 """
 
 from __future__ import annotations
@@ -28,6 +31,12 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.kernels.audio import _lowpass_columns
+from sigdigger_tpu_torch.kernels.tcsplit import (
+    check_taps,
+    kpad,
+    tc_bmat,
+    tc_product,
+)
 from sigdigger_tpu_torch.native import (
     frame_windows,
     frame_windows_packed,
@@ -73,20 +82,25 @@ class RawParams:
 def raw_kernel_reference(xr: torch.Tensor, xi: torch.Tensor,
                          h_re: torch.Tensor, h_im: torch.Tensor,
                          theta: torch.Tensor, phi0: torch.Tensor,
-                         p: RawParams):
+                         p: RawParams, passes: int | None = None):
     """Plain PyTorch version of ``_raw_kernel`` for a whole block.
 
     xr, xi: ``[M, K]`` float32/int16/int8 window planes; h ``[K, C]``;
     theta ``[1, C]``; phi0 ``[M/mt, C]``.  Returns ``(y_re, y_im
-    [M, C], power [1, C])``."""
+    [M, C], power [1, C])``.  With ``passes`` the product is the one
+    the kernel's tensor cores compute (:func:`tcsplit.tc_product` with
+    that many TF32 passes), for the tests."""
     m, c = xr.shape[0], h_re.shape[1]
     mt = p.mt
     m_tiles = m // mt
     if xr.dtype != torch.float32:
         xr = xr.float() * p.in_gain
         xi = xi.float() * p.in_gain
-    yr = xr @ h_re - xi @ h_im
-    yi = xr @ h_im + xi @ h_re
+    if passes is None:
+        yr = xr @ h_re - xi @ h_im
+        yi = xr @ h_im + xi @ h_re
+    else:
+        yr, yi = tc_product(xr, xi, tc_bmat(h_re, h_im), passes=passes)
     ramp = torch.arange(mt, dtype=torch.float64, device=xr.device)[:, None]
     # one rounding, as fma(m_local, θ, φ0): the float64 product and sum
     # are exact for these operands (rawbank.py:75)
@@ -110,7 +124,7 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams):
+def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams, bmat):
     from sigdigger_tpu_torch.kernels._build import load_library
 
     dev = xr.device
@@ -126,24 +140,25 @@ def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams):
     if m == 0 or p.mt < 1 or m % p.mt:
         raise ValueError(f"raw_kernel needs m_tile | M, got M={m}, "
                          f"m_tile={p.mt}")
-    shapes = {"h_re": (h_re, (k, c)), "h_im": (h_im, (k, c)),
+    check_taps(k, "raw_kernel")
+    shapes = {"bmat": (bmat, (2 * c, 2 * kpad(k))),
               "theta": (theta, (1, c)), "phi0": (phi0, (m // p.mt, c))}
     for name, (t, shape) in shapes.items():
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
+        if (t is None or tuple(t.shape) != shape or t.dtype != torch.float32
                 or t.device != dev or not t.is_contiguous()):
-            raise ValueError(
-                f"raw_kernel {name}: want contiguous float32 {shape} on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            got = None if t is None else (t.dtype, tuple(t.shape), t.device)
+            raise ValueError(f"raw_kernel {name}: want contiguous float32 "
+                             f"{shape} on {dev}, got {got}")
     lib = load_library("rawbank")
     y_re = torch.empty((m, c), device=dev)
     y_im = torch.empty((m, c), device=dev)
     power = torch.empty((1, c), device=dev)
-    # one power partial per row block of up to 64 rows inside a tile
+    # one power partial per tile of up to 64 rows inside an m-tile
     pow_part = torch.empty((m // p.mt * -(-p.mt // 64), c), device=dev)
     with torch.cuda.device(dev):
         err = lib.sd_rawbank(
             _ptr(xr), _ptr(xi), _IN_KIND[xr.dtype], p.in_gain,
-            _ptr(h_re), _ptr(h_im), _ptr(theta), _ptr(phi0),
+            _ptr(bmat), _ptr(theta), _ptr(phi0),
             _ptr(y_re), _ptr(y_im), _ptr(power), _ptr(pow_part),
             m, c, k, p.mt,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
@@ -155,12 +170,15 @@ def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams):
 
 def raw_kernel(xr: torch.Tensor, xi: torch.Tensor, h_re: torch.Tensor,
                h_im: torch.Tensor, theta: torch.Tensor, phi0: torch.Tensor,
-               p: RawParams):
+               p: RawParams, bmat: torch.Tensor | None = None):
     """One raw-bank block: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns what :func:`raw_kernel_reference`
-    returns.  ``raw_kernel.launches`` counts the CUDA launches."""
+    returns.  ``bmat`` is ``tc_bmat(h_re, h_im)``, the taps as the
+    kernel reads them (the CUDA path needs it; ``RawBank`` builds it
+    with its constants).  ``raw_kernel.launches`` counts the CUDA
+    launches."""
     if xr.device.type == "cuda":
-        return _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p)
+        return _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p, bmat)
     if xr.device.type == "cpu":
         return raw_kernel_reference(xr, xi, h_re, h_im, theta, phi0, p)
     raise ValueError(f"raw_kernel runs on cuda or cpu, not {xr.device}")
@@ -232,10 +250,13 @@ class RawBank:
             return torch.as_tensor(np.ascontiguousarray(a),
                                    device=self.device)
 
+        h_re = dev(self._h.real.astype(np.float32))
+        h_im = dev(self._h.imag.astype(np.float32))
         self.consts = {
-            "h_re": dev(self._h.real.astype(np.float32)),
-            "h_im": dev(self._h.imag.astype(np.float32)),
+            "h_re": h_re, "h_im": h_im,
             "theta": dev(self._theta64.astype(np.float32)[None, :]),
+            # the tensor-core product's B (the kernel's only view of H)
+            "bmat": tc_bmat(h_re, h_im),
         }
 
     def _phi_tiles(self) -> np.ndarray:
@@ -281,7 +302,7 @@ class RawBank:
         phi0 = torch.from_numpy(self._phi_tiles()).to(self.device)
         y_re, y_im, power = raw_kernel(
             xr, xi, self.consts["h_re"], self.consts["h_im"],
-            self.consts["theta"], phi0, self.params)
+            self.consts["theta"], phi0, self.params, self.consts["bmat"])
         self._phi = np.mod(self._phi + self._theta64 * cfg.block_out,
                            _TWO_PI)
         # fetched lazily, by the consumers of block_power only

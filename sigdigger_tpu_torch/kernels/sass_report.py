@@ -1,16 +1,17 @@
 """What nvcc made of a kernel source: registers, stack frame and spills
-(``-Xptxas -v``) and the SASS instructions that touch local memory, per
-kernel.
+(``-Xptxas -v``), the SASS instructions that touch local memory and the
+tensor-core ``HGMMA`` instructions, per kernel.
 
     python -m sigdigger_tpu_torch.kernels.sass_report csrc/recovery.cu ...
 
 Each source compiles with the port's flags (``_build.NVCC_FLAGS`` and the
 file's ``EXTRA_FLAGS``) into a cubin in a temporary directory; each
 kernel's line gives its registers, stack frame and spill bytes, and the
-counts of ``LDL``/``STL`` (local loads and stores) and of all
-instructions in its SASS (``cuobjdump -sass``).  A kernel whose loop
-keeps an array in local memory shows a stack frame and ``LDL``/``STL``
-there.  Needs ``nvcc`` and ``cuobjdump``.
+counts of ``LDL``/``STL`` (local loads and stores), of ``HGMMA``
+(warpgroup tensor-core products) and of all instructions in its SASS
+(``cuobjdump -sass``).  A kernel whose loop keeps an array in local
+memory shows a stack frame and ``LDL``/``STL`` there; a tensor-core
+stage shows its ``HGMMA`` count.  Needs ``nvcc`` and ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ def _tool(name: str) -> str:
 
 def report(src: str) -> list[dict]:
     """One dict per kernel of ``src``: name, registers, stack, spill
-    stores and loads (bytes), LDL and STL counts and SASS length."""
+    stores and loads (bytes), LDL, STL and HGMMA counts and SASS
+    length."""
     stem = os.path.basename(src)[:-3]
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",)]
     flags = [f for f in flags if f not in ("-Xcompiler", "-fPIC")]
@@ -65,13 +67,14 @@ def report(src: str) -> list[dict]:
         if m:
             name = m.group(1)
             kernels.setdefault(name, {"kernel": name}).update(
-                ldl=0, stl=0, instructions=0)
+                ldl=0, stl=0, hgmma=0, instructions=0)
             continue
         if name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             k = kernels[name]
             k["instructions"] += 1
             k["ldl"] += bool(re.search(r"\bLDL\b", line))
             k["stl"] += bool(re.search(r"\bSTL\b", line))
+            k["hgmma"] += bool(re.search(r"\bHGMMA\b", line))
     return list(kernels.values())
 
 

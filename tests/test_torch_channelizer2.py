@@ -273,7 +273,7 @@ def test_live_phase_host_class_chains_through_kernel2():
                                 fuse_psd=False)
     a = MatChannelizer2(cfg, F0S + 77.0, BW, device="cpu", snap_grid=False)
     b = MatChannelizer2(cfg, F0S + 77.0, BW, device="cpu", snap_grid=False)
-    assert a.consts.keys() == {"h_re", "h_im", "theta", "ataps"}
+    assert a.consts.keys() == {"h_re", "h_im", "theta", "ataps", "bmat"}
     x = fm_signal(a.f0s, 3 * cfg.block_in, seed=5)
     carries = (b._prev_re, b._prev_im, b._ftail)
     phi = np.zeros((1, 8))

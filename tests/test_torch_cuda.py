@@ -164,8 +164,9 @@ def test_raw_kernel_ragged_tiles_match_plain_version(cuda):
     _raw_vs_plain(cuda, "i16", block_out=1600, m_tile=400)
 
 
-def _raw_vs_plain(cuda, packed, block_out: int, m_tile: int) -> None:
-    cfg = rawbank.RawBankConfig(sample_rate=FS, n_channels=200,
+def _raw_vs_plain(cuda, packed, block_out: int, m_tile: int,
+                  taps: int = 64) -> None:
+    cfg = rawbank.RawBankConfig(sample_rate=FS, n_channels=200, taps=taps,
                                 block_out=block_out, m_tile=m_tile,
                                 in_scale=64.0 if packed == "i8" else 4096.0)
     bank = rawbank.RawBank(cfg, device=cuda)
@@ -186,7 +187,7 @@ def _raw_vs_plain(cuda, packed, block_out: int, m_tile: int) -> None:
         phi0 = torch.from_numpy(bank._phi_tiles()).to(cuda)
         args = (xr, xi, bank.consts["h_re"], bank.consts["h_im"],
                 bank.consts["theta"], phi0, bank.params)
-        got, want = rawbank.raw_kernel(*args), \
+        got, want = rawbank.raw_kernel(*args, bank.consts["bmat"]), \
             rawbank.raw_kernel_reference(*args)
         torch.cuda.synchronize()
         top = max(float(want[0].abs().max()), float(want[1].abs().max()))
@@ -196,6 +197,149 @@ def _raw_vs_plain(cuda, packed, block_out: int, m_tile: int) -> None:
         bank._phi = np.mod(bank._phi + bank._theta64 * cfg.block_out,
                            2 * np.pi)
     assert rawbank.raw_kernel.launches == before + 2
+
+
+# -- the tensor-core channelize core (csrc/chan.cuh namespace tc) ------
+@pytest.mark.parametrize("packed", [None, "i16", "i8"],
+                         ids=["f32", "i16", "i8"])
+@pytest.mark.parametrize("taps", [5, 64])
+def test_raw_kernel_tensor_core_shapes(cuda, packed, taps):
+    """K 5 (taps padded to 8 in bmat) and 64, C 200 (a ragged channel
+    tile), m_tile 400 (a ragged 64-row tile), every input kind."""
+    _raw_vs_plain(cuda, packed, block_out=1600, m_tile=400, taps=taps)
+
+
+def test_tensor_core_stages_refuse_bad_inputs(cuda):
+    cfg = rawbank.RawBankConfig(sample_rate=FS, n_channels=8, block_out=512,
+                                m_tile=512)
+    bank = rawbank.RawBank(cfg, device=cuda)
+    phi0 = torch.zeros((1, 8), device=cuda)
+    consts = bank.consts
+    x128 = torch.zeros((512, 128), device=cuda)
+    h128 = torch.zeros((128, 8), device=cuda)
+    with pytest.raises(ValueError, match="taps"):   # past shared memory
+        rawbank.raw_kernel(x128, x128, h128, h128, consts["theta"], phi0,
+                           bank.params)
+    x = torch.zeros((512, 64), device=cuda)
+    with pytest.raises(ValueError):                 # B of the wrong width
+        rawbank.raw_kernel(x, x, consts["h_re"], consts["h_im"],
+                           consts["theta"], phi0, bank.params,
+                           consts["bmat"][:, :64].contiguous())
+    # the C entry refuses K past shared memory by itself
+    lib = _build.load_library("rawbank")
+    null = rawbank._ptr(torch.zeros(0))
+    assert lib.sd_rawbank(null, null, 0, 1.0, null, null, null, null, null,
+                          null, null, 512, 8, 128, 512, null) != 0
+    chan = ch2.MatChannelizer2(ch2.MatChannelizer2Config(
+        sample_rate=FS, n_channels=8, taps=64, decimation=64, audio_taps=64,
+        audio_decim=8, block_out=512, m_tile=512, psd_fft=4096),
+        np.linspace(-8e5, 7e5, 8), 1e5, device=cuda)
+    no_b = {k: v for k, v in chan.consts.items() if k != "bmat"}
+    with pytest.raises(ValueError):                 # kernel2 without B
+        ch2.kernel2(torch.zeros((1024, 64), device=cuda), no_b,
+                    chan._prev_re, chan._prev_im, chan._ftail, chan.params)
+
+
+def test_tensor_core_stages_run_hgmma(cuda):
+    """The new stages' SASS holds warpgroup tensor-core products, so the
+    product cannot fall back to the CUDA cores unseen."""
+    import os
+
+    from sigdigger_tpu_torch.kernels import sass_report
+
+    for src, stage in (("rawbank.cu", "raw_rot_tc"),
+                       ("channelizer2.cu", "chan_rot_disc_tc")):
+        ks = [k for k in sass_report.report(os.path.join(_build.CSRC, src))
+              if stage in k["kernel"]]
+        assert ks and all(k["hgmma"] > 0 for k in ks), (src, ks)
+
+
+# -- the four-step PSD at every factoring the reference takes ------------
+@pytest.mark.parametrize("n,frames,a", [(16, 8, 0), (64, 8, 0), (128, 8, 0),
+                                        (1536, 8, 0), (32768, 4, 0),
+                                        (4096, 4, 8)])
+def test_psd_kernel_any_factoring_matches_plain_version(cuda, n, frames, a):
+    """A 4 (N 16), A 8 (N 64 and 128), B 48 (N 1536) and A 8, B 512 in
+    one block (the general form), B 256 at N 32768 (its two passes).
+    Every bin 1e-4 of itself; at B 256 and more each magnitude within
+    1e-5 of itself plus 1e-6 of the largest (float32 rounding of a B-term
+    sum is about eps·√B of the tone's terms, which outweighs the noise
+    bins some 1e7 below it)."""
+    p = fft.PSD(fft.PSDConfig(fft_size=n, frames_per_block=frames, a=a,
+                              frames_per_program=frames), FS, device=cuda)
+    rng = np.random.default_rng(n + a)
+    k = np.arange(n * frames)
+    x = (0.05 * (rng.standard_normal(len(k)) + 1j * rng.standard_normal(
+        len(k))) + 0.8 * np.exp(2j * np.pi * 0.2 * k)).astype(np.complex64)
+    xp = torch.from_numpy(p.prepare(x)).to(cuda)
+    before = fft.psd_kernel.launches
+    got = fft.psd_kernel(xp, p.consts, p.params)
+    want = fft.psd_kernel_reference(xp, p.consts, p.params)
+    torch.cuda.synchronize()
+    assert fft.psd_kernel.launches == before + 1
+    assert got.shape == (p.cfg.a, p.cfg.b)
+    if p.cfg.b >= 256:
+        mg, mw = got.double().sqrt(), want.double().sqrt()
+        assert bool(((mg - mw).abs() <= 1e-5 * mw + 1e-6 * mw.max()).all())
+    else:
+        assert bool(((got - want).abs() <= 1e-4 * want.abs()).all())
+
+
+def test_psd_xw_at_a_8_matches_plain_version(cuda):
+    """The PSD read from the window buffer at A 8 (N 512, B 64): the
+    general form, with and without the EMA."""
+    m = 512
+    psd = fft.PSDFromXW(fft.PSDConfig(fft_size=512, frames_per_block=64,
+                                      a=8), m, FS, in_scale=1.0 / 4096.0,
+                        device=cuda)
+    x = _signal(np.array([2e5, -3e5]), m * 64 + 63, seed=8)
+    xw = torch.from_numpy(ch2.frame_windows_packed_i16(x, m, 64, 64,
+                                                       4096.0)).to(cuda)
+    prev = torch.rand((8, 64), device=cuda)
+    got = fft.psd_xw_kernel(xw, psd.consts, psd.xw_params)
+    want = fft.psd_xw_kernel_reference(xw, psd.consts, psd.xw_params)
+    ema = fft.psd_xw_ema_kernel(xw, psd.consts, psd.xw_params, prev, 0.3)
+    ema_want = fft.psd_xw_kernel_reference(xw, psd.consts, psd.xw_params,
+                                           prev, 0.3)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-4 * want.abs()).all())
+    assert bool(((ema - ema_want).abs() <= 1e-4 * ema_want.abs()).all())
+
+
+@pytest.mark.parametrize("decimation,rows", [(256, 64), (128, 128)])
+def test_offset_estimator_on_a_short_raw_block_on_the_card(cuda, decimation,
+                                                           rows):
+    """``set_estimator(h, "offset", True)`` on a slot of 64 or 128 rows
+    builds the A 8 PSD on the card (it raised before), each drained
+    block launches the PSD kernel, and the estimates land on the
+    carrier's offset."""
+    from sigdigger_tpu_torch import KernelAnalyzer
+    from sigdigger_tpu_torch.analyzer.messages import MessageKind
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources import Emitter, SynthBandSource
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    prof = SourceProfile(type="synth", sample_rate=256_000, freq=0.0,
+                         noise_db=-60.0)
+    params = AnalyzerParams()
+    params.window_size = 4096
+    an = KernelAnalyzer(source=SynthBandSource(
+        prof, [Emitter(freq=-49_700.0, amplitude=1.0)], seed=1),
+        params=params, block_size=16384, decimation=decimation, n_slots=32,
+        device=cuda)
+    h = an.open_inspector("raw", Channel(fc=-50e3, bw=800.0))
+    an.set_estimator(h, "offset", True)
+    assert an._buckets[decimation].raw.cfg.block_out == rows
+    an.poll()
+    before = fft.psd_kernel.launches
+    values = []
+    for _ in range(3):
+        assert an.step()
+        values += [m.estimator_value for m in an.poll()
+                   if m.kind == MessageKind.INSPECTOR
+                   and m.inspector_kind.value == "estimator"]
+    assert fft.psd_kernel.launches > before
+    assert values and all(abs(v - 300.0) < 60.0 for v in values)
 
 
 def _lanes_of_every_kind(bank, c, m, rng, k):
@@ -464,7 +608,7 @@ def test_kernel2_refuses_excluded_geometries(cuda):
     null = ch2._ptr(None)
     for m, mt, da, table in ((512, 96, 8, 0), (512, 128, 6, 0),
                              (512, 32, 8, 1), (0, 64, 8, 0)):
-        err = lib.sd_kernel2(null, 1, 1.0, null, null, table, null, null,
+        err = lib.sd_kernel2(null, 1, 1.0, null, table, null, null,
                              null, null, null, null, null, null, 0, null,
                              null, null, null, null, null, 0, null, null,
                              null, null, null, null, m, 8, mt, 64, da, 1.0,

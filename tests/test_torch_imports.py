@@ -56,7 +56,9 @@ MODULES = [
     "sigdigger_tpu_torch.kernels.rawbank",
     "sigdigger_tpu_torch.kernels.recovery",
     "sigdigger_tpu_torch.kernels.compact",
+    "sigdigger_tpu_torch.kernels.stage_variants",
     "sigdigger_tpu_torch.kernels.symsqueeze",
+    "sigdigger_tpu_torch.kernels.tcsplit",
     "sigdigger_tpu_torch.kernels.drainpack",
     "sigdigger_tpu_torch.kernels.tvline",
     "sigdigger_tpu_torch.kernels.equalizer",

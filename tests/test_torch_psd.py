@@ -53,6 +53,13 @@ CASES = {
     "n8192_i16": (8192, 4, 4, True),
     # fb·B = 32·64 > 1024: the reference caps its frame batch at 16
     "n4096_fb_cap": (4096, 32, 32, False),
+    # factorings outside A, B powers of two in [16, 128]: A = B = 4; A 8
+    # at the offset estimator's 64 and 128 points; B 48 (not a power of
+    # two)
+    "n16_f32": (16, 8, 8, False),
+    "n64_f32": (64, 8, 8, False),
+    "n128_i16": (128, 8, 8, True),
+    "n1536_f32": (1536, 8, 8, False),
 }
 
 
@@ -74,6 +81,33 @@ def test_kernel_matches_reference(case, monkeypatch):
                          ours.params).numpy()
     assert got.shape == want.shape == (ref.cfg.a, ref.cfg.b)
     assert np.all(np.abs(got - want) <= TOL_BIN * np.abs(want))
+
+
+def test_kernel_matches_reference_at_32768(monkeypatch):
+    """N 32768 (A 128, B 256, the two-pass form on the card); tolerance
+    as :func:`_long_dft_close`."""
+    monkeypatch.setattr(ref_native, "_lib", None)
+    ref, ours = _pair(32768, 4, 4)
+    assert (ours.cfg.a, ours.cfg.b) == (ref.cfg.a, ref.cfg.b) == (128, 256)
+    assert ours.params.scale == ref._scale
+    x = _signal(32768 * 4, seed=32772)
+    xp = ref.prepare(x)
+    want = np.asarray(ref._call(xp, xp, *ref._const))
+    got = fft.psd_kernel(torch.from_numpy(ours.prepare(x)), ours.consts,
+                         ours.params).numpy()
+    _long_dft_close(got, want)
+
+
+def _long_dft_close(got, want):
+    """Tolerance at B 256 and more, with its reason: every bin's
+    magnitude within 1e-5 of itself plus 1e-6 of the largest magnitude.
+    The noise bins sit some 1e7 below the tone's here (1e4 at the sizes
+    of CASES), and float32 rounding of a B-term DFT sum is about eps·√B
+    (1e-6 at B 256) of its largest term, the tone's: a bound on each bin
+    alone would hold the noise bins to the tone's rounding."""
+    mg = np.sqrt(np.asarray(got, np.float64))
+    mw = np.sqrt(np.asarray(want, np.float64))
+    assert np.all(np.abs(mg - mw) <= 1e-5 * mw + 1e-6 * mw.max())
 
 
 def test_fb_cap_keeps_callers_alpha():
@@ -109,10 +143,26 @@ def test_peak_on_the_tone():
 
 
 @pytest.mark.parametrize("n,a", [(128, 0), (32768, 0), (4096, 8)])
-def test_unsupported_factors_raise(n, a):
-    with pytest.raises(NotImplementedError, match="powers of two"):
-        PSD(PSDConfig(fft_size=n, frames_per_block=8, a=a), FS,
-            device="cpu")
+def test_unsupported_factors_raise(n, a, monkeypatch):
+    """The factorings the port once refused with NotImplementedError (A
+    8 at N 128, B 256 at N 32768, the caller's A 8 at N 4096: B 512) now
+    build on every device and match the reference."""
+    monkeypatch.setattr(ref_native, "_lib", None)
+    ref = PallasPSD(PallasPSDConfig(fft_size=n, frames_per_block=4, a=a,
+                                    frames_per_program=4), FS,
+                    interpret=True)
+    ours = PSD(PSDConfig(fft_size=n, frames_per_block=4, a=a,
+                         frames_per_program=4), FS, device="cpu")
+    assert (ours.cfg.a, ours.cfg.b) == (ref.cfg.a, ref.cfg.b)
+    x = _signal(n * 4, seed=n + a)
+    xp = ref.prepare(x)
+    want = np.asarray(ref._call(xp, xp, *ref._const))
+    got = fft.psd_kernel(torch.from_numpy(ours.prepare(x)), ours.consts,
+                         ours.params).numpy()
+    if ours.cfg.b >= 256:
+        _long_dft_close(got, want)
+    else:
+        assert np.all(np.abs(got - want) <= TOL_BIN * np.abs(want))
 
 
 def test_default_device_is_cuda(monkeypatch):
