@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --pairs PARENT_TREE N
+    python3 chip_smoke.py --kernel-pairs PARENT_TREE N
 
 The second form runs only the end-to-end phases (3, 3b, 3c, 3f, 3g) of
 another checkout (its own chip_smoke.py's phase functions, e.g. the
 parent commit unpacked with ``git archive``) and of this one in turns, N
 pairs in fresh processes on the same card, and prints each metric's
-runs, medians and the pairs the change won.
+runs, medians and the pairs the change won.  The third does the same
+with phase 2's timings of kernel2 and the PSD kernels (event times,
+traced stages, the FFT and composition yardsticks).
 
 Phases, each fatal on failure (any exception exits nonzero), each
 printing the seconds it took:
@@ -24,9 +27,12 @@ printing the seconds it took:
    bound of the same work on the CUDA cores: the fused FM channelizer
    (``kernel2``) over 3 chained blocks at the full bench width, f32 in /
    f32 audio and int16 in / bf16 audio; the standalone PSD
-   (``psd_kernel``) at N = 4096, F = 128 over 3 blocks (yardsticks: the
-   FFT alone, and the PyTorch composition of window, FFT, |X|² and
-   frame sum), then at N 16, 64, 128, 1536 and 32768 (the factorings
+   (``psd_kernel``) at N = 4096, F = 128 over 3 blocks, two launches
+   bit-equal (yardsticks: the FFT alone, and the PyTorch composition of
+   window, FFT, |X|² and frame sum, also timed in turns with the kernel;
+   its traced stages (``psd_frames``; the general form's ``psd_sum``),
+   the HBM rate they reach and the wrapper's host time, part by part),
+   then at N 16, 64, 128, 1536 and 32768 (the factorings
    outside the templated stages; 32768 in two passes); the raw bank
    (``raw_kernel``) at 1024 channels, M = 8192 over 3 chained blocks;
    the recovery bank (``recovery_kernel``) with the psk receiver's own
@@ -579,6 +585,67 @@ def psd_composed(frames, win):
     return (spec.real * spec.real + spec.imag * spec.imag).sum(0)
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (launches
+    enqueued, no synchronise inside the timed loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def psd_host_parts(fftm, torch, xp, psd) -> dict:
+    """Host µs a call of the parts of ``psd_kernel``'s CUDA path: the
+    output's allocation, the stream lookup, the stream's scratch, the C
+    entry alone (its two launches) and the whole wrapper; the rest of
+    the wrapper is its Python glue (the checked-once key, the count)."""
+    from sigdigger_tpu_torch.kernels import _build
+
+    a, b, dev = psd.params.a, psd.params.b, xp.device
+    f = xp.shape[1] // b
+    count = _build.scratch(dev, fftm.psd_parts(f) * a * b).data_ptr()
+    out = torch.empty((a, b), device=dev)
+    lib = _build.load_library("psd")
+    args = (xp.data_ptr(), int(xp.dtype != torch.float32),
+            psd.params.in_gain, psd.consts["pack"].data_ptr(),
+            out.data_ptr(), count + 4 * _build.SCRATCH_COUNTERS, None, count,
+            a, b, f, psd.params.scale,
+            torch.cuda.current_stream().cuda_stream)
+    return {k: round(v, 2) for k, v in {
+        "empty": host_us(lambda: torch.empty((a, b), device=dev)),
+        "stream": host_us(lambda: torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device())),
+        "scratch": host_us(lambda: _build.scratch(dev, 1)),
+        "entry": host_us(lambda: lib.sd_psd(*args)),
+        "wrapper": host_us(lambda: fftm.psd_kernel(xp, psd.consts,
+                                                   psd.params))}.items()}
+
+
+def psd_stage_line(stages: dict, ms: float, nbytes: float,
+                   turns: dict) -> str:
+    """The FFT stages' traced device times, the HBM rate they reach (the
+    function's bytes over the event time and over the traced stages'
+    sum) and the medians of the kernel taking turns with its
+    yardsticks."""
+    dev = sum(v for k, v in stages.items() if k in ("psd_frames",
+                                                    "psd_sum"))
+    out = (f"stages traced (ms per launch) {stages}; "
+           f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s at the event time")
+    if dev > 0:
+        out += (f", {nbytes / (dev * 1e-3) / 1e9:.1f} GB/s at the traced "
+                f"{dev:.4f} ms")
+    if turns:
+        out += "; interleaved_ms (medians of 21 turns) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in turns.items())
+    return out
+
+
 def phase2_psd(fftm, torch) -> dict:
     """The standalone PSD kernel against its plain version, N = 4096,
     F = 128 (the digital receiver's PSD at the bench width), 3 blocks."""
@@ -598,9 +665,13 @@ def phase2_psd(fftm, torch) -> dict:
         d = (got - want).abs()
         worst_bin = max(worst_bin, float((d / want.abs()).max()))
         max_abs = max(max_abs, float(d.max()))
+    again = fftm.psd_kernel(xp, psd.consts, psd.params)
+    same = bool(torch.equal(got, again))
     print(f"phase2 psd: worst bin rel err {worst_bin:.3g} (tol "
-          f"{TOL_PSD_BIN}), max abs err {max_abs:.3g}", flush=True)
+          f"{TOL_PSD_BIN}), max abs err {max_abs:.3g}, two launches "
+          f"bit-equal {same}", flush=True)
     check(worst_bin <= TOL_PSD_BIN, worst_bin)
+    check(same)
     ms = time_ms(lambda: fftm.psd_kernel(xp, psd.consts, psd.params), 20)
     plain_ms = time_ms(lambda: fftm.psd_kernel_reference(
         xp, psd.consts, psd.params), 3)
@@ -615,13 +686,20 @@ def phase2_psd(fftm, torch) -> dict:
     stages = profile_stages(
         lambda: fftm.psd_kernel(xp, psd.consts, psd.params),
         ("psd_frames", "psd_sum"))
+    args = (xp, psd.consts, psd.params)
+    turns = interleaved_ms({
+        "psd_kernel": lambda: fftm.psd_kernel(*args),
+        "torch.fft.fft": lambda: torch.fft.fft(frames_c),
+        "psd_composed": lambda: psd_composed(raw, win)})
     print(f"phase2 psd timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
           f" torch.fft.fft of the [{frames}, {n}] windowed frames (library "
           f"yardstick, FFT only) {library_ms:.4f} ms, the PyTorch "
           f"composition (second yardstick: window, torch.fft.fft, |X|², "
           f"frame sum) {composed_ms:.4f} ms, bound {bms:.5f} ms by "
           f"{by} ({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); "
-          f"stages {stages}", flush=True)
+          f"stages {stages}; {psd_stage_line(stages, ms, nbytes, turns)}; "
+          f"host µs a call {psd_host_parts(fftm, torch, xp, psd)}",
+          flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 
@@ -1414,10 +1492,17 @@ def phase2_psd_xw(fftm, torch, uploads) -> tuple:
                 max_abs = max(max_abs, float(d.max()))
             if n == 4096 and stride == 1:
                 main = psd
+            if n == 4096 and stride == 4:
+                strided = psd
+    xw = uploads[-1]
+    once = fftm.psd_xw_kernel(xw, main.consts, main.xw_params)
+    same = bool(torch.equal(once, fftm.psd_xw_kernel(xw, main.consts,
+                                                     main.xw_params)))
     print(f"phase2 psd_xw (N 4096 and 2048, stride 1 and 4, 3 blocks): "
           f"worst bin rel err {worst_bin:.3g} (tol {TOL_PSD_BIN}), max abs "
-          f"err {max_abs:.3g}", flush=True)
+          f"err {max_abs:.3g}, two launches bit-equal {same}", flush=True)
     check(worst_bin <= TOL_PSD_BIN, worst_bin)
+    check(same)
     # the device EMA, chained
     prev_k = prev_p = torch.zeros((64, 64), device="cuda")
     ema_bin, ema_abs = 0.0, 0.0
@@ -1456,6 +1541,18 @@ def phase2_psd_xw(fftm, torch, uploads) -> tuple:
     ems, eby, eops, ebytes = psd_xw_bound(4096, frames, 2, True)
     stages = profile_stages(lambda: fftm.psd_xw_kernel(xw, c, p),
                             ("psd_frames", "psd_sum"))
+    turns = interleaved_ms({
+        "psd_xw_kernel": lambda: fftm.psd_xw_kernel(xw, c, p),
+        "torch.fft.fft": lambda: torch.fft.fft(frames_c),
+        "psd_composed": lambda: psd_composed(
+            torch.complex(xs[0].float(), xs[1].float()), win)})
+    # frame_stride 4: 32 of the 128 frames
+    sp = strided.xw_params
+    s_ms = time_ms(lambda: fftm.psd_xw_kernel(xw, strided.consts, sp), 20)
+    s_stages = profile_stages(
+        lambda: fftm.psd_xw_kernel(xw, strided.consts, sp),
+        ("psd_frames", "psd_sum"))
+    sbytes = psd_xw_bound(4096, frames // 4, 2, False)[3]
     print(f"phase2 psd_xw timing (N 4096, {frames} int16 frames): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, ema kernel {ema_ms:.4f} "
           f"ms, ema plain {ema_plain_ms:.4f} ms, torch.fft.fft of the "
@@ -1464,7 +1561,12 @@ def phase2_psd_xw(fftm, torch, uploads) -> tuple:
           f"(second yardstick: int16 to complex, window, torch.fft.fft, "
           f"|X|², frame sum) {composed_ms:.4f} ms, bound {bms:.5f} ms by "
           f"{by} ({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB), ema bound "
-          f"{ems:.5f} ms by {eby}; stages {stages}", flush=True)
+          f"{ems:.5f} ms by {eby}; stages {stages}; "
+          f"{psd_stage_line(stages, ms, nbytes, turns)}; frame_stride 4 "
+          f"({frames // 4} frames): kernel {s_ms:.4f} ms, "
+          f"{psd_stage_line(s_stages, s_ms, sbytes, {})}; host "
+          f"{host_us(lambda: fftm.psd_xw_kernel(xw, c, p)):.2f} µs a call",
+          flush=True)
     return (dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=bms, bound_by=by),
             dict(max_abs_err=ema_abs, ms=ema_ms, plain_ms=ema_plain_ms,
@@ -3117,8 +3219,8 @@ def phase3h_cma(torch) -> dict:
     return {"cma": launches}
 
 
-# the end-to-end phases of one tree, run in a child process by
-# e2e_pairs: the phase functions of the tree's own chip_smoke.py
+# the end-to-end phases of one tree, run in a child process by --pairs:
+# the phase functions of the tree's own chip_smoke.py
 _E2E_CHILD = """
 import sys
 sys.path.insert(0, {tree!r})
@@ -3145,13 +3247,58 @@ E2E_METRICS = [
     ("tv fields/s", r"^phase3g cli tv \(AM.* ([0-9.]+) fields/s"),
 ]
 
+# the phase 2 timings of the PSD kernels and kernel2 (whose fused PSD
+# runs the same stages), run in a child process by --kernel-pairs
+_KERNEL_CHILD = """
+import sys
+sys.path.insert(0, {tree!r})
+import torch
+import chip_smoke as cs
+from sigdigger_tpu_torch.kernels import _build, fft
+from sigdigger_tpu_torch.kernels import channelizer2 as ch2
+_build.build_all()
+cs.phase2_kernel_vs_plain(ch2, torch)
+cs.phase2_psd(fft, torch)
+_, uploads = cs.phase2_kernel2_cossin(ch2, torch)
+cs.phase2_psd_xw(fft, torch, uploads)
+"""
 
-def e2e_pairs(parent: str, pairs: int) -> int:
-    """The end-to-end phases (3, 3b, 3c, 3f, 3g) of the tree at
-    ``parent`` and of this one in turns, ``pairs`` times, the order
-    alternating (parent first in even pairs), each run a fresh process
-    on the same card; prints every run's metrics, then each metric's
-    medians and how many pairs the change won."""
+_K2, _PSD, _XW = (r"^phase2 timing: kernel2 ", r"^phase2 psd timing: ",
+                  r"^phase2 psd_xw timing \(N 4096, ")
+# a "PSD device ms" metric reads the line's traced stages, the sum of
+# psd_frames and psd_sum (the parent's second stage; the FFT stages have
+# none)
+KERNEL_METRICS = [
+    ("kernel2 ms", _K2 + r"([0-9.]+) ms"),
+    ("kernel2 PSD device ms", _K2 + r".*?stages (\{[^}]*\})"),
+    ("psd ms", _PSD + r"kernel ([0-9.]+) ms"),
+    ("psd PSD device ms", _PSD + r".*?stages (\{[^}]*\})"),
+    ("psd torch.fft.fft ms", _PSD + r".*?FFT only\) ([0-9.]+) ms"),
+    ("psd composed ms", _PSD + r".*?frame sum\) ([0-9.]+) ms"),
+    ("psd_xw ms", _XW + r".*?kernel ([0-9.]+) ms"),
+    ("psd_xw ema ms", _XW + r".*?ema kernel ([0-9.]+) ms"),
+    ("psd_xw PSD device ms", _XW + r".*?stages (\{[^}]*\})"),
+    ("psd_xw torch.fft.fft ms", _XW + r".*?FFT only\) ([0-9.]+) ms"),
+    ("psd_xw composed ms", _XW + r".*?frame sum\) ([0-9.]+) ms"),
+]
+
+
+def metric_value(name: str, text: str) -> float:
+    if "PSD device" not in name:
+        return float(text)
+    import ast
+
+    stages = ast.literal_eval(text)
+    return round(sum(stages.get(k, 0.0) for k in ("psd_frames", "psd_sum")),
+                 4)
+
+
+def tree_pairs(parent: str, pairs: int, child: str, metrics: list) -> int:
+    """The phases in ``child`` of the tree at ``parent`` and of this one
+    in turns, ``pairs`` times, the order alternating (parent first in
+    even pairs), each run a fresh process on the same card; prints
+    every run's ``metrics``, then each metric's medians and how many
+    pairs the change won."""
     import os
     import re
 
@@ -3162,24 +3309,28 @@ def e2e_pairs(parent: str, pairs: int) -> int:
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for side in order:
             out = subprocess.run(
-                [sys.executable, "-c", _E2E_CHILD.format(tree=trees[side])],
+                [sys.executable, "-c", child.format(tree=trees[side])],
                 cwd=trees[side], capture_output=True, text=True, timeout=900)
             check(out.returncode == 0, (side, out.stderr[-3000:]))
             got = {}
-            for name, pattern in E2E_METRICS:
+            for name, pattern in metrics:
                 m = re.search(pattern, out.stdout, re.M)
-                check(m is not None, (side, name))
-                got[name] = float(m.group(1))
+                got[name] = (float("nan") if m is None
+                             else metric_value(name, m.group(1)))
             runs[side].append(got)
             print(f"pair {i} {side}: {json.dumps(got)}", flush=True)
-    for name, _ in E2E_METRICS:
+            for line in out.stdout.splitlines():
+                if line.startswith("phase2") and "timing" in line:
+                    print(f"  {side}: {line}", flush=True)
+    for name, _ in metrics:
         p = [r[name] for r in runs["parent"]]
         c = [r[name] for r in runs["change"]]
+        check(not np.isnan(p + c).any(), (name, "not in every run"))
         better = (lambda a, b: a > b) if "/s" in name else (
             lambda a, b: a < b)
         wins = sum(better(cv, pv) for cv, pv in zip(c, p))
-        print(f"e2e {name}: parent median {np.median(p):.3f} "
-              f"(runs {p}), change median {np.median(c):.3f} (runs {c}), "
+        print(f"pairs {name}: parent median {np.median(p):.4f} "
+              f"(runs {p}), change median {np.median(c):.4f} (runs {c}), "
               f"change better in {wins} of {pairs} pairs", flush=True)
     return 0
 
@@ -3190,9 +3341,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--pairs"]:
+    modes = {"--pairs": (_E2E_CHILD, E2E_METRICS),
+             "--kernel-pairs": (_KERNEL_CHILD, KERNEL_METRICS)}
+    if sys.argv[1:2] and sys.argv[1] in modes:
         print(card_line(), flush=True)
-        return e2e_pairs(sys.argv[2], int(sys.argv[3]))
+        return tree_pairs(sys.argv[2], int(sys.argv[3]),
+                          *modes[sys.argv[1]])
     from sigdigger_tpu_torch.kernels import _build, audio, compact
     from sigdigger_tpu_torch.kernels import channelizer as ch1
     from sigdigger_tpu_torch.kernels import channelizer2 as ch2

@@ -14,7 +14,9 @@ host work off the launch path: pointers go as the plain ints of
 comes from ``torch._C._cuda_getCurrentRawStream`` with no ``Stream``
 object, the device is made current only when the tensors lie on another
 one, and the shape checks run once per distinct argument signature.
-The squeeze and the audio bank call through it.
+The squeeze, the audio bank and the PSD kernels call through it;
+:func:`scratch` keeps one scratch buffer per device and stream for the
+PSD kernels' partials and counters.
 """
 
 from __future__ import annotations
@@ -82,8 +84,8 @@ SIGNATURES = {
             + [_P] * 4              # prev_re prev_im ftail ataps
             + [_I] + [_P] * 5       # fuse_psd w2d w64_re w64_im tw_re tw_im
             + [_P, _I]              # audio, audio_bf16
-            + [_P] * 6              # last_re last_im ftail_out psd
-                                    # f_scr psd_part
+            + [_P] * 7              # last_re last_im ftail_out psd
+                                    # f_scr psd_part psd_count
             + [_I] * 5              # M C mt ka da
             + [_F, _F, _P]),        # quad_gain psd_scale stream
     },
@@ -97,18 +99,15 @@ SIGNATURES = {
     "psd": {
         "sd_psd": (
             [_P, _I, _F]            # x, in_kind, in_gain
-            + [_P] * 9              # wa_re wa_im wb_re wb_im tw_re tw_im
-                                    # psd part scratch
+            + [_P] * 5              # consts psd part scratch count
             + [_I] * 3              # A B F
             + [_F, _P]),            # scale stream
     },
     "psd_xw": {
         "sd_psd_xw": (
-            [_P, _I]                # xw, in_kind
-            + [_P] * 7              # w2d wa_re wa_im wb_re wb_im tw_re
-                                    # tw_im
+            [_P, _I, _P]            # xw, in_kind, consts
             + [_I, _P, _F]          # ema prev alpha
-            + [_P] * 3              # psd part scratch
+            + [_P] * 4              # psd part scratch count
             + [_I] * 5              # M A B fb stride
             + [_F, _P]),            # scale stream
     },
@@ -256,3 +255,27 @@ def checked_once(memo: set, key, check) -> None:
     if key not in memo:
         check()
         memo.add(key)
+
+
+# device scratch of the PSD kernels: (device index, raw stream) -> buffer
+_SCRATCH: dict = {}
+
+# 32-bit counters at the head of every scratch buffer; a kernel that
+# counts there leaves them at zero
+SCRATCH_COUNTERS = 16
+
+
+def scratch(dev: torch.device, numel: int) -> torch.Tensor:
+    """A float32 buffer on ``dev``: SCRATCH_COUNTERS words of counters,
+    zero between launches, then at least ``numel`` floats.  One per
+    device and stream, grown (zeroed) as needed: launches on one stream
+    run in order, so each may reuse what the one before it wrote, and
+    callers read nothing back from it."""
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (idx, torch._C._cuda_getCurrentRawStream(idx))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < numel + SCRATCH_COUNTERS:
+        buf = torch.zeros(numel + SCRATCH_COUNTERS,
+                          device=torch.device("cuda", idx))
+        _SCRATCH[key] = buf
+    return buf

@@ -43,7 +43,8 @@ from sigdigger_tpu_torch.kernels.channelizer import (
     MatChannelizerConfig,
     make_mat_constants,
 )
-from sigdigger_tpu_torch.kernels.fft import _dft_matrix
+from sigdigger_tpu_torch.kernels._build import SCRATCH_COUNTERS, scratch
+from sigdigger_tpu_torch.kernels.fft import _dft_matrix, psd_parts
 from sigdigger_tpu_torch.kernels.ops import atan2
 from sigdigger_tpu_torch.kernels.tcsplit import tc_bmat, tc_product
 from sigdigger_tpu_torch.native import (
@@ -392,10 +393,13 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
     last_im = torch.empty((1, c), device=dev)
     ftail_out = torch.empty((p.ka - 1, c), device=dev)
     f_scr = torch.empty((m, c), device=dev)
-    psd = psd_part = None
+    psd = psd_part = psd_count = None
     if p.fuse_psd:
         psd = torch.empty((64, 64), device=dev)
-        psd_part = torch.empty((m // 64, 64, 64), device=dev)
+        # the frame sum's counters and one partial per cluster of frames
+        # (csrc/psd.cuh psd_frames), in the stream's cached scratch
+        psd_count = scratch(dev, psd_parts(m // 64) * 4096).data_ptr()
+        psd_part = psd_count + 4 * SCRATCH_COUNTERS
     tab, fused = p.table_rot, p.fuse_psd
     # every tensor passed stays referenced (by the caller, or for the
     # scratch by PyTorch's stream-ordered allocator) while the launch runs
@@ -409,7 +413,7 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
             _ptr(opt("w64_re", fused)), _ptr(opt("w64_im", fused)),
             _ptr(opt("tw_re", fused)), _ptr(opt("tw_im", fused)),
             _ptr(audio), int(p.audio_bf16), _ptr(last_re), _ptr(last_im),
-            _ptr(ftail_out), _ptr(psd), _ptr(f_scr), _ptr(psd_part),
+            _ptr(ftail_out), _ptr(psd), _ptr(f_scr), psd_part, psd_count,
             m, c, p.mt, p.ka, p.da, p.quad_gain, p.psd_scale,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:

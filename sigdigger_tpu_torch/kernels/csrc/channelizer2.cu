@@ -18,12 +18,15 @@
 //                      -> audio [M/Da, C] (f32 or bf16) (chan.cuh)
 //       tail_copy      the last Ka-1 rows of [ftail_in | f], the next
 //                      block's FIR tail, also when M < Ka-1 (chan.cuh)
-//   (c) psd_frames     with the fused PSD: one 4096-point four-step DFT
-//                      per frame of 64 packed rows -> |X|^2 per frame
-//   (d) psd_sum        the partials summed in frame order, times the
-//                      scale -> PSD [64, 64] in (k1, k2) order
-//   (c) and (d) are the shared stages of psd.cuh at A = B = 64, with the
-//   window applied in the kernel; without the fused PSD they are skipped.
+//   (c) psd_frames     with the fused PSD: one 4096-point four-step FFT
+//                      per frame of 64 packed rows (radix-8 Stockham
+//                      passes in registers), the |X|^2 of each cluster
+//                      of 8 frames summed through distributed shared
+//                      memory, the clusters' partials by the last block
+//                      of each bin slice, times the scale -> PSD [64, 64]
+//                      in (k1, k2) order
+//   (c) is the shared stage of psd.cuh at A = B = 64, with the window
+//   applied in the kernel; without the fused PSD it is skipped.
 //
 // Carries are written to fresh output buffers, never over an input
 // another block still reads.  The channelize product runs on the TF32
@@ -49,18 +52,18 @@ cudaError_t launch_input_stages(
     const float* prev_re, const float* prev_im, const float* w2d,
     const float* w64_re, const float* w64_im, const float* tw_re,
     const float* tw_im, float* last_re, float* last_im, float* f_scr,
-    float* psd_part, float* psd, int M, int C, int mt, float quad_gain,
-    float psd_scale, cudaStream_t s) {
+    float* psd_part, unsigned* psd_count, float* psd, int M, int C,
+    int mt, float quad_gain, float psd_scale, cudaStream_t s) {
     const T* x = static_cast<const T*>(xw);
     const cudaError_t e = chan::tc::launch_chan<T, TABLE>(
         x, x + (size_t)M * chan::K, in_gain, bmat, q, r, theta, phi0,
         prev_re, prev_im, f_scr, last_re, last_im, M, C, mt, quad_gain, s);
     if (e != cudaSuccess || psd == nullptr) return e;
-    // (c) + (d): frame f is rows [64f, 64f+64) of both planes
+    // (c): frame f is rows [64f, 64f+64) of both planes
     return four_step::launch_psd<T, 64, 64>(
         x, in_gain, w2d, (size_t)64 * chan::K, chan::K,
         (size_t)M * chan::K, w64_re, w64_im, w64_re, w64_im, tw_re, tw_im,
-        psd_part, psd, M / 64, psd_scale, s);
+        psd_part, psd_count, psd, M / 64, psd_scale, s);
 }
 
 template <typename T>
@@ -70,17 +73,17 @@ cudaError_t launch_rotator(
     const float* prev_re, const float* prev_im, const float* w2d,
     const float* w64_re, const float* w64_im, const float* tw_re,
     const float* tw_im, float* last_re, float* last_im, float* f_scr,
-    float* psd_part, float* psd, int M, int C, int mt, float quad_gain,
-    float psd_scale, cudaStream_t s) {
+    float* psd_part, unsigned* psd_count, float* psd, int M, int C,
+    int mt, float quad_gain, float psd_scale, cudaStream_t s) {
     if (table)
         return launch_input_stages<T, true>(
             xw, in_gain, bmat, q, r, theta, phi0, prev_re, prev_im, w2d,
             w64_re, w64_im, tw_re, tw_im, last_re, last_im, f_scr,
-            psd_part, psd, M, C, mt, quad_gain, psd_scale, s);
+            psd_part, psd_count, psd, M, C, mt, quad_gain, psd_scale, s);
     return launch_input_stages<T, false>(
         xw, in_gain, bmat, q, r, theta, phi0, prev_re, prev_im, w2d,
         w64_re, w64_im, tw_re, tw_im, last_re, last_im, f_scr, psd_part,
-        psd, M, C, mt, quad_gain, psd_scale, s);
+        psd_count, psd, M, C, mt, quad_gain, psd_scale, s);
 }
 
 }  // namespace
@@ -92,11 +95,12 @@ cudaError_t launch_rotator(
 // cos/sin one (theta [1, C], phi0 [M/mt, C]); the carries are prev_re /
 // prev_im [1, C] and ftail_in [Ka−1, C]; outputs go to fresh buffers.
 // With fuse_psd the block's PSD [64, 64] goes to psd (w2d, w64, tw its
-// constants, psd_part [M/64, 64, 64] scratch); otherwise those pointers
-// are unused.  f_scr [M, C] is scratch.  Needs M % mt == 0 and
-// mt % da == 0, plus mt % 64 == 0 for the tables and M % 64 == 0 for
-// the fused PSD.  Launches on `stream` without synchronising and returns
-// cudaGetLastError().
+// constants, psd_part [four_step::psd_parts(M/64), 64, 64] and
+// psd_count [four_step::CLUSTER] scratch, the count zero before and
+// after a launch); otherwise those pointers are unused.  f_scr [M, C]
+// is scratch.  Needs M % mt == 0 and mt % da == 0, plus mt % 64 == 0 for
+// the tables and M % 64 == 0 for the fused PSD.  Launches on `stream` without
+// synchronising and returns cudaGetLastError().
 extern "C" int sd_kernel2(
     const void* xw, int in_kind, float in_gain, const float* bmat,
     int table_rot, const float* q, const float* r,
@@ -105,9 +109,9 @@ extern "C" int sd_kernel2(
     int fuse_psd, const float* w2d, const float* w64_re,
     const float* w64_im, const float* tw_re, const float* tw_im,
     void* audio, int audio_bf16, float* last_re, float* last_im,
-    float* ftail_out, float* psd, float* f_scr, float* psd_part, int M,
-    int C, int mt, int ka, int da, float quad_gain, float psd_scale,
-    void* stream) {
+    float* ftail_out, float* psd, float* f_scr, float* psd_part,
+    unsigned* psd_count, int M, int C, int mt, int ka, int da,
+    float quad_gain, float psd_scale, void* stream) {
     if (M < 1 || C < 1 || mt < 1 || da < 1 || M % mt || mt % da ||
         ka < 2 || ka > chan::MAX_KA || (table_rot && mt % 64) ||
         (fuse_psd && M % 64))
@@ -121,19 +125,22 @@ extern "C" int sd_kernel2(
         e = launch_rotator<float>(
             table, xw, in_gain, bmat, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
-            f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
+            f_scr, psd_part, psd_count, psd_out, M, C, mt, quad_gain,
+            psd_scale, s);
         break;
     case 1:
         e = launch_rotator<int16_t>(
             table, xw, in_gain, bmat, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
-            f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
+            f_scr, psd_part, psd_count, psd_out, M, C, mt, quad_gain,
+            psd_scale, s);
         break;
     case 2:
         e = launch_rotator<int8_t>(
             table, xw, in_gain, bmat, q, r, theta, phi0, prev_re,
             prev_im, w2d, w64_re, w64_im, tw_re, tw_im, last_re, last_im,
-            f_scr, psd_part, psd_out, M, C, mt, quad_gain, psd_scale, s);
+            f_scr, psd_part, psd_count, psd_out, M, C, mt, quad_gain,
+            psd_scale, s);
         break;
     default:
         return static_cast<int>(cudaErrorInvalidValue);

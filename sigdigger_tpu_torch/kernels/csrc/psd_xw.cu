@@ -10,9 +10,12 @@
 // [Fb·A, B] x DFT_B product and a 0/1 frame-sum matmul, accumulated
 // across the sequential grid, the EMA in the last program.  None of
 // those shapes is math: here each frame read is one block of the shared
-// stages in psd.cuh (window x dequantization gain, DFT_A, twiddle, DFT_B,
-// |X|² into a per-frame partial), and psd_sum adds the partials in frame
-// order and, for the EMA form, blends prev + α·(new − prev).
+// stages in psd.cuh (window x dequantization gain at the load, DFT_A and
+// DFT_B as Stockham FFTs in registers, twiddle, |X|²), the blocks of a
+// thread-block cluster sum their frames through distributed shared
+// memory, and the last block to finish each slice of the bins adds the
+// clusters' partials in order and, for the EMA form, blends prev +
+// α·(new − prev), all in one launch.
 //
 // frame_stride s (the reference engine's per-interval spectrum) reads
 // groups of fb frames: group i is frames [i·s·fb, i·s·fb + fb).  The
@@ -21,10 +24,11 @@
 // and multiplied by it, as the TPU kernel does.
 //
 // Bound: bytes at FFT cost (5·N·log2 N per frame): 2 MiB of int16 rows
-// for a whole bench block against 35 MFLOP.  The dense DFTs do
-// 2·8·N·(A+B) flops per frame, so the kernel's own arithmetic sets its
-// pace, as for psd.cu.  No float atomics: the frame sum is
-// deterministic.  The plain PyTorch version is
+// for a whole bench block against 35 MFLOP, ~0.65 µs at the card's
+// memory rate; launch and latency set the pace.  A frame's row is 64
+// consecutive values, copied into shared memory with 16-byte cp.async.
+// At frame_stride 4 (32 frames) 32 blocks of 16 warps run.  No float
+// atomics: the frame sum is deterministic.  The plain PyTorch version is
 // sigdigger_tpu_torch/kernels/fft.py::psd_xw_kernel_reference.
 
 #include <cuda_runtime.h>
@@ -35,12 +39,11 @@
 namespace {
 
 template <typename T>
-cudaError_t launch_xw(const void* xw, const float* w2d, const float* wa_re,
-                      const float* wa_im, const float* wb_re,
-                      const float* wb_im, const float* tw_re,
-                      const float* tw_im, const float* prev, float alpha,
-                      float* psd, float* part, float* scratch, int M, int A,
-                      int fb, int stride, float scale, cudaStream_t s) {
+cudaError_t launch_xw(const void* xw, const four_step::Consts& c,
+                      const float* prev, float alpha, float* psd,
+                      float* part, float* scratch, unsigned* count, int M,
+                      int A, int fb, int stride, float scale,
+                      cudaStream_t s) {
     constexpr int B = 64;
     const T* x = static_cast<const T*>(xw);
     const size_t frame = (size_t)A * B;
@@ -48,52 +51,52 @@ cudaError_t launch_xw(const void* xw, const float* w2d, const float* wa_re,
     const size_t im_off = (size_t)M * B;
     const int kept = M / A / stride;
     return four_step::launch_psd_any<T>(
-        x, 1.0f, w2d, frame, B, im_off, wa_re, wa_im, wb_re, wb_im, tw_re,
-        tw_im, part, scratch, psd, A, B, kept, scale, s, fb, group, prev,
-        alpha);
+        x, 1.0f, c.w2d, frame, B, im_off, c.wa_re, c.wa_im, c.wb_re,
+        c.wb_im, c.tw_re, c.tw_im, part, scratch, count, psd, A, B, kept,
+        scale, s, fb, group, prev, alpha);
 }
 
 }  // namespace
 
 // One block's PSD from the packed [2M, 64] upload xw (in_kind 0 float32,
-// 1 int16, 2 int8).  w2d [A, 64] is the window with the dequantization
-// gain folded in; wa/wb are W_A^n and W_B^n, tw [A, 64] the twiddles.
-// Reads the M/A frames in groups of fb, every stride-th group; part
-// [M/A/stride, A, 64] is scratch; psd [A, 64] the output, in (k1, k2)
-// order, scaled by scale and, with ema, blended into prev [A, 64] by
-// alpha.  Any A >= 1 (the general form of psd.cuh outside A in 16..128
-// powers of two; scratch [M/A/stride, 2, A·64] read only when
-// four_step::psd_two_pass(A, 64), else it may be null).  Launches on
-// `stream` without synchronising and returns cudaGetLastError().
-extern "C" int sd_psd_xw(const void* xw, int in_kind, const float* w2d,
-                         const float* wa_re, const float* wa_im,
-                         const float* wb_re, const float* wb_im,
-                         const float* tw_re, const float* tw_im, int ema,
-                         const float* prev, float alpha, float* psd,
-                         float* part, float* scratch, int M, int A, int B,
-                         int fb, int stride, float scale, void* stream) {
+// 1 int16, 2 int8).  consts holds the packed constants of
+// fft.py::psd_pack with the window: W_A^n, W_B^n, the twiddles tw [A,
+// 64] and w2d [A, 64], the window with the dequantization gain folded
+// in.  Reads the M/A frames in groups of fb, every stride-th group; psd
+// [A, 64] the output, in (k1, k2) order, scaled by scale and, with ema,
+// blended into prev [A, 64] by alpha.  part is scratch:
+// [psd_parts(M/A/stride), A·64] floats on the template path (A a power
+// of two in [16, 128]), with count [CLUSTER], zero before and after a
+// launch; [M/A/stride, A·64] on the general form of
+// psd.cuh (any other A >= 1), which also reads scratch [M/A/stride, 2,
+// A·64] when four_step::psd_two_pass(A, 64) (else it may be null).
+// Launches on `stream` without synchronising and returns
+// cudaGetLastError().
+extern "C" int sd_psd_xw(const void* xw, int in_kind, const float* consts,
+                         int ema, const float* prev, float alpha,
+                         float* psd, float* part, float* scratch,
+                         unsigned* count, int M, int A, int B, int fb,
+                         int stride, float scale, void* stream) {
     if (B != 64 || A < 1 || M < A || M % A ||
         fb < 1 || stride < 1 || (M / A) % (fb * stride) ||
         (ema && prev == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const four_step::Consts c = four_step::unpack(consts, A, B);
     const float* pv = ema ? prev : nullptr;
     cudaError_t e;
     switch (in_kind) {
     case 0:
-        e = launch_xw<float>(xw, w2d, wa_re, wa_im, wb_re, wb_im, tw_re,
-                             tw_im, pv, alpha, psd, part, scratch, M, A, fb,
-                             stride, scale, s);
+        e = launch_xw<float>(xw, c, pv, alpha, psd, part, scratch, count, M,
+                             A, fb, stride, scale, s);
         break;
     case 1:
-        e = launch_xw<int16_t>(xw, w2d, wa_re, wa_im, wb_re, wb_im, tw_re,
-                               tw_im, pv, alpha, psd, part, scratch, M, A,
-                               fb, stride, scale, s);
+        e = launch_xw<int16_t>(xw, c, pv, alpha, psd, part, scratch, count,
+                               M, A, fb, stride, scale, s);
         break;
     case 2:
-        e = launch_xw<int8_t>(xw, w2d, wa_re, wa_im, wb_re, wb_im, tw_re,
-                              tw_im, pv, alpha, psd, part, scratch, M, A, fb,
-                              stride, scale, s);
+        e = launch_xw<int8_t>(xw, c, pv, alpha, psd, part, scratch, count,
+                              M, A, fb, stride, scale, s);
         break;
     default:
         return static_cast<int>(cudaErrorInvalidValue);

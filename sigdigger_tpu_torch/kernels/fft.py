@@ -11,9 +11,12 @@ natural order and folds it into a running EMA (:class:`PSDFold`).
 
 :func:`psd_kernel` launches the hand-written kernel in ``csrc/psd.cu``
 on a CUDA tensor and runs :func:`psd_kernel_reference`, the plain
-PyTorch version, on a CPU tensor; :class:`PSD` frames and windows a
-block on the host (``native.frame_psd_packed``), uploads it once and
-launches it.  :func:`psd_xw_kernel` and :func:`psd_xw_ema_kernel`
+PyTorch version, on a CPU tensor.  At A and B powers of two in [16,
+128] the kernel computes both DFTs as Stockham FFTs in registers, with
+the radix plan :data:`PSD_PLANS` and the constants of
+:func:`psd_constants`, packed by :func:`psd_pack`.  :class:`PSD` frames
+and windows a block on the host (``native.frame_psd_packed``), uploads
+it once and launches it.  :func:`psd_xw_kernel` and :func:`psd_xw_ema_kernel`
 (``csrc/psd_xw.cu``, plain version :func:`psd_xw_kernel_reference`)
 read the frames straight from the channelizer's packed ``[2M, 64]``
 upload and window them in the kernel; :class:`PSDFromXW` drives them,
@@ -24,7 +27,6 @@ receiver the PSD comes out of the channelizer kernel instead
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,15 +34,22 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.window import window_taps
+from sigdigger_tpu_torch.kernels._build import (
+    SCRATCH_COUNTERS,
+    checked_once,
+    launch,
+    load_library,
+    scratch,
+)
 from sigdigger_tpu_torch.native import frame_psd_packed
 from sigdigger_tpu_torch.types import WindowFunction
 
 
-def _dft_matrix(n: int, sign: float = -1.0) -> tuple[np.ndarray, np.ndarray]:
+def _dft_matrix(n: int, sign: float = -1.0, dtype=np.float32
+                ) -> tuple[np.ndarray, np.ndarray]:
     k = np.arange(n)
     ang = sign * 2.0 * np.pi * np.outer(k, k) / n
-    return (np.cos(ang).astype(np.float32),
-            np.sin(ang).astype(np.float32))
+    return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
 
 
 @dataclass(frozen=True)
@@ -114,20 +123,64 @@ class PSDParams:
     in_gain: float       # dequantization gain of an int16 upload
 
 
-def psd_constants(a: int, b: int) -> dict[str, np.ndarray]:
-    """What the PSD reads, float64-built: the DFT_A and DFT_B matrices
-    (``da_*``, ``db_*``), their rows 1 (``wa_*``, ``wb_*``: W_A^n and
-    W_B^n, the tables the kernel indexes) and the twiddles ``tw_*``
-    [A, B] = W_N^{k1·b}."""
-    da_re, da_im = _dft_matrix(a)
-    db_re, db_im = _dft_matrix(b)
+def psd_constants(a: int, b: int, dtype=np.float32
+                  ) -> dict[str, np.ndarray]:
+    """What the PSD reads, float64-built and cast to ``dtype``: the DFT_A
+    and DFT_B matrices (``da_*``, ``db_*``), their rows 1 (``wa_*``,
+    ``wb_*``: W_A^n and W_B^n, the tables the kernel indexes, also for
+    the pass twiddles of its FFTs) and the twiddles ``tw_*`` [A, B] =
+    W_N^{k1·b}."""
+    da_re, da_im = _dft_matrix(a, dtype=dtype)
+    db_re, db_im = _dft_matrix(b, dtype=dtype)
     ang = -2.0 * np.pi * np.arange(a)[:, None] * np.arange(b)[None, :] \
         / (a * b)
     return {"da_re": da_re, "da_im": da_im, "db_re": db_re, "db_im": db_im,
             "wa_re": da_re[1].copy(), "wa_im": da_im[1].copy(),
             "wb_re": db_re[1].copy(), "wb_im": db_im[1].copy(),
-            "tw_re": np.cos(ang).astype(np.float32),
-            "tw_im": np.sin(ang).astype(np.float32)}
+            "tw_re": np.cos(ang).astype(dtype),
+            "tw_im": np.sin(ang).astype(dtype)}
+
+
+# The radix plan of each length the FFT stages take, the Stockham
+# passes' radices first pass first (csrc/psd.cuh Plan<L>): pass p of an
+# L-point DFT has radix PSD_PLANS[L][p] and stride Ns = the product of
+# the radices before it; it applies W_L^{(j mod Ns)·r·L/(Ns·R)} (from
+# W_L^n, ``wa``/``wb``) before each radix-R butterfly j.
+PSD_PLANS = {16: (4, 4), 32: (8, 4), 64: (8, 8), 128: (8, 4, 4)}
+
+# frames of one thread-block cluster, summed through distributed shared
+# memory (csrc/psd.cuh CLUSTER); the clusters' partials are summed by
+# the last block to finish each slice of the bins
+PSD_CLUSTER = 8
+
+
+def psd_fast(a: int, b: int) -> bool:
+    """Whether A, B take the FFT stages (``csrc/psd.cuh::psd_shape_ok``):
+    both powers of two in [16, 128]."""
+    return a in PSD_PLANS and b in PSD_PLANS
+
+
+def psd_parts(frames: int) -> int:
+    """Partials of the FFT stages' frame sum: one per cluster of
+    :data:`PSD_CLUSTER` frames."""
+    return -(-frames // PSD_CLUSTER)
+
+
+def psd_pack(a: int, b: int, w2d: np.ndarray | None = None) -> np.ndarray:
+    """What the CUDA PSD kernels read, as one float32 buffer
+    (``csrc/psd.cuh::unpack``): W_A^n and W_B^n (re, im), the twiddles
+    ``tw`` [A, B] (re, im) and, for :func:`psd_xw_kernel`, the window
+    ``w2d`` [A, B]."""
+    c = psd_constants(a, b)
+    parts = [c["wa_re"], c["wa_im"], c["wb_re"], c["wb_im"],
+             c["tw_re"].ravel(), c["tw_im"].ravel()]
+    if w2d is not None:
+        parts.append(np.asarray(w2d, np.float32).ravel())
+    return np.concatenate(parts).astype(np.float32)
+
+
+def _pack_len(a: int, b: int, window: bool) -> int:
+    return 2 * (a + b) + (3 if window else 2) * a * b
 
 
 def psd_kernel_reference(xp: torch.Tensor, consts: dict[str, torch.Tensor],
@@ -168,10 +221,6 @@ def _frames_power(xr: torch.Tensor, xi: torch.Tensor,
 _IN_KIND = {torch.float32: 0, torch.int16: 1}
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
 # shared memory of one block on sm_90 (csrc/psd.cuh SMEM_MAX)
 _SMEM_MAX = 232448
 
@@ -181,52 +230,66 @@ def psd_two_pass(a: int, b: int) -> bool:
     scratch (``csrc/psd.cuh::psd_two_pass``): A or B outside the fast
     path's powers of two in [16, 128], and a frame and its DFT_A output
     (16·A·B bytes) past a block's shared memory."""
-    fast = all(16 <= v <= 128 and v & (v - 1) == 0 for v in (a, b))
-    return not fast and 16 * a * b > _SMEM_MAX
+    return not psd_fast(a, b) and 16 * a * b > _SMEM_MAX
 
 
 def _psd_scratch(a: int, b: int, frames: int,
-                 dev: torch.device) -> torch.Tensor | None:
-    """The two-pass form's ``[F, 2, A·B]`` scratch, or None."""
-    if not psd_two_pass(a, b):
-        return None
-    return torch.empty((frames, 2, a * b), device=dev)
+                 dev: torch.device) -> tuple[int, int, int | None]:
+    """Pointers into the stream's cached scratch: the counters of the
+    FFT stages' frame sum, the partials (one per cluster on the FFT
+    stages, one per frame on the general form) and the two-pass form's
+    ``[F, 2, A·B]``, or None."""
+    n = a * b
+    rows = psd_parts(frames) if psd_fast(a, b) else frames
+    extra = 2 * frames * n if psd_two_pass(a, b) else 0
+    count = scratch(dev, rows * n + extra).data_ptr()
+    part = count + 4 * SCRATCH_COUNTERS
+    return count, part, (part + 4 * rows * n if extra else None)
 
 
-def _psd_cuda(xp: torch.Tensor, consts: dict[str, torch.Tensor],
-              p: PSDParams) -> torch.Tensor:
-    from sigdigger_tpu_torch.kernels._build import load_library
+# argument signatures whose shapes the CUDA wrappers have checked
+_CHECKED: set = set()
 
-    a, b = p.a, p.b
-    dev = xp.device
+
+def _check_pack(name: str, pack, a: int, b: int, window: bool,
+                dev: torch.device) -> None:
+    if (pack is None or pack.dim() != 1
+            or pack.numel() != _pack_len(a, b, window)
+            or pack.dtype != torch.float32 or pack.device != dev
+            or not pack.is_contiguous()):
+        got = None if pack is None else (pack.dtype, tuple(pack.shape),
+                                         pack.device)
+        raise ValueError(f"{name} consts['pack']: want the contiguous "
+                         f"float32 psd_pack({a}, {b}"
+                         f"{', w2d' if window else ''}) on {dev}, got {got}")
+
+
+def _check_psd(xp: torch.Tensor, pack, a: int, b: int) -> None:
     if (xp.dtype not in _IN_KIND or xp.dim() != 2 or xp.shape[0] != 2 * a
             or xp.shape[1] % b or xp.shape[1] == 0
             or not xp.is_contiguous()):
         raise ValueError(f"psd xp must be contiguous [2A, F·B] = "
                          f"[{2 * a}, F·{b}] float32/int16, got "
                          f"{tuple(xp.shape)} {xp.dtype}")
-    shapes = {"wa_re": (a,), "wa_im": (a,), "wb_re": (b,), "wb_im": (b,),
-              "tw_re": (a, b), "tw_im": (a, b)}
-    for name, shape in shapes.items():
-        t = consts[name]
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or t.device != dev or not t.is_contiguous()):
-            raise ValueError(
-                f"psd {name}: want contiguous float32 {shape} on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_pack("psd", pack, a, b, False, xp.device)
+
+
+def _psd_cuda(xp: torch.Tensor, consts: dict[str, torch.Tensor],
+              p: PSDParams) -> torch.Tensor:
+    a, b = p.a, p.b
+    dev = xp.device
+    pack = consts.get("pack")
+    # the key holds everything _check_psd reads
+    key = ("psd", xp.shape, xp.stride(), xp.dtype, dev, a, b) + (
+        (None,) if pack is None else
+        (pack.shape, pack.stride(), pack.dtype, pack.device))
+    checked_once(_CHECKED, key, lambda: _check_psd(xp, pack, a, b))
     f = xp.shape[1] // b
-    lib = load_library("psd")
     psd = torch.empty((a, b), device=dev)
-    part = torch.empty((f, a, b), device=dev)
-    scratch = _psd_scratch(a, b, f, dev)
-    with torch.cuda.device(dev):
-        err = lib.sd_psd(
-            _ptr(xp), _IN_KIND[xp.dtype], p.in_gain,
-            _ptr(consts["wa_re"]), _ptr(consts["wa_im"]),
-            _ptr(consts["wb_re"]), _ptr(consts["wb_im"]),
-            _ptr(consts["tw_re"]), _ptr(consts["tw_im"]),
-            _ptr(psd), _ptr(part), _ptr(scratch), a, b, f, p.scale,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    count, part, scr = _psd_scratch(a, b, f, dev)
+    err = launch(load_library("psd").sd_psd, dev, xp.data_ptr(),
+                 _IN_KIND[xp.dtype], p.in_gain, pack.data_ptr(),
+                 psd.data_ptr(), part, scr, count, a, b, f, p.scale)
     if err != 0:
         raise RuntimeError(f"sd_psd launch failed: CUDA error {err}")
     psd_kernel.launches += 1
@@ -286,6 +349,8 @@ class PSD(PSDFold):
                        * (cfg.frames_per_block // fb))
         self.consts = {k: torch.as_tensor(v, device=self.device)
                        for k, v in psd_constants(a, b).items()}
+        self.consts["pack"] = torch.as_tensor(psd_pack(a, b),
+                                              device=self.device)
         self.params = PSDParams(a=a, b=b, scale=scale,
                                 in_gain=1.0 / self.i16_scale)
 
@@ -363,11 +428,8 @@ def psd_xw_kernel_reference(xw: torch.Tensor,
 _XW_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 
 
-def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
-                 p: PSDXWParams, prev: torch.Tensor | None,
-                 alpha: float) -> torch.Tensor:
-    from sigdigger_tpu_torch.kernels._build import load_library
-
+def _check_xw(xw: torch.Tensor, pack, p: PSDXWParams,
+              prev: torch.Tensor | None) -> None:
     a, b = p.a, p.b
     dev = xw.device
     if (xw.dtype not in _XW_KIND or xw.dim() != 2 or xw.shape[1] != 64
@@ -376,37 +438,41 @@ def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
         raise ValueError(f"psd_xw xw must be a contiguous [2M, 64] "
                          f"float32/int16/int8 upload with A | M, got "
                          f"{tuple(xw.shape)} {xw.dtype}, A={a}, B={b}")
-    m = xw.shape[0] // 2
-    f = m // a
+    f = xw.shape[0] // 2 // a
     if p.fb < 1 or p.stride < 1 or f % (p.fb * p.stride):
         raise ValueError(f"psd_xw takes F % (fb·stride) == 0, got A={a}, "
                          f"F={f}, fb={p.fb}, stride={p.stride}")
-    shapes = {"w2d": (a, b), "wa_re": (a,), "wa_im": (a,), "wb_re": (b,),
-              "wb_im": (b,), "tw_re": (a, b), "tw_im": (a, b)}
-    tensors = {k: consts[k] for k in shapes}
-    if prev is not None:
-        shapes["prev"], tensors["prev"] = (a, b), prev
-    for name, shape in shapes.items():
-        t = tensors[name]
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or t.device != dev or not t.is_contiguous()):
-            raise ValueError(
-                f"psd_xw {name}: want contiguous float32 {shape} on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    lib = load_library("psd_xw")
-    kept = f // p.stride
+    _check_pack("psd_xw", pack, a, b, True, dev)
+    if prev is not None and (
+            tuple(prev.shape) != (a, b) or prev.dtype != torch.float32
+            or prev.device != dev or not prev.is_contiguous()):
+        raise ValueError(
+            f"psd_xw prev: want contiguous float32 {(a, b)} on {dev}, "
+            f"got {prev.dtype} {tuple(prev.shape)} on {prev.device}")
+
+
+def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
+                 p: PSDXWParams, prev: torch.Tensor | None,
+                 alpha: float) -> torch.Tensor:
+    a, b = p.a, p.b
+    dev = xw.device
+    pack = consts.get("pack")
+    # the key holds everything _check_xw reads
+    key = ("psd_xw", xw.shape, xw.stride(), xw.dtype, dev, a, b, p.fb,
+           p.stride) + ((None,) if pack is None else (
+               pack.shape, pack.stride(), pack.dtype, pack.device)) + (
+        (None,) if prev is None else (
+            prev.shape, prev.stride(), prev.dtype, prev.device))
+    checked_once(_CHECKED, key, lambda: _check_xw(xw, pack, p, prev))
+    m = xw.shape[0] // 2
+    kept = m // a // p.stride
     psd = torch.empty((a, b), device=dev)
-    part = torch.empty((kept, a, b), device=dev)
-    scratch = _psd_scratch(a, b, kept, dev)
-    with torch.cuda.device(dev):
-        err = lib.sd_psd_xw(
-            _ptr(xw), _XW_KIND[xw.dtype], _ptr(consts["w2d"]),
-            _ptr(consts["wa_re"]), _ptr(consts["wa_im"]),
-            _ptr(consts["wb_re"]), _ptr(consts["wb_im"]),
-            _ptr(consts["tw_re"]), _ptr(consts["tw_im"]),
-            int(prev is not None), _ptr(prev), alpha, _ptr(psd), _ptr(part),
-            _ptr(scratch), m, a, b, p.fb, p.stride, p.scale,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    count, part, scr = _psd_scratch(a, b, kept, dev)
+    err = launch(load_library("psd_xw").sd_psd_xw, dev, xw.data_ptr(),
+                 _XW_KIND[xw.dtype], pack.data_ptr(), int(prev is not None),
+                 None if prev is None else prev.data_ptr(), alpha,
+                 psd.data_ptr(), part, scr, count, m, a, b, p.fb, p.stride,
+                 p.scale)
     if err != 0:
         raise RuntimeError(f"sd_psd_xw launch failed: CUDA error {err}")
     return psd
@@ -496,6 +562,8 @@ class PSDFromXW(PSD):
         w2d = (self._taps.astype(np.float32).reshape(a, b)
                * np.float32(in_scale))
         self.consts["w2d"] = torch.as_tensor(w2d, device=self.device)
+        self.consts["pack"] = torch.as_tensor(psd_pack(a, b, w2d),
+                                              device=self.device)
         self.xw_params = PSDXWParams(a=a, b=b, fb=fb, stride=s, scale=scale)
         self._psd_dev = None             # device-resident EMA carry
 

@@ -611,8 +611,8 @@ def test_kernel2_refuses_excluded_geometries(cuda):
         err = lib.sd_kernel2(null, 1, 1.0, null, table, null, null,
                              null, null, null, null, null, null, 0, null,
                              null, null, null, null, null, 0, null, null,
-                             null, null, null, null, m, 8, mt, 64, da, 1.0,
-                             1.0, null)
+                             null, null, null, null, null, m, 8, mt, 64, da,
+                             1.0, 1.0, null)
         assert err != 0, (m, mt, da, table)
 
 
@@ -670,6 +670,145 @@ def test_psd_xw_refuses_bad_inputs(cuda):
         fft.psd_xw_ema_kernel(torch.zeros((4096, 64), device=cuda),
                               psd.consts, p, torch.zeros((64, 32),
                                                          device=cuda), 0.5)
+
+
+# -- the FFT stages of the four-step PSD (csrc/psd.cuh) -------------------
+def _f64_psd(frames: np.ndarray, a: int, b: int, scale: float) -> np.ndarray:
+    """The float64 np.fft reference: the mean |X|² of the complex frames
+    [F, A·B] (windowed), times ``scale``, in (k1, k2) order."""
+    pw = (np.abs(np.fft.fft(frames, axis=1)) ** 2).sum(0) * scale
+    return np.ascontiguousarray(pw.reshape(b, a).T)
+
+
+def _within(got, want, tol: float = 1e-4) -> bool:
+    g = got.double().cpu().numpy() if torch.is_tensor(got) else got
+    w = want.double().cpu().numpy() if torch.is_tensor(want) else want
+    return bool(np.all(np.abs(g - w) <= tol * np.abs(w)))
+
+
+@pytest.mark.parametrize("i16", [False, True], ids=["f32", "i16"])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
+@pytest.mark.parametrize("a", [16, 32, 64, 128])
+def test_psd_fft_stages_match_plain_and_float64(cuda, a, b, i16):
+    """``psd_kernel`` at every (A, B) of the FFT stages, 12 frames (a
+    cluster of 8 and one of 4): every bin within 1e-4 of the plain
+    version and of a float64 np.fft of the same frames, two launches
+    bit-equal, one launch counted each."""
+    n, frames = a * b, 12
+    p = fft.PSD(fft.PSDConfig(fft_size=n, frames_per_block=frames, a=a,
+                              frames_per_program=4), FS, in_i16=i16,
+                device=cuda)
+    assert (p.cfg.a, p.cfg.b) == (a, b) and fft.psd_fast(a, b)
+    rng = np.random.default_rng(a * 1000 + b)
+    k = np.arange(n * frames)
+    x = (0.05 * (rng.standard_normal(len(k)) + 1j * rng.standard_normal(
+        len(k))) + 0.8 * np.exp(2j * np.pi * 0.2 * k)).astype(np.complex64)
+    xp_h = p.prepare(x)
+    xp = torch.from_numpy(xp_h).to(cuda)
+    before = fft.psd_kernel.launches
+    got = fft.psd_kernel(xp, p.consts, p.params)
+    again = fft.psd_kernel(xp, p.consts, p.params)
+    want = fft.psd_kernel_reference(xp, p.consts, p.params)
+    torch.cuda.synchronize()
+    assert fft.psd_kernel.launches == before + 2
+    assert torch.equal(got, again)
+    assert _within(got, want)
+    gain = p.params.in_gain if i16 else 1.0
+    xd = xp_h.astype(np.float64) * gain
+    fr = (xd[:a] + 1j * xd[a:]).reshape(a, frames, b).transpose(1, 0, 2)
+    assert _within(got, _f64_psd(fr.reshape(frames, n), a, b,
+                                 p.params.scale))
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("kind", ["f32", "i16", "i8"])
+def test_psd_xw_fft_stages_match_float64(cuda, kind, stride):
+    """``psd_xw_kernel`` and the EMA form chained over 3 blocks at the
+    bench's N 4096 (M 8192, 128 frames; 32 at stride 4): every bin
+    within 1e-4 of a float64 np.fft of the same windowed frames (the
+    EMA chained in float64), each launch bit-equal to a second one."""
+    m, n = 8192, 4096
+    scale = {"f32": 1.0, "i16": 4096.0, "i8": 64.0}[kind]
+    psd = fft.PSDFromXW(fft.PSDConfig(fft_size=n, frames_per_block=m * 64
+                                      // n), m, FS, in_scale=1.0 / scale,
+                        frame_stride=stride, device=cuda)
+    x = _signal(np.array([2e5, -3e5, 7e5]), 3 * m * 64 + 63, seed=stride)
+    framer = {"f32": lambda e: ch2.frame_windows_packed(e, m, 64, 64),
+              "i16": lambda e: ch2.frame_windows_packed_i16(e, m, 64, 64,
+                                                            scale),
+              "i8": lambda e: ch2.frame_windows_packed_i8(e, m, 64, 64,
+                                                          scale)}[kind]
+    p, a = psd.xw_params, psd.cfg.a
+    kept = fft.psd_xw_frames(m // a, p)
+    w2d = psd.consts["w2d"].double().cpu().numpy().ravel()
+    prev = torch.zeros((a, 64), device=cuda)
+    prev64 = np.zeros((a, 64))
+    before = (fft.psd_xw_kernel.launches, fft.psd_xw_ema_kernel.launches)
+    for blk in range(3):
+        xw_h = framer(x[blk * m * 64:(blk + 1) * m * 64 + 63])
+        xw = torch.from_numpy(xw_h).to(cuda)
+        got = fft.psd_xw_kernel(xw, psd.consts, p)
+        again = fft.psd_xw_kernel(xw, psd.consts, p)
+        alpha = 1.0 if blk == 0 else psd.alpha_block
+        ema = fft.psd_xw_ema_kernel(xw, psd.consts, p, prev, alpha)
+        ema_again = fft.psd_xw_ema_kernel(xw, psd.consts, p, prev, alpha)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(ema, ema_again)
+        xd = xw_h.astype(np.float64)
+        fr = (xd[:m] + 1j * xd[m:]).reshape(m // a, a * 64)[kept] * w2d
+        want = _f64_psd(fr, a, 64, p.scale)
+        prev64 = prev64 + alpha * (want - prev64)
+        assert _within(got, want)
+        assert _within(ema, prev64)
+        prev = ema
+    assert (fft.psd_xw_kernel.launches, fft.psd_xw_ema_kernel.launches) == \
+        (before[0] + 6, before[1] + 6)
+
+
+def test_kernel2_fused_psd_matches_float64(cuda):
+    """kernel2's fused PSD runs the same FFT stages: within 1e-4 of a
+    float64 np.fft of the block's windowed frames on every bin, and two
+    launches on the same input give the same PSD bit for bit."""
+    cfg = ch2.MatChannelizer2Config(
+        sample_rate=FS, n_channels=200, taps=64, decimation=64,
+        audio_taps=64, audio_decim=8, block_out=4096, m_tile=2048,
+        psd_fft=4096, in_i16=True, audio_bf16=True)
+    chan = ch2.MatChannelizer2(cfg, np.linspace(-900e3, 900e3, 200), 50e3,
+                               device=cuda)
+    x = _signal(chan.f0s, cfg.block_in, seed=11)
+    xw_h = chan._frame(x)
+    xw = torch.from_numpy(xw_h).to(cuda)
+    carries = (chan._prev_re, chan._prev_im, chan._ftail)
+    before = ch2.kernel2.launches
+    one = ch2.kernel2(xw, chan.consts, *carries, chan.params)
+    two = ch2.kernel2(xw, chan.consts, *carries, chan.params)
+    torch.cuda.synchronize()
+    assert ch2.kernel2.launches == before + 2
+    assert torch.equal(one[4], two[4])
+    m = cfg.block_out
+    xd = xw_h.astype(np.float64) * chan.params.in_gain
+    w2d = chan.consts["w2d"].double().cpu().numpy().ravel()
+    fr = (xd[:m] + 1j * xd[m:]).reshape(m // 64, 4096) * w2d
+    assert _within(one[4], _f64_psd(fr, 64, 64, chan.params.psd_scale))
+
+
+def test_psd_kernel_reads_unaligned_rows(cuda):
+    """An upload view 2 bytes into its buffer takes the kernel's plain
+    loads (no 16-byte cp.async) and gives the aligned launch's PSD."""
+    p = fft.PSD(fft.PSDConfig(fft_size=4096, frames_per_block=16), FS,
+                in_i16=True, device=cuda)
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal(4096 * 16) + 1j * rng.standard_normal(
+        4096 * 16)).astype(np.complex64)
+    xp = torch.from_numpy(p.prepare(x)).to(cuda)
+    buf = torch.empty(xp.numel() + 1, dtype=torch.int16, device=cuda)
+    view = buf[1:].view(xp.shape)
+    view.copy_(xp)
+    assert view.data_ptr() % 16 != 0
+    got = fft.psd_kernel(view, p.consts, p.params)
+    want = fft.psd_kernel(xp, p.consts, p.params)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n_ch,block_out", [(256, 1024), (40, 1000)])

@@ -57,6 +57,7 @@ MODULES = [
     "sigdigger_tpu_torch.kernels.recovery",
     "sigdigger_tpu_torch.kernels.compact",
     "sigdigger_tpu_torch.kernels.stage_variants",
+    "sigdigger_tpu_torch.kernels.psd_phases",
     "sigdigger_tpu_torch.kernels.symsqueeze",
     "sigdigger_tpu_torch.kernels.tcsplit",
     "sigdigger_tpu_torch.kernels.drainpack",
