@@ -11,7 +11,10 @@ parent commit unpacked with ``git archive``) and of this one in turns, N
 pairs in fresh processes on the same card, and prints each metric's
 runs, medians and the pairs the change won.  The third does the same
 with phase 2's timings of kernel2 and the PSD kernels (event times,
-traced stages, the FFT and composition yardsticks).
+traced stages, the FFT and composition yardsticks), of the drain packer
+(event time and traced device time at the bench layout, traced device
+time at the grouped one) and of the line resampler (event time and
+traced device time of 64 framed lines).
 
 Phases, each fatal on failure (any exception exits nonzero), each
 printing the seconds it took:
@@ -71,10 +74,17 @@ printing the seconds it took:
    R 4 in turns with ``torch.sum`` (medians of 21) and both traced; the
    drain packer
    (``pack_kernel``) at the bench session's layout (width 1024, 832 live
-   audio columns, the status tile) and at a grouped one (G 2 in every
-   section, squeezed digital rows, a raw section), bit-equal.  Then the
+   audio columns, the status tile), at a grouped one (G 2 in every
+   section, squeezed digital rows, a raw section), at width 8, the status
+   tile alone, an unsorted map and maps with empty lanes inside a group,
+   bit-equal, each layout's traced device time beside its live-byte and
+   32-byte-sector bounds, and the wrapper's host time by part.  Then the
    TV line resampler (``tv_kernel``) at ``cli tv``'s geometry (W 512, px
-   384) on 3 dispatches of 64 lines and one of 256, within 2e-6, and the
+   384) on 3 dispatches of 64 framed lines and one of 256, and in the
+   stream form (64 windows read from a block's samples, starts clipped at
+   both ends) against its plain version, the framed form and
+   ``LineResampler.resample_lines``, within 2e-6, with the wrapper's host
+   time by part and the resampler's upload, kernel and fetch; and the
    CMA bank (``cma_kernel``) at 1024 lanes x 1024 symbols, K 5, over 3
    chained blocks, bit-equal.
 3. FM end to end: ``KernelReceiver(mode="fm")`` at the bench geometry
@@ -440,26 +450,30 @@ def phase2_kernel_vs_plain(ch2, torch):
 def profile_stages(fn, stages: tuple, reps: int = 5) -> dict:
     """Device time per CUDA function (ms per launch) of ``fn``, from
     torch.profiler over ``reps`` calls ("not measured" when the trace
-    holds no device time).  Each stage's total is divided by the
-    launches the trace holds, not by ``reps``: the profiler may keep
-    only the last calls of a long run."""
+    holds no device time of any stage in three traces: a trace of a
+    short run sometimes holds no device events).  Each stage's total is
+    divided by the launches the trace holds, not by ``reps``: the
+    profiler may keep only the last calls of a long run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        for stage in stages:
-            if stage in ev.key:
-                dev_us = getattr(ev, "device_time_total", None)
-                if dev_us is None:
-                    dev_us = getattr(ev, "cuda_time_total", 0.0)
-                out[stage] = round(dev_us / max(ev.count, 1) / 1e3, 4)
-    return out or {"stages": "not measured"}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            for stage in stages:
+                if stage in ev.key:
+                    dev_us = getattr(ev, "device_time_total", None)
+                    if dev_us is None:
+                        dev_us = getattr(ev, "cuda_time_total", 0.0)
+                    out[stage] = round(dev_us / max(ev.count, 1) / 1e3, 4)
+        if out:
+            return out
+    return {"stages": "not measured"}
 
 
 def time_once_ms(fn) -> tuple:
@@ -2194,14 +2208,48 @@ def pack_bound(cfg, live: dict) -> tuple:
     return bound(ops, nbytes) + (ops, nbytes)
 
 
-def pack_case(dpm, torch, rng, cfg, live: dict):
-    """A packer at ``cfg`` with ``live[sec]`` random sorted columns per
-    section (every slot on the status tile when ``live["status"]`` is
-    the width); returns (packer, planes, sq, pw)."""
+def pack_sector_bound(cfg, maps: dict) -> tuple:
+    """The pack's floor for a gather: the bytes of the 32-byte sectors
+    that the maps' columns touch in each row of each plane read (a
+    sparse map cannot fetch less), the maps and the buffer written once;
+    operations as :func:`pack_bound`.  ``maps`` holds the numpy maps."""
+    c = cfg.n_channels
+
+    def sectors(cols, rows):
+        cols = np.unique(cols[cols >= 0])
+        if c % 8 == 0:
+            return rows * len(np.unique(cols // 8))
+        return len(np.unique((np.arange(rows)[:, None] * c
+                              + cols[None, :]) // 8))
+
+    nbytes = cfg.total_tiles * cfg.m_tile * cfg.width * 2
+    nbytes += 2 * sectors(maps["status"], 1) * 32 + cfg.width * 4
+    planes = {"audio": 1, "digital": 3, "raw": 2}
+    for sec, n in planes.items():
+        if sec in maps:
+            rows = cfg.audio_rows if sec == "audio" else (
+                cfg.digital_rows if sec == "digital" else cfg.n_rows)
+            nbytes += n * sectors(maps[sec], rows) * 32 + len(maps[sec]) * 4
+    ops = 3 * cfg.total_tiles * cfg.m_tile * cfg.width + \
+        12 * 2 * int((maps["status"] >= 0).sum())
+    return bound(ops, nbytes) + (ops, nbytes)
+
+
+def pack_case(dpm, torch, rng, cfg, live: dict, order: str = "sorted"):
+    """A packer at ``cfg`` with ``live[sec]`` random columns per section
+    (every slot on the status tile when ``live["status"]`` is the
+    width), ``order`` "sorted", "shuffled", or "holes" (sorted, every
+    third lane of each data section empty); returns (packer, planes, sq,
+    pw)."""
     c = cfg.n_channels
     pk = dpm.DrainPacker(cfg, device="cuda")
-    maps = {sec: sorted(rng.choice(c, n, replace=False).tolist())
-            for sec, n in live.items()}
+    maps = {}
+    for sec, n in live.items():
+        cols = rng.choice(c, n, replace=False)
+        cols = rng.permutation(cols) if order == "shuffled" else np.sort(cols)
+        if order == "holes" and sec != "status":
+            cols[::3] = -1
+        maps[sec] = cols.tolist()
     pk.set_mappings(maps.pop("status"), **maps)
 
     def plane(rows, scale=0.7):
@@ -2226,12 +2274,50 @@ def pack_case(dpm, torch, rng, cfg, live: dict):
     return pk, planes, sq, pw
 
 
+def pack_host_parts(dpm, torch, pk, planes, sq, pw) -> dict:
+    """Host µs a call of the parts of ``pack_kernel``'s CUDA path: the
+    output's allocation, the C entry alone (its launch), the whole
+    wrapper and ``DrainPacker.dispatch``; the rest of the wrapper is its
+    Python glue (the checked-once key, the pointers, the count)."""
+    from sigdigger_tpu_torch.kernels import _build
+
+    cfg, maps = pk.cfg, pk._maps
+    plan = dpm._PLANS[(id(cfg), sq.device)]
+    shape = plan.shape
+    out = torch.empty(shape, dtype=torch.int16, device="cuda")
+    lib = _build.load_library("drainpack")
+    args = (plan.table_ptr, plan.n_blocks,
+            *(planes[n].data_ptr() if n in plan.names else 0
+              for n in dpm._PLANE_ORDER),
+            *(maps[s].data_ptr() if s in plan.sels else 0
+              for s in ("audio", "digital", "raw")),
+            maps["status"].data_ptr(), sq.data_ptr(), pw.data_ptr(),
+            out.data_ptr(), *plan.ints, 1,
+            torch.cuda.current_stream().cuda_stream)
+    kw = {"audio": planes.get("audio"), "sq": sq, "pw": pw}
+    if cfg.has_digital:
+        kw["dig"] = tuple(planes[n] for n in ("d_sr", "d_si", "d_st"))
+    if cfg.has_raw:
+        kw["raw"] = (planes["y_re"], planes["y_im"])
+    return {k: round(v, 2) for k, v in {
+        "empty": host_us(lambda: torch.empty(shape, dtype=torch.int16,
+                                             device="cuda")),
+        "entry": host_us(lambda: lib.sd_drainpack(*args)),
+        "wrapper": host_us(lambda: dpm.pack_kernel(planes, sq, pw, maps,
+                                                   cfg)),
+        "dispatch": host_us(lambda: pk.dispatch(**kw))}.items()}
+
+
 def phase2_pack(dpm, torch) -> dict:
     """The drain packer against its plain version (bit-equal) at the
     bench session's layout (width 1024: 832 live audio columns in 4
     tiles of 64 rows, every slot on the status tile; the digital section
-    left for its side compactor) and at a grouped layout (G 2 in every
-    section, squeezed digital rows, a raw section)."""
+    left for its side compactor), at a grouped layout (G 2 in every
+    section, squeezed digital rows, a raw section), at width 8 (the
+    smallest), the status tile alone, the bench layout with an unsorted
+    map, and the grouped one with empty lanes inside each group; each
+    layout's traced device time beside its live-byte and sector
+    bounds."""
     rng = np.random.default_rng(SEED + 17)
     m, c = BLOCK_OUT, N_CHANNELS
     bench_cfg = dpm.DrainPackerConfig(
@@ -2243,12 +2329,24 @@ def phase2_pack(dpm, torch) -> dict:
         audio_width=512, digital_width=512, raw_width=512,
         digital_rows=m // 4)
     check(all(grouped_cfg.group(s) == 2 for s in ("audio", "digital", "raw")))
-    cases = {"bench": (bench_cfg, {"status": 1024, "audio": 832}),
-             "grouped": (grouped_cfg, {"status": 1024, "audio": 400,
-                                       "digital": 300, "raw": 200})}
+    grouped_live = {"status": 1024, "audio": 400, "digital": 300, "raw": 200}
+    cases = {
+        "bench": (bench_cfg, {"status": 1024, "audio": 832}, "sorted"),
+        "grouped": (grouped_cfg, grouped_live, "sorted"),
+        "width 8": (dpm.DrainPackerConfig(
+            n_rows=m, audio_rows=m // AUDIO_DECIM, n_channels=c, width=8,
+            digital_rows=m // 4),
+            {"status": 8, "audio": 5, "digital": 7, "raw": 3}, "sorted"),
+        "status only": (dpm.DrainPackerConfig(
+            n_rows=m, audio_rows=m // AUDIO_DECIM, n_channels=c, width=1024,
+            has_audio=False, has_digital=False, has_raw=False),
+            {"status": 1024}, "sorted"),
+        "unsorted": (bench_cfg, {"status": 1024, "audio": 832}, "shuffled"),
+        "holes": (grouped_cfg, grouped_live, "holes"),
+    }
     max_abs, out = 0.0, {}
-    for name, (cfg, live) in cases.items():
-        pk, planes, sq, pw = pack_case(dpm, torch, rng, cfg, live)
+    for name, (cfg, live, order) in cases.items():
+        pk, planes, sq, pw = pack_case(dpm, torch, rng, cfg, live, order)
         got = dpm.pack_kernel(planes, sq, pw, pk._maps, cfg)
         want = dpm.pack_kernel_reference(planes, sq, pw, pk._maps, cfg)
         torch.cuda.synchronize()
@@ -2260,15 +2358,36 @@ def phase2_pack(dpm, torch) -> dict:
         np.testing.assert_allclose(sec["power"], pw[0, status].cpu().numpy(),
                                    rtol=1e-5, atol=4e-12)
         out[name] = (cfg, live, pk, planes, sq, pw)
-    print(f"phase2 pack (bench layout, width 1024, 832 live audio columns, "
-          f"{bench_cfg.total_tiles} x 64 rows; grouped layout, G 2 in every "
-          f"section, {grouped_cfg.total_tiles} x {grouped_cfg.m_tile} rows): "
-          f"bit-equal to the plain version, max abs err {max_abs}, status "
-          f"powers 1e-1..1e-9 decoded within 1e-5", flush=True)
+    print(f"phase2 pack ({', '.join(f'{k}: width {v[0].width}, '
+                                    f'{v[0].total_tiles} x {v[0].m_tile} '
+                                    f'rows' for k, v in cases.items())}): "
+          f"bit-equal to the plain version at every layout, max abs err "
+          f"{max_abs}, status powers 1e-1..1e-9 decoded within 1e-5",
+          flush=True)
     res = {"max_abs_err": max_abs}
     for name, (cfg, live, pk, planes, sq, pw) in out.items():
         maps = pk._maps
-        ms = time_ms(lambda: dpm.pack_kernel(planes, sq, pw, maps, cfg), 50)
+        timed = name in ("bench", "grouped")
+        if timed:
+            ms = time_ms(lambda: dpm.pack_kernel(planes, sq, pw, maps, cfg),
+                         50)
+        # the event time holds the wrapper's host work; the trace gives
+        # the kernel's own device time
+        stages = profile_stages(
+            lambda: dpm.pack_kernel(planes, sq, pw, maps, cfg), ("::pack(",))
+        host_maps = {k: v.cpu().numpy() for k, v in maps.items()}
+        bms, by, ops, nbytes = pack_bound(
+            cfg, {k: int((v >= 0).sum()) for k, v in host_maps.items()})
+        sms, _, _, sbytes = pack_sector_bound(cfg, host_maps)
+        line = (f"bound {bms:.5f} ms by {by} ({nbytes / 2 ** 20:.3f} MiB: "
+                f"the buffer "
+                f"{cfg.total_tiles * cfg.m_tile * cfg.width * 2 / 2 ** 10:.0f}"
+                f" KiB), sector bound {sms:.5f} ms ({sbytes / 2 ** 20:.3f} "
+                f"MiB of 32-byte sectors); device time per launch from the "
+                f"trace {stages}")
+        if not timed:
+            print(f"phase2 pack ({name} layout): {line}", flush=True)
+            continue
         plain_ms = time_ms(lambda: dpm.pack_kernel_reference(
             planes, sq, pw, maps, cfg), 10)
         # library yardstick: index_select of each section's live columns,
@@ -2284,18 +2403,11 @@ def phase2_pack(dpm, torch) -> dict:
                             -32768.0, 32767.0).to(torch.int16)
 
         library_ms = time_ms(library, 50)
-        bms, by, ops, nbytes = pack_bound(cfg, live)
-        # the event time holds the wrapper's host work; the trace gives
-        # the kernel's own device time
-        stages = profile_stages(
-            lambda: dpm.pack_kernel(planes, sq, pw, maps, cfg), ("::pack(",))
         print(f"phase2 pack timing ({name} layout): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, torch.index_select of the live "
               f"columns then the quantize (library yardstick) "
-              f"{library_ms:.4f} ms, bound {bms:.5f} ms by {by} "
-              f"({nbytes / 2 ** 20:.3f} MiB: the buffer "
-              f"{cfg.total_tiles * cfg.m_tile * cfg.width * 2 / 2 ** 10:.0f} "
-              f"KiB); device time per launch from the trace {stages}",
+              f"{library_ms:.4f} ms, {line}; host µs a call "
+              f"{pack_host_parts(dpm, torch, pk, planes, sq, pw)}",
               flush=True)
         if name == "bench":
             res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -2898,11 +3010,46 @@ def tv_bound(lines: int, k: np.ndarray) -> tuple:
     return bound(ops, nbytes) + (ops, nbytes)
 
 
+def tv_host_parts(tvm, torch, x, frac, wts) -> dict:
+    """Host µs a call of the parts of ``tv_kernel``'s CUDA path on the
+    framed form: the output's allocation, the C entry alone (its launch)
+    and the whole wrapper; the rest of the wrapper is its Python glue
+    (the checked-once key, the size checks, the count)."""
+    from sigdigger_tpu_torch.kernels import _build
+
+    n, px = frac.shape[0], wts.k.shape[0]
+    out = torch.empty((n, px), device="cuda")
+    lib = _build.load_library("tvline")
+    args = (x.data_ptr(), x.numel(), None, frac.data_ptr(),
+            wts.k.data_ptr(), wts.taps.data_ptr(), out.data_ptr(), n,
+            x.shape[1], px, torch.cuda.current_stream().cuda_stream)
+    return {k: round(v, 2) for k, v in {
+        "empty": host_us(lambda: torch.empty((n, px), device="cuda")),
+        "entry": host_us(lambda: lib.sd_tvline(*args)),
+        "wrapper": host_us(lambda: tvm.tv_kernel(x, frac, wts))}.items()}
+
+
+def resample_ms(rs, v, starts, frac, reps: int = 50) -> float:
+    """Host-clock ms of one ``LineResampler.resample_lines`` (the upload,
+    the kernel, the fetch and its synchronise), median of ``reps``."""
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        rs.resample_lines(v, starts, frac)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
 def phase2_tv(tvm, torch) -> dict:
     """The line resampler against its plain version (the two products
-    X@W0 + frac ⊙ X@W1) at cli tv's geometry (W 512, px 384): 3
-    dispatches of 64 lines (one analyzer block's worth) and one of 256
-    lines."""
+    X@W0 + frac ⊙ X@W1) at cli tv's geometry (W 512, px 384): the framed
+    form on 3 dispatches of 64 lines (one analyzer block's worth) and one
+    of 256 lines; then the stream form (windows read from a block's
+    samples at their starts) on 64 lines with starts at both ends of the
+    block, so that the clip is exercised, against its plain version,
+    against the framed form of the same windows (bit-equal), and through
+    ``LineResampler.resample_lines`` (the upload, the kernel, the
+    fetch)."""
     rs = tvm.LineResampler(tvm.LineResamplerConfig(512, 384), device="cuda")
     rs.set_step(TV_STEP)
     rng = np.random.default_rng(SEED + 30)
@@ -2918,6 +3065,26 @@ def phase2_tv(tvm, torch) -> dict:
         check(err <= TOL_TV, ("tv_kernel", n, err))
         max_abs = max(max_abs, err)
         inputs.append((x, frac))
+    # a block of 32768 samples and a carry, 64 lines: the first at 0 and
+    # one before it, the last two running past the block's end
+    n_v = 32768 + 600
+    v_np = rng.random(n_v).astype(np.float32)
+    starts = np.sort(rng.integers(0, n_v - 512, 64))
+    starts[:2] = (0, -3)
+    starts[-2:] = (n_v - 300, n_v - 2)
+    frac_np = rng.random(64).astype(np.float32)
+    v, f = torch.from_numpy(v_np).cuda(), torch.from_numpy(frac_np).cuda()
+    st = torch.from_numpy(starts.astype(np.int32)).cuda()
+    got = tvm.tv_kernel(v, f, rs.weights, starts=st)
+    want = tvm.tv_stream_reference(v, st, f, rs.weights)
+    framed = tvm.tv_kernel(tvm.frame_windows(v, st, 512), f, rs.weights)
+    lines = rs.resample_lines(v_np, starts, frac_np)
+    torch.cuda.synchronize()
+    stream_err = float((got - want).abs().max())
+    check(stream_err <= TOL_TV, ("tv stream form", stream_err))
+    check(torch.equal(got, framed), "stream form != framed form")
+    check(np.array_equal(lines, got.cpu().numpy()), "resample_lines")
+    max_abs = max(max_abs, stream_err)
     x, frac = inputs[0]
     w0, w1 = rs.weights.w0, rs.weights.w1
     ms = time_ms(lambda: tvm.tv_kernel(x, frac, rs.weights), 200)
@@ -2928,14 +3095,31 @@ def phase2_tv(tvm, torch) -> dict:
     ms256 = time_ms(lambda: tvm.tv_kernel(x256, f256, rs.weights), 200)
     bms, by, ops, nbytes = tv_bound(64, rs.weights.k.cpu().numpy())
     stages = profile_stages(lambda: tvm.tv_kernel(x, frac, rs.weights),
-                            ("::tvline(",), reps=20)
+                            ("::tvline",), reps=20)
     print(f"phase2 tv_kernel (W 512, px 384; 3 x 64 lines and 256 lines): "
           f"max abs err {max_abs:.3g} (tolerance {TOL_TV}); 64 lines: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the two torch.matmul "
           f"form X@W0 + frac*(X@W1) (library yardstick) {library_ms:.4f} "
           f"ms, bound {bms:.6f} ms by {by} ({nbytes / 2 ** 10:.1f} KiB, "
           f"{ops} operations); 256 lines: kernel {ms256:.4f} ms; device "
-          f"time per launch from the trace {stages}", flush=True)
+          f"time per launch from the trace {stages}; host µs a call "
+          f"{tv_host_parts(tvm, torch, x, frac, rs.weights)}", flush=True)
+    stream_ms = time_ms(
+        lambda: tvm.tv_kernel(v, f, rs.weights, starts=st), 200)
+    stream_plain_ms = time_ms(
+        lambda: tvm.tv_stream_reference(v, st, f, rs.weights), 200)
+    stream_stages = profile_stages(
+        lambda: tvm.tv_kernel(v, f, rs.weights, starts=st), ("::tvline",),
+        reps=20)
+    print(f"phase2 tv stream form (64 lines of a {n_v}-sample block, "
+          f"starts at 0, -3, {n_v - 300} and {n_v - 2}): max abs err "
+          f"{stream_err:.3g} (tolerance {TOL_TV}), bit-equal to the framed "
+          f"form and to LineResampler.resample_lines; kernel "
+          f"{stream_ms:.4f} ms, plain {stream_plain_ms:.4f} ms, device time "
+          f"per launch from the trace {stream_stages}; resample_lines "
+          f"(pinned upload, kernel, pinned fetch, one synchronise) "
+          f"{resample_ms(rs, v_np, starts, frac_np):.4f} ms a call",
+          flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 
@@ -3071,7 +3255,8 @@ def tv_layers(path: str, torch) -> dict:
     """The decode again, synchronously per layer (median ms per analyzer
     block): source read, spectrum, channelizer, audio inspector, the rest
     of the analyzer step (message and fetch), the TV host work, and the
-    line resample (upload, kernel, fetch); with a host-backend processor
+    line resample (upload, kernel, fetch), and that resample again alone
+    on the last block's inputs (median of 50); with a host-backend processor
     fed the same luminance beside the device one.  The device processor
     must take the device backend and launch the line resampler once for
     every block that gave lines, each block after lock.  Returns the
@@ -3105,6 +3290,14 @@ def tv_layers(path: str, torch) -> dict:
             return out
         return run
 
+    last: list = []
+
+    def keep_args(fn):
+        def run(*a):
+            last[:] = a
+            return fn(*a)
+        return run
+
     an.source.read = timed("read", an.source.read)
     an._spectrum.feed = timed("spectrum", an._spectrum.feed)
     an._channelizer.feed = timed("channelizer", an._channelizer.feed)
@@ -3120,8 +3313,8 @@ def tv_layers(path: str, torch) -> dict:
                 feed(lum)
                 host.feed(lum)
                 if dev._resampler is not None and not wrapped:
-                    dev._resampler.resample = timed(
-                        "resample", dev._resampler.resample)
+                    dev._resampler.resample_lines = timed(
+                        "resample", keep_args(dev._resampler.resample_lines))
                     wrapped = True
     launches = tvline.tv_kernel.launches
     check(launches == dev.line_feeds == dev.feeds - dev.locked_at >= 1,
@@ -3134,6 +3327,8 @@ def tv_layers(path: str, torch) -> dict:
     layers["step_other"] = round(med["step"] - sum(layers.values()), 4)
     layers["tv_host"] = round(med["tv"] - med.get("resample", 0.0), 4)
     layers["resample"] = round(med.get("resample", 0.0), 4)
+    # the same call alone, 50 times on the last block's inputs
+    layers["resample_alone"] = round(resample_ms(dev._resampler, *last), 4)
     layers["blocks"] = n
     layers["launches"] = launches
     layers["locked_at"] = dev.locked_at
@@ -3247,8 +3442,9 @@ E2E_METRICS = [
     ("tv fields/s", r"^phase3g cli tv \(AM.* ([0-9.]+) fields/s"),
 ]
 
-# the phase 2 timings of the PSD kernels and kernel2 (whose fused PSD
-# runs the same stages), run in a child process by --kernel-pairs
+# the phase 2 timings of the PSD kernels, kernel2 (whose fused PSD runs
+# the same stages), the drain packer and the line resampler, run in a
+# child process by --kernel-pairs
 _KERNEL_CHILD = """
 import sys
 sys.path.insert(0, {tree!r})
@@ -3261,13 +3457,19 @@ cs.phase2_kernel_vs_plain(ch2, torch)
 cs.phase2_psd(fft, torch)
 _, uploads = cs.phase2_kernel2_cossin(ch2, torch)
 cs.phase2_psd_xw(fft, torch, uploads)
+from sigdigger_tpu_torch.kernels import drainpack, tvline
+cs.phase2_pack(drainpack, torch)
+cs.phase2_tv(tvline, torch)
 """
 
 _K2, _PSD, _XW = (r"^phase2 timing: kernel2 ", r"^phase2 psd timing: ",
                   r"^phase2 psd_xw timing \(N 4096, ")
+_PACK, _PACK_G, _TV = (r"^phase2 pack timing \(bench layout\): ",
+                       r"^phase2 pack timing \(grouped layout\): ",
+                       r"^phase2 tv_kernel \(W 512, ")
 # a "PSD device ms" metric reads the line's traced stages, the sum of
 # psd_frames and psd_sum (the parent's second stage; the FFT stages have
-# none)
+# none); any other "device ms" metric the sum of its traced stages
 KERNEL_METRICS = [
     ("kernel2 ms", _K2 + r"([0-9.]+) ms"),
     ("kernel2 PSD device ms", _K2 + r".*?stages (\{[^}]*\})"),
@@ -3280,17 +3482,27 @@ KERNEL_METRICS = [
     ("psd_xw PSD device ms", _XW + r".*?stages (\{[^}]*\})"),
     ("psd_xw torch.fft.fft ms", _XW + r".*?FFT only\) ([0-9.]+) ms"),
     ("psd_xw composed ms", _XW + r".*?frame sum\) ([0-9.]+) ms"),
+    ("pack ms", _PACK + r"kernel ([0-9.]+) ms"),
+    ("pack device ms", _PACK + r".*?trace (\{[^}]*\})"),
+    ("pack grouped device ms", _PACK_G + r".*?trace (\{[^}]*\})"),
+    ("tv ms", _TV + r".*?64 lines: kernel ([0-9.]+) ms"),
+    ("tv device ms", _TV + r".*?trace (\{[^}]*\})"),
 ]
 
 
 def metric_value(name: str, text: str) -> float:
-    if "PSD device" not in name:
+    """A metric's number from its line; NaN for a trace that held no
+    device time ("not measured")."""
+    if "device" not in name:
         return float(text)
     import ast
 
     stages = ast.literal_eval(text)
-    return round(sum(stages.get(k, 0.0) for k in ("psd_frames", "psd_sum")),
-                 4)
+    if "PSD device" in name:
+        stages = {k: stages.get(k, 0.0) for k in ("psd_frames", "psd_sum")}
+    if not all(isinstance(v, float) for v in stages.values()):
+        return float("nan")
+    return round(sum(stages.values()), 4)
 
 
 def tree_pairs(parent: str, pairs: int, child: str, metrics: list) -> int:
@@ -3320,18 +3532,22 @@ def tree_pairs(parent: str, pairs: int, child: str, metrics: list) -> int:
             runs[side].append(got)
             print(f"pair {i} {side}: {json.dumps(got)}", flush=True)
             for line in out.stdout.splitlines():
-                if line.startswith("phase2") and "timing" in line:
+                if line.startswith("phase2") and (
+                        "timing" in line or "tv_kernel" in line):
                     print(f"  {side}: {line}", flush=True)
     for name, _ in metrics:
         p = [r[name] for r in runs["parent"]]
         c = [r[name] for r in runs["change"]]
-        check(not np.isnan(p + c).any(), (name, "not in every run"))
+        # a run whose trace held no device time counts in no median and
+        # no pair; every metric needs a number on each side
+        check(not np.isnan(p).all() and not np.isnan(c).all(),
+              (name, "not measured on one side"))
         better = (lambda a, b: a > b) if "/s" in name else (
             lambda a, b: a < b)
         wins = sum(better(cv, pv) for cv, pv in zip(c, p))
-        print(f"pairs {name}: parent median {np.median(p):.4f} "
-              f"(runs {p}), change median {np.median(c):.4f} (runs {c}), "
-              f"change better in {wins} of {pairs} pairs", flush=True)
+        print(f"pairs {name}: parent median {np.nanmedian(p):.4f} "
+              f"(runs {p}), change median {np.nanmedian(c):.4f} (runs "
+              f"{c}), change better in {wins} of {pairs} pairs", flush=True)
     return 0
 
 

@@ -102,17 +102,16 @@ class TVProcessor:
 
     def _device_lines(self, v: np.ndarray, line_starts: np.ndarray,
                       offs0: float, step: float) -> np.ndarray:
-        """Frame per-line windows on the host, resample on the device
-        (true linear interpolation — the host gather truncates)."""
+        """Resample every line on the device (true linear interpolation
+        — the host gather truncates): the resampler reads each line's
+        window from ``v`` at the integer start, clipped to the block as
+        the reference's host framing clips it."""
         rs = self._line_resampler()
         rs.set_step(step)
         pos = line_starts + offs0
         ints = np.floor(pos).astype(np.int64)
         frac = (pos - ints).astype(np.float32)
-        w = rs.cfg.width
-        idx = ints[:, None] + np.arange(w)[None, :]
-        np.clip(idx, 0, len(v) - 1, out=idx)
-        return rs.resample(v[idx].astype(np.float32), frac)
+        return rs.resample_lines(v, ints, frac)
 
     # -- state --------------------------------------------------------
 

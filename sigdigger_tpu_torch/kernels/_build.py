@@ -14,7 +14,8 @@ host work off the launch path: pointers go as the plain ints of
 comes from ``torch._C._cuda_getCurrentRawStream`` with no ``Stream``
 object, the device is made current only when the tensors lie on another
 one, and the shape checks run once per distinct argument signature.
-The squeeze, the audio bank and the PSD kernels call through it;
+The squeeze, the audio bank, the PSD kernels, the drain packer and the
+line resampler call through it;
 :func:`scratch` keeps one scratch buffer per device and stream for the
 PSD kernels' partials and counters.
 """
@@ -91,9 +92,11 @@ SIGNATURES = {
     },
     "drainpack": {
         "sd_drainpack": (
-            [_P, _I]                # plan (host struct), n_sec
-            + [_P] * 3 + [_I]       # sq pw status status_t0
-            + [_P] + [_I] * 4       # out C W mt total_tiles
+            [_P, _I]                # table n_blocks
+            + [_P] * 6              # audio d_sr d_si d_st y_re y_im
+            + [_P] * 4              # maps: audio digital raw status
+            + [_P] * 3              # sq pw out
+            + [_I] * 5              # C W mt ox vec
             + [_P]),                # stream
     },
     "psd": {
@@ -146,7 +149,8 @@ SIGNATURES = {
     },
     "tvline": {
         "sd_tvline": (
-            [_P] * 5                # x frac kcol taps out
+            [_P, _I, _P]            # v n starts (null: framed)
+            + [_P] * 4              # frac kcol taps out
             + [_I] * 3              # L W P
             + [_P]),                # stream
     },

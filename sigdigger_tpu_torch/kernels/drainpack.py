@@ -31,10 +31,14 @@ list on the device (int32, -1 for an empty lane), rewritten in place by
 :meth:`DrainPacker.set_mappings`: a slot-lifecycle change never rebuilds
 anything.  :func:`pack_kernel` launches the hand-written
 ``csrc/drainpack.cu`` on CUDA tensors and runs
-:func:`pack_kernel_reference` on CPU tensors.  Every step of the
-quantizer and of the residual split is one IEEE float32 operation on
-both sides, so for finite input the kernel, the plain version and the
-reference agree bit for bit.
+:func:`pack_kernel_reference` on CPU tensors.  The kernel takes section
+widths that are multiples of 8 (the engine's are powers of two × 8):
+each of its threads stores 8 lanes at once.  Its blocks find their
+section, rows and source rows in :func:`block_table`, built once per
+layout and device; a dispatch passes only the planes' pointers.  Every
+step of the quantizer and of the residual split is one IEEE float32
+operation on both sides, so for finite input the kernel, the plain
+version and the reference agree bit for bit.
 
 Non-finite inputs: the gather reads only mapped columns.  The one-hot
 matmul also multiplies every unmapped column of a row by 0, so an inf or
@@ -44,13 +48,17 @@ not here (as for ``kernels/compact.py``).
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.kernels._build import (
+    checked_once,
+    launch,
+    load_library,
+)
 from sigdigger_tpu_torch.utils import largest_divisor
 
 A_SCALE = 4096.0       # audio samples (±8 range)
@@ -65,8 +73,6 @@ _SCALES = {"audio": A_SCALE, "d_sr": D_SCALE, "d_si": D_SCALE,
 # plane name -> section-selection name
 _SEL_OF = {"audio": "audio", "d_sr": "digital", "d_si": "digital",
            "d_st": "digital", "y_re": "raw", "y_im": "raw"}
-
-MAX_SECTIONS = 8       # plan entries one launch takes (at most 7 used)
 
 
 @dataclass(frozen=True)
@@ -232,56 +238,162 @@ def pack_kernel_reference(planes: dict, sq: torch.Tensor, pw: torch.Tensor,
     return out
 
 
-class _Plan(ctypes.Structure):
-    """Host side of one launch's section table (see drainpack.cu)."""
-    _fields_ = [("ints", ctypes.c_int * (5 * MAX_SECTIONS)),
-                ("x", ctypes.c_void_p * MAX_SECTIONS),
-                ("idx", ctypes.c_void_p * MAX_SECTIONS),
-                ("scale", ctypes.c_float * MAX_SECTIONS)]
+# block table entry kinds (csrc/drainpack.cu): the data planes, then the
+# status tile's rows 0-5, then rows of zeros
+SECTION_IDS = {"audio": 0, "d_sr": 1, "d_si": 2, "d_st": 3, "y_re": 4,
+               "y_im": 5, "status": 6, "zero": 7}
+# the data planes, then the maps, in the kernel's argument order
+_PLANE_ORDER = tuple(SECTION_IDS)[:6]
+_MAP_ORDER = ("audio", "digital", "raw")
+BLOCK_THREADS = 256    # threads of a block (csrc/drainpack.cu THREADS)
+THREAD_ROWS = 4        # rows of one thread (ROWS there)
+LANES = 8              # lanes of one thread: one 16-byte int16 store
+MIN_BLOCKS = 264       # two blocks for each of the H100's 132 SMs
+
+
+def lane_octets(width: int) -> int:
+    """Lane octets (8 lanes, one thread) that one block row spans."""
+    return min(width // LANES, 32)
+
+
+def block_table(cfg: DrainPackerConfig) -> np.ndarray:
+    """The kernel's block table, int32 ``[n_blocks, 8]``: each entry is
+    (kind, first output row, first source row of lane group 0, rows,
+    section width, scale's float32 bits, 0, 0) for a run of output rows
+    of one data tile, the status tile's rows 0-5 (kind ``"status"``), or
+    rows of zeros (the status tile's rows 6..).  Lane group ``g`` of a
+    data run reads source rows ``first + g·m_tile ..``.  Every output
+    row is in exactly one entry; the table depends on the layout only.
+    A run is at most ``k·BLOCK_THREADS/lane_octets(W)`` rows, ``k`` rows
+    a thread: the largest ``k`` of 4, 2, 1 that still gives MIN_BLOCKS
+    blocks, else 1 (small packs spread over the SMs, large ones keep 4
+    rows of loads in flight a thread)."""
+    mt, w = cfg.m_tile, cfg.width
+    octets = w // LANES
+    spans = -(-octets // lane_octets(w))       # blocks across the lanes
+    for k in (THREAD_ROWS, 2, 1):
+        rb = k * (BLOCK_THREADS // lane_octets(w))
+        rows = []
+
+        def run(kind, out0, src0, n, ws=0, scale=0.0):
+            bits = int(np.float32(scale).view(np.int32))
+            for r in range(0, n, rb):
+                rows.append((SECTION_IDS[kind], out0 + r, src0 + r,
+                             min(rb, n - r), ws, bits, 0, 0))
+
+        for name, t0, cnt, g in cfg.sections():
+            if name == "status":
+                run("status", t0 * mt, 0, 6)
+                run("zero", t0 * mt + 6, 0, mt - 6)
+                continue
+            for t in range(cnt):
+                run(name, (t0 + t) * mt, t * g * mt, mt, w // g,
+                    _SCALES[name])
+        if len(rows) * spans >= MIN_BLOCKS:
+            break
+    return np.array(rows, np.int32)
+
+
+def _check(planes: dict, sq, pw, maps: dict, cfg: DrainPackerConfig,
+           dev: torch.device) -> None:
+    c, w = cfg.n_channels, cfg.width
+
+    def need(name, t, shape, dtype):
+        if (t is None or tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != dev or not t.is_contiguous()):
+            got = ("nothing" if t is None else
+                   f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"pack_kernel {name}: want contiguous {dtype} "
+                             f"{shape} on {dev}, got {got}")
+
+    need("sq", sq, (1, c), torch.float32)
+    need("pw", pw, (1, c), torch.float32)
+    need("status map", maps.get("status"), (w,), torch.int32)
+    for name, _, _, g in cfg.sections():
+        if name != "status":
+            need(name, planes.get(name), (cfg.plane_rows(name), c),
+                 torch.float32)
+            need(f"{_SEL_OF[name]} map", maps.get(_SEL_OF[name]),
+                 (w // g,), torch.int32)
+
+
+class _Plan:
+    """One layout's launch on one device: the block table on the device,
+    the data sections present and the maps they read, with their slots
+    in the entry point's arguments, and the arguments that do not change
+    between dispatches.  It holds its layout alive, so no other layout
+    takes that ``id`` while the plan is kept, and the ``id`` keys it."""
+
+    def __init__(self, cfg: DrainPackerConfig, dev: torch.device) -> None:
+        widths = [cfg.width // g for *_, g in cfg.sections()]
+        if any(ws % LANES for ws in widths):
+            raise ValueError(f"pack_kernel: section widths {widths}; the "
+                             f"kernel takes multiples of {LANES}")
+        self.cfg = cfg
+        table = block_table(cfg)
+        self.table = torch.from_numpy(table).to(dev)
+        self.table_ptr = self.table.data_ptr()
+        self.n_blocks = len(table)
+        self.names = [n for n, *_ in cfg.sections() if n != "status"]
+        self.sels = [s for s in _MAP_ORDER
+                     if any(_SEL_OF[n] == s for n in self.names)]
+        self.x_slots = [_PLANE_ORDER.index(n) for n in self.names]
+        self.m_slots = [6 + _MAP_ORDER.index(s) for s in self.sels]
+        self.shape = (cfg.total_tiles * cfg.m_tile, cfg.width)
+        self.ints = (cfg.n_channels, cfg.width, cfg.m_tile,
+                     lane_octets(cfg.width))
+        self.vec_ok = cfg.n_channels % 4 == 0
+
+
+_CHECKED: set = set()
+_PLANS: dict = {}           # (id(layout), device) -> _Plan
+
+
+def _tensor_key(*tensors) -> tuple:
+    """What :func:`_check` reads of each tensor: its shape, dtype, device
+    index and contiguity (``None`` for an absent one), flat, so that the
+    key is cheap to build, hash and compare."""
+    key = []
+    for t in tensors:
+        key += (None,) if t is None else (t.shape, t.dtype, t.get_device(),
+                                          t.is_contiguous())
+    return tuple(key)
 
 
 def _pack_cuda(planes: dict, sq, pw, maps: dict,
                cfg: DrainPackerConfig) -> torch.Tensor:
-    from sigdigger_tpu_torch.kernels._build import load_library
-
     dev = sq.device
-    c, w, mt = cfg.n_channels, cfg.width, cfg.m_tile
-
-    def need(name, t, shape, dtype):
-        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"pack_kernel {name}: want contiguous {dtype} "
-                             f"{shape} on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-
-    need("sq", sq, (1, c), torch.float32)
-    need("pw", pw, (1, c), torch.float32)
-    need("status map", maps["status"], (w,), torch.int32)
-    plan = _Plan()
-    n = 0
-    status_t0 = 0
-    for name, t0, cnt, g in cfg.sections():
-        if name == "status":
-            status_t0 = t0
-            continue
-        x, sel = planes[name], maps[_SEL_OF[name]]
-        need(name, x, (cfg.plane_rows(name), c), torch.float32)
-        need(f"{_SEL_OF[name]} map", sel, (w // g,), torch.int32)
-        plan.ints[5 * n:5 * n + 4] = [t0, cnt, g, w // g]
-        plan.x[n] = x.data_ptr()
-        plan.idx[n] = sel.data_ptr()
-        plan.scale[n] = _SCALES[name]
-        n += 1
-    lib = load_library("drainpack")
-    out = torch.empty((cfg.total_tiles * mt, w), dtype=torch.int16,
-                      device=dev)
-    with torch.cuda.device(dev):
-        err = lib.sd_drainpack(
-            ctypes.c_void_p(ctypes.addressof(plan)), n,
-            ctypes.c_void_p(sq.data_ptr()), ctypes.c_void_p(pw.data_ptr()),
-            ctypes.c_void_p(maps["status"].data_ptr()), status_t0,
-            ctypes.c_void_p(out.data_ptr()), c, w, mt, cfg.total_tiles,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    plan = _PLANS.get((id(cfg), dev))
+    if plan is None:
+        plan = _PLANS[(id(cfg), dev)] = _Plan(cfg, dev)
+    xs = [planes.get(n) for n in plan.names]
+    ms = [maps.get(s) for s in plan.sels]
+    status = maps.get("status")
+    # the key holds everything _check reads: the layout (its plan) and
+    # each tensor's shape, dtype, device and contiguity
+    checked_once(_CHECKED, (plan, *_tensor_key(sq, pw, status, *xs, *ms)),
+                 lambda: _check(planes, sq, pw, maps, cfg, dev))
+    # the six planes, then the audio, digital and raw maps (0: absent);
+    # the OR of a group's pointers is 16-byte aligned when each is
+    ptrs = [0] * 9
+    planes_or = 0
+    for i, x in zip(plan.x_slots, xs):
+        ptrs[i] = p = x.data_ptr()
+        planes_or |= p
+    sp = maps_or = status.data_ptr()
+    for i, m in zip(plan.m_slots, ms):
+        ptrs[i] = p = m.data_ptr()
+        maps_or |= p
+    if maps_or % 16:
+        raise ValueError("pack_kernel: the column maps must be 16-byte "
+                         "aligned (the kernel reads 8 entries as two int4)")
+    # dense runs of 8 columns load as two float4s: rows of a multiple of
+    # 4 floats and 16-byte aligned planes
+    vec = int(plan.vec_ok and planes_or % 16 == 0)
+    out = torch.empty(plan.shape, dtype=torch.int16, device=dev)
+    err = launch(load_library("drainpack").sd_drainpack, dev,
+                 plan.table_ptr, plan.n_blocks, *ptrs, sp, sq.data_ptr(),
+                 pw.data_ptr(), out.data_ptr(), *plan.ints, vec)
     if err != 0:
         raise RuntimeError(f"sd_drainpack launch failed: CUDA error {err}")
     pack_kernel.launches += 1
@@ -368,14 +480,18 @@ class DrainPacker:
         if cfg.has_raw:
             assert raw is not None and len(raw) == 2
             planes.update(zip(("y_re", "y_im"), raw))
-        planes = {k: torch.as_tensor(v).to(self.device)
-                  for k, v in planes.items()}
+        planes = {k: self._on_device(v) for k, v in planes.items()}
+        return pack_kernel(planes,
+                           self._zrow if sq is None else self._on_device(sq),
+                           self._zrow if pw is None else self._on_device(pw),
+                           self._maps, cfg)
 
-        def row(v):
-            return self._zrow if v is None else \
-                torch.as_tensor(v).to(self.device)
-
-        return pack_kernel(planes, row(sq), row(pw), self._maps, cfg)
+    def _on_device(self, v) -> torch.Tensor:
+        """``v`` as a tensor on the packer's device; a tensor already
+        there passes as it is."""
+        if isinstance(v, torch.Tensor) and v.device == self._zrow.device:
+            return v
+        return torch.as_tensor(v).to(self.device)
 
     def fetch(self, handle, buf: np.ndarray | None = None) -> dict:
         """ONE device-to-host copy → dequantized numpy sections (each at

@@ -1,9 +1,8 @@
 """TV line resampling (counterpart of ``sigdigger_tpu/kernels/tvline.py``).
 
 The host keeps the structure work of the analog TV processor (sync
-runs, the period flywheel, line starts: ``dsp/tv.py``) and ships each
-block's lines as a framed ``[L, W]`` matrix; the per-line resample to
-``pixels`` runs on the device:
+runs, the period flywheel, line starts: ``dsp/tv.py``); the per-line
+resample to ``pixels`` runs on the device:
 
     out[l, p] = L_l(u_p + frac_l),   u_p = p·step
 
@@ -15,12 +14,18 @@ per-line fractional offset (exact at the endpoints):
 W0[k, p] holds the two-tap interpolation weights of u_p and
 W1 = (weights of u_p + 1) − W0, so column p of W0 has two non-zeros
 (rows k_p, k_p+1) and of W1 three (k_p .. k_p+2); a column whose
-k_p + 2 reaches the width stays zero.  The reference runs the two
-products on the TPU's matrix unit.  :func:`tv_kernel` launches the
-hand-written ``csrc/tvline.cu`` on CUDA tensors, which reads k_p and the
-five weights of each pixel from the same W0/W1 (``LineWeights``) and
-three samples of its line, and runs :func:`tv_kernel_reference`, the
-two products, on CPU tensors.
+k_p + 2 reaches the width stays zero.  The reference frames each
+block's ``[L, W]`` windows X on the host and runs the two products on
+the TPU's matrix unit.  Here a window is only an address: row l of X is
+the block's samples ``v`` at ``clip(start_l + k, 0, n − 1)``, the host's
+own clip, so :class:`LineResampler` ships ``v``, the integer starts and
+the offsets, and the kernel reads its three samples a pixel from ``v``.
+:func:`tv_kernel` launches the hand-written ``csrc/tvline.cu`` on CUDA
+tensors, which reads k_p and the five weights of each pixel from the
+same W0/W1 (``LineWeights``), on the stream form (``starts``) or on a
+framed ``[L, W]`` matrix (the reference's interface: the same kernel
+with start_l = l·W), and runs :func:`tv_kernel_reference`, the two
+products, or :func:`tv_stream_reference` on CPU tensors.
 
 W0/W1 depend only on (step, W, px): the host rebuilds them when the
 flywheel period moves ≥0.1% — in lock, never.  The port launches all the
@@ -30,13 +35,17 @@ lines a block has at once; the reference's per-dispatch line cap
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.kernels._build import (
+    checked_once,
+    launch,
+    load_library,
+)
 
 
 @dataclass(frozen=True)
@@ -48,11 +57,14 @@ class LineResamplerConfig:
         assert self.width >= 3 and self.pixels >= 1
 
 
-@dataclass
+@dataclass(frozen=True, eq=False)
 class LineWeights:
     """W0/W1 ``[W, px]`` and their per-pixel form: ``k`` ``[px]`` int32
     (−1 for a zero column) and ``taps`` ``[5, px]`` float32 holding
-    W0[k, p], W0[k+1, p], W1[k, p], W1[k+1, p], W1[k+2, p]."""
+    W0[k, p], W0[k+1, p], W1[k, p], W1[k+1, p], W1[k+2, p].  Frozen and
+    compared by identity: :meth:`LineResampler.set_step` builds a new
+    one for a new step and nothing changes its tensors, so the CUDA
+    wrapper checks each object's tensors once."""
 
     w0: torch.Tensor
     w1: torch.Tensor
@@ -98,52 +110,105 @@ def tv_kernel_reference(x: torch.Tensor, frac: torch.Tensor,
     return x @ wts.w0 + frac[:, None] * (x @ wts.w1)
 
 
-def _tv_cuda(x: torch.Tensor, frac: torch.Tensor,
-             wts: LineWeights) -> torch.Tensor:
-    from sigdigger_tpu_torch.kernels._build import load_library
+def frame_windows(v: torch.Tensor, starts: torch.Tensor,
+                  width: int) -> torch.Tensor:
+    """The [L, width] windows of the samples ``v`` [n] starting at
+    ``starts`` [L], each index clipped to ``[0, n − 1]`` as
+    ``dsp/tv.py``'s framing clips it."""
+    idx = starts.long()[:, None] + torch.arange(width, device=v.device)
+    return v[idx.clamp(0, len(v) - 1)]
 
+
+def tv_stream_reference(v: torch.Tensor, starts: torch.Tensor,
+                        frac: torch.Tensor, wts: LineWeights
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of the stream form: the windows of ``v`` at
+    ``starts`` (:func:`frame_windows`), then the two products."""
+    return tv_kernel_reference(frame_windows(v, starts, wts.w0.shape[0]),
+                               frac, wts)
+
+
+def _check(x, frac, wts, starts, out) -> None:
     dev = x.device
-    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"tv_kernel x: want contiguous float32 [L, W], "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    n, w = x.shape
-    px = wts.k.shape[0]
-    for name, t, shape, dt in (("frac", frac, (n,), torch.float32),
-                               ("k", wts.k, (px,), torch.int32),
-                               ("taps", wts.taps, (5, px), torch.float32)):
-        if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
+
+    def need(name, t, dim, dtype):
+        if (t.dim() != dim or t.dtype != dtype or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(
-                f"tv_kernel {name}: want contiguous {dt} {shape} on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if tuple(wts.w0.shape) != (w, px):
-        raise ValueError(f"tv_kernel: weights are for width "
-                         f"{wts.w0.shape[0]}, x has {w}")
-    out = torch.empty((n, px), device=dev)
-    if n == 0:
+                f"tv_kernel {name}: want a contiguous {dtype} tensor of "
+                f"{dim} dimensions on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+
+    need("x", x, 1 if starts is not None else 2, torch.float32)
+    if starts is not None:
+        need("starts", starts, 1, torch.int32)
+    need("frac", frac, 1, torch.float32)
+    need("k", wts.k, 1, torch.int32)
+    need("taps", wts.taps, 2, torch.float32)
+    if out is not None:
+        need("out", out, 2, torch.float32)
+    px = wts.k.shape[0]
+    if tuple(wts.taps.shape) != (5, px) or wts.w0.shape[1] != px:
+        raise ValueError(f"tv_kernel: a pixel table of {px} pixels with "
+                         f"taps {tuple(wts.taps.shape)}")
+
+
+_CHECKED: set = set()
+
+
+def _tv_cuda(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
+             starts: torch.Tensor | None, out: torch.Tensor | None
+             ) -> torch.Tensor:
+    # the key holds everything _check reads: the weights (by identity:
+    # see LineWeights) and each tensor's dtype, device, dimensions and
+    # contiguity; the line, sample and pixel counts change from call to
+    # call and are checked on each one below
+    key = [wts, starts is None]
+    for t in (x, frac, starts, out):
+        key += (None,) if t is None else (t.dtype, t.get_device(), t.dim(),
+                                          t.is_contiguous())
+    checked_once(_CHECKED, tuple(key),
+                 lambda: _check(x, frac, wts, starts, out))
+    n_lines = frac.shape[0]
+    width, px = wts.w0.shape
+    if starts is None:
+        if x.shape != (n_lines, width):
+            raise ValueError(f"tv_kernel: framed x {tuple(x.shape)} for "
+                             f"{n_lines} lines of width {width}")
+    elif starts.shape[0] != n_lines:
+        raise ValueError(f"tv_kernel: {starts.shape[0]} starts for "
+                         f"{n_lines} lines")
+    if out is None:
+        out = torch.empty((n_lines, px), device=x.device)
+    elif out.shape != (n_lines, px):
+        raise ValueError(f"tv_kernel: out {tuple(out.shape)}, want "
+                         f"{(n_lines, px)}")
+    if n_lines == 0:
         return out
-    lib = load_library("tvline")
-    with torch.cuda.device(dev):
-        err = lib.sd_tvline(
-            *(ctypes.c_void_p(t.data_ptr())
-              for t in (x, frac, wts.k, wts.taps, out)),
-            n, w, px,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    err = launch(load_library("tvline").sd_tvline, x.device, x.data_ptr(),
+                 x.numel(), None if starts is None else starts.data_ptr(),
+                 frac.data_ptr(), wts.k.data_ptr(), wts.taps.data_ptr(),
+                 out.data_ptr(), n_lines, width, px)
     if err != 0:
         raise RuntimeError(f"sd_tvline launch failed: CUDA error {err}")
     tv_kernel.launches += 1
     return out
 
 
-def tv_kernel(x: torch.Tensor, frac: torch.Tensor,
-              wts: LineWeights) -> torch.Tensor:
-    """One line resample: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  ``tv_kernel.launches`` counts the CUDA
-    launches."""
+def tv_kernel(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
+              starts: torch.Tensor | None = None,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One line resample of the framed windows ``x`` [L, W] or, with
+    ``starts`` [L] int32, of the windows of the samples ``x`` [n] that
+    start there (the stream form; indices clipped to the samples): the
+    CUDA kernel for CUDA tensors (into ``out`` [L, px] when given), the
+    plain version for CPU tensors.  ``tv_kernel.launches`` counts the
+    CUDA launches."""
     if x.device.type == "cuda":
-        return _tv_cuda(x, frac, wts)
+        return _tv_cuda(x, frac, wts, starts, out)
     if x.device.type == "cpu":
-        return tv_kernel_reference(x, frac, wts)
+        return (tv_kernel_reference(x, frac, wts) if starts is None
+                else tv_stream_reference(x, starts, frac, wts))
     raise ValueError(f"tv_kernel runs on cuda or cpu, not {x.device}")
 
 
@@ -152,13 +217,18 @@ tv_kernel.launches = 0
 
 class LineResampler:
     """Batched per-line fractional resampler.  Runs on ``cuda`` unless
-    ``device`` says otherwise."""
+    ``device`` says otherwise.  On the card a block's samples, starts and
+    offsets go up in one copy from a pinned staging buffer and its lines
+    come back in one copy into a pinned one (both grown as needed), with
+    one synchronise."""
 
     def __init__(self, cfg: LineResamplerConfig, device=None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._step = None
         self.weights: LineWeights | None = None
+        # pinned host and device buffers: inputs (float32 words) and lines
+        self._h_in = self._d_in = self._h_out = self._d_out = None
 
     def set_step(self, step: float) -> None:
         """(Re)build the interpolation matrices for a pixel step (in
@@ -176,9 +246,42 @@ class LineResampler:
     def resample(self, x: np.ndarray, frac: np.ndarray) -> np.ndarray:
         """``x`` [L, W] framed line windows, ``frac`` [L] per-line
         fractional start offsets → [L, pixels] float32."""
+        x = np.ascontiguousarray(x, np.float32)
+        starts = np.arange(len(x), dtype=np.int64) * self.cfg.width
+        return self.resample_lines(x.reshape(-1), starts, frac)
+
+    def resample_lines(self, v: np.ndarray, starts: np.ndarray,
+                       frac: np.ndarray) -> np.ndarray:
+        """The lines of the samples ``v`` [n] whose windows start at
+        ``starts`` [L] (indices clipped to ``[0, n − 1]``), with per-line
+        fractional offsets ``frac`` [L] → [L, pixels] float32, an array of
+        its own."""
         assert self.weights is not None, "set_step first"
-        xd = torch.as_tensor(np.ascontiguousarray(x, np.float32),
-                             device=self.device)
-        fd = torch.as_tensor(np.ascontiguousarray(frac, np.float32),
-                             device=self.device)
-        return tv_kernel(xd, fd, self.weights).cpu().numpy()
+        n, n_lines = len(v), len(starts)
+        if self.device.type != "cuda":
+            return tv_kernel(
+                torch.from_numpy(np.asarray(v, np.float32)),
+                torch.from_numpy(np.asarray(frac, np.float32)),
+                self.weights,
+                starts=torch.from_numpy(np.asarray(starts, np.int32))
+            ).numpy()
+        need, px = n + 2 * n_lines, self.cfg.pixels
+        if self._h_in is None or self._h_in.numel() < need:
+            self._h_in = torch.empty(2 * need, pin_memory=True)
+            self._d_in = torch.empty(2 * need, device=self.device)
+        if self._h_out is None or self._h_out.numel() < n_lines * px:
+            self._h_out = torch.empty(2 * n_lines * px, pin_memory=True)
+            self._d_out = torch.empty(2 * n_lines * px, device=self.device)
+        h = self._h_in.numpy()
+        h[:n] = v
+        h[n:n + n_lines].view(np.int32)[:] = starts
+        h[n + n_lines:need] = frac
+        d = self._d_in[:need]
+        d.copy_(self._h_in[:need], non_blocking=True)
+        out = tv_kernel(d[:n], d[n + n_lines:], self.weights,
+                        starts=d[n:n + n_lines].view(torch.int32),
+                        out=self._d_out[:n_lines * px].view(n_lines, px))
+        self._h_out[:n_lines * px].copy_(out.view(-1), non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return self._h_out[:n_lines * px].numpy().reshape(n_lines,
+                                                          px).copy()

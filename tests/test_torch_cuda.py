@@ -1186,49 +1186,129 @@ def test_audio_hang_chain_cycles_and_floor(cuda):
                                      bank.consts["params"], agcs)
 
 
-@pytest.mark.parametrize("layout", ["bench", "grouped"])
-def test_pack_kernel_matches_plain_version(cuda, layout):
-    from sigdigger_tpu_torch.kernels import drainpack
+# layout -> (config fields, live columns per section, map order): the
+# bench session's, a grouped one, the smallest width, the status tile
+# alone, an unsorted map, and maps with empty lanes inside a group
+PACK_LAYOUTS = {
+    "bench": (dict(audio_rows=256, width=1024, has_digital=False,
+                   has_raw=False, m_tile=64),
+              {"status": 1000, "audio": 832}, "sorted"),
+    "grouped": (dict(audio_rows=256, width=1024, audio_width=512,
+                     digital_width=256, raw_width=512, digital_rows=2048),
+                {"status": 1000, "audio": 400, "digital": 200, "raw": 300},
+                "sorted"),
+    "width8": (dict(audio_rows=256, width=8, digital_rows=2048),
+               {"status": 8, "audio": 5, "digital": 7, "raw": 3}, "sorted"),
+    "status_only": (dict(audio_rows=256, width=1024, has_audio=False,
+                         has_digital=False, has_raw=False),
+                    {"status": 1000}, "sorted"),
+    "unsorted": (dict(audio_rows=256, width=1024, has_digital=False,
+                      has_raw=False, m_tile=64),
+                 {"status": 1000, "audio": 832}, "shuffled"),
+    "holes": (dict(audio_rows=256, width=1024, audio_width=512,
+                   digital_width=256, raw_width=512, digital_rows=2048),
+              {"status": 1000, "audio": 400, "digital": 200, "raw": 300},
+              "holes"),
+}
 
-    rng = np.random.default_rng(22)
-    m, c = 8192, 1024
-    if layout == "bench":
-        cfg = drainpack.DrainPackerConfig(
-            n_rows=m, audio_rows=256, n_channels=c, width=1024,
-            has_digital=False, has_raw=False, m_tile=64)
-        live = {"audio": 832}
-    else:
-        cfg = drainpack.DrainPackerConfig(
-            n_rows=m, audio_rows=256, n_channels=c, width=1024,
-            audio_width=512, digital_width=256, raw_width=512,
-            digital_rows=2048)
-        live = {"audio": 400, "digital": 200, "raw": 300}
-    pk = drainpack.DrainPacker(cfg, device=cuda)
-    maps = {k: sorted(rng.choice(c, n, replace=False).tolist())
-            for k, n in live.items()}
-    pk.set_mappings(sorted(rng.choice(c, 1000, replace=False).tolist()),
-                    **maps)
 
+def _pack_maps(rng, live: dict, order: str, c: int) -> dict:
+    """Random column maps: sorted, shuffled, or sorted with every third
+    lane empty (-1) inside the section."""
+    maps = {}
+    for sec, n in live.items():
+        cols = rng.choice(c, n, replace=False)
+        cols = rng.permutation(cols) if order == "shuffled" else np.sort(cols)
+        if order == "holes" and sec != "status":
+            cols[::3] = -1
+        maps[sec] = cols.tolist()
+    return maps
+
+
+def _pack_inputs(cuda, rng, cfg, m: int, c: int) -> tuple:
     def plane(rows, scale):
         return torch.from_numpy((rng.standard_normal((rows, c)) * scale)
                                 .astype(np.float32)).to(cuda)
 
-    planes = {"audio": plane(256, 4.0)}
+    planes = {}
+    if cfg.has_audio:
+        planes["audio"] = plane(cfg.audio_rows, 4.0)
     if cfg.has_digital:
-        planes.update(d_sr=plane(2048, 1.5), d_si=plane(2048, 1.5),
-                      d_st=(plane(2048, 1.0) > 1.0).float())
+        d = cfg.digital_rows
+        planes.update(d_sr=plane(d, 1.5), d_si=plane(d, 1.5),
+                      d_st=(plane(d, 1.0) > 1.0).float())
     if cfg.has_raw:
         planes.update(y_re=plane(m, 0.3), y_im=plane(m, 0.3))
     pw = torch.from_numpy(np.logspace(-1, -9, c).astype(np.float32)[
         None, rng.permutation(c)]).to(cuda)
     sq = plane(1, 0.01).abs()
+    return planes, sq, pw
+
+
+@pytest.mark.parametrize("layout", list(PACK_LAYOUTS))
+def test_pack_kernel_matches_plain_version(cuda, layout):
+    """Bit-equal at every layout; the launch is counted once."""
+    from sigdigger_tpu_torch.kernels import drainpack
+
+    rng = np.random.default_rng(22)
+    m, c = 8192, 1024
+    fields, live, order = PACK_LAYOUTS[layout]
+    cfg = drainpack.DrainPackerConfig(n_rows=m, n_channels=c, **fields)
+    pk = drainpack.DrainPacker(cfg, device=cuda)
+    maps = _pack_maps(rng, live, order, c)
+    pk.set_mappings(maps.pop("status"), **maps)
+    planes, sq, pw = _pack_inputs(cuda, rng, cfg, m, c)
+    before = drainpack.pack_kernel.launches
     got = drainpack.pack_kernel(planes, sq, pw, pk._maps, cfg)
     want = drainpack.pack_kernel_reference(planes, sq, pw, pk._maps, cfg)
     torch.cuda.synchronize()
+    assert drainpack.pack_kernel.launches == before + 1
     assert torch.equal(got, want)
-    with pytest.raises(ValueError):        # a plane of the wrong height
-        drainpack.pack_kernel(dict(planes, audio=planes["audio"][:128]),
-                              sq, pw, pk._maps, cfg)
+    if cfg.has_audio:
+        with pytest.raises(ValueError):    # a plane of the wrong height
+            drainpack.pack_kernel(dict(planes, audio=planes["audio"][:128]),
+                                  sq, pw, pk._maps, cfg)
+
+
+def test_pack_kernel_picks_up_a_remap(cuda):
+    """Two dispatches of one packer with a remap between them: the
+    second pack reads the new maps (rewritten in place), bit-equal."""
+    from sigdigger_tpu_torch.kernels import drainpack
+
+    rng = np.random.default_rng(23)
+    m, c = 8192, 1024
+    fields, live, _ = PACK_LAYOUTS["grouped"]
+    cfg = drainpack.DrainPackerConfig(n_rows=m, n_channels=c, **fields)
+    pk = drainpack.DrainPacker(cfg, device=cuda)
+    planes, sq, pw = _pack_inputs(cuda, rng, cfg, m, c)
+    dig = (planes["d_sr"], planes["d_si"], planes["d_st"])
+    raw = (planes["y_re"], planes["y_im"])
+    outs = []
+    for order in ("sorted", "shuffled"):
+        maps = _pack_maps(rng, live, order, c)
+        pk.set_mappings(maps.pop("status"), **maps)
+        got = pk.dispatch(audio=planes["audio"], sq=sq, pw=pw, dig=dig,
+                          raw=raw)
+        want = drainpack.pack_kernel_reference(planes, sq, pw, pk._maps,
+                                               cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        outs.append(got)
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_pack_kernel_refuses_widths_off_the_octet(cuda):
+    """The kernel stores 8 lanes a thread: a section 12 lanes wide
+    raises on the card (the plain version takes it on the CPU)."""
+    from sigdigger_tpu_torch.kernels import drainpack
+
+    cfg = drainpack.DrainPackerConfig(n_rows=64, audio_rows=64,
+                                      n_channels=32, width=12,
+                                      has_digital=False, has_raw=False)
+    pk = drainpack.DrainPacker(cfg, device=cuda)
+    pk.set_mappings(list(range(12)), audio=list(range(12)))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        pk.dispatch(audio=torch.zeros((64, 32), device=cuda))
 
 
 def test_analyzer_session_at_ragged_tiles_runs_on_the_card(cuda):
@@ -1364,6 +1444,42 @@ def test_tv_kernel_matches_plain_version(cuda, n_lines, step):
     assert float((got - want).abs().max()) <= 2e-6
     with pytest.raises(ValueError):            # width not the weights'
         tvline.tv_kernel(x[:, :256].contiguous(), frac, rs.weights)
+
+
+@pytest.mark.parametrize("n_lines", [64, 300])
+def test_tv_stream_form_matches_plain_version(cuda, n_lines):
+    """The stream form (windows read from the block's samples at their
+    starts) at cli tv's geometry, with starts at 0, below 0 and past the
+    block's end so that the clip is exercised at both edges: within 2e-6
+    of its plain version, and bit-equal to the framed form of the same
+    windows; ``LineResampler.resample_lines`` gives the same lines."""
+    from sigdigger_tpu_torch.kernels import tvline
+
+    rs = tvline.LineResampler(tvline.LineResamplerConfig(512, 384),
+                              device=cuda)
+    rs.set_step(512 * 0.85 / 384)
+    rng = np.random.default_rng(n_lines + 1)
+    n = 32768
+    v = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    starts = np.sort(rng.integers(0, n - 512, n_lines))
+    starts[:3] = (0, -5, n - 200)         # clip at the start and the end
+    starts[-2:] = (n - 3, n + 10)
+    st = torch.from_numpy(starts.astype(np.int32)).to(cuda)
+    frac = torch.from_numpy(rng.random(n_lines).astype(np.float32)).to(cuda)
+    before = tvline.tv_kernel.launches
+    got = tvline.tv_kernel(v, frac, rs.weights, starts=st)
+    want = tvline.tv_stream_reference(v, st, frac, rs.weights)
+    framed = tvline.tv_kernel(tvline.frame_windows(v, st, 512), frac,
+                              rs.weights)
+    torch.cuda.synchronize()
+    assert tvline.tv_kernel.launches == before + 2
+    assert float((got - want).abs().max()) <= 2e-6
+    assert torch.equal(got, framed)
+    lines = rs.resample_lines(v.cpu().numpy(), starts, frac.cpu().numpy())
+    assert tvline.tv_kernel.launches == before + 3
+    np.testing.assert_array_equal(lines, got.cpu().numpy())
+    with pytest.raises(ValueError):            # int64 starts
+        tvline.tv_kernel(v, frac, rs.weights, starts=st.long())
 
 
 def test_cma_kernel_matches_plain_version(cuda):

@@ -292,3 +292,123 @@ def test_drainpack_lane_grouping_roundtrip():
                                atol=4e-12)
     np.testing.assert_allclose(sec["sq"][:12], sq[0, :12], rtol=1e-5,
                                atol=4e-12)
+
+
+def _emulate_kernel(table, planes, sq, pw, maps, cfg):
+    """csrc/drainpack.cu's addressing in numpy: every entry of the block
+    table packs its rows 8 lanes at a time, as the kernel's threads do
+    (the quantizer and the residual split from the plain version)."""
+    mt, w = cfg.m_tile, cfg.width
+    out = np.full((cfg.total_tiles * mt, w), 12345, np.int16)
+    kinds = {v: k for k, v in drainpack.SECTION_IDS.items()}
+    for kind, row0, src0, nrows, ws, bits, _, _ in table:
+        name = kinds[int(kind)]
+        assert 1 <= nrows and row0 + nrows <= len(out)
+        for l0 in range(0, w, drainpack.LANES):
+            lanes = slice(l0, l0 + drainpack.LANES)
+            if name == "zero":
+                out[row0:row0 + nrows, lanes] = 0
+                continue
+            if name == "status":
+                col = maps["status"][lanes]
+                for r in range(nrows):
+                    src = (sq if r < 3 else pw)[0]
+                    v = np.where(col >= 0, src[np.maximum(col, 0)], 0.0)
+                    out[row0 + r, lanes] = drainpack._residual3(
+                        torch.from_numpy(v.astype(np.float32)))[r % 3].numpy()
+                continue
+            g = l0 // ws
+            col = maps[drainpack._SEL_OF[name]][l0 - g * ws:][:8]
+            scale = np.int32(bits).view(np.float32)
+            for r in range(nrows):
+                row = planes[name][src0 + g * mt + r]
+                v = np.where(col >= 0, row[np.maximum(col, 0)], 0.0)
+                out[row0 + r, lanes] = drainpack._quantize(
+                    torch.from_numpy(v.astype(np.float32)), scale).numpy()
+    return out
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_block_table_matches_sections(name):
+    """The kernel's block table against ``DrainPackerConfig.sections()``:
+    every output row in exactly one entry, each entry inside one tile of
+    its section (or the status tile's rows 0-5, or its zero rows 6..),
+    its source rows the ones that tile's lane groups read, its width and
+    scale the section's; and the kernel's addressing through the table,
+    emulated in numpy, gives the plain version's buffer bit for bit."""
+    _, ours, _, _ = _pair(name)
+    cfg = ours.cfg
+    mt = cfg.m_tile
+    table = drainpack.block_table(cfg)
+    kinds = {v: k for k, v in drainpack.SECTION_IDS.items()}
+    cover = np.zeros(cfg.total_tiles * mt, np.int64)
+    rb = drainpack.THREAD_ROWS * (drainpack.BLOCK_THREADS
+                                  // drainpack.lane_octets(cfg.width))
+    lay = {s: (t0, cnt, g) for s, t0, cnt, g in cfg.sections()}
+    for kind, row0, src0, nrows, ws, bits, *_ in table.tolist():
+        cover[row0:row0 + nrows] += 1
+        assert 1 <= nrows <= rb
+        t, r = divmod(row0, mt)
+        assert (row0 + nrows - 1) // mt == t         # inside one tile
+        sec = kinds[kind]
+        if sec in ("status", "zero"):
+            assert t == lay["status"][0]
+            assert (r, nrows) == (0, 6) if sec == "status" else r >= 6
+            continue
+        t0, cnt, g = lay[sec]
+        assert t0 <= t < t0 + cnt
+        assert src0 == (t - t0) * g * mt + r
+        assert ws == cfg.width // g and ws % drainpack.LANES == 0
+        assert np.int32(bits).view(np.float32) == drainpack._SCALES[sec]
+    np.testing.assert_array_equal(cover, 1)
+    x = _inputs(cfg, seed=len(name))
+    planes = {"audio": x.get("audio")}
+    if cfg.has_digital:
+        planes.update(zip(("d_sr", "d_si", "d_st"), x["dig"]))
+    if cfg.has_raw:
+        planes.update(zip(("y_re", "y_im"), x["raw"]))
+    maps = {k: v.numpy() for k, v in ours._maps.items()}
+    got = _emulate_kernel(table, planes, x["sq"], x["pw"], maps, cfg)
+    want = _dispatch(ours, x, True).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_block_table_spreads_small_packs():
+    """Rows a thread: 4 when the pack has blocks enough for the card
+    (MIN_BLOCKS), fewer for a small one (the bench session's 5 tiles of
+    64 rows at width 1024: one row a thread, 41 runs × 4 lane spans)."""
+    big = DrainPackerConfig(n_rows=8192, audio_rows=256, n_channels=1024,
+                            width=1024, audio_width=512, digital_width=512,
+                            raw_width=512, digital_rows=2048)
+    small = DrainPackerConfig(n_rows=8192, audio_rows=256, n_channels=1024,
+                              width=1024, has_digital=False, has_raw=False,
+                              m_tile=64)
+    assert drainpack.block_table(big)[:, 3].max() == 32      # 8 rows × 4
+    t = drainpack.block_table(small)
+    assert t[:, 3].max() == 8 and len(t) == 41
+
+
+def test_wrapper_checks_and_dispatch_keep_device_tensors():
+    """The CUDA wrapper's checks, run on CPU tensors: the right ones
+    pass, a plane of the wrong height or dtype and a missing map raise;
+    ``dispatch`` hands a tensor already on the packer's device on as it
+    is (no copy, no conversion)."""
+    _, ours, _, _ = _pair("grouped_g4")
+    cfg = ours.cfg
+    x = _inputs(cfg, seed=3)
+    planes = {"audio": torch.from_numpy(x["audio"])}
+    planes.update(zip(("d_sr", "d_si", "d_st"),
+                      map(torch.from_numpy, x["dig"])))
+    planes.update(zip(("y_re", "y_im"), map(torch.from_numpy, x["raw"])))
+    sq, pw = torch.from_numpy(x["sq"]), torch.from_numpy(x["pw"])
+    cpu = torch.device("cpu")
+    drainpack._check(planes, sq, pw, ours._maps, cfg, cpu)
+    for bad in (dict(planes, audio=planes["audio"][:8]),
+                dict(planes, y_im=planes["y_im"].double())):
+        with pytest.raises(ValueError):
+            drainpack._check(bad, sq, pw, ours._maps, cfg, cpu)
+    with pytest.raises(ValueError):
+        drainpack._check(planes, sq, pw, {"status": ours._maps["status"]},
+                         cfg, cpu)
+    assert ours._on_device(sq) is sq
+    assert torch.equal(ours._on_device(x["sq"]), sq)

@@ -147,3 +147,24 @@ def test_pixels_not_a_multiple_of_128_run_on_the_host():
 def test_auto_backend_follows_the_device():
     assert TVProcessor(_params(TVProcessorParams),
                        device="cpu").backend == "host"
+
+
+def test_device_lines_read_the_block_not_framed_windows(monkeypatch):
+    """The device backend hands the resampler the block's luminance, the
+    integer starts and the offsets (no framing on the host), and the
+    frames stay as the reference's on the PAL case."""
+    ours, ref = _pair("device")
+    calls = []
+    real = tvline.LineResampler.resample_lines
+
+    def spy(self, v, starts, frac):
+        calls.append((len(v), np.asarray(starts), len(frac)))
+        return real(self, v, starts, frac)
+
+    monkeypatch.setattr(tvline.LineResampler, "resample_lines", spy)
+    sig = _clean(5)
+    _same_frames(_decode(ours, sig), _decode(ref, sig), TOL["device"])
+    assert len(calls) == ours.line_feeds >= 5
+    for n, starts, n_lines in calls:
+        assert starts.ndim == 1 and len(starts) == n_lines
+        assert starts.min() >= 0 and starts.max() < n

@@ -125,3 +125,59 @@ def test_wrapper_runs_the_plain_version_on_the_cpu():
     with pytest.raises(AssertionError):
         tvline.LineResampler(tvline.LineResamplerConfig(W, PX),
                              device="cpu").resample(x, frac)  # no step
+
+
+def _framed_as_tv_py(v, ints, width):
+    """``dsp/tv.py``'s host framing of the reference: each window's
+    indices clipped to the block, then gathered."""
+    idx = ints[:, None] + np.arange(width)[None, :]
+    np.clip(idx, 0, len(v) - 1, out=idx)
+    return v[idx].astype(np.float32)
+
+
+@pytest.mark.parametrize("step", [STEP, 1.37])
+def test_stream_form_matches_reference(step):
+    """The stream form's plain version (windows read from the block's
+    samples at their starts) against the reference resampler on the
+    windows ``dsp/tv.py`` frames from the same samples: starts at 0,
+    before 0, and past the block's end so that the clip runs at both
+    edges.  ``LineResampler.resample_lines`` gives the same lines."""
+    ref, ours = _pair(step)
+    rng = np.random.default_rng(11)
+    n = 6000
+    v = rng.random(n).astype(np.float32)
+    ints = np.sort(rng.integers(0, n - W, 40))
+    ints[:2] = (0, -7)
+    ints[-3:] = (n - 300, n - 3, n + 5)
+    frac = rng.random(40).astype(np.float32)
+    want = ref.resample(_framed_as_tv_py(v, ints, W), frac)
+    got = tvline.tv_stream_reference(
+        torch.from_numpy(v), torch.from_numpy(ints.astype(np.int32)),
+        torch.from_numpy(frac), ours.weights)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(
+        tvline.frame_windows(torch.from_numpy(v),
+                             torch.from_numpy(ints), W).numpy(),
+        _framed_as_tv_py(v, ints, W))
+    lines = ours.resample_lines(v, ints, frac)
+    assert lines.shape == (40, PX) and lines.dtype == np.float32
+    np.testing.assert_array_equal(lines, got.numpy())
+    # the framed form of the same windows is the same function
+    np.testing.assert_array_equal(
+        ours.resample(_framed_as_tv_py(v, ints, W), frac), lines)
+
+
+def test_stream_form_through_the_wrapper_on_the_cpu():
+    """``tv_kernel(v, frac, wts, starts=...)`` on CPU tensors runs the
+    stream form's plain version and counts no launch."""
+    _, ours = _pair(STEP)
+    rng = np.random.default_rng(12)
+    v = torch.from_numpy(rng.random(3000).astype(np.float32))
+    st = torch.tensor([0, 1000, 2900], dtype=torch.int32)
+    frac = torch.from_numpy(rng.random(3).astype(np.float32))
+    before = tvline.tv_kernel.launches
+    got = tvline.tv_kernel(v, frac, ours.weights, starts=st)
+    assert tvline.tv_kernel.launches == before
+    torch.testing.assert_close(
+        got, tvline.tv_stream_reference(v, st, frac, ours.weights),
+        atol=0, rtol=0)
