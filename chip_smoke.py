@@ -80,11 +80,12 @@ printing the seconds it took:
    bit-equal, each layout's traced device time beside its live-byte and
    32-byte-sector bounds, and the wrapper's host time by part.  Then the
    TV line resampler (``tv_kernel``) at ``cli tv``'s geometry (W 512, px
-   384) on 3 dispatches of 64 framed lines and one of 256, and in the
-   stream form (64 windows read from a block's samples, starts clipped at
-   both ends) against its plain version, the framed form and
-   ``LineResampler.resample_lines``, within 2e-6, with the wrapper's host
-   time by part and the resampler's upload, kernel and fetch; and the
+   384) in the main path's stream form (64 windows read from a block's
+   samples, starts clipped at both ends) against its plain version, the
+   framed form and ``LineResampler.resample_lines``, then on 3 dispatches
+   of 64 framed lines and one of 256, within 2e-6, with the stream form's
+   times, the wrapper's host time by part and the resampler's upload,
+   kernel and fetch; and the
    CMA bank (``cma_kernel``) at 1024 lanes x 1024 symbols, K 5, over 3
    chained blocks, bit-equal.
 3. FM end to end: ``KernelReceiver(mode="fm")`` at the bench geometry
@@ -2998,21 +2999,21 @@ def tv_capture(path: str, n_fields: int, mode: str, seed: int) -> None:
 
 
 def tv_bound(lines: int, k: np.ndarray) -> tuple:
-    """For the pixel table's columns ``k`` (−1 for a zero column): bytes,
-    the framed columns the pixels touch (0 .. max k + 2) and the lines'
-    offsets read once, the table (k and five weights) read once, the
-    pixels written once; operations, 6 products and 4 sums per live
-    pixel."""
+    """For the pixel table's columns ``k`` (−1 for a zero column) on the
+    stream form: bytes, the window columns the pixels touch (0 .. max k
+    + 2) and the lines' starts and offsets read once, the table (k and
+    five weights) read once, the pixels written once; operations, 6
+    products and 4 sums per live pixel."""
     live = int((k >= 0).sum())
     cols = int(k.max()) + 3 if live else 0
     ops = 10 * lines * live
-    nbytes = lines * cols * 4 + lines * 4 + len(k) * 24 + lines * len(k) * 4
+    nbytes = lines * cols * 4 + lines * 8 + len(k) * 24 + lines * len(k) * 4
     return bound(ops, nbytes) + (ops, nbytes)
 
 
-def tv_host_parts(tvm, torch, x, frac, wts) -> dict:
+def tv_host_parts(tvm, torch, v, starts, frac, wts) -> dict:
     """Host µs a call of the parts of ``tv_kernel``'s CUDA path on the
-    framed form: the output's allocation, the C entry alone (its launch)
+    stream form: the output's allocation, the C entry alone (its launch)
     and the whole wrapper; the rest of the wrapper is its Python glue
     (the checked-once key, the size checks, the count)."""
     from sigdigger_tpu_torch.kernels import _build
@@ -3020,53 +3021,43 @@ def tv_host_parts(tvm, torch, x, frac, wts) -> dict:
     n, px = frac.shape[0], wts.k.shape[0]
     out = torch.empty((n, px), device="cuda")
     lib = _build.load_library("tvline")
-    args = (x.data_ptr(), x.numel(), None, frac.data_ptr(),
+    args = (v.data_ptr(), v.numel(), starts.data_ptr(), frac.data_ptr(),
             wts.k.data_ptr(), wts.taps.data_ptr(), out.data_ptr(), n,
-            x.shape[1], px, torch.cuda.current_stream().cuda_stream)
+            wts.w0.shape[0], px, torch.cuda.current_stream().cuda_stream)
     return {k: round(v, 2) for k, v in {
         "empty": host_us(lambda: torch.empty((n, px), device="cuda")),
         "entry": host_us(lambda: lib.sd_tvline(*args)),
-        "wrapper": host_us(lambda: tvm.tv_kernel(x, frac, wts))}.items()}
+        "wrapper": host_us(
+            lambda: tvm.tv_kernel(v, frac, wts, starts=starts))}.items()}
 
 
 def resample_ms(rs, v, starts, frac, reps: int = 50) -> float:
     """Host-clock ms of one ``LineResampler.resample_lines`` (the upload,
-    the kernel, the fetch and its synchronise), median of ``reps``."""
+    the kernel, the fetch and its synchronise), median of ``reps``; the
+    class's own method, past any wrapper set on the instance."""
+    call = type(rs).resample_lines
     times = []
     for _ in range(reps + 1):
         t0 = time.perf_counter()
-        rs.resample_lines(v, starts, frac)
+        call(rs, v, starts, frac)
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times[1:]))
 
 
 def phase2_tv(tvm, torch) -> dict:
     """The line resampler against its plain version (the two products
-    X@W0 + frac ⊙ X@W1) at cli tv's geometry (W 512, px 384): the framed
-    form on 3 dispatches of 64 lines (one analyzer block's worth) and one
-    of 256 lines; then the stream form (windows read from a block's
-    samples at their starts) on 64 lines with starts at both ends of the
-    block, so that the clip is exercised, against its plain version,
-    against the framed form of the same windows (bit-equal), and through
-    ``LineResampler.resample_lines`` (the upload, the kernel, the
-    fetch)."""
+    X@W0 + frac ⊙ X@W1) at cli tv's geometry (W 512, px 384).  First the
+    main path's stream form: 64 lines (one analyzer block's worth) read
+    from a block of 32768 samples and a 600-sample carry at their starts,
+    with starts at both ends so that the clip is exercised, against its
+    plain version, against the framed form of the same windows
+    (bit-equal) and through ``LineResampler.resample_lines`` (the upload,
+    the kernel, the fetch); its times are the ones reported.  Then the
+    reference's framed form on 3 dispatches of 64 lines and one of 256."""
     rs = tvm.LineResampler(tvm.LineResamplerConfig(512, 384), device="cuda")
     rs.set_step(TV_STEP)
+    wts = rs.weights
     rng = np.random.default_rng(SEED + 30)
-    max_abs = 0.0
-    inputs = []
-    for n in (64, 64, 64, 256):
-        x = torch.from_numpy(rng.random((n, 512)).astype(np.float32)).cuda()
-        frac = torch.from_numpy(rng.random(n).astype(np.float32)).cuda()
-        got = tvm.tv_kernel(x, frac, rs.weights)
-        want = tvm.tv_kernel_reference(x, frac, rs.weights)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(err <= TOL_TV, ("tv_kernel", n, err))
-        max_abs = max(max_abs, err)
-        inputs.append((x, frac))
-    # a block of 32768 samples and a carry, 64 lines: the first at 0 and
-    # one before it, the last two running past the block's end
     n_v = 32768 + 600
     v_np = rng.random(n_v).astype(np.float32)
     starts = np.sort(rng.integers(0, n_v - 512, 64))
@@ -3075,51 +3066,63 @@ def phase2_tv(tvm, torch) -> dict:
     frac_np = rng.random(64).astype(np.float32)
     v, f = torch.from_numpy(v_np).cuda(), torch.from_numpy(frac_np).cuda()
     st = torch.from_numpy(starts.astype(np.int32)).cuda()
-    got = tvm.tv_kernel(v, f, rs.weights, starts=st)
-    want = tvm.tv_stream_reference(v, st, f, rs.weights)
-    framed = tvm.tv_kernel(tvm.frame_windows(v, st, 512), f, rs.weights)
+    got = tvm.tv_kernel(v, f, wts, starts=st)
+    want = tvm.tv_stream_reference(v, st, f, wts)
+    xw = tvm.frame_windows(v, st, 512)
+    framed = tvm.tv_kernel(xw, f, wts)
     lines = rs.resample_lines(v_np, starts, frac_np)
     torch.cuda.synchronize()
-    stream_err = float((got - want).abs().max())
-    check(stream_err <= TOL_TV, ("tv stream form", stream_err))
+    max_abs = float((got - want).abs().max())
+    check(max_abs <= TOL_TV, ("tv stream form", max_abs))
     check(torch.equal(got, framed), "stream form != framed form")
     check(np.array_equal(lines, got.cpu().numpy()), "resample_lines")
-    max_abs = max(max_abs, stream_err)
+    framed_err = 0.0
+    inputs = []
+    for n in (64, 64, 64, 256):
+        x = torch.from_numpy(rng.random((n, 512)).astype(np.float32)).cuda()
+        frac = torch.from_numpy(rng.random(n).astype(np.float32)).cuda()
+        got = tvm.tv_kernel(x, frac, wts)
+        want = tvm.tv_kernel_reference(x, frac, wts)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= TOL_TV, ("tv_kernel framed", n, err))
+        framed_err = max(framed_err, err)
+        inputs.append((x, frac))
+    max_abs = max(max_abs, framed_err)
+    w0, w1 = wts.w0, wts.w1
+    ms = time_ms(lambda: tvm.tv_kernel(v, f, wts, starts=st), 200)
+    plain_ms = time_ms(lambda: tvm.tv_stream_reference(v, st, f, wts), 200)
+    library_ms = time_ms(lambda: xw @ w0 + f[:, None] * (xw @ w1), 200)
     x, frac = inputs[0]
-    w0, w1 = rs.weights.w0, rs.weights.w1
-    ms = time_ms(lambda: tvm.tv_kernel(x, frac, rs.weights), 200)
-    plain_ms = time_ms(
-        lambda: tvm.tv_kernel_reference(x, frac, rs.weights), 200)
-    library_ms = time_ms(lambda: x @ w0 + frac[:, None] * (x @ w1), 200)
+    framed_ms = time_ms(lambda: tvm.tv_kernel(x, frac, wts), 200)
+    framed_plain_ms = time_ms(lambda: tvm.tv_kernel_reference(x, frac, wts),
+                              200)
     x256, f256 = inputs[3]
-    ms256 = time_ms(lambda: tvm.tv_kernel(x256, f256, rs.weights), 200)
-    bms, by, ops, nbytes = tv_bound(64, rs.weights.k.cpu().numpy())
-    stages = profile_stages(lambda: tvm.tv_kernel(x, frac, rs.weights),
+    ms256 = time_ms(lambda: tvm.tv_kernel(x256, f256, wts), 200)
+    rs_ms = resample_ms(rs, v_np, starts, frac_np)
+    host = tv_host_parts(tvm, torch, v, st, f, wts)
+    bms, by, ops, nbytes = tv_bound(64, wts.k.cpu().numpy())
+    stages = profile_stages(lambda: tvm.tv_kernel(v, f, wts, starts=st),
                             ("::tvline",), reps=20)
-    print(f"phase2 tv_kernel (W 512, px 384; 3 x 64 lines and 256 lines): "
-          f"max abs err {max_abs:.3g} (tolerance {TOL_TV}); 64 lines: kernel "
+    framed_stages = profile_stages(lambda: tvm.tv_kernel(x, frac, wts),
+                                   ("::tvline",), reps=20)
+    print(f"phase2 tv_kernel (W 512, px 384; the main path's stream form, "
+          f"64 lines of a {n_v}-sample block, starts at 0, -3, "
+          f"{n_v - 300} and {n_v - 2}): max abs err {max_abs:.3g} "
+          f"(tolerance {TOL_TV}; both forms), bit-equal to the framed form "
+          f"and to LineResampler.resample_lines; 64 lines: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the two torch.matmul "
-          f"form X@W0 + frac*(X@W1) (library yardstick) {library_ms:.4f} "
-          f"ms, bound {bms:.6f} ms by {by} ({nbytes / 2 ** 10:.1f} KiB, "
-          f"{ops} operations); 256 lines: kernel {ms256:.4f} ms; device "
+          f"form X@W0 + frac*(X@W1) on the same lines' framed windows "
+          f"(library yardstick) {library_ms:.4f} ms, bound {bms:.6f} ms "
+          f"by {by} ({nbytes / 2 ** 10:.1f} KiB, {ops} operations); device "
           f"time per launch from the trace {stages}; host µs a call "
-          f"{tv_host_parts(tvm, torch, x, frac, rs.weights)}", flush=True)
-    stream_ms = time_ms(
-        lambda: tvm.tv_kernel(v, f, rs.weights, starts=st), 200)
-    stream_plain_ms = time_ms(
-        lambda: tvm.tv_stream_reference(v, st, f, rs.weights), 200)
-    stream_stages = profile_stages(
-        lambda: tvm.tv_kernel(v, f, rs.weights, starts=st), ("::tvline",),
-        reps=20)
-    print(f"phase2 tv stream form (64 lines of a {n_v}-sample block, "
-          f"starts at 0, -3, {n_v - 300} and {n_v - 2}): max abs err "
-          f"{stream_err:.3g} (tolerance {TOL_TV}), bit-equal to the framed "
-          f"form and to LineResampler.resample_lines; kernel "
-          f"{stream_ms:.4f} ms, plain {stream_plain_ms:.4f} ms, device time "
-          f"per launch from the trace {stream_stages}; resample_lines "
-          f"(pinned upload, kernel, pinned fetch, one synchronise) "
-          f"{resample_ms(rs, v_np, starts, frac_np):.4f} ms a call",
-          flush=True)
+          f"{host}; resample_lines (pinned upload, kernel, pinned fetch, "
+          f"one synchronise) {rs_ms:.4f} ms a call", flush=True)
+    print(f"phase2 tv framed form (3 x 64 lines and 256 lines of [L, 512] "
+          f"windows): max abs err {framed_err:.3g} (tolerance {TOL_TV}); "
+          f"64 lines: kernel {framed_ms:.4f} ms, plain {framed_plain_ms:.4f} "
+          f"ms; 256 lines: kernel {ms256:.4f} ms; device time per launch "
+          f"from the trace {framed_stages}", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 
@@ -3467,6 +3470,11 @@ _K2, _PSD, _XW = (r"^phase2 timing: kernel2 ", r"^phase2 psd timing: ",
 _PACK, _PACK_G, _TV = (r"^phase2 pack timing \(bench layout\): ",
                        r"^phase2 pack timing \(grouped layout\): ",
                        r"^phase2 tv_kernel \(W 512, ")
+# "tv ms" and "tv device ms" read each tree's first tv line, its main
+# path's form: the framed [L, W] windows before the stream form, the
+# stream form after it; "tv framed ..." read the framed form on both
+# sides: the parent's tv_kernel line, this tree's second line
+_TVF = r"^phase2 tv(?:_kernel \(W 512, px 384; 3 x| framed form)"
 # a "PSD device ms" metric reads the line's traced stages, the sum of
 # psd_frames and psd_sum (the parent's second stage; the FFT stages have
 # none); any other "device ms" metric the sum of its traced stages
@@ -3487,6 +3495,8 @@ KERNEL_METRICS = [
     ("pack grouped device ms", _PACK_G + r".*?trace (\{[^}]*\})"),
     ("tv ms", _TV + r".*?64 lines: kernel ([0-9.]+) ms"),
     ("tv device ms", _TV + r".*?trace (\{[^}]*\})"),
+    ("tv framed ms", _TVF + r".*?64 lines: kernel ([0-9.]+) ms"),
+    ("tv framed device ms", _TVF + r".*?trace (\{[^}]*\})"),
 ]
 
 
@@ -3533,21 +3543,26 @@ def tree_pairs(parent: str, pairs: int, child: str, metrics: list) -> int:
             print(f"pair {i} {side}: {json.dumps(got)}", flush=True)
             for line in out.stdout.splitlines():
                 if line.startswith("phase2") and (
-                        "timing" in line or "tv_kernel" in line):
+                        "timing" in line or line.startswith("phase2 tv")):
                     print(f"  {side}: {line}", flush=True)
+    failed = []
     for name, _ in metrics:
         p = [r[name] for r in runs["parent"]]
         c = [r[name] for r in runs["change"]]
-        # a run whose trace held no device time counts in no median and
-        # no pair; every metric needs a number on each side
-        check(not np.isnan(p).all() and not np.isnan(c).all(),
-              (name, "not measured on one side"))
+        # a run whose trace held no device time (three traces in a row:
+        # profile_stages) counts in no median and no pair; a side may
+        # lose one such run, not more
+        n_p, n_c = int(np.isfinite(p).sum()), int(np.isfinite(c).sum())
+        if min(n_p, n_c) < pairs - 1:
+            failed.append(name)
         better = (lambda a, b: a > b) if "/s" in name else (
             lambda a, b: a < b)
         wins = sum(better(cv, pv) for cv, pv in zip(c, p))
         print(f"pairs {name}: parent median {np.nanmedian(p):.4f} "
-              f"(runs {p}), change median {np.nanmedian(c):.4f} (runs "
-              f"{c}), change better in {wins} of {pairs} pairs", flush=True)
+              f"of {n_p} runs (runs {p}), change median "
+              f"{np.nanmedian(c):.4f} of {n_c} runs (runs {c}), change "
+              f"better in {wins} of {pairs} pairs", flush=True)
+    check(not failed, ("unmeasured in more than one run of a side", failed))
     return 0
 
 

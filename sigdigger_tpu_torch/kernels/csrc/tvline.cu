@@ -27,17 +27,19 @@
 // consecutive pixels, so the table loads and the output stores are
 // coalesced and a warp's three line reads fall in a few cache lines; a
 // thread loads its pixel's table once and strides over the lines when
-// there are more than a grid's 65535 rows.  The plain PyTorch versions
-// are sigdigger_tpu_torch/kernels/tvline.py::tv_kernel_reference and
+// there are more than a grid's 65535 rows.  One body serves both forms:
+// the clip is a no-op inside a framed row.  The launch is latency-bound,
+// so each thread loads its first line's start and offset ahead of its
+// pixel's column: loaded after the column's branch, the start put a
+// third round trip before the sample loads, and the stream form traced
+// slower than the framed one.  The plain PyTorch versions are
+// sigdigger_tpu_torch/kernels/tvline.py::tv_kernel_reference and
 // tv_stream_reference.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// STREAM: windows at starts[l], each read clipped to the samples; else
-// the framed matrix, whose rows need no clip
-template <bool STREAM>
 __global__ void __launch_bounds__(128)
 tvline(const float* __restrict__ v, int n, const int* __restrict__ starts,
        const float* __restrict__ frac, const int* __restrict__ kcol,
@@ -45,31 +47,29 @@ tvline(const float* __restrict__ v, int n, const int* __restrict__ starts,
        int P) {
     const int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= P) return;
+    int l = blockIdx.y;
+    long long s = starts ? (long long)__ldg(starts + l) : (long long)l * W;
+    float fr = __ldg(frac + l);
     const int k = kcol[p];
     if (k < 0) {
-        for (int l = blockIdx.y; l < L; l += gridDim.y)
-            out[(size_t)l * P + p] = 0.0f;
+        for (; l < L; l += gridDim.y) out[(size_t)l * P + p] = 0.0f;
         return;
     }
     const float t0 = taps[p], t1 = taps[P + p], t2 = taps[2 * P + p],
                 t3 = taps[3 * P + p], t4 = taps[4 * P + p];
-    for (int l = blockIdx.y; l < L; l += gridDim.y) {
-        float x0, x1, x2;
-        if (STREAM) {
-            const long long i = (long long)__ldg(starts + l) + k;
-            const long long last = n - 1;
-            x0 = __ldg(v + max(0LL, min(i, last)));
-            x1 = __ldg(v + max(0LL, min(i + 1, last)));
-            x2 = __ldg(v + max(0LL, min(i + 2, last)));
-        } else {
-            const float* row = v + (size_t)l * W + k;
-            x0 = __ldg(row);
-            x1 = __ldg(row + 1);
-            x2 = __ldg(row + 2);
-        }
+    const long long last = n - 1;
+    for (;;) {
+        const long long i = s + k;
+        const float x0 = __ldg(v + max(0LL, min(i, last)));
+        const float x1 = __ldg(v + max(0LL, min(i + 1, last)));
+        const float x2 = __ldg(v + max(0LL, min(i + 2, last)));
         const float a = x0 * t0 + x1 * t1;
         const float b = x0 * t2 + x1 * t3 + x2 * t4;
-        out[(size_t)l * P + p] = a + __ldg(frac + l) * b;
+        out[(size_t)l * P + p] = a + fr * b;
+        l += gridDim.y;
+        if (l >= L) break;
+        s = starts ? (long long)__ldg(starts + l) : (long long)l * W;
+        fr = __ldg(frac + l);
     }
 }
 
@@ -90,11 +90,7 @@ extern "C" int sd_tvline(const float* v, int n, const int* starts,
     const dim3 block(128);
     const dim3 grid((P + 127) / 128, L < 65535 ? L : 65535);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (starts)
-        tvline<true><<<grid, block, 0, s>>>(v, n, starts, frac, kcol, taps,
-                                            out, L, W, P);
-    else
-        tvline<false><<<grid, block, 0, s>>>(v, n, starts, frac, kcol, taps,
-                                             out, L, W, P);
+    tvline<<<grid, block, 0, s>>>(v, n, starts, frac, kcol, taps, out, L,
+                                  W, P);
     return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,7 @@ not here (as for ``kernels/compact.py``).
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -320,16 +321,17 @@ def _check(planes: dict, sq, pw, maps: dict, cfg: DrainPackerConfig,
 class _Plan:
     """One layout's launch on one device: the block table on the device,
     the data sections present and the maps they read, with their slots
-    in the entry point's arguments, and the arguments that do not change
-    between dispatches.  It holds its layout alive, so no other layout
-    takes that ``id`` while the plan is kept, and the ``id`` keys it."""
+    in the entry point's arguments, the arguments that do not change
+    between dispatches, and the argument keys already checked.  Kept in
+    ``_PLANS`` under the layout's ``id`` while the layout lives, and
+    dropped when it is freed, before another object can take its
+    ``id``."""
 
     def __init__(self, cfg: DrainPackerConfig, dev: torch.device) -> None:
         widths = [cfg.width // g for *_, g in cfg.sections()]
         if any(ws % LANES for ws in widths):
             raise ValueError(f"pack_kernel: section widths {widths}; the "
                              f"kernel takes multiples of {LANES}")
-        self.cfg = cfg
         table = block_table(cfg)
         self.table = torch.from_numpy(table).to(dev)
         self.table_ptr = self.table.data_ptr()
@@ -343,9 +345,9 @@ class _Plan:
         self.ints = (cfg.n_channels, cfg.width, cfg.m_tile,
                      lane_octets(cfg.width))
         self.vec_ok = cfg.n_channels % 4 == 0
+        self.checked: set = set()
 
 
-_CHECKED: set = set()
 _PLANS: dict = {}           # (id(layout), device) -> _Plan
 
 
@@ -365,13 +367,15 @@ def _pack_cuda(planes: dict, sq, pw, maps: dict,
     dev = sq.device
     plan = _PLANS.get((id(cfg), dev))
     if plan is None:
-        plan = _PLANS[(id(cfg), dev)] = _Plan(cfg, dev)
+        key = (id(cfg), dev)
+        plan = _PLANS[key] = _Plan(cfg, dev)
+        weakref.finalize(cfg, _PLANS.pop, key, None)
     xs = [planes.get(n) for n in plan.names]
     ms = [maps.get(s) for s in plan.sels]
     status = maps.get("status")
-    # the key holds everything _check reads: the layout (its plan) and
-    # each tensor's shape, dtype, device and contiguity
-    checked_once(_CHECKED, (plan, *_tensor_key(sq, pw, status, *xs, *ms)),
+    # the key holds everything _check reads: the layout (the plan's own)
+    # and each tensor's shape, dtype, device and contiguity
+    checked_once(plan.checked, _tensor_key(sq, pw, status, *xs, *ms),
                  lambda: _check(planes, sq, pw, maps, cfg, dev))
     # the six planes, then the audio, digital and raw maps (0: absent);
     # the OR of a group's pointers is 16-byte aligned when each is

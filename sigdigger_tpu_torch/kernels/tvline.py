@@ -61,15 +61,30 @@ class LineResamplerConfig:
 class LineWeights:
     """W0/W1 ``[W, px]`` and their per-pixel form: ``k`` ``[px]`` int32
     (−1 for a zero column) and ``taps`` ``[5, px]`` float32 holding
-    W0[k, p], W0[k+1, p], W1[k, p], W1[k+1, p], W1[k+2, p].  Frozen and
-    compared by identity: :meth:`LineResampler.set_step` builds a new
-    one for a new step and nothing changes its tensors, so the CUDA
-    wrapper checks each object's tensors once."""
+    W0[k, p], W0[k+1, p], W1[k, p], W1[k+1, p], W1[k+2, p], all
+    contiguous on one device.  Checked when built and frozen:
+    :meth:`LineResampler.set_step` builds a new one for a new step, so
+    the CUDA wrapper checks only that the table's device is the
+    samples'."""
 
     w0: torch.Tensor
     w1: torch.Tensor
     k: torch.Tensor
     taps: torch.Tensor
+
+    def __post_init__(self):
+        width, px = self.w0.shape
+        for name, shape, dtype in (("w0", (width, px), torch.float32),
+                                   ("w1", (width, px), torch.float32),
+                                   ("k", (px,), torch.int32),
+                                   ("taps", (5, px), torch.float32)):
+            t = getattr(self, name)
+            if (tuple(t.shape) != shape or t.dtype != dtype
+                    or t.device != self.w0.device or not t.is_contiguous()):
+                raise ValueError(
+                    f"LineWeights {name}: want a contiguous {dtype} "
+                    f"{shape} on {self.w0.device}, got {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
 
 
 def build_weights(step: float, width: int, pixels: int
@@ -128,7 +143,7 @@ def tv_stream_reference(v: torch.Tensor, starts: torch.Tensor,
                                frac, wts)
 
 
-def _check(x, frac, wts, starts, out) -> None:
+def _check(x, frac, wts, starts) -> None:
     dev = x.device
 
     def need(name, t, dim, dtype):
@@ -143,32 +158,26 @@ def _check(x, frac, wts, starts, out) -> None:
     if starts is not None:
         need("starts", starts, 1, torch.int32)
     need("frac", frac, 1, torch.float32)
-    need("k", wts.k, 1, torch.int32)
-    need("taps", wts.taps, 2, torch.float32)
-    if out is not None:
-        need("out", out, 2, torch.float32)
-    px = wts.k.shape[0]
-    if tuple(wts.taps.shape) != (5, px) or wts.w0.shape[1] != px:
-        raise ValueError(f"tv_kernel: a pixel table of {px} pixels with "
-                         f"taps {tuple(wts.taps.shape)}")
+    if wts.k.device != dev:
+        raise ValueError(f"tv_kernel: the pixel table is on {wts.k.device}, "
+                         f"the samples on {dev}")
 
 
 _CHECKED: set = set()
 
 
 def _tv_cuda(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
-             starts: torch.Tensor | None, out: torch.Tensor | None
-             ) -> torch.Tensor:
-    # the key holds everything _check reads: the weights (by identity:
-    # see LineWeights) and each tensor's dtype, device, dimensions and
-    # contiguity; the line, sample and pixel counts change from call to
-    # call and are checked on each one below
-    key = [wts, starts is None]
-    for t in (x, frac, starts, out):
+             starts: torch.Tensor | None) -> torch.Tensor:
+    # the key holds everything _check reads: the table's device (the
+    # rest of the weights was checked when they were built) and each
+    # tensor's dtype, device, dimensions and contiguity; the line, sample
+    # and pixel counts change from call to call and are checked on each
+    # one below
+    key = [wts.k.get_device()]
+    for t in (x, frac, starts):
         key += (None,) if t is None else (t.dtype, t.get_device(), t.dim(),
                                           t.is_contiguous())
-    checked_once(_CHECKED, tuple(key),
-                 lambda: _check(x, frac, wts, starts, out))
+    checked_once(_CHECKED, tuple(key), lambda: _check(x, frac, wts, starts))
     n_lines = frac.shape[0]
     width, px = wts.w0.shape
     if starts is None:
@@ -178,11 +187,7 @@ def _tv_cuda(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
     elif starts.shape[0] != n_lines:
         raise ValueError(f"tv_kernel: {starts.shape[0]} starts for "
                          f"{n_lines} lines")
-    if out is None:
-        out = torch.empty((n_lines, px), device=x.device)
-    elif out.shape != (n_lines, px):
-        raise ValueError(f"tv_kernel: out {tuple(out.shape)}, want "
-                         f"{(n_lines, px)}")
+    out = torch.empty((n_lines, px), device=x.device)
     if n_lines == 0:
         return out
     err = launch(load_library("tvline").sd_tvline, x.device, x.data_ptr(),
@@ -196,16 +201,14 @@ def _tv_cuda(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
 
 
 def tv_kernel(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
-              starts: torch.Tensor | None = None,
-              out: torch.Tensor | None = None) -> torch.Tensor:
+              starts: torch.Tensor | None = None) -> torch.Tensor:
     """One line resample of the framed windows ``x`` [L, W] or, with
     ``starts`` [L] int32, of the windows of the samples ``x`` [n] that
     start there (the stream form; indices clipped to the samples): the
-    CUDA kernel for CUDA tensors (into ``out`` [L, px] when given), the
-    plain version for CPU tensors.  ``tv_kernel.launches`` counts the
-    CUDA launches."""
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    ``tv_kernel.launches`` counts the CUDA launches."""
     if x.device.type == "cuda":
-        return _tv_cuda(x, frac, wts, starts, out)
+        return _tv_cuda(x, frac, wts, starts)
     if x.device.type == "cpu":
         return (tv_kernel_reference(x, frac, wts) if starts is None
                 else tv_stream_reference(x, starts, frac, wts))
@@ -227,8 +230,9 @@ class LineResampler:
         self.device = resolve_device(device)
         self._step = None
         self.weights: LineWeights | None = None
-        # pinned host and device buffers: inputs (float32 words) and lines
-        self._h_in = self._d_in = self._h_out = self._d_out = None
+        # pinned host buffers of the inputs (float32 words) and the lines,
+        # and the device buffer of the inputs
+        self._h_in = self._d_in = self._h_out = None
 
     def set_step(self, step: float) -> None:
         """(Re)build the interpolation matrices for a pixel step (in
@@ -246,6 +250,9 @@ class LineResampler:
     def resample(self, x: np.ndarray, frac: np.ndarray) -> np.ndarray:
         """``x`` [L, W] framed line windows, ``frac`` [L] per-line
         fractional start offsets → [L, pixels] float32."""
+        if np.shape(x) != (len(frac), self.cfg.width):
+            raise ValueError(f"resample: x {np.shape(x)} for {len(frac)} "
+                             f"lines of width {self.cfg.width}")
         x = np.ascontiguousarray(x, np.float32)
         starts = np.arange(len(x), dtype=np.int64) * self.cfg.width
         return self.resample_lines(x.reshape(-1), starts, frac)
@@ -271,7 +278,6 @@ class LineResampler:
             self._d_in = torch.empty(2 * need, device=self.device)
         if self._h_out is None or self._h_out.numel() < n_lines * px:
             self._h_out = torch.empty(2 * n_lines * px, pin_memory=True)
-            self._d_out = torch.empty(2 * n_lines * px, device=self.device)
         h = self._h_in.numpy()
         h[:n] = v
         h[n:n + n_lines].view(np.int32)[:] = starts
@@ -279,8 +285,7 @@ class LineResampler:
         d = self._d_in[:need]
         d.copy_(self._h_in[:need], non_blocking=True)
         out = tv_kernel(d[:n], d[n + n_lines:], self.weights,
-                        starts=d[n:n + n_lines].view(torch.int32),
-                        out=self._d_out[:n_lines * px].view(n_lines, px))
+                        starts=d[n:n + n_lines].view(torch.int32))
         self._h_out[:n_lines * px].copy_(out.view(-1), non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
         return self._h_out[:n_lines * px].numpy().reshape(n_lines,

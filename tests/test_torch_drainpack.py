@@ -412,3 +412,40 @@ def test_wrapper_checks_and_dispatch_keep_device_tensors():
                          cfg, cpu)
     assert ours._on_device(sq) is sq
     assert torch.equal(ours._on_device(x["sq"]), sq)
+
+
+def test_plan_goes_with_its_layout(monkeypatch):
+    """The CUDA wrapper's plan of a layout (its block table, its checked
+    argument keys) lives as long as the layout and no longer, so a long
+    run that builds layouts does not keep their tables.  Run on CPU
+    tensors with the entry point replaced by a stand-in."""
+    import gc
+
+    monkeypatch.setattr(drainpack, "load_library",
+                        lambda name: type("Lib", (), {
+                            "sd_drainpack": staticmethod(lambda *a: 0)}))
+    monkeypatch.setattr(drainpack, "launch", lambda fn, dev, *a: fn(*a))
+    monkeypatch.setattr(drainpack.pack_kernel, "launches", 0)
+    before = set(drainpack._PLANS)
+    fields, live = LAYOUTS["grouped_g4"]
+    pk = DrainPacker(DrainPackerConfig(n_channels=C, **fields),
+                     device="cpu")
+    x = _inputs(pk.cfg, seed=4)
+    planes = {"audio": torch.from_numpy(x["audio"])}
+    planes.update(zip(("d_sr", "d_si", "d_st"),
+                      map(torch.from_numpy, x["dig"])))
+    planes.update(zip(("y_re", "y_im"), map(torch.from_numpy, x["raw"])))
+    sq, pw = torch.from_numpy(x["sq"]), torch.from_numpy(x["pw"])
+    for _ in range(2):
+        out = drainpack._pack_cuda(planes, sq, pw, pk._maps, pk.cfg)
+    assert out.shape == (pk.cfg.total_tiles * pk.cfg.m_tile, pk.cfg.width)
+    assert drainpack.pack_kernel.launches == 2
+    (key,) = set(drainpack._PLANS) - before
+    plan = drainpack._PLANS[key]
+    assert key == (id(pk.cfg), torch.device("cpu")) and len(plan.checked) == 1
+    with pytest.raises(ValueError):            # a plane of the wrong height
+        drainpack._pack_cuda(dict(planes, audio=planes["audio"][:8]), sq, pw,
+                             pk._maps, pk.cfg)
+    del pk
+    gc.collect()
+    assert set(drainpack._PLANS) == before

@@ -181,3 +181,62 @@ def test_stream_form_through_the_wrapper_on_the_cpu():
     torch.testing.assert_close(
         got, tvline.tv_stream_reference(v, st, frac, ours.weights),
         atol=0, rtol=0)
+
+
+def test_resample_refuses_windows_of_another_width():
+    """``resample`` takes ``[L, W]`` windows of the resampler's width, one
+    row a line; other shapes raise instead of being read as a stream."""
+    _, ours = _pair(STEP)
+    x, frac = _lines(6, W, seed=13)
+    ours.resample(x, frac)
+    for bad_x, bad_frac in ((x[:, :256], frac), (x, frac[:5]),
+                            (x.reshape(-1), frac)):
+        with pytest.raises(ValueError):
+            ours.resample(bad_x, bad_frac)
+
+
+@pytest.mark.parametrize("bad", ["k_int64", "taps_shape", "w1_shape",
+                                 "w0_strided"])
+def test_weights_refuse_malformed_tables(bad):
+    """``LineWeights`` checks its tables when built: int32 ``k`` [px],
+    float32 ``taps`` [5, px] and W0/W1 [W, px], contiguous, one device."""
+    _, ours = _pair(STEP)
+    w = ours.weights
+    parts = dict(w0=w.w0, w1=w.w1, k=w.k, taps=w.taps)
+    parts.update({
+        "k_int64": dict(k=w.k.long()),
+        "taps_shape": dict(taps=w.taps[:4]),
+        "w1_shape": dict(w1=w.w1[:, :-1]),
+        "w0_strided": dict(w0=w.w0.t().contiguous().t()),
+    }[bad])
+    with pytest.raises(ValueError):
+        tvline.LineWeights(**parts)
+
+
+def test_cuda_wrapper_keeps_no_weights(monkeypatch):
+    """The CUDA wrapper's checked-once memo holds no weights: its key
+    reads only the table's device and the other tensors' properties, so a
+    table the resampler has replaced is freed.  Run on CPU tensors with
+    the entry point replaced by a stand-in."""
+    import gc
+    import weakref
+
+    monkeypatch.setattr(tvline, "load_library",
+                        lambda name: type("Lib", (), {
+                            "sd_tvline": staticmethod(lambda *a: 0)}))
+    monkeypatch.setattr(tvline, "launch", lambda fn, dev, *a: fn(*a))
+    monkeypatch.setattr(tvline.tv_kernel, "launches", 0)
+    monkeypatch.setattr(tvline, "_CHECKED", set())
+    _, ours = _pair(STEP)
+    v = torch.zeros(4000)
+    st = torch.tensor([0, 1000], dtype=torch.int32)
+    frac = torch.zeros(2)
+    held = weakref.ref(ours.weights)
+    assert tvline._tv_cuda(v, frac, ours.weights, st).shape == (2, PX)
+    assert tvline.tv_kernel.launches == 1 and len(tvline._CHECKED) == 1
+    ours.set_step(STEP * 1.5)                  # a new table
+    tvline._tv_cuda(v, frac, ours.weights, st)
+    gc.collect()
+    assert held() is None and len(tvline._CHECKED) == 1
+    with pytest.raises(ValueError):            # int64 starts
+        tvline._tv_cuda(v, frac, ours.weights, st.long())
