@@ -14,7 +14,9 @@ with phase 2's timings of kernel2 and the PSD kernels (event times,
 traced stages, the FFT and composition yardsticks), of the drain packer
 (event time and traced device time at the bench layout, traced device
 time at the grouped one) and of the line resampler (event time and
-traced device time of 64 framed lines).
+traced device time of 64 framed lines), of the v1 channelizer (event
+time in turns with the channelize matmul, traced device time) and of the
+CMA bank (event time and traced device time).
 
 Phases, each fatal on failure (any exception exits nonzero), each
 printing the seconds it took:
@@ -22,8 +24,9 @@ printing the seconds it took:
 1. device and build: the card's name and power limit; every CUDA
    kernel of the port built with nvcc from ``kernels/csrc`` (one nvcc
    per source, all at once); the HGMMA (tensor-core) instructions in
-   the SASS of each tensor-core stage (``raw_rot_tc``,
-   ``chan_rot_disc_tc``), which must all hold some.
+   the SASS of each tensor-core stage (``raw_rot_tc``, and
+   ``chan_rot_disc_tc`` in kernel2's and the v1 kernel's sources), which
+   must all hold some.
 2. each kernel against its plain version on the card, with CUDA-event
    times of the kernel, its plain version and a library yardstick, and
    for the tensor-core forms their bound at the TF32 peak beside the
@@ -55,7 +58,8 @@ printing the seconds it took:
    device EMA (``psd_xw_ema_kernel``) chained over 3 blocks; the v1
    channelizer (``kernel1``) at ``__graft_entry__.entry()``'s geometry
    (256 channels, 25.6 Msps, decimation 64, M 1024, audio at 1/8)
-   chained over 3 blocks.  Then the analyzer's kernels: the audio bank
+   chained over 3 blocks, its tensor-core bound beside the CUDA-core
+   one.  Then the analyzer's kernels: the audio bank
    (``audio_kernel``) at the engine's bench shapes (1024 slots of every
    mode, M 8192, m_tile 2048, audio at 1/32, int16 packed upload) over 3
    chained blocks with the hang AGC and 3 without, its hang walk's gain
@@ -87,7 +91,9 @@ printing the seconds it took:
    times, the wrapper's host time by part and the resampler's upload,
    kernel and fetch; and the
    CMA bank (``cma_kernel``) at 1024 lanes x 1024 symbols, K 5, over 3
-   chained blocks, bit-equal.
+   chained blocks and a block with a lane past the walker's fast range
+   (its IEEE fallback), bit-equal, its time beside its latency floor
+   (the walker's clock64 cycles a step at the SM clock).
 3. FM end to end: ``KernelReceiver(mode="fm")`` at the bench geometry
    (1024 channels, 102.4 Msps, block_out 8192, int16 in, bf16 audio,
    fused PSD) over synthetic FM made from a seed, through
@@ -458,6 +464,7 @@ def profile_stages(fn, stages: tuple, reps: int = 5) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -466,15 +473,18 @@ def profile_stages(fn, stages: tuple, reps: int = 5) -> dict:
             torch.cuda.synchronize()
         out = {}
         for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            if dev_us > 0 and len(seen) < 4:
+                seen.append(ev.key[:48])
             for stage in stages:
                 if stage in ev.key:
-                    dev_us = getattr(ev, "device_time_total", None)
-                    if dev_us is None:
-                        dev_us = getattr(ev, "cuda_time_total", 0.0)
                     out[stage] = round(dev_us / max(ev.count, 1) / 1e3, 4)
         if out:
             return out
-    return {"stages": "not measured"}
+    # what the traces held instead, for the record
+    return {"stages": "not measured", "device keys": "; ".join(seen)}
 
 
 def time_once_ms(fn) -> tuple:
@@ -1617,14 +1627,46 @@ def v1_signal(n: int, seed: int):
 
 
 def v1_bound(m: int, c: int, ka: int, da: int) -> tuple:
-    """The complex product (8·M·K·C), 36 per channel sample for the
-    cos/sin rotator, discriminator and atan2, the FIR (2 per tap and
-    audio sample); bytes: both float32 window planes, the taps, θ, φ0
-    and the carried row read once, audio and the last row written."""
-    ops = 8 * m * 64 * c + 36 * m * c + 2 * ka * (m // da) * c
+    """The complex product (8·M·K·C) in TC_PASSES TF32 passes on the
+    tensor cores, 36 per channel sample for the cos/sin rotator,
+    discriminator and atan2 and the FIR (2 per tap and audio sample) on
+    the CUDA cores; bytes: both float32 window planes, the taps, θ, φ0
+    and the carried row read once, audio and the last row written.
+    Returns ``tc_bounds``' (bound, by, operations, bytes, CUDA-core
+    bound)."""
+    product = 8 * m * 64 * c
+    rest = 36 * m * c + 2 * ka * (m // da) * c
     nbytes = 2 * m * 64 * 4 + 2 * 64 * c * 4 + 4 * c * 4 + ka * 4 \
         + (m // da) * c * 4 + 2 * c * 4
-    return bound(ops, nbytes) + (ops, nbytes)
+    return tc_bounds(product, rest, nbytes)
+
+
+def kernel1_host_parts(ch1, torch, args) -> dict:
+    """Host µs a call of the parts of ``kernel1``'s CUDA path: the
+    outputs' allocation, the scratch lookup, the C entry alone (its two
+    launches) and the whole wrapper; the rest of the wrapper is its
+    Python glue (the checked-once key, the pointers, the count)."""
+    from sigdigger_tpu_torch.kernels import _build
+
+    xr, xi, consts, phi0, prev_re, prev_im, p = args
+    m, c = xr.shape[0], phi0.shape[1]
+    ma = m // p.da
+    out = torch.empty((ma + 2, c), device="cuda")
+    f_scr = _build.scratch(xr.device, m * c).data_ptr() \
+        + 4 * _build.SCRATCH_COUNTERS
+    lib = _build.load_library("channelizer")
+    o, row = out.data_ptr(), 4 * c
+    cargs = (xr.data_ptr(), xi.data_ptr(), consts["bmat"].data_ptr(),
+             consts["theta"].data_ptr(), phi0.data_ptr(),
+             prev_re.data_ptr(), prev_im.data_ptr(),
+             consts["ataps"].data_ptr(), o, o + ma * row,
+             o + (ma + 1) * row, f_scr, m, c, p.ka, p.da, p.quad_gain,
+             torch.cuda.current_stream().cuda_stream)
+    return {k: round(v, 2) for k, v in {
+        "empty": host_us(lambda: torch.empty((ma + 2, c), device="cuda")),
+        "scratch": host_us(lambda: _build.scratch(xr.device, m * c)),
+        "entry": host_us(lambda: lib.sd_kernel1(*cargs)),
+        "wrapper": host_us(lambda: ch1.kernel1(*args))}.items()}
 
 
 def phase2_kernel1(ch1, torch) -> dict:
@@ -1663,20 +1705,24 @@ def phase2_kernel1(ch1, torch) -> dict:
     check(worst_frac <= TOL_FRAC and carry_rel <= TOL_REL,
           (worst_frac, carry_rel))
     args = (xr, xi, chan.consts, phi0, *ck, chan.params)
-    ms = time_ms(lambda: ch1.kernel1(*args), 20)
-    plain_ms = time_ms(lambda: ch1.kernel1_reference(*args), 5)
     xc = torch.complex(xr, xi)
     hc = torch.complex(chan.consts["h_re"], chan.consts["h_im"])
-    library_ms = time_ms(lambda: torch.matmul(xc, hc), 20)
-    bms, by, ops, nbytes = v1_bound(V1_BLOCK, V1_CHANNELS, 64, 8)
+    # the kernel and the channelize matmul in turns (medians)
+    turns = interleaved_ms({"kernel": lambda: ch1.kernel1(*args),
+                            "matmul": lambda: torch.matmul(xc, hc)})
+    ms, library_ms = turns["kernel"], turns["matmul"]
+    plain_ms = time_ms(lambda: ch1.kernel1_reference(*args), 5)
+    bounds = v1_bound(V1_BLOCK, V1_CHANNELS, 64, 8)
     stages = profile_stages(lambda: ch1.kernel1(*args),
                             ("chan_rot_disc", "audio_fir"))
+    host = kernel1_host_parts(ch1, torch, args)
     print(f"phase2 kernel1 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, channelize matmul (library yardstick) {library_ms:.4f} ms, "
-          f"bound {bms:.5f} ms by {by} ({ops / 1e9:.4f} GFLOP, "
-          f"{nbytes / 2 ** 20:.2f} MiB); stages {stages}", flush=True)
+          f"ms, channelize matmul (library yardstick) {library_ms:.4f} ms "
+          f"(medians of 21 turns), {bound_line(*bounds)}; stages {stages}; "
+          f"host µs a call {host}", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bms, bound_by=by)
+                library_ms=library_ms, bound_ms=bounds[0],
+                bound_by=bounds[1])
 
 
 def fm_checks(rx, blocks, tones: dict, f_pure: float, n_fft: int) -> float:
@@ -3148,8 +3194,11 @@ def cma_symbols(t: int, c: int, rng) -> np.ndarray:
 
 def phase2_cma(eqm, torch) -> dict:
     """The CMA bank against its plain version at C 1024, T 1024, K 5:
-    QPSK through mild ISI, per-channel rates, a quarter of the lanes
-    locked, chained over 3 blocks; bit-equal."""
+    QPSK through mild ISI, per-lane rates, a quarter of the lanes
+    locked, chained over 3 blocks, then a fourth block whose last lane
+    turns 1e7 times louder halfway (|e|² overflows, past the clip scale's
+    fast range); bit-equal.  Its time beside its latency floor (the
+    walker's chain timed with clock64)."""
     rng = np.random.default_rng(SEED + 31)
     c, t, k = CMA_C, CMA_T, CMA_K
     rate = torch.from_numpy(rng.uniform(1e-3, 4e-3, c).astype(
@@ -3158,35 +3207,70 @@ def phase2_cma(eqm, torch) -> dict:
         np.float32)).cuda()
     tr = torch.zeros((k, c), device="cuda")
     tr[k // 2] = 1.0
-    taps_k = taps_p = (tr, torch.zeros((k, c), device="cuda"))
-    max_abs, plain_ms = 0.0, None
-    for _ in range(3):
+    taps0 = (tr, torch.zeros((k, c), device="cuda"))
+    xs = []
+    for b in range(4):
         x = cma_symbols(t, c, rng).T.copy()
-        xr = torch.from_numpy(x.real.copy()).cuda()
-        xi = torch.from_numpy(x.imag.copy()).cuda()
-        got = eqm.cma_kernel(xr, xi, *taps_k, rate, locked)
+        if b == 3:
+            x[t // 2:, c - 1] *= 1e7
+        xs.append((torch.from_numpy(x.real.copy()).cuda(),
+                   torch.from_numpy(x.imag.copy()).cuda()))
+    # the kernel over the blocks first, then its time and trace (before
+    # the plain version's some 10^5 small launches a block)
+    outs, taps_k = [], taps0
+    for b, (xr, xi) in enumerate(xs):
+        outs.append(eqm.cma_kernel(xr, xi, *taps_k, rate, locked))
+        if b < 3:
+            taps_k = outs[-1][2:]
+    xr, xi = xs[0]
+    ms = time_ms(lambda: eqm.cma_kernel(xr, xi, *taps_k, rate, locked), 20)
+    stages = profile_stages(
+        lambda: eqm.cma_kernel(xr, xi, *taps_k, rate, locked),
+        ("cma_ws",), reps=5)
+    max_abs, plain_ms, taps_p = 0.0, None, taps0
+    for b, ((xr, xi), got) in enumerate(zip(xs, outs)):
         ms_p, want = time_once_ms(lambda: eqm.cma_kernel_reference(
             xr, xi, *taps_p, rate, locked))
         plain_ms = ms_p if plain_ms is None else min(plain_ms, ms_p)
         torch.cuda.synchronize()
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              ("cma_kernel", err))
-        max_abs = max(max_abs, err)
-        taps_k, taps_p = got[2:], want[2:]
-    ms = time_ms(lambda: eqm.cma_kernel(xr, xi, *taps_k, rate, locked), 20)
+              ("cma_kernel", b, err))
+        if b < 3:
+            max_abs = max(max_abs, err)
+            taps_p = want[2:]
+    # the fallback block's last lane: |e|² of its y in float32 overflows
+    y = (want[0][:, c - 1] + 1j * want[1][:, c - 1]).cpu().numpy()
+    p = (np.abs(y) ** 2).astype(np.float32)
+    e = (y * (p - np.float32(1.0))).astype(np.complex64)
+    with np.errstate(over="ignore"):
+        q = e.real * e.real + e.imag * e.imag
+    fallback = int(np.isinf(q).sum())
+    check(fallback > 0 and np.all(np.isfinite(y)), fallback)
+    xr, xi = xs[0]
     bms, by, ops, nbytes = cma_bound(t, c, k)
-    stages = profile_stages(
-        lambda: eqm.cma_kernel(xr, xi, *taps_k, rate, locked), ("::cma<",),
-        reps=5)
+    clip = eqm.clip_scale_mismatches("cuda")
+    check(clip == {"mismatches": 0, "checked": 1 << 32}, clip)
+    cyc = eqm.cma_step_cycles(xr, xi, *taps_k, rate, locked, steps=8192)
+    floor = eqm.cma_floor_ms(cyc, t)
+    traced = stages.get("cma_ws")
+    share = (f"{floor / traced:.1%} of it the floor"
+             if isinstance(traced, float) else "traced time not measured")
     print(f"phase2 cma_kernel (C 1024, T 1024, K 5; QPSK through ISI, "
-          f"per-lane rates, a quarter locked, 3 chained blocks): bit-equal "
-          f"to the plain version, max abs err {max_abs}; kernel {ms:.4f} ms "
-          f"({ms * 1e6 / t:.1f} ns per dependent step), plain "
-          f"{plain_ms:.1f} ms (a Python loop over the symbols), no library "
-          f"call computes it; bound {bms:.5f} ms by {by} "
+          f"per-lane rates, a quarter locked, 3 chained blocks and a "
+          f"fallback block, {fallback} steps of its last lane past the fast "
+          f"range): bit-equal to the plain version, max abs err {max_abs}; "
+          f"kernel {ms:.4f} ms ({ms * 1e6 / t:.1f} ns per dependent step), "
+          f"plain {plain_ms:.1f} ms (a Python loop over the symbols), no "
+          f"library call computes it; bound {bms:.5f} ms by {by} "
           f"({ops / 1e9:.4f} GFLOP, {nbytes / 2 ** 20:.2f} MiB); device "
           f"time per launch from the trace {stages}", flush=True)
+    print(f"phase2 cma chain: the walker's step {cyc['cycles']:.1f} cycles "
+          f"at {cyc['ghz']:.3f} GHz (clock64), latency floor {floor:.4f} ms "
+          f"for T {t}; traced kernel {traced} ms, {share}; bytes bound "
+          f"{bms:.5f} ms; the branch-free clip scale against the IEEE "
+          f"operations on every float32: {clip['mismatches']} of "
+          f"{clip['checked']} differ", flush=True)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bms, bound_by=by)
 
@@ -3446,8 +3530,8 @@ E2E_METRICS = [
 ]
 
 # the phase 2 timings of the PSD kernels, kernel2 (whose fused PSD runs
-# the same stages), the drain packer and the line resampler, run in a
-# child process by --kernel-pairs
+# the same stages), the drain packer, the line resampler, the v1
+# channelizer and the CMA bank, run in a child process by --kernel-pairs
 _KERNEL_CHILD = """
 import sys
 sys.path.insert(0, {tree!r})
@@ -3463,6 +3547,9 @@ cs.phase2_psd_xw(fft, torch, uploads)
 from sigdigger_tpu_torch.kernels import drainpack, tvline
 cs.phase2_pack(drainpack, torch)
 cs.phase2_tv(tvline, torch)
+from sigdigger_tpu_torch.kernels import channelizer, equalizer
+cs.phase2_kernel1(channelizer, torch)
+cs.phase2_cma(equalizer, torch)
 """
 
 _K2, _PSD, _XW = (r"^phase2 timing: kernel2 ", r"^phase2 psd timing: ",
@@ -3470,6 +3557,7 @@ _K2, _PSD, _XW = (r"^phase2 timing: kernel2 ", r"^phase2 psd timing: ",
 _PACK, _PACK_G, _TV = (r"^phase2 pack timing \(bench layout\): ",
                        r"^phase2 pack timing \(grouped layout\): ",
                        r"^phase2 tv_kernel \(W 512, ")
+_V1, _CMA = r"^phase2 kernel1 timing: ", r"^phase2 cma_kernel \(C 1024"
 # "tv ms" and "tv device ms" read each tree's first tv line, its main
 # path's form: the framed [L, W] windows before the stream form, the
 # stream form after it; "tv framed ..." read the framed form on both
@@ -3497,6 +3585,10 @@ KERNEL_METRICS = [
     ("tv device ms", _TV + r".*?trace (\{[^}]*\})"),
     ("tv framed ms", _TVF + r".*?64 lines: kernel ([0-9.]+) ms"),
     ("tv framed device ms", _TVF + r".*?trace (\{[^}]*\})"),
+    ("kernel1 ms", _V1 + r"kernel ([0-9.]+) ms"),
+    ("kernel1 device ms", _V1 + r".*?stages (\{[^}]*\})"),
+    ("cma ms", _CMA + r".*?kernel ([0-9.]+) ms"),
+    ("cma device ms", _CMA + r".*?trace (\{[^}]*\})"),
 ]
 
 
@@ -3543,7 +3635,8 @@ def tree_pairs(parent: str, pairs: int, child: str, metrics: list) -> int:
             print(f"pair {i} {side}: {json.dumps(got)}", flush=True)
             for line in out.stdout.splitlines():
                 if line.startswith("phase2") and (
-                        "timing" in line or line.startswith("phase2 tv")):
+                        "timing" in line or line.startswith(
+                            ("phase2 tv", "phase2 cma"))):
                     print(f"  {side}: {line}", flush=True)
     failed = []
     for name, _ in metrics:
@@ -3605,11 +3698,13 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
     t0 = time.perf_counter()
-    hg = sass_hgmma({"rawbank.cu": "raw_rot_tc",
-                     "channelizer2.cu": "chan_rot_disc_tc"})
+    tc_srcs = {"rawbank.cu": "raw_rot_tc",
+               "channelizer2.cu": "chan_rot_disc_tc",
+               "channelizer.cu": "chan_rot_disc_tc"}
+    hg = sass_hgmma(tc_srcs)
     print(f"phase1 HGMMA instructions per tensor-core stage "
           f"({time.perf_counter() - t0:.2f} s): {hg}", flush=True)
-    check({k.split(":")[0] for k in hg} == {"rawbank.cu", "channelizer2.cu"}
+    check({k.split(":")[0] for k in hg} == set(tc_srcs)
           and all(v > 0 for v in hg.values()), hg)
 
     t0 = time.perf_counter()

@@ -14,8 +14,8 @@ host work off the launch path: pointers go as the plain ints of
 comes from ``torch._C._cuda_getCurrentRawStream`` with no ``Stream``
 object, the device is made current only when the tensors lie on another
 one, and the shape checks run once per distinct argument signature.
-The squeeze, the audio bank, the PSD kernels, the drain packer and the
-line resampler call through it;
+The squeeze, the audio bank, the PSD kernels, the drain packer, the
+line resampler, the CMA bank and the v1 channelizer call through it;
 :func:`scratch` keeps one scratch buffer per device and stream for the
 PSD kernels' partials and counters.
 """
@@ -71,9 +71,8 @@ SIGNATURES = {
     },
     "channelizer": {
         "sd_kernel1": (
-            [_P] * 13               # xr xi h_re h_im theta phi0 prev_re
-                                    # prev_im ataps audio last_re last_im
-                                    # f_scr
+            [_P] * 12               # xr xi bmat theta phi0 prev_re prev_im
+                                    # ataps audio last_re last_im f_scr
             + [_I] * 4              # M C ka da
             + [_F, _P]),            # quad_gain stream
     },
@@ -140,6 +139,11 @@ SIGNATURES = {
                                     # y_re y_im taps_re_out taps_im_out
             + [_I] * 3              # T C K
             + [_P]),                # stream
+        "sd_cma_chain": (
+            [_P] * 6                # x_re x_im taps_re taps_im rate locked
+            + [_I] * 2              # C steps
+            + [_P, _P]),            # out stream
+        "sd_cma_clip_check": [_P, _P],      # counts stream
     },
     "symsqueeze": {
         "sd_symsqueeze": (

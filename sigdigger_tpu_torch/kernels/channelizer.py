@@ -13,15 +13,15 @@ rotator over the whole block (one time tile), the FM discriminator with
 the previous row carried in, and the global banded audio FIR
 ``audio[i] = Σ_t a[t]·f[i·Da − t]`` over ``f[m] = 0`` for m < 0,
 restarted every block (no FIR tail is carried).  On a CUDA tensor it
-launches ``csrc/channelizer.cu``, which shares its stages with the v2
-kernel (``csrc/chan.cuh``); on a CPU tensor it runs
+launches ``csrc/channelizer.cu``, which runs the v2 kernel's stages
+(``csrc/chan.cuh``: the 3xTF32 tensor-core product on ``consts["bmat"]``,
+then the banded FIR); on a CPU tensor it runs
 :func:`kernel1_reference`.  :class:`MatChannelizer` drives it; its
 config and constants also serve the v2 kernel in ``channelizer2.py``.
 """
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,7 +29,15 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.filters import fir_lowpass
+from sigdigger_tpu_torch.kernels._build import (
+    SCRATCH_COUNTERS,
+    checked_once,
+    launch,
+    load_library,
+    scratch,
+)
 from sigdigger_tpu_torch.kernels.ops import atan2
+from sigdigger_tpu_torch.kernels.tcsplit import tc_bmat, tc_product
 from sigdigger_tpu_torch.native import frame_windows
 
 _TWO_PI = 2.0 * np.pi
@@ -126,15 +134,21 @@ class Kernel1Params:
 def kernel1_reference(xr: torch.Tensor, xi: torch.Tensor,
                       consts: dict[str, torch.Tensor], phi0: torch.Tensor,
                       prev_re: torch.Tensor, prev_im: torch.Tensor,
-                      p: Kernel1Params):
+                      p: Kernel1Params, passes: int | None = None):
     """Plain PyTorch version of ``_kernel`` for one block.
 
     xr, xi: float32 window planes ``[M, K]``; phi0, prev_re, prev_im
-    ``[1, C]``.  Returns ``(audio [M//Da, C], last_re, last_im)``."""
+    ``[1, C]``.  Returns ``(audio [M//Da, C], last_re, last_im)``.  With
+    ``passes`` the channelize product is the one the kernel's tensor
+    cores compute (:func:`tcsplit.tc_product` with that many TF32
+    passes), for the tests; None is the exact float32 product."""
     m, c = xr.shape[0], consts["h_re"].shape[1]
     h_re, h_im = consts["h_re"], consts["h_im"]
-    yr = xr @ h_re - xi @ h_im
-    yi = xr @ h_im + xi @ h_re
+    if passes is None:
+        yr = xr @ h_re - xi @ h_im
+        yi = xr @ h_im + xi @ h_re
+    else:
+        yr, yi = tc_product(xr, xi, tc_bmat(h_re, h_im), passes=passes)
     # ph = φ0 + m·θ rounded once, as fma(m, θ, φ0): the float64 product
     # and sum are exact for these operands (channelizer.py:134)
     ramp = torch.arange(m, dtype=torch.float64, device=xr.device)[:, None]
@@ -160,16 +174,10 @@ def kernel1_reference(xr: torch.Tensor, xi: torch.Tensor,
     return audio, rr[-1:].clone(), ri[-1:].clone()
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
-    from sigdigger_tpu_torch.kernels._build import load_library
-
+def _check(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
     dev = xr.device
     m = xr.shape[0] if xr.dim() == 2 else 0
-    c = consts["h_re"].shape[1]
+    c = consts["theta"].shape[-1]
     for name, t in (("xr", xr), ("xi", xi)):
         if (t.dtype != torch.float32 or tuple(t.shape) != (m, 64)
                 or m == 0 or t.device != dev or not t.is_contiguous()):
@@ -179,35 +187,51 @@ def _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
     if p.da < 1 or m < p.da or not 1 <= p.ka <= 256:
         raise ValueError(f"kernel1 takes 1 <= audio_decim <= M and 1..256 "
                          f"audio taps, got M={m}, da={p.da}, ka={p.ka}")
-    shapes = {"h_re": (consts["h_re"], (64, c)),
-              "h_im": (consts["h_im"], (64, c)),
+    shapes = {"bmat": (consts.get("bmat"), (2 * c, 128)),
               "theta": (consts["theta"], (1, c)),
               "ataps": (consts["ataps"], (p.ka,)),
               "phi0": (phi0, (1, c)), "prev_re": (prev_re, (1, c)),
               "prev_im": (prev_im, (1, c))}
     for name, (t, shape) in shapes.items():
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
+        if (t is None or tuple(t.shape) != shape or t.dtype != torch.float32
                 or t.device != dev or not t.is_contiguous()):
-            raise ValueError(
-                f"kernel1 {name}: want contiguous float32 {shape} on {dev},"
-                f" got {t.dtype} {tuple(t.shape)} on {t.device}")
-    lib = load_library("channelizer")
-    audio = torch.empty((m // p.da, c), device=dev)
-    last_re = torch.empty((1, c), device=dev)
-    last_im = torch.empty((1, c), device=dev)
-    f_scr = torch.empty((m, c), device=dev)
-    with torch.cuda.device(dev):
-        err = lib.sd_kernel1(
-            _ptr(xr), _ptr(xi), _ptr(consts["h_re"]), _ptr(consts["h_im"]),
-            _ptr(consts["theta"]), _ptr(phi0), _ptr(prev_re),
-            _ptr(prev_im), _ptr(consts["ataps"]), _ptr(audio),
-            _ptr(last_re), _ptr(last_im), _ptr(f_scr),
-            m, c, p.ka, p.da, p.quad_gain,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            got = None if t is None else (t.dtype, tuple(t.shape), t.device)
+            raise ValueError(f"kernel1 {name}: want contiguous float32 "
+                             f"{shape} on {dev}, got {got}")
+
+
+# argument signatures whose shapes _kernel1_cuda has checked
+_CHECKED: set = set()
+
+
+def _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
+    bmat, theta, ataps = (consts.get(k) for k in ("bmat", "theta", "ataps"))
+    # the key holds everything _check reads: each tensor's shape and
+    # strides (so contiguity), dtype and device, and the scalars
+    key = tuple(None if t is None else (t.shape, t.stride(), t.dtype,
+                                        t.device)
+                for t in (xr, xi, phi0, prev_re, prev_im, bmat, theta,
+                          ataps)) + (p,)
+    checked_once(_CHECKED, key, lambda: _check(xr, xi, consts, phi0,
+                                               prev_re, prev_im, p))
+    dev = xr.device
+    m, c = xr.shape[0], phi0.shape[1]
+    ma = m // p.da
+    # audio and the last row in one allocation (contiguous row views);
+    # the [M, C] discriminator output in the stream's cached scratch,
+    # past its counters
+    out = torch.empty((ma + 2, c), device=dev)
+    f_scr = scratch(dev, m * c).data_ptr() + 4 * SCRATCH_COUNTERS
+    o, row = out.data_ptr(), 4 * c
+    err = launch(load_library("channelizer").sd_kernel1, dev,
+                 xr.data_ptr(), xi.data_ptr(), bmat.data_ptr(),
+                 theta.data_ptr(), phi0.data_ptr(), prev_re.data_ptr(),
+                 prev_im.data_ptr(), ataps.data_ptr(), o, o + ma * row,
+                 o + (ma + 1) * row, f_scr, m, c, p.ka, p.da, p.quad_gain)
     if err != 0:
         raise RuntimeError(f"sd_kernel1 launch failed: CUDA error {err}")
     kernel1.launches += 1
-    return audio, last_re, last_im
+    return out[:ma], out[ma:ma + 1], out[ma + 1:]
 
 
 def kernel1(xr: torch.Tensor, xi: torch.Tensor,
@@ -249,6 +273,9 @@ class MatChannelizer:
                                           device=self.device)
                        for k, v in host.items()
                        if k in ("h_re", "h_im", "theta", "ataps")}
+        # the tensor-core product's B operand (csrc/chan.cuh, namespace tc)
+        self.consts["bmat"] = tc_bmat(self.consts["h_re"],
+                                      self.consts["h_im"])
         self.params = Kernel1Params(ka=cfg.audio_taps, da=cfg.audio_decim,
                                     quad_gain=cfg.quad_gain)
         self._history = np.zeros(cfg.taps - 1, np.complex64)

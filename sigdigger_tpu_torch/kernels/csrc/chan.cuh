@@ -3,12 +3,11 @@
 // (audio.cu).
 //
 //   tc::chan_rot_disc_tc, tc::raw_rot_tc  the tensor-core core (3xTF32
-//                  wgmma, end of this file): kernel2's and the raw bank's
-//                  channelize, with chan_rot_disc's and raw_rot's
-//                  epilogues
-//   chan_rot_disc  channelize Y = Xw·H, rotate, discriminate against the
-//                  previous rotated row (recomputed as a one-row halo, or
-//                  the carried row at m = 0) -> f [M, C] and its last row
+//                  wgmma, end of this file): kernel2's and the v1 kernel's
+//                  channelize, rotate and discriminate against the
+//                  previous rotated row -> f [M, C] and its last row; the
+//                  raw bank's channelize and rotate, with raw_rot's
+//                  epilogue
 //   audio_fir      banded decimating FIR over [ftail_in | f], or over f
 //                  with zeros before the block -> audio [M/Da, C]
 //   tail_copy      the last T rows of [tail | x]: the carried FIR tail of
@@ -28,19 +27,8 @@
 //           once), and sincosf (not __sinf/__cosf) reduces the argument
 //           accurately.  No fast-math flag.
 //
-// chan_rot_disc (kernel1) and raw_rot (the audio bank) run the product on
-// the float32 CUDA cores.  Bound of chan_rot_disc: the complex product,
-// 8·M·K·C flops (4.3 GFLOP per block at M = 8192, C = 1024) on the
-// float32 CUDA cores; it reads
-// 2 MiB (int16) of windows and writes the 32 MiB f scratch.  Design: a
-// 64x64 output tile per block, 256 threads with a 4x4 complex register
-// tile each, taps staged through shared memory in two chunks of 32 so the
-// block stays under 48 KB and several blocks share an SM.  The one-row
-// halo Y[m0-1] costs 1/64 extra work and removes any ordering between
-// blocks.  The rotation and discriminator run from the shared Y tile with
-// consecutive threads on consecutive channels, so the table or phase
-// reads and the f writes are coalesced.  Rows past M (M not a multiple of
-// 64) are read as zeros and never written.
+// raw_rot (the audio bank) runs the product on the float32 CUDA cores
+// (below); every other stage's product runs on the tensor cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,168 +45,7 @@ constexpr int TM = 64;       // rows per block
 constexpr int TC = 64;       // channels per block
 constexpr int KC = 32;       // taps per shared-memory chunk
 constexpr int XS = KC + 1;   // padded row stride of the x chunk
-constexpr int YS = TC + 1;   // padded row stride of the Y tile
 constexpr int MAX_KA = 256;  // audio taps held in shared memory
-
-// xr, xi: the [M, 64] window planes (the halves of one packed [2M, 64]
-// upload for the v2 kernel).  TABLE reads q [M/64·2, C] and r [128, C];
-// cos/sin reads theta [1, C] and phi0 [M/mt, C].
-template <typename T, bool TABLE>
-__global__ void __launch_bounds__(256)
-chan_rot_disc(const T* __restrict__ xr, const T* __restrict__ xi,
-              float in_gain, const float* __restrict__ h_re,
-              const float* __restrict__ h_im, const float* __restrict__ q,
-              const float* __restrict__ r, const float* __restrict__ theta,
-              const float* __restrict__ phi0,
-              const float* __restrict__ prev_re,
-              const float* __restrict__ prev_im, float* __restrict__ f,
-              float* __restrict__ last_re, float* __restrict__ last_im,
-              int M, int C, int mt, float quad_gain) {
-    __shared__ float smem[2 * (TM + 1) * YS];
-    float* xs_re = smem;
-    float* xs_im = xs_re + (TM + 1) * XS;
-    float* hs_re = xs_im + (TM + 1) * XS;
-    float* hs_im = hs_re + KC * TC;
-
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
-    const int c0 = blockIdx.x * TC;
-    const int m0 = blockIdx.y * TM;
-
-    float acc_re[4][4], acc_im[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc_re[i][j] = acc_im[i][j] = 0.0f;
-    float hal_re = 0.0f, hal_im = 0.0f;   // Y[m0-1] of channel c0+tid
-
-    for (int k0 = 0; k0 < K; k0 += KC) {
-        // rows m0-1 .. m0+TM-1 of both planes (row 0 is the halo)
-        for (int i = tid; i < (TM + 1) * KC; i += 256) {
-            const int lr = i / KC, kk = i % KC;
-            const int m = m0 - 1 + lr;
-            float vr = 0.0f, vi = 0.0f;
-            if (m >= 0 && m < M) {
-                vr = deq(xr[(size_t)m * K + k0 + kk], in_gain);
-                vi = deq(xi[(size_t)m * K + k0 + kk], in_gain);
-            }
-            xs_re[lr * XS + kk] = vr;
-            xs_im[lr * XS + kk] = vi;
-        }
-        for (int i = tid; i < KC * TC; i += 256) {
-            const int kk = i / TC, c = c0 + i % TC;
-            const bool in = c < C;
-            hs_re[i] = in ? h_re[(size_t)(k0 + kk) * C + c] : 0.0f;
-            hs_im[i] = in ? h_im[(size_t)(k0 + kk) * C + c] : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < KC; ++kk) {
-            float ar[4], ai[4], br[4], bi[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                ar[i] = xs_re[(1 + ty * 4 + i) * XS + kk];
-                ai[i] = xs_im[(1 + ty * 4 + i) * XS + kk];
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                br[j] = hs_re[kk * TC + tx + 16 * j];
-                bi[j] = hs_im[kk * TC + tx + 16 * j];
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    acc_re[i][j] += ar[i] * br[j] - ai[i] * bi[j];
-                    acc_im[i][j] += ar[i] * bi[j] + ai[i] * br[j];
-                }
-        }
-        if (tid < TC) {
-            for (int kk = 0; kk < KC; ++kk) {
-                const float xv_re = xs_re[kk], xv_im = xs_im[kk];
-                const float hr = hs_re[kk * TC + tid];
-                const float hi = hs_im[kk * TC + tid];
-                hal_re += xv_re * hr - xv_im * hi;
-                hal_im += xv_re * hi + xv_im * hr;
-            }
-        }
-        __syncthreads();
-    }
-
-    // raw Y tile (row 0 = halo) into shared memory, over the x/H chunks
-    float* ys_re = smem;
-    float* ys_im = smem + (TM + 1) * YS;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            ys_re[(1 + ty * 4 + i) * YS + tx + 16 * j] = acc_re[i][j];
-            ys_im[(1 + ty * 4 + i) * YS + tx + 16 * j] = acc_im[i][j];
-        }
-    if (tid < TC) {
-        ys_re[tid] = hal_re;
-        ys_im[tid] = hal_im;
-    }
-    __syncthreads();
-
-    // rotate row m; the halo of the first tile is the carried, already
-    // rotated, row
-    const int qs = mt >> 6;
-    for (int i = tid; i < (TM + 1) * TC; i += 256) {
-        const int lr = i / TC, cc = i % TC;
-        const int c = c0 + cc, m = m0 - 1 + lr;
-        if (c >= C || m >= M) continue;
-        float rr, ri;
-        if (m < 0) {
-            rr = prev_re[c];
-            ri = prev_im[c];
-        } else {
-            float cr, ci;
-            if (TABLE) {
-                const int mi = m / mt, g = (m % mt) >> 6, rw = m & 63;
-                const float qre = q[(size_t)(mi * 2 * qs + g) * C + c];
-                const float qim = q[(size_t)(mi * 2 * qs + qs + g) * C + c];
-                const float rre = r[(size_t)rw * C + c];
-                const float rim = r[(size_t)(64 + rw) * C + c];
-                cr = qre * rre - qim * rim;
-                ci = qre * rim + qim * rre;
-            } else {
-                const int mi = m / mt;
-                const float ml = static_cast<float>(m - mi * mt);
-                const float ph =
-                    __fmaf_rn(ml, theta[c], phi0[(size_t)mi * C + c]);
-                float sn, cs;
-                sincosf(ph, &sn, &cs);
-                cr = cs;
-                ci = -sn;
-            }
-            const float yr = ys_re[lr * YS + cc], yi = ys_im[lr * YS + cc];
-            rr = yr * cr - yi * ci;
-            ri = yr * ci + yi * cr;
-        }
-        ys_re[lr * YS + cc] = rr;
-        ys_im[lr * YS + cc] = ri;
-    }
-    __syncthreads();
-
-    // discriminator: atan2(Y[m]·conj(Y[m-1]))·quad_gain
-    for (int i = tid; i < TM * TC; i += 256) {
-        const int lr = 1 + i / TC, cc = i % TC;
-        const int c = c0 + cc, m = m0 - 1 + lr;
-        if (c >= C || m >= M) continue;
-        const float rr = ys_re[lr * YS + cc], ri = ys_im[lr * YS + cc];
-        const float pr = ys_re[(lr - 1) * YS + cc];
-        const float pi = ys_im[(lr - 1) * YS + cc];
-        const float dr = rr * pr + ri * pi;
-        const float di = ri * pr - rr * pi;
-        f[(size_t)m * C + c] = sd_atan2(di, dr) * quad_gain;
-        if (m == M - 1) {
-            last_re[c] = rr;
-            last_im[c] = ri;
-        }
-    }
-}
 
 // Banded decimating audio FIR:
 //   audio[j, c] = Σ_t a[t] · f_ext[j·Da − t + Ka − 1, c],
@@ -391,20 +218,6 @@ raw_rot(const T* __restrict__ xr, const T* __restrict__ xi, float in_gain,
     }
 }
 
-// Launch chan_rot_disc over the whole block on stream s.
-template <typename T, bool TABLE>
-void launch_chan(const T* xr, const T* xi, float in_gain, const float* h_re,
-                 const float* h_im, const float* q, const float* r,
-                 const float* theta, const float* phi0,
-                 const float* prev_re, const float* prev_im, float* f,
-                 float* last_re, float* last_im, int M, int C, int mt,
-                 float quad_gain, cudaStream_t s) {
-    const dim3 grid((C + TC - 1) / TC, (M + TM - 1) / TM);
-    chan_rot_disc<T, TABLE><<<grid, 256, 0, s>>>(
-        xr, xi, in_gain, h_re, h_im, q, r, theta, phi0, prev_re, prev_im, f,
-        last_re, last_im, M, C, mt, quad_gain);
-}
-
 // Launch tail_copy on stream s: out [T, C] = the last T rows of
 // [tail (T rows) | x (n rows)].
 inline void launch_tail(const float* tail, const float* x, float* out, int T,
@@ -437,7 +250,8 @@ inline void launch_audio(const float* f, const float* ftail_in,
 
 // ---------------------------------------------------------------------
 // The tensor-core channelize core (Hopper wgmma), the raw bank's
-// (rawbank.cu) and kernel2's (channelizer2.cu) first stage.
+// (rawbank.cu), kernel2's (channelizer2.cu) and the v1 kernel's
+// (channelizer.cu) first stage.
 //
 // The complex product Y = Xw·H is one real GEMM:
 //   A = [xr | xi]                      [M, 2Kp]
@@ -903,11 +717,11 @@ raw_rot_tc(const T* __restrict__ xr, const T* __restrict__ xi,
     }
 }
 
-// kernel2's stage (a): channelize, rotate (Q[m/64]·R[m%64] or cos/sin
-// of φ0[mi] + m_local·θ), discriminate against the previous rotated row
-// (the carried one at m = 0) -> f [M, C], last row; as chan_rot_disc
-// computes it.  Tile i holds rows m0 − 1 .. m0 + 62, m0 = 63·i, and
-// writes f rows m0 .. m0 + 62.
+// kernel2's stage (a), and the v1 kernel's (cos/sin, mt = M): channelize,
+// rotate (Q[m/64]·R[m%64] or cos/sin of φ0[mi] + m_local·θ), discriminate
+// against the previous rotated row (the carried one at m = 0) -> f [M, C],
+// last row.  Tile i holds rows m0 − 1 .. m0 + 62, m0 = 63·i, and writes f
+// rows m0 .. m0 + 62.
 template <typename T, bool TABLE, int KP>
 __global__ void __launch_bounds__(THREADS, 1)
 chan_rot_disc_tc(const T* __restrict__ xr, const T* __restrict__ xi,

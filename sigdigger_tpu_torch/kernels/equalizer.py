@@ -9,10 +9,14 @@ reference's ``dsp/equalizer.py`` ``lax.scan``.  Per-channel adaptation
 rate and lock mask are device-resident rows.
 
 Layout: time-major ``[T, C]`` planes.  :func:`cma_kernel` launches the
-hand-written ``csrc/cma.cu`` (one thread per channel, taps and delay
-line in registers) on CUDA tensors and runs
-:func:`cma_kernel_reference`, a loop over the T symbols on ``[C]``
-rows, on CPU tensors.  The kernel is built for K = 5, the bank's
+hand-written ``csrc/cma.cu`` on CUDA tensors and runs
+:func:`cma_kernel_reference` on CPU tensors.  The kernel is
+warp-specialized as the plain version is split: the gains ``g`` of every
+step depend on the symbols alone (:func:`cma_gains`, helper warps), and
+only the chain of y, the error and the taps walks the symbols one by one
+(one walker warp, 32 lanes a block).  :func:`cma_step_cycles` times one
+step of that chain on the card and :func:`cma_floor_ms` turns it into the
+kernel's latency floor.  The kernel is built for K = 5, the bank's
 default and the only tap count any caller uses; other K run on the
 plain version only (ROADMAP.md queue 3).  The reference's
 ``channel_tile`` (a TPU lane rule) has no counterpart.
@@ -20,13 +24,17 @@ plain version only (ROADMAP.md queue 3).  The reference's
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.kernels._build import (
+    checked_once,
+    launch,
+    load_library,
+)
 
 KERNEL_TAPS = 5
 
@@ -38,18 +46,40 @@ class CMABankConfig:
     n_taps: int = 5              # K
 
 
+def cma_gains(x_re: torch.Tensor, x_im: torch.Tensor, k: int,
+              rate: torch.Tensor, locked: torch.Tensor) -> torch.Tensor:
+    """The adaptation gains of every step, ``[T, C]``: ``(1 − locked)·rate
+    / (1e-6 + Σ_j |b_j|²)`` with ``b_j`` the symbol j steps back (zero
+    before the block) and the power summed in the chain's order, j = 0
+    first, each term's real part then its imaginary part."""
+    t_len, c = x_re.shape
+    unl_rt = (1.0 - locked.reshape(c)) * rate.reshape(c)
+    pad = torch.zeros((k - 1, c), dtype=x_re.dtype, device=x_re.device)
+    xr = torch.cat([pad, x_re])
+    xi = torch.cat([pad, x_im])
+    power = torch.full_like(x_re, 1e-6)
+    for j in range(k):
+        br = xr[k - 1 - j:k - 1 - j + t_len]
+        bi = xi[k - 1 - j:k - 1 - j + t_len]
+        power = power + br * br + bi * bi
+    return unl_rt / power
+
+
 def cma_kernel_reference(x_re, x_im, taps_re, taps_im, rate,
                          locked) -> tuple:
     """Plain PyTorch version of ``_cma_kernel``: float32 ``x_re``,
     ``x_im`` [T, C], ``taps_re``, ``taps_im`` [K, C], ``rate``,
-    ``locked`` [C] → (y_re, y_im [T, C], taps_re, taps_im [K, C])."""
+    ``locked`` [C] → (y_re, y_im [T, C], taps_re, taps_im [K, C]).
+
+    Split as the kernel is: the gains of every step first
+    (:func:`cma_gains`), then the chain over the symbols; every
+    operation is the reference's, in its order."""
     t_len, c = x_re.shape
     k = taps_re.shape[0]
-    rt = rate.reshape(c)
-    unlocked = 1.0 - locked.reshape(c)
+    gains = cma_gains(x_re, x_im, k, rate, locked)
     tr = list(taps_re.unbind(0))
     ti = list(taps_im.unbind(0))
-    zeros = torch.zeros_like(rt)
+    zeros = torch.zeros_like(gains[0])
     # delay line: br[0] = newest sample
     br = [zeros] * k
     bi = [zeros] * k
@@ -73,18 +103,13 @@ def cma_kernel_reference(x_re, x_im, taps_re, taps_im, rate,
         s = torch.reciprocal(torch.clamp(emag, min=1.0))
         er = er * s
         ei = ei * s
-        power = torch.full_like(rt, 1e-6)
-        for j in range(k):
-            power = power + br[j] * br[j] + bi[j] * bi[j]
-        g = unlocked * rt / power
+        g = gains[i]
         tr, ti = ([tr[j] - g * (er * br[j] + ei * bi[j]) for j in range(k)],
                   [ti[j] - g * (ei * br[j] - er * bi[j]) for j in range(k)])
     return y_re, y_im, torch.stack(tr), torch.stack(ti)
 
 
-def _cma_cuda(x_re, x_im, taps_re, taps_im, rate, locked) -> tuple:
-    from sigdigger_tpu_torch.kernels._build import load_library
-
+def _check(x_re, x_im, taps_re, taps_im, rate, locked) -> None:
     dev = x_re.device
     if x_re.dim() != 2:
         raise ValueError(f"cma_kernel x_re: want [T, C], got "
@@ -104,19 +129,97 @@ def _cma_cuda(x_re, x_im, taps_re, taps_im, rate, locked) -> tuple:
             raise ValueError(
                 f"cma_kernel {name}: want contiguous float32 {shape} on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    lib = load_library("cma")
-    outs = (torch.empty_like(x_re), torch.empty_like(x_im),
-            torch.empty_like(taps_re), torch.empty_like(taps_im))
-    with torch.cuda.device(dev):
-        err = lib.sd_cma(
-            *(ctypes.c_void_p(t.data_ptr())
-              for t in (x_re, x_im, taps_re, taps_im, rate, locked, *outs)),
-            t_len, c, k,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+
+
+# argument signatures whose shapes _cma_cuda has checked
+_CHECKED: set = set()
+
+
+def _cma_cuda(x_re, x_im, taps_re, taps_im, rate, locked) -> tuple:
+    ins = (x_re, x_im, taps_re, taps_im, rate, locked)
+    # the key holds everything _check reads: shapes and strides (so
+    # contiguity), dtypes and devices
+    key = tuple((t.shape, t.stride(), t.dtype, t.device) for t in ins)
+    checked_once(_CHECKED, key, lambda: _check(*ins))
+    t_len, c = x_re.shape
+    k = taps_re.shape[0]
+    y = torch.empty((2, t_len, c), device=x_re.device)
+    taps = torch.empty((2, k, c), device=x_re.device)
+    err = launch(load_library("cma").sd_cma, x_re.device,
+                 *(t.data_ptr() for t in ins), y[0].data_ptr(),
+                 y[1].data_ptr(), taps[0].data_ptr(), taps[1].data_ptr(),
+                 t_len, c, k)
     if err != 0:
         raise RuntimeError(f"sd_cma launch failed: CUDA error {err}")
     cma_kernel.launches += 1
-    return outs
+    return y[0], y[1], taps[0], taps[1]
+
+
+# symbol rows the chain timer reads (csrc/cma.cu HT, the walker's chunk)
+CHAIN_ROWS = 24
+
+
+def cma_step_cycles(x_re: torch.Tensor, x_im: torch.Tensor,
+                    taps_re: torch.Tensor, taps_im: torch.Tensor,
+                    rate: torch.Tensor, locked: torch.Tensor,
+                    steps: int = 8192) -> dict:
+    """Cycles one dependent step of the CUDA kernel's walker takes alone
+    (``cycles``), timed with ``clock64()`` on one warp over lanes 0..31
+    of the bank and ``steps`` steps (rounded down to a multiple of
+    CHAIN_ROWS; the first CHAIN_ROWS symbols of ``x_re``, ``x_im`` and
+    their gains in shared memory, walked by the walker's own code), and
+    the SM clock in GHz (``ghz``): what sets the kernel's latency floor
+    (:func:`cma_floor_ms`).  A diagnostic on CUDA tensors; it launches no
+    ``cma_kernel``."""
+    c = rate.shape[0] if rate.dim() == 1 else 0
+    for name, t, shape in (("x_re", x_re, None), ("x_im", x_im, None),
+                           ("taps_re", taps_re, (KERNEL_TAPS, c)),
+                           ("taps_im", taps_im, (KERNEL_TAPS, c)),
+                           ("rate", rate, (c,)), ("locked", locked, (c,))):
+        if (t.device.type != "cuda" or t.dtype != torch.float32
+                or not t.is_contiguous() or (shape is not None and (
+                    tuple(t.shape) != shape)) or (shape is None and (
+                        t.dim() != 2 or t.shape[0] < CHAIN_ROWS
+                        or t.shape[1] != c))):
+            raise ValueError(
+                f"cma_step_cycles {name}: want contiguous CUDA float32 "
+                f"{shape or (f'>= {CHAIN_ROWS}', c)}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if c < 1 or steps < CHAIN_ROWS:
+        raise ValueError(f"cma_step_cycles needs C >= 1 and steps >= "
+                         f"{CHAIN_ROWS}, got C={c}, steps={steps}")
+    out = torch.zeros(2 + 32, device=x_re.device)
+    err = launch(load_library("cma").sd_cma_chain, x_re.device,
+                 *(t.data_ptr() for t in (x_re, x_im, taps_re, taps_im,
+                                          rate, locked)),
+                 c, int(steps), out.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"sd_cma_chain failed: CUDA error {err}")
+    cycles, ghz = out[:2].tolist()
+    return {"cycles": cycles, "ghz": ghz}
+
+
+def clip_scale_mismatches(device: str | torch.device = "cuda") -> dict:
+    """The CUDA walker's branch-free clip scale ``1 / max(|e|, 1)`` of
+    ``|e|²`` against the IEEE operations ``1 / fmaxf(__fsqrt_rn(q), 1)``
+    on every float32 bit pattern: ``mismatches`` (0 when the walker is
+    bit-equal to the plain version on every input) and ``checked``.  A
+    check on the card; it launches no ``cma_kernel``."""
+    dev = torch.device(device)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    err = launch(load_library("cma").sd_cma_clip_check, dev,
+                 counts.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"sd_cma_clip_check failed: CUDA error {err}")
+    bad, n = counts.tolist()
+    return {"mismatches": bad, "checked": n}
+
+
+def cma_floor_ms(cycles: dict, t: int) -> float:
+    """The kernel's latency floor for a block of ``t`` symbols: ``t``
+    dependent steps at the cycles and clock of ``cycles``
+    (:func:`cma_step_cycles`)."""
+    return cycles["cycles"] * t / (cycles["ghz"] * 1e9) * 1e3
 
 
 def cma_kernel(x_re, x_im, taps_re, taps_im, rate, locked) -> tuple:

@@ -4,14 +4,17 @@ and with one part taken out.
 
     python -m sigdigger_tpu_torch.kernels.stage_variants
 
-Builds ``rawbank.cu`` and ``channelizer2.cu`` from copies of ``csrc/``
+Builds ``rawbank.cu``, ``channelizer2.cu`` and ``channelizer.cu`` from
+copies of ``csrc/``
 in a temporary directory, once as they are and once for each variant
 (the epilogue, the tensor-core product or the window staging removed by
 a text edit of ``chan.cuh``), and prints, per variant, the device time
 of each stage from ``torch.profiler`` at the bench shapes: the raw bank
 on float32 planes and kernel2 unfused with the table rotator on an
-int16 upload (1024 channels, M 8192, K 64, m_tile 2048).  A variant's
-outputs are not meaningful; its time is.  Needs a card and ``nvcc``.
+int16 upload (1024 channels, M 8192, K 64, m_tile 2048); and the v1
+kernel's ``chan_rot_disc_tc`` (cos/sin, float32 windows) at the entry's
+256 channels, M 1024, one row tile a warpgroup.  A variant's outputs are
+not meaningful; its time is.  Needs a card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ def _build_variant(src_dir: str, chan: str, out_dir: str) -> list:
          os.path.join(out_dir, f"lib{lib}.so"),
          os.path.join(out_dir, f"{lib}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for lib in ("rawbank", "channelizer2")]
+        for lib in ("rawbank", "channelizer2", "channelizer")]
 
 
 def _bind(path: str, lib: str, name: str):
@@ -103,6 +106,7 @@ def _device_ms(fn, stage: str, reps: int = 10) -> float:
 
 
 def main() -> int:
+    from sigdigger_tpu_torch.kernels import channelizer as ch1
     from sigdigger_tpu_torch.kernels import channelizer2 as ch2
     from sigdigger_tpu_torch.kernels import rawbank
 
@@ -137,6 +141,16 @@ def main() -> int:
     ftail = torch.empty((63, c), device=dev)
     f_scr = torch.empty((m, c), device=dev)
     k = chan.consts
+    v1 = ch1.MatChannelizer(ch1.MatChannelizerConfig(
+        sample_rate=25.6e6, n_channels=256, decimation=64, audio_decim=8,
+        block_out=1024), np.linspace(-12e6, 12e6, 256), 200e3, "cuda")
+    w, _ = ch1.make_windows(v1.cfg, x[:v1.cfg.block_in],
+                            np.zeros(63, np.complex64))
+    w_re, w_im = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                  for a in (w.real, w.imag))
+    row = torch.zeros((1, 256), device=dev)
+    v1_out = torch.empty((128 + 2, 256), device=dev)
+    v1_scr = torch.empty((1024, 256), device=dev)
     src = open(os.path.join(_build.CSRC, "chan.cuh")).read()
     with tempfile.TemporaryDirectory() as tmp:
         procs = {name: _build_variant(_build.CSRC, text,
@@ -172,15 +186,32 @@ def main() -> int:
                          chan._ftail.data_ptr(), k["ataps"].data_ptr(), 0,
                          None, None, None, None, None, audio.data_ptr(), 1,
                          last[0].data_ptr(), last[1].data_ptr(),
-                         ftail.data_ptr(), None, f_scr.data_ptr(), None, m,
-                         c, mt, 64, 32, chan.params.quad_gain, 1.0,
+                         ftail.data_ptr(), None, f_scr.data_ptr(), None,
+                         None, m, c, mt, 64, 32, chan.params.quad_gain, 1.0,
+                         torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+
+            k1 = _bind(os.path.join(d, "libchannelizer.so"),
+                       "channelizer", "sd_kernel1")
+
+            def run_k1():
+                o = v1_out.data_ptr()
+                err = k1(w_re.data_ptr(), w_im.data_ptr(),
+                         v1.consts["bmat"].data_ptr(),
+                         v1.consts["theta"].data_ptr(), row.data_ptr(),
+                         row.data_ptr(), row.data_ptr(),
+                         v1.consts["ataps"].data_ptr(), o, o + 128 * 1024,
+                         o + 129 * 1024, v1_scr.data_ptr(), 1024, 256, 64,
+                         8, v1.params.quad_gain,
                          torch.cuda.current_stream().cuda_stream)
                 assert err == 0, err
 
             print(f"{name}: raw_rot_tc "
                   f"{_device_ms(run_raw, 'raw_rot_tc'):.4f} ms, "
                   f"chan_rot_disc_tc (table, int16) "
-                  f"{_device_ms(run_k2, 'chan_rot_disc_tc'):.4f} ms",
+                  f"{_device_ms(run_k2, 'chan_rot_disc_tc'):.4f} ms, "
+                  f"v1 chan_rot_disc_tc (cos/sin, f32, C 256, M 1024) "
+                  f"{_device_ms(run_k1, 'chan_rot_disc_tc'):.4f} ms",
                   flush=True)
     return 0
 

@@ -165,3 +165,53 @@ def test_default_device_is_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         MatChannelizer(MatChannelizerConfig(**GEOMS["small"]),
                        np.zeros(8), 1e3)
+
+
+def test_cuda_wrapper_lays_out_outputs_and_checks_once(monkeypatch):
+    """The CUDA wrapper, run on CPU tensors with the entry point replaced
+    by a stand-in that writes the plain version's results through the
+    pointers it is given: audio and the last row come back as the kernel
+    wrote them, the discriminator scratch lies past the scratch
+    counters, the shapes are checked once per signature, and a bank
+    without the tensor-core product's B raises."""
+    import ctypes
+
+    from sigdigger_tpu_torch.kernels import _build
+    from sigdigger_tpu_torch.kernels import channelizer as ch1
+
+    _, ours, f0s = _pair("entry")
+    cfg, c = ours.cfg, len(f0s)
+    x = _signal(f0s, cfg.sample_rate, cfg.block_in, seed=5)
+    w, _ = make_windows(cfg, x, np.zeros(cfg.taps - 1, np.complex64))
+    xr = torch.from_numpy(np.ascontiguousarray(w.real))
+    xi = torch.from_numpy(np.ascontiguousarray(w.imag))
+    rng = np.random.default_rng(6)
+    phi0, pr, pi = (torch.from_numpy(rng.uniform(0, 1, (1, c)).astype(
+        np.float32)) for _ in range(3))
+    want = kernel1_reference(xr, xi, ours.consts, phi0, pr, pi, ours.params)
+    scr = torch.zeros(_build.SCRATCH_COUNTERS + cfg.block_out * c)
+    seen = {}
+
+    def entry(*a):
+        seen["f_scr"] = a[11]
+        for p, v in zip(a[8:11], want):
+            ctypes.memmove(p, v.contiguous().data_ptr(), v.numel() * 4)
+        return 0
+
+    monkeypatch.setattr(ch1, "load_library", lambda name: type(
+        "Lib", (), {"sd_kernel1": staticmethod(entry)}))
+    monkeypatch.setattr(ch1, "launch", lambda fn, dev, *a: fn(*a))
+    monkeypatch.setattr(ch1, "scratch", lambda dev, n: scr)
+    monkeypatch.setattr(ch1.kernel1, "launches", 0)
+    monkeypatch.setattr(ch1, "_CHECKED", set())
+    for _ in range(2):
+        got = ch1._kernel1_cuda(xr, xi, ours.consts, phi0, pr, pi,
+                                ours.params)
+        assert [tuple(g.shape) for g in got] == [(cfg.audio_out, c),
+                                                 (1, c), (1, c)]
+        assert all(torch.equal(g, v) for g, v in zip(got, want))
+    assert seen["f_scr"] == scr.data_ptr() + 4 * _build.SCRATCH_COUNTERS
+    assert ch1.kernel1.launches == 2 and len(ch1._CHECKED) == 1
+    no_b = {k: v for k, v in ours.consts.items() if k != "bmat"}
+    with pytest.raises(ValueError, match="bmat"):
+        ch1._kernel1_cuda(xr, xi, no_b, phi0, pr, pi, ours.params)

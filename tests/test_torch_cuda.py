@@ -3,7 +3,7 @@ on the card: the FM channelizer v2 (fused table form, unfused table and
 cos/sin forms), the v1 channelizer, the standalone PSD, the PSD read
 from the window buffer (with and without the device EMA), the raw bank,
 the recovery bank, the audio bank (and its hang walk bit for bit),
-the column compactor, the symbol squeeze, the drain packer, the TV line resampler and the CMA bank, the
+the column compactor, the symbol squeeze, the drain packer, the TV line resampler and the CMA bank (and its chain timer), the
 analyzer session through them, on the compactor drain and on the packed
 one, and ``cli tv`` on the line resampler.  Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
@@ -30,7 +30,9 @@ differs, then the strobe count within ±1); the kernel repeats the plain
 version's operations one by one, so the two agree bit for bit, held in
 ``test_recovery_kernel_is_bit_equal_to_plain_version``.
 Squeeze, packer and CMA bank: none (bit-equal; each is one IEEE
-operation per step on both sides, with no contraction into FMAs).  TV
+operation per step on both sides, with no contraction into FMAs; the
+CMA walker's branch-free clip scale equals the IEEE operations on every
+float32, held in ``test_cma_clip_scale_is_ieee``).  TV
 line resampler: 2e-6 on luminance in [0, 1] (three-term sums in another
 order than the plain version's two matmuls).
 """
@@ -1513,6 +1515,90 @@ def test_cma_kernel_matches_plain_version(cuda):
         z = torch.zeros((other, c), device=cuda)
         with pytest.raises(ValueError, match="K = 5"):
             equalizer.cma_kernel(xr, xi, z, z, rate, locked)
+
+
+def _cma_inputs(cuda, c: int, t: int, rng):
+    """QPSK through ISI, per-lane rates, a quarter of the lanes locked, a
+    silent lane and one whose |e|² overflows from mid-block (the
+    kernel's IEEE fallback)."""
+    s = (rng.integers(0, 4, (t, c)) * 2 + 1) * np.pi / 4
+    x = np.exp(1j * s)
+    x = x + 0.3 * np.roll(x, 1, axis=0)
+    x[:, c // 2] = 0.0
+    x[t // 2:, c - 1] *= 1e7
+    xr = torch.from_numpy(x.real.astype(np.float32)).to(cuda)
+    xi = torch.from_numpy(x.imag.astype(np.float32)).to(cuda)
+    return xr, xi
+
+
+@pytest.mark.parametrize("t", [1, 7, 1024])
+@pytest.mark.parametrize("c", [32, 1000, 1024])
+def test_cma_walker_is_bit_equal_to_plain_version(cuda, c, t):
+    """The warp-specialized CMA kernel over 2 chained blocks at whole and
+    ragged lane blocks, one chunk, a short last chunk and the entry's T:
+    bit-equal, the fallback lane included."""
+    from sigdigger_tpu_torch.kernels import equalizer
+
+    rng = np.random.default_rng(c + t)
+    rate = torch.from_numpy(rng.uniform(1e-3, 4e-3, c).astype(
+        np.float32)).to(cuda)
+    locked = torch.from_numpy((np.arange(c) % 4 == 0).astype(
+        np.float32)).to(cuda)
+    tr = torch.zeros((5, c), device=cuda)
+    tr[2] = 1.0
+    taps_k = taps_p = (tr, torch.zeros((5, c), device=cuda))
+    for _ in range(2):
+        xr, xi = _cma_inputs(cuda, c, t, rng)
+        got = equalizer.cma_kernel(xr, xi, *taps_k, rate, locked)
+        want = equalizer.cma_kernel_reference(xr, xi, *taps_p, rate, locked)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert bool(torch.isfinite(got[0]).all())
+        taps_k, taps_p = got[2:], want[2:]
+
+
+def test_cma_chain_cycles_and_floor(cuda):
+    """The chain timer reads a positive cycle count a step and a clock
+    near the card's; the floor follows from them."""
+    from sigdigger_tpu_torch.kernels import equalizer
+
+    c = 64
+    rng = np.random.default_rng(5)
+    xr, xi = _cma_inputs(cuda, c, 64, rng)
+    rate = torch.full((c,), 2e-3, device=cuda)
+    locked = torch.zeros(c, device=cuda)
+    tr = torch.zeros((5, c), device=cuda)
+    tr[2] = 1.0
+    ti = torch.zeros((5, c), device=cuda)
+    cyc = equalizer.cma_step_cycles(xr, xi, tr, ti, rate, locked,
+                                    steps=4096)
+    assert 20 < cyc["cycles"] < 2000 and 0.5 < cyc["ghz"] < 3.0
+    assert equalizer.cma_floor_ms(cyc, 1024) == pytest.approx(
+        cyc["cycles"] * 1024 / (cyc["ghz"] * 1e9) * 1e3)
+    with pytest.raises(ValueError):        # fewer rows than a chunk
+        equalizer.cma_step_cycles(xr[:8], xi[:8], tr, ti, rate, locked)
+
+
+def test_cma_clip_scale_is_ieee(cuda):
+    """The walker's branch-free clip scale equals the IEEE operations on
+    every float32 |e|² (the infinite and NaN ones included)."""
+    from sigdigger_tpu_torch.kernels import equalizer
+
+    got = equalizer.clip_scale_mismatches(cuda)
+    assert got == {"mismatches": 0, "checked": 1 << 32}, got
+
+
+def test_kernel1_runs_hgmma(cuda):
+    """The v1 kernel's channelize product is the tensor-core core: its
+    SASS holds warpgroup tensor-core products."""
+    import os
+
+    from sigdigger_tpu_torch.kernels import sass_report
+
+    ks = [k for k in sass_report.report(os.path.join(_build.CSRC,
+                                                     "channelizer.cu"))
+          if "chan_rot_disc_tc" in k["kernel"]]
+    assert ks and all(k["hgmma"] > 0 for k in ks), ks
 
 
 def _pal_fields(n: int) -> np.ndarray:

@@ -146,3 +146,106 @@ def test_shapes_are_checked():
     before = equalizer.cma_kernel.launches
     bank(_qpsk(C, T))
     assert equalizer.cma_kernel.launches == before   # no CUDA launch
+
+
+def _inline_recurrence(x_re, x_im, taps_re, taps_im, rate, locked):
+    """The CMA block as the reference's kernel writes it: power and g
+    inside the loop over the symbols."""
+    t_len, c = x_re.shape
+    k = taps_re.shape[0]
+    unlocked = 1.0 - locked
+    tr, ti = list(taps_re.unbind(0)), list(taps_im.unbind(0))
+    zeros = torch.zeros_like(rate)
+    br, bi = [zeros] * k, [zeros] * k
+    y_re, y_im = torch.empty_like(x_re), torch.empty_like(x_im)
+    for i in range(t_len):
+        br = [x_re[i]] + br[:k - 1]
+        bi = [x_im[i]] + bi[:k - 1]
+        yr = yi = zeros
+        for j in range(k):
+            yr = yr + tr[j] * br[j] - ti[j] * bi[j]
+            yi = yi + tr[j] * bi[j] + ti[j] * br[j]
+        y_re[i], y_im[i] = yr, yi
+        p = yr * yr + yi * yi
+        er, ei = yr * (p - 1.0), yi * (p - 1.0)
+        s = torch.reciprocal(torch.clamp(torch.sqrt(er * er + ei * ei),
+                                         min=1.0))
+        er, ei = er * s, ei * s
+        power = torch.full_like(rate, 1e-6)
+        for j in range(k):
+            power = power + br[j] * br[j] + bi[j] * bi[j]
+        g = unlocked * rate / power
+        tr, ti = ([tr[j] - g * (er * br[j] + ei * bi[j]) for j in range(k)],
+                  [ti[j] - g * (ei * br[j] - er * bi[j]) for j in range(k)])
+    return y_re, y_im, torch.stack(tr), torch.stack(ti)
+
+
+@pytest.mark.parametrize("k", [5, 3])
+@pytest.mark.parametrize("t_len", [1, 7, 128, 130])
+def test_split_form_equals_inline_recurrence(t_len, k):
+    """The plain version, split as the kernel is (the gains of every step
+    as a [T, C] plane first, then the chain), equals the inline
+    recurrence bit for bit: per-lane rates, locked lanes, a silent lane
+    and a lane whose |e|² overflows (the kernel's IEEE fallback)."""
+    c = 40
+    rng = np.random.default_rng(t_len + k)
+    x = _qpsk(c, t_len, seed=t_len).T.copy()
+    x = x + 0.3 * np.roll(x, 1, axis=0)
+    x[:, 3] = 0.0                               # silent lane
+    x[t_len // 2:, 7] *= 1e7                    # |e|² = inf from mid-block
+    xr = torch.from_numpy(np.ascontiguousarray(x.real, np.float32))
+    xi = torch.from_numpy(np.ascontiguousarray(x.imag, np.float32))
+    taps = rng.standard_normal((2, k, c)).astype(np.float32) * 0.1
+    taps[0, k // 2] += 1.0
+    rate = torch.from_numpy(rng.uniform(0.0, 5e-3, c).astype(np.float32))
+    locked = torch.from_numpy((np.arange(c) % 5 == 0).astype(np.float32))
+    args = (xr, xi, torch.from_numpy(taps[0]), torch.from_numpy(taps[1]),
+            rate, locked)
+    got = equalizer.cma_kernel_reference(*args)
+    want = _inline_recurrence(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.isfinite(torch.stack(got[:2])).all()
+    g = equalizer.cma_gains(xr, xi, k, rate, locked)
+    assert g.shape == (t_len, c) and not g[:, locked.bool()].any()
+
+
+def test_cuda_wrapper_lays_out_outputs_and_checks_once(monkeypatch):
+    """The CUDA wrapper, run on CPU tensors with the entry point replaced
+    by a stand-in that writes the plain version's results through the
+    pointers it is given: the outputs come back as the kernel wrote
+    them, the shapes are checked once per signature, and K other than
+    5 raises on every call."""
+    import ctypes
+
+    def entry(xr, xi, tr, ti, rate, locked, yr, yi, tro, tio, t, c, k):
+        ins = [torch.from_numpy(np.ctypeslib.as_array(
+            (ctypes.c_float * (n * c)).from_address(p)).reshape(n, c))
+            for p, n in ((xr, t), (xi, t), (tr, k), (ti, k))]
+        row = [torch.from_numpy(np.ctypeslib.as_array(
+            (ctypes.c_float * c).from_address(p))) for p in (rate, locked)]
+        for p, v in zip((yr, yi, tro, tio),
+                        equalizer.cma_kernel_reference(*ins, *row)):
+            ctypes.memmove(p, v.contiguous().data_ptr(), v.numel() * 4)
+        return 0
+
+    monkeypatch.setattr(equalizer, "load_library", lambda name: type(
+        "Lib", (), {"sd_cma": staticmethod(entry)}))
+    monkeypatch.setattr(equalizer, "launch", lambda fn, dev, *a: fn(*a))
+    monkeypatch.setattr(equalizer.cma_kernel, "launches", 0)
+    monkeypatch.setattr(equalizer, "_CHECKED", set())
+    bank = _bank(rate=np.linspace(0.0, 4e-3, C).astype(np.float32))
+    x = torch.from_numpy(_isi(seed=4).T.copy())
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    args = (xr, xi, bank.taps_re, bank.taps_im, bank.rate, bank.locked)
+    want = equalizer.cma_kernel_reference(*args)
+    for _ in range(2):
+        got = equalizer._cma_cuda(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert equalizer.cma_kernel.launches == 2
+    assert len(equalizer._CHECKED) == 1
+    for _ in range(2):
+        with pytest.raises(ValueError, match="K = 5"):
+            equalizer._cma_cuda(xr, xi, bank.taps_re[:3].contiguous(),
+                                bank.taps_im[:3].contiguous(), bank.rate,
+                                bank.locked)
+    assert len(equalizer._CHECKED) == 1

@@ -7,10 +7,11 @@ the plain versions take it with ``passes=``.
 - the split: TF32 rounding, and the int16/int8 windows exact in two or
   one parts;
 - the ``[2C, 2Kp]`` interleaved B: its real GEMM is the complex product;
-- the emulated raw bank and kernel2 against the reference
-  (``sigdigger_tpu`` ``_raw_kernel`` / ``_kernel2`` in interpret mode) at
-  the small test shapes, with the tolerances of
-  ``test_torch_rawbank.py`` and ``test_torch_channelizer2.py``;
+- the emulated raw bank, kernel2 and the v1 kernel against the reference
+  (``sigdigger_tpu`` ``_raw_kernel`` / ``_kernel2`` / ``_kernel`` in
+  interpret mode) at the small test shapes, with the tolerances of
+  ``test_torch_rawbank.py``, ``test_torch_channelizer2.py`` and
+  ``test_torch_channelizer.py``; the v1 bank's B constant;
 - at the bench's K 64, on int16 and float32 windows: the raw planes
   against a float64 product within ``chip_smoke.py``'s TOL_RAW (1e-5 of
   the largest value), and kernel2's audio, FIR tail and carry against
@@ -26,6 +27,10 @@ import pytest
 import torch
 
 import sigdigger_tpu.native as ref_native
+from sigdigger_tpu.kernels.channelizer import MatChannelizer as RefChan1
+from sigdigger_tpu.kernels.channelizer import (
+    MatChannelizerConfig as RefChan1Config,
+)
 from sigdigger_tpu.kernels.channelizer2 import MatChannelizer2 as RefChan2
 from sigdigger_tpu.kernels.channelizer2 import (
     MatChannelizer2Config as RefChan2Config,
@@ -33,6 +38,12 @@ from sigdigger_tpu.kernels.channelizer2 import (
 from sigdigger_tpu.kernels.rawbank import RawBank as RefRawBank
 from sigdigger_tpu.kernels.rawbank import RawBankConfig as RefRawBankConfig
 from sigdigger_tpu_torch.kernels import rawbank, tcsplit
+from sigdigger_tpu_torch.kernels.channelizer import (
+    MatChannelizer,
+    MatChannelizerConfig,
+    kernel1_reference,
+    make_windows,
+)
 from sigdigger_tpu_torch.kernels.channelizer2 import (
     MatChannelizer2,
     MatChannelizer2Config,
@@ -285,3 +296,78 @@ def test_three_passes_meet_discriminator_tolerances(kw, snap):
             assert _disagree(one[3], op[3], TOL_TAIL) > TOL_FRAC
         if not snap:
             chan._phi = chan._phi + chan._theta64[None, :] * cfg.block_out
+
+
+# tests/test_torch_channelizer.py's geometries: the reference tests'
+# small one and __graft_entry__.entry()'s cut to 32 channels
+V1_GEOMS = {
+    "small": dict(sample_rate=256_000.0, n_channels=8, taps=32,
+                  decimation=8, audio_taps=16, audio_decim=4, block_out=256),
+    "entry": dict(sample_rate=25_600_000.0, n_channels=32, taps=64,
+                  decimation=64, audio_taps=64, audio_decim=8,
+                  block_out=1024),
+}
+
+
+def _v1_pair(geom):
+    kw = V1_GEOMS[geom]
+    fs, c = kw["sample_rate"], kw["n_channels"]
+    f0s = np.linspace(-0.45, 0.4, c) * fs
+    ref = RefChan1(RefChan1Config(**kw, channel_tile=c), f0s, bw=fs / 40,
+                   interpret=True)
+    ours = MatChannelizer(MatChannelizerConfig(**kw), f0s, bw=fs / 40,
+                          device="cpu")
+    return ref, ours, f0s
+
+
+@pytest.mark.parametrize("geom", list(V1_GEOMS))
+def test_emulated_kernel1_matches_reference(geom, monkeypatch):
+    """The v1 kernel with the kernel's 3xTF32 product against the
+    reference's ``_kernel`` over 3 chained blocks, with
+    ``test_torch_channelizer.py``'s tolerances: audio 2e-5 plus the
+    rotator's phase term, the carried row 1e-5 of its largest magnitude
+    plus one phase step (1.25 float32 steps of the block's phase)."""
+    monkeypatch.setattr(ref_native, "_lib", None)
+    ref, ours, f0s = _v1_pair(geom)
+    cfg = ours.cfg
+    n = cfg.block_in
+    rng = np.random.default_rng(len(f0s))
+    t = np.arange(3 * n) / cfg.sample_rate
+    x = 0.02 * (rng.standard_normal(3 * n) + 1j * rng.standard_normal(
+        3 * n))
+    for i in range(0, len(f0s), 3):
+        x = x + 0.3 * np.exp(1j * (
+            2 * np.pi * f0s[i] * t + 2 * np.pi * cfg.sample_rate / 400
+            * np.cumsum(np.sin(2 * np.pi * cfg.sample_rate / 5000 * t))
+            / cfg.sample_rate))
+    x = x.astype(np.complex64)
+    step = 1.25 * (cfg.block_out + 1) * 2 * np.pi * 2.0 ** -23
+    audio_extra = float(np.abs(ours.consts["ataps"].numpy()).sum()) \
+        * 2 * step / np.pi
+    hist = np.zeros(cfg.taps - 1, np.complex64)
+    prev = (torch.zeros((1, len(f0s))),) * 2
+    phi = np.zeros((1, len(f0s)))
+    for b in range(3):
+        blk = x[b * n:(b + 1) * n]
+        w, hist = make_windows(cfg, blk, hist)
+        phi0 = torch.from_numpy(np.mod(phi, 2 * np.pi).astype(np.float32))
+        audio, *prev = kernel1_reference(
+            torch.from_numpy(np.ascontiguousarray(w.real)),
+            torch.from_numpy(np.ascontiguousarray(w.imag)), ours.consts,
+            phi0, *prev, ours.params, passes=3)
+        want = np.asarray(ref.feed(blk))
+        assert np.abs(audio.numpy() - want).max() <= 2e-5 + audio_extra
+        got = (prev[0] + 1j * prev[1]).numpy()
+        mag = np.abs(ref._prev).max()
+        assert np.abs(got - ref._prev).max() <= (1e-5 + step) * mag
+        phi = phi + ours._theta64[None, :] * cfg.block_out
+
+
+def test_v1_constants_hold_bmat():
+    """``MatChannelizer`` builds the tensor-core product's B with its
+    other constants: ``tc_bmat`` of its taps, [2C, 128] at K 64."""
+    _, ours, f0s = _v1_pair("entry")
+    bmat = ours.consts["bmat"]
+    assert bmat.shape == (2 * len(f0s), 128)
+    assert torch.equal(bmat, tcsplit.tc_bmat(ours.consts["h_re"],
+                                             ours.consts["h_im"]))
