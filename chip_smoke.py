@@ -156,11 +156,29 @@ printing the seconds it took:
    backend, one line resampler launch per analyzer block that produced
    lines (each block after lock), the device frames held against the
    host backend's on the same luminance; then 3 fields in FM.
-3h. the CMA bank through its own entry point (``CMABank``; no path of
-   the system launches it): 1024 lanes, 1024 symbols, 5 taps, 3 blocks
-   of QPSK through ISI; its modulus error must halve.
+3h. the CMA bank through its own entry point (``CMABank``; the system
+   launches it through the class path's psk equalizer, phase 3i): 1024
+   lanes, 1024 symbols, 5 taps, 3 blocks of QPSK through ISI; its
+   modulus error must halve.
+3i. the class-path command line as users run it: ``cli.main([...,
+   "--device", "cuda"])`` on a 2^19-sample capture at 1.024 Msps (0.512
+   s, 16 analyzer blocks) written from a seed (QPSK at 4800 baud, an FM
+   tone, OOK, 2-FSK, noise): ``info``; ``psd --waterfall`` (the peak on
+   the FM carrier, ``psd_kernel`` launched rows + 1 times, the PNG's
+   rows; then on the same chunks every row's PSD (N 4096, F 1) through
+   the kernel and its plain version within each bin's float64 bound,
+   ``psd_f64_bound``, and the mean's (F 128) within TOL_PSD_BIN of the
+   plain version, and the CLI's CSV, peak and floor against the plain
+   mean); ``demod fm`` (the WAV peaks at the tone); ``symbols`` psk
+   (with ``--symview``), fsk and ask (each >= 99% of its known sequence
+   after lock); ``rms`` (the FM level within 1 dB); each command's wall
+   time.  Then the psk chain with the CMA equalizer through
+   ``Analyzer(device="cuda")`` per layer (channelizer, AGC, Costas, MF,
+   CMA, Gardner, the rest): ``cma_kernel`` once per block fed, every
+   call bit-equal to ``cma_kernel_reference`` at C 1.
 4. the TPU kernel list (all 13 ported, each with its bound at the inputs
-   phase 2 timed) and the ``kernels`` line.
+   phase 2 timed) and the ``kernels`` line (``cma_kernel``'s launches
+   from phase 3i, the system path).
 5. last line: ``{"ok": true, "device": {...}}``.
 
 Needs CUDA and the rest of the repository; it prints no result without
@@ -210,6 +228,31 @@ TC_PASSES = 3
 #   the elements (and never fewer than 2) may disagree.
 TOL_REL = 1e-4
 TOL_PSD_BIN = 1e-4
+
+
+def psd_f64_bound(xp: np.ndarray, a: int, b: int, scale: float) -> tuple:
+    """The float64 PSD of the windowed frames packed in ``xp`` [2A, F·B]
+    (float32, the kernel's input) and each bin's bound, both [A, B] in
+    (k1, k2) order.  A bin of one frame's periodogram can sit far under
+    the frame's energy (a single frame averages nothing), and no float32
+    FFT holds it within TOL_PSD_BIN of itself.  Its bound is TOL_PSD_BIN
+    of itself plus its conditioning: |ΔX| <= g·Σ|x| for a log2(N)-level
+    sum, g = 8u·log2(N) (the constant of tests/test_torch_channelizer2.py's
+    ``tail_tol``), so |ΔP| <= scale·Σ_frames (2g|X|·Σ|x| + (g·Σ|x|)²).
+    """
+    n = a * b
+    xd = xp.astype(np.float64)
+    frames = xd.shape[1] // b
+    fr = (xd[:a] + 1j * xd[a:]).reshape(a, frames, b).transpose(1, 0, 2)
+    fr = fr.reshape(frames, n)
+    x = np.fft.fft(fr, axis=1)
+    g = 8 * 2.0 ** -24 * np.log2(n)
+    l1 = np.abs(fr).sum(1, keepdims=True)
+    p64 = (np.abs(x) ** 2).sum(0) * scale
+    bound = TOL_PSD_BIN * p64 + scale * (2 * g * np.abs(x) * l1
+                                         + (g * l1) ** 2).sum(0)
+    return tuple(np.ascontiguousarray(v.reshape(b, a).T)
+                 for v in (p64, bound))
 TOL_AUDIO = 1e-4
 TOL_TAIL = 1e-3
 TOL_FRAC = 1e-4
@@ -3470,8 +3513,9 @@ def phase3g_tv(torch, card: str) -> dict:
 
 
 def phase3h_cma(torch) -> dict:
-    """The CMA bank through its entry point (``CMABank``; no path of the
-    system launches it, as in the reference): C 1024 lanes, T 1024, K 5,
+    """The CMA bank through its entry point (``CMABank``; the system's
+    path to the kernel is the class path's psk equalizer, phase 3i): C
+    1024 lanes, T 1024, K 5,
     per-lane rates, over 3 blocks of QPSK through ISI; the modulus error
     must halve.  Returns its launches."""
     from sigdigger_tpu_torch.kernels import equalizer
@@ -3498,7 +3542,369 @@ def phase3h_cma(torch) -> dict:
           f"launches {launches}, modulus error {evm_in:.4f} -> "
           f"{evm_out:.4f}, {wall * 1e3 / 3:.3f} ms per block (upload, "
           f"kernel, fetch)", flush=True)
-    return {"cma": launches}
+    return {"cma_bank": launches}
+
+
+# the class-path command line of phase 3i: a capture at 1.024 Msps of
+# 2^19 samples (0.512 s, 16 analyzer blocks of 32768 at the default
+# window) holding QPSK at 4800 baud, an FM tone channel, an OOK channel,
+# a 2-FSK channel and noise; the symbols runs as (mode, centre, baud,
+# bits per symbol, channel width)
+CLI_FS = 1_024_000.0
+CLI_N = 1 << 19
+CLI_PSK_F, CLI_FM_F, CLI_ASK_F, CLI_FSK_F = -200e3, 150e3, 300e3, -350e3
+CLI_SYMBOLS = [("psk", CLI_PSK_F, 4800.0, 2, 8000.0),
+               ("fsk", CLI_FSK_F, 2400.0, 1, 12000.0),
+               ("ask", CLI_ASK_F, 2400.0, 1, 8000.0)]
+CLI_FM_AMP = 0.5
+
+
+def cli_signal(n: int, seed: int, noise: float = 0.005) -> tuple:
+    """The phase's capture [n] complex64 and its known symbol sequences:
+    QPSK of root-raised-cosine pulses (beta 0.35) at 4800 baud (points at
+    k·90°), FM of a 1 kHz tone at 5 kHz deviation, OOK and 2-FSK
+    (±2.4 kHz) at 2400 baud NRZ, complex noise of ``noise`` a part
+    (0.005: 40 dB under the FM carrier).  ``tests/test_torch_cli.py``
+    builds its capture here too."""
+    def rrc(t: np.ndarray, beta: float = 0.35) -> np.ndarray:
+        h = np.empty_like(t)
+        z = np.abs(t) < 1e-9
+        s = np.abs(np.abs(4 * beta * t) - 1.0) < 1e-9
+        o = ~(z | s)
+        h[z] = 1.0 - beta + 4 * beta / np.pi
+        h[s] = beta / np.sqrt(2) * (
+            (1 + 2 / np.pi) * np.sin(np.pi / (4 * beta))
+            + (1 - 2 / np.pi) * np.cos(np.pi / (4 * beta)))
+        u = t[o]
+        h[o] = (np.sin(np.pi * u * (1 - beta))
+                + 4 * beta * u * np.cos(np.pi * u * (1 + beta))) / (
+            np.pi * u * (1 - (4 * beta * u) ** 2))
+        return h
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / CLI_FS
+    known = {m: rng.integers(0, 1 << bps, int(n / CLI_FS * baud) + 8)
+             for m, _, baud, bps, _ in CLI_SYMBOLS}
+    st = t * 4800.0
+    k0 = np.floor(st).astype(np.int64)
+    psk = np.zeros(n, complex)
+    pts = np.exp(0.5j * np.pi * known["psk"])
+    for j in range(-6, 7):
+        k = np.clip(k0 + j, 0, len(pts) - 1)
+        psk += pts[k] * rrc(st - k)
+    x = 0.3 * psk * np.exp(2j * np.pi * CLI_PSK_F * t)
+    x += CLI_FM_AMP * np.exp(1j * (2 * np.pi * CLI_FM_F * t
+                                   + 5.0 * np.sin(2 * np.pi * 1e3 * t)))
+    k = (t * 2400.0).astype(np.int64)
+    x += 0.3 * known["ask"][k] * np.exp(2j * np.pi * CLI_ASK_F * t)
+    inst = np.where(known["fsk"][k] == 1, 2400.0, -2400.0)
+    x += 0.3 * np.exp(1j * (2 * np.pi * CLI_FSK_F * t
+                            + 2 * np.pi * np.cumsum(inst) / CLI_FS))
+    x += noise * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64), known
+
+
+def recovered(got: np.ndarray, known: np.ndarray, m: int,
+              skip: int = 100) -> float:
+    """The share of ``got[skip:]`` equal to the known sequence at the best
+    lag and rotation mod ``m`` (the Costas loop's ambiguity); ``skip``
+    symbols of lock first."""
+    g = got[skip:].astype(np.int64)
+    best = 0.0
+    for rot in range(m):
+        for lag in range(-40, 40):
+            a, b = g[max(0, -lag):], known[skip + max(0, lag):]
+            n = min(len(a), len(b))
+            best = max(best, float(np.mean((b[:n] + rot) % m == a[:n])))
+    return best
+
+
+class StageTimer:
+    """Stands in for ``fn`` (an inspector stage or a bound method; other
+    attributes read through to it): each call runs it between two
+    synchronises and keeps its milliseconds.  With ``keep``, a function
+    of ``fn`` giving its state, it also keeps each call's input, the
+    state before and after, and the output (the CMA equalizer's taps)."""
+
+    def __init__(self, fn, torch, keep=None) -> None:
+        self.fn, self.torch, self.keep = fn, torch, keep
+        self.ms: list = []
+        self.calls: list = []
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __call__(self, *a, **k):
+        torch = self.torch
+        before = self.keep(self.fn) if self.keep else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if self.keep:
+            self.calls.append((a[0].clone(), before, out.clone(),
+                               self.keep(self.fn)))
+        return out
+
+
+def cli_psd_held(x: np.ndarray, csv: str, peak: dict, torch) -> dict:
+    """``cli psd``'s PSDs on the chunks it fed, through the cached PSDs
+    the command used (``psdutil.prepare_mean_psd``).  Each waterfall row
+    (N 4096, F 1, fpp 1): ``psd_kernel`` and ``psd_kernel_reference``
+    each within every bin's bound of the float64 PSD (``psd_f64_bound``:
+    one frame's bins are ill-conditioned).  The mean (F 128, fpp 8):
+    the kernel within TOL_PSD_BIN of the plain version in every bin;
+    then the command's CSV (printed to 0.01 dB), peak and noise floor
+    within that tolerance, in dB, of the plain version's mean.  Returns
+    the worst bin errors, rows in units of their bound, the mean in
+    units of TOL_PSD_BIN."""
+    from sigdigger_tpu_torch.kernels import fft
+    from sigdigger_tpu_torch.tasks import psdutil
+
+    n = 4096                                   # cli psd's --fft default
+    usable = len(x) // n * n
+    rows = min(512, usable // n)               # as cmd_psd frames them
+    per_row = usable // rows // n * n
+    worst = {"rows kernel": 0.0, "rows plain": 0.0}
+    for i in range(rows):
+        psd, _ = psdutil.prepare_mean_psd(per_row, CLI_FS, n, device="cuda")
+        check((psd.cfg.frames_per_block, psd.cfg.frames_per_program)
+              == (1, 1), psd.cfg)
+        xp = psd.prepare(x[i * per_row:(i + 1) * per_row])
+        xd = torch.from_numpy(xp).cuda()
+        got = fft.psd_kernel(xd, psd.consts, psd.params)
+        want = fft.psd_kernel_reference(xd, psd.consts, psd.params)
+        check(bool(torch.isfinite(got).all()))
+        p64, bound = psd_f64_bound(xp, psd.cfg.a, psd.cfg.b,
+                                   psd.params.scale)
+        for key, v in (("rows kernel", got), ("rows plain", want)):
+            err = float((np.abs(v.double().cpu().numpy() - p64)
+                         / bound).max())
+            worst[key] = max(worst[key], err)
+    psd, lock = psdutil.prepare_mean_psd(usable, CLI_FS, n, device="cuda")
+    check((psd.cfg.frames_per_block, psd.cfg.frames_per_program)
+          == (128, 8), psd.cfg)
+    xd = torch.from_numpy(psd.prepare(x[:usable])).cuda()
+    got = fft.psd_kernel(xd, psd.consts, psd.params)
+    want = fft.psd_kernel_reference(xd, psd.consts, psd.params)
+    worst["mean kernel"] = float(((got - want).abs()
+                                  / (TOL_PSD_BIN * want.abs())).max())
+    worst = {k: round(v, 4) for k, v in worst.items()}
+    check(max(worst.values()) <= 1.0, worst)
+    with lock:
+        psd.reset()
+        plain = np.fft.fftshift(psd.fold(want.cpu().numpy()).copy())
+    db = 10 * np.log10(plain + 1e-30)
+    tol_db = 10 * np.log10(1 + TOL_PSD_BIN)
+    printed = np.loadtxt(csv, delimiter=",", skiprows=1)[:, 1]
+    csv_err = float(np.abs(printed - db).max())
+    check(csv_err <= 0.005 + tol_db + 1e-6
+          and abs(peak["peak_db"] - float(db.max())) <= tol_db
+          and abs(peak["noise_floor_db"] - float(np.median(db))) <= tol_db,
+          (csv_err, peak, float(db.max()), float(np.median(db))))
+    worst["csv_db"] = round(csv_err, 5)
+    return worst
+
+
+def cli_layers(path: str, torch) -> tuple:
+    """The class path under ``cli symbols --mode psk`` again, through
+    ``Analyzer(device="cuda")`` with the CMA equalizer on (``equalizer.type``
+    1), synchronously per layer: median ms per analyzer block of the
+    source read, spectrum, channelizer, the inspector's AGC, Costas, RRC
+    matched filter, CMA equalizer and Gardner clock, the rest of the
+    inspector (decisions) and of the step, the block; the kernel alone at
+    this path's shape beside its bound.  The equalizer launches
+    ``cma_kernel`` once per block the inspector is fed; every call's y
+    and taps are bit-equal to ``cma_kernel_reference`` on the same input
+    and taps on the card.  Returns (layers, launches, blocks fed, T per
+    call)."""
+    from sigdigger_tpu_torch.analyzer import Analyzer, MessageKind
+    from sigdigger_tpu_torch.kernels import equalizer
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    an = Analyzer(profile=SourceProfile(type="file", path=path,
+                                        sample_rate=int(CLI_FS)),
+                  params=AnalyzerParams(psd_update_interval=1e9),
+                  device="cuda")
+    _, freq, baud, bps, bw = CLI_SYMBOLS[0]
+    h = an.open_inspector("psk", Channel(fc=freq, bw=bw), config={
+        "clock.baud": baud, "clock.type": 1, "mf.type": 1,
+        "afc.bits-per-symbol": bps, "equalizer.type": 1})
+    insp = an._inspectors[h].inspector
+    check(insp._eq is not None and insp._eq.device.type == "cuda")
+    stages = {"agc": "_agc", "costas": "_costas", "mf": "_mf",
+              "cma": "_eq", "gardner": "_clock"}
+    taps = (lambda eq: (eq.taps_re.clone(), eq.taps_im.clone()))
+    timers = {k: StageTimer(getattr(insp, a), torch,
+                            keep=taps if k == "cma" else None)
+              for k, a in stages.items()}
+    for k, a in stages.items():
+        setattr(insp, a, timers[k])
+    # the analyzer's layers around the inspector
+    around = {"read": (an.source, "read"), "spectrum": (an._spectrum, "feed"),
+              "channelizer": (an._channelizer, "feed"),
+              "inspector": (insp, "process")}
+    outer = {k: StageTimer(getattr(o, a), torch)
+             for k, (o, a) in around.items()}
+    for k, (o, a) in around.items():
+        setattr(o, a, outer[k])
+    outer["step"] = step = StageTimer(an.step, torch)
+    acc = {k: t.ms for k, t in outer.items()}
+    equalizer.cma_kernel.launches = 0
+    fed = 0
+    while step():
+        fed += sum(m.kind == MessageKind.SAMPLES and m.handle == h
+                   for m in an.poll())
+    launches = equalizer.cma_kernel.launches
+    calls = timers["cma"].calls
+    check(launches == fed == len(calls) >= CLI_N // 32768,
+          (launches, fed, len(calls)))
+    # every call against the plain version on the card
+    rate = torch.full((1,), float(insp._eq.rate), device="cuda")
+    locked = torch.zeros(1, device="cuda")
+    for x, (tr, ti), y, (tr2, ti2) in calls:
+        want = equalizer.cma_kernel_reference(
+            x.real.T.contiguous(), x.imag.T.contiguous(), tr, ti, rate,
+            locked)
+        got = (y.real.T.contiguous(), y.imag.T.contiguous(), tr2, ti2)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              ("cma_kernel on the class path",
+               max(float((g - w).abs().max()) for g, w in zip(got, want))))
+    # the kernel alone at this path's shape (C 1, T a block's channel
+    # samples), on the second-to-last call's input and taps: the last
+    # full block (the last call is the zero-padded block at the EOS)
+    x, taps, _, _ = calls[-2]
+    args = (x.real.T.contiguous(), x.imag.T.contiguous(), *taps, rate,
+            locked)
+    kernel_ms = time_ms(lambda: equalizer.cma_kernel(*args), 50)
+    bms, by, _, _ = cma_bound(x.shape[1], 1, 5)
+    # per block: the step less its parts, the inspector less its stages
+    # (the last block fed is the zero-padded one at the EOS, and the
+    # step after it reads nothing more)
+    n = len(acc["inspector"])
+    other = [acc["step"][i] - acc["read"][i] - acc["spectrum"][i]
+             - acc["channelizer"][i] - acc["inspector"][i] for i in range(n)]
+    rest = [acc["inspector"][i] - sum(t.ms[i] for t in timers.values())
+            for i in range(n)]
+    layers = {k: round(float(np.median(acc[k][:n - 1])), 4)
+              for k in ("read", "spectrum", "channelizer")}
+    layers.update({k: round(float(np.median(t.ms[:n - 1])), 4)
+                   for k, t in timers.items()})
+    layers["inspector_other"] = round(float(np.median(rest[:n - 1])), 4)
+    layers["step_other"] = round(float(np.median(other[:n - 1])), 4)
+    layers["block"] = round(float(np.median(acc["step"][:n - 1])), 4)
+    layers["cma_kernel_ms"] = round(kernel_ms, 4)
+    layers["cma_bound_ms"] = (bms, by)
+    an.source.close()
+    return layers, launches, fed, int(calls[0][0].shape[1])
+
+
+def phase3i_cli(torch, card: str) -> dict:
+    """The class-path command line as users run it: ``cli.main`` with
+    ``--device cuda`` on the phase's capture (``cli_signal``) in a
+    temporary directory: ``info`` (samples and rate), ``psd --waterfall``
+    (the peak on the FM carrier, the strongest; ``psd_kernel`` once per
+    waterfall row and once for the mean; the PNG holds the rows it
+    reports; the kernel held at the rows' and the mean's shapes,
+    ``cli_psd_held``), ``demod fm`` (the WAV peaks at the 1 kHz tone),
+    ``symbols`` psk (with ``--symview``), fsk and ask (each at least 99%
+    of its known sequence after 100 symbols of lock, up to the Costas
+    rotation), and ``rms`` (the FM channel's level within 1 dB); each
+    command's wall time.  Then the psk chain with the CMA equalizer per layer
+    (``cli_layers``).  Returns the launches of ``psd_kernel`` and
+    ``cma_kernel`` on this path."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    from sigdigger_tpu_torch import cli
+    from sigdigger_tpu_torch.io.wav import read_wav
+    from sigdigger_tpu_torch.kernels import fft
+
+    walls: dict = {}
+
+    def run(name: str, argv: list) -> str:
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t0, 3)
+        check(rc == 0, (name, rc))
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cap_433920000Hz_1024000sps.cf32")
+        x, known = cli_signal(CLI_N, SEED + 35)
+        x.tofile(path)
+        info = json.loads(run("info", ["info", path]))
+        check(info["samples"] == CLI_N and info["sample_rate"] == CLI_FS,
+              info)
+        wf = os.path.join(tmp, "wf.png")
+        fft.psd_kernel.launches = 0
+        out = run("psd", ["psd", path, "--waterfall", wf, "-o",
+                          os.path.join(tmp, "psd.csv")])
+        psd_launches = fft.psd_kernel.launches
+        rows = int(re.search(r"\((\d+) rows\)", out).group(1))
+        peak = json.loads(out.splitlines()[-1])
+        png = read_png(wf)
+        check(psd_launches == rows + 1 and png.shape == (rows, 4096)
+              and abs(peak["peak_freq_hz"] - CLI_FM_F) < 6000.0,
+              (psd_launches, rows, png.shape, peak))
+        psd_held = cli_psd_held(x, os.path.join(tmp, "psd.csv"), peak,
+                                torch)
+        wav = os.path.join(tmp, "fm.wav")
+        run("demod", ["demod", path, "--freq", str(CLI_FM_F), "-o", wav])
+        audio, rate = read_wav(wav)
+        a = audio[rate // 100:int(CLI_N / CLI_FS * rate), 0]
+        spec = np.abs(np.fft.rfft(a * np.hanning(len(a))))
+        f_tone = (int(np.argmax(spec[5:])) + 5) * rate / len(a)
+        check(abs(f_tone - 1000.0) < 50.0, f_tone)
+        rec = {}
+        for mode, freq, baud, bps, bw in CLI_SYMBOLS:
+            syms = os.path.join(tmp, f"{mode}.u8")
+            argv = ["symbols", path, "--freq", str(freq), "--baud",
+                    str(baud), "--mode", mode, "--bps", str(bps), "--bw",
+                    str(bw), "-o", syms]
+            if mode == "psk":
+                argv += ["--symview", os.path.join(tmp, "sv.png")]
+            run(mode, argv)
+            got = np.fromfile(syms, np.uint8)
+            rec[mode] = recovered(got[:int(CLI_N / CLI_FS * baud)],
+                                  known[mode], 1 << bps)
+            check(rec[mode] >= 0.99, (mode, rec[mode]))
+        rms_csv = os.path.join(tmp, "rms.csv")
+        run("rms", ["rms", path, "--freq", str(CLI_FM_F), "--bw", "20000",
+                    "--integrate", "500", "-o", rms_csv])
+        lv = np.loadtxt(rms_csv, delimiter=",", skiprows=1)[:, 1]
+        level_db = float(20 * np.log10(np.median(lv[2:-4]) / CLI_FM_AMP))
+        check(abs(level_db) < 1.0, level_db)
+        print(f"phase3i cli (capture {CLI_N} samples at 1.024 Msps, "
+              f"{CLI_N / CLI_FS:.3f} s; --device cuda): info ok; psd: peak "
+              f"{peak['peak_freq_hz']} Hz (FM carrier {CLI_FM_F}), "
+              f"waterfall {rows} rows, psd_kernel "
+              f"launches {psd_launches} (rows + 1), the same chunks' worst "
+              f"bins (rows: of their float64 bound; mean: of TOL_PSD_BIN "
+              f"against psd_kernel_reference) {psd_held}; demod fm: tone at "
+              f"{f_tone:.1f} Hz; symbols recovered after lock: psk "
+              f"{rec['psk']:.4f}, fsk {rec['fsk']:.4f}, ask {rec['ask']:.4f} "
+              f"(>= 0.99); rms: FM level {level_db:+.3f} dB of its power; "
+              f"wall s per command {walls} | card: {card}", flush=True)
+        layers, cma_launches, fed, t_call = cli_layers(path, torch)
+    per_step = {k: round(layers[k] * 1e3 / t_call, 2)
+                for k in ("agc", "costas", "gardner")}
+    print(f"phase3i layers (psk, equalizer.type 1, synchronous, median ms "
+          f"per analyzer block of 32768 samples, {t_call} channel samples "
+          f"a block): {layers}; the step loops per channel sample (µs): "
+          f"{per_step}; cma_kernel launches {cma_launches} for {fed} blocks "
+          f"fed, each call bit-equal to cma_kernel_reference (C 1, T "
+          f"{t_call}) | card: {card}", flush=True)
+    return {"psd_cli": psd_launches, "cma": cma_launches}
 
 
 # the end-to-end phases of one tree, run in a child process by --pairs:
@@ -3748,6 +4154,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(phase3h_cma(torch))
     print(f"phase3h: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3i_cli(torch, card))
+    print(f"phase3i: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel form: (name, key, source, TPU kernel); the FM forms'
     # library yardstick (the channelize matmul alone) computes part of

@@ -10,8 +10,8 @@ Entry points: ``KernelReceiver`` (the wideband receiver),
 ``KernelAnalyzer`` (the dynamic analyzer session on the kernel banks),
 ``Analyzer`` (the same session protocol on the class path: channelizer,
 spectrum and ``inspectors/``), with ``AnalyzerState`` and the typed
-messages, and the command line, ``python -m sigdigger_tpu_torch tv``
-(``cli.py``: analog TV decode through ``dsp/tv.py``).
+messages, and the command line, ``python -m sigdigger_tpu_torch
+{info,psd,demod,symbols,rms,tv}`` (``cli.py``).
 
 The package never imports JAX or ``sigdigger_tpu``: it keeps its own
 copy of every constant builder it needs.

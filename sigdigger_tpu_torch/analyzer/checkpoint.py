@@ -1,7 +1,20 @@
 """Analyzer checkpoint / resume (counterpart of
-``sigdigger_tpu/analyzer/checkpoint.py``) for the ``KernelAnalyzer``.
+``sigdigger_tpu/analyzer/checkpoint.py``).
 
-The checkpoint holds the session's DSP state, not only its
+Two engine formats share the container, as in the reference.
+
+The class-path :class:`Analyzer` saves the reference's generic format
+(``checkpoint.py:41-80,234-275``): ``meta.json`` with the stream offset,
+the profile and parameters, the spectrum's frame count, the
+channelizer's frame index and every inspector (class, config, centre,
+bandwidth, estimators, spectrum source and the channel's residual
+phase), ``psd.npy`` (the running PSD) and ``tail.npy`` (the
+channelizer's overlap tail).  A load reopens the inspectors with their
+config and restores those carries; the demod loops' own states (AGC,
+Costas, clock, equalizer) are not in the format and re-acquire, as in
+the reference.
+
+The ``KernelAnalyzer``'s checkpoint holds the session's DSP state, not only its
 configuration: the stream offset, the PSD accumulator and every bank
 carry plane (framing history, rotator phases, FIR tails, squelch and DC
 EMAs, the hang-AGC follower, the full recovery loop state), plus every
@@ -20,10 +33,7 @@ type on load and checked for its shape, and the device PSD EMA is
 rebuilt from the natural-order PSD in the kernels' digit layout, as the
 reference rebuilds its own (``checkpoint.py:224-229``).
 
-The reference's generic ``Analyzer`` format (the class path's
-channelizer tail, per-slot phases and inspector state) is not ported:
-saving a class-path analyzer or loading such a checkpoint raises
-``NotImplementedError`` (ROADMAP.md queue 1 items 4-5).
+Either package loads the other's checkpoint of either format.
 
 The reference's fault at ``checkpoint.py:89-92`` is not carried over: a
 save with the threaded drain first lets the drain worker finish the
@@ -40,8 +50,10 @@ import zipfile
 import numpy as np
 import torch
 
+from sigdigger_tpu_torch.analyzer.engine import Analyzer
 from sigdigger_tpu_torch.analyzer.estimators import prepare as prepare_est
 from sigdigger_tpu_torch.analyzer.kernel_engine import KernelAnalyzer, _host
+from sigdigger_tpu_torch.dsp.spectrum import SpectrumState
 from sigdigger_tpu_torch.profiles import SourceProfile
 from sigdigger_tpu_torch.types import AnalyzerParams, Channel
 
@@ -51,14 +63,12 @@ _AUDIO_CARRIES = ("_history", "_prev_re", "_prev_im", "_ftail1",
                   "_ftail2", "_atail1", "_atail2", "_sq", "_dc",
                   "_agcs", "_phi", "_phs_a")
 
-_CLASS_PATH = ("the generic Analyzer checkpoint format of the class path "
-               "is not ported (ROADMAP.md queue 1 items 4-5)")
-
 
 def save_checkpoint(analyzer, path: str) -> None:
     """Write ``analyzer``'s session to the zip at ``path``."""
     if not isinstance(analyzer, KernelAnalyzer):
-        raise NotImplementedError(_CLASS_PATH)
+        _save_generic(analyzer, path)
+        return
     an = analyzer
     # land on a block edge, in stream order: the drain worker first
     # emits the blocks it has queued, then the blocks still in flight
@@ -127,6 +137,78 @@ def save_checkpoint(analyzer, path: str) -> None:
         for name, a in arrays.items():
             with z.open(name + ".npy", "w") as f:
                 np.save(f, a)
+
+
+def _save_generic(analyzer: Analyzer, path: str) -> None:
+    """The class path's checkpoint, in the reference's generic format."""
+    chz = analyzer._channelizer
+    spec = analyzer._spectrum
+    slots = []
+    for handle, slot in analyzer._inspectors.items():
+        n_sub, idx = chz.slot_of(slot.chan_handle)
+        ch = chz._buckets[n_sub].slots[idx]
+        slots.append({
+            "handle": handle,
+            "inspector_id": slot.inspector_id,
+            "class": slot.class_name,
+            "config": slot.inspector.config.as_dict(),
+            "f0": ch.f0,
+            "bw": slot.bandwidth,
+            "estimators": sorted(slot.estimators),
+            "spectrum_source": slot.spectrum_source,
+            "phase": ch.phase,
+        })
+    meta = {
+        "version": FORMAT_VERSION,
+        "position": analyzer.source.position,
+        "profile": analyzer.profile.to_dict(),
+        "params": analyzer.params.to_dict(),
+        "psd_count": spec.state.count,
+        "frame_index": chz._frame_index,
+        "inspectors": slots,
+        "samples_done": analyzer._samples_done,
+    }
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("meta.json", json.dumps(meta, indent=1))
+        with z.open("psd.npy", "w") as f:
+            np.save(f, _host(spec.state.psd))
+        with z.open("tail.npy", "w") as f:
+            np.save(f, _host(chz._tail))
+
+
+def _load_generic(meta: dict, z: zipfile.ZipFile, device,
+                  options: dict) -> Analyzer:
+    """A class-path ``Analyzer`` from the reference's generic format."""
+    analyzer = Analyzer(profile=SourceProfile.from_dict(meta["profile"]),
+                        params=AnalyzerParams.from_dict(meta["params"]),
+                        device=device, **options)
+    if analyzer.source.seekable:
+        analyzer.source.seek(meta["position"])
+    chz = analyzer._channelizer
+    spec = analyzer._spectrum
+    psd = np.load(z.open("psd.npy"))
+    analyzer._spectrum.state = SpectrumState(
+        psd=torch.as_tensor(_like(psd, spec.state.psd, "psd")).to(
+            analyzer.device),
+        count=meta["psd_count"])
+    chz._tail = torch.as_tensor(_like(np.load(z.open("tail.npy")), chz._tail,
+                                      "tail")).to(analyzer.device)
+    chz._frame_index = meta["frame_index"]
+    analyzer._samples_done = meta["samples_done"]
+
+    for s in meta["inspectors"]:
+        handle = analyzer.open_inspector(
+            s["class"], Channel(fc=s["f0"], bw=s["bw"]),
+            config=s["config"])
+        slot = analyzer._inspectors[handle]
+        analyzer.set_inspector_id(handle, s["inspector_id"])
+        for est in s["estimators"]:
+            slot.estimators.add(est)
+        slot.spectrum_source = s["spectrum_source"]
+        n_sub, idx = chz.slot_of(slot.chan_handle)
+        chz._buckets[n_sub].slots[idx].phase = s["phase"]
+    analyzer.poll()   # drop replayed open acks
+    return analyzer
 
 
 def _like(saved: np.ndarray, current, name: str) -> np.ndarray:
@@ -217,16 +299,18 @@ def _load_kernel(meta: dict, z: zipfile.ZipFile, device,
     return an
 
 
-def load_checkpoint(path: str, device=None, **options) -> KernelAnalyzer:
-    """A ``KernelAnalyzer`` resumed from the checkpoint at ``path``, on
-    ``device`` (``None``: the card).  ``options`` are further
-    ``KernelAnalyzer`` arguments the checkpoint does not record
-    (``pipeline_depth``, ``drain_thread``, ``drain_pack``, ...)."""
+def load_checkpoint(path: str, device=None, **options):
+    """The session resumed from the checkpoint at ``path``, on ``device``
+    (``None``: the card): a ``KernelAnalyzer`` for the kernel format, a
+    class-path ``Analyzer`` for the generic one.  ``options`` are further
+    arguments of that class which the checkpoint does not record
+    (``pipeline_depth``, ``drain_thread``, ``drain_pack``, ...;
+    ``block_size`` for the class path)."""
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read("meta.json"))
         if meta["version"] > FORMAT_VERSION:
             raise ValueError(
                 f"checkpoint version {meta['version']} too new")
         if meta.get("engine") != "kernel":
-            raise NotImplementedError(_CLASS_PATH)
+            return _load_generic(meta, z, device, options)
         return _load_kernel(meta, z, device, options)

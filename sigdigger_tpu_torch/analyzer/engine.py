@@ -18,9 +18,9 @@ the wide-spectrum hop, watermarks, Doppler tracking, estimators,
 inspector spectra and the pump thread.  Its own DSP is the class path:
 ``_build_dsp`` and ``_compute_block`` on ``dsp.channelizer`` and
 ``dsp.spectrum``, with one ``inspectors/`` chain per open inspector
-(the ``audio`` class; the others raise ``NotImplementedError`` naming
-their ROADMAP item).  ``kernel_engine.KernelAnalyzer`` overrides the
-DSP and the inspector lifecycle to run the session on the kernel banks.
+(any of the reference's six classes).  ``kernel_engine.KernelAnalyzer``
+overrides the DSP and the inspector lifecycle to run the session on the
+kernel banks.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 from sigdigger_tpu_torch.analyzer.detector import ChannelDetector
 from sigdigger_tpu_torch.analyzer.messages import (
@@ -61,6 +62,12 @@ from sigdigger_tpu_torch.types import (
     SourceInfo,
     next_pow2,
 )
+
+
+def _host(v) -> np.ndarray:
+    """``v`` as a host array: a tensor (which may lie on the card) is
+    fetched, anything else taken as numpy takes it."""
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 class AnalyzerState(enum.Enum):
@@ -204,7 +211,7 @@ class Analyzer:
                 continue
             result = slot.inspector.process(y[None, :])
             samples = result.pop("samples")[0].cpu().numpy()
-            extras = {k: np.asarray(v)[0] for k, v in result.items()}
+            extras = {k: _host(v)[0] for k, v in result.items()}
             raw = (y.cpu().numpy()
                    if slot.estimators or slot.spectrum_source else None)
             sample_msgs.append((slot, samples, extras, raw))
@@ -452,7 +459,7 @@ class Analyzer:
                 inspector_kind=InspectorMessageKind.WRONG_KIND,
                 request_id=request_id, class_name=class_name))
             raise ValueError(f"unknown inspector class {class_name!r}")
-        cls = inspector_class(class_name)   # raises for unported classes
+        cls = inspector_class(class_name)
         with self._lock:
             bw = channel.bw or (channel.f_high - channel.f_low)
             bw = max(bw, self.sample_rate / self.params.window_size * 8)

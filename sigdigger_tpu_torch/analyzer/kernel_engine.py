@@ -58,7 +58,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from sigdigger_tpu_torch.analyzer.engine import Analyzer, _InspectorSlot
+from sigdigger_tpu_torch.analyzer.engine import Analyzer, _host, _InspectorSlot
 from sigdigger_tpu_torch.analyzer.estimators import prepare as prepare_est
 from sigdigger_tpu_torch.analyzer.messages import (
     InspectorMessage,
@@ -102,12 +102,6 @@ def ks_schema_keys(slot) -> set[str]:
     """All schema keys of a slot's inspector class (warn only on keys
     that exist in the contract yet have no kernel-path effect)."""
     return {f.name for f in INSPECTOR_SCHEMAS[slot.class_name]}
-
-
-def _host(a) -> np.ndarray:
-    """A drained array on the host (bank state is numpy until a slot's
-    first block, a tensor after it)."""
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _decide_phase(syms: np.ndarray, bits: int) -> np.ndarray:

@@ -1,24 +1,237 @@
 """Command-line front end of the port (counterpart of
-``sigdigger_tpu/cli.py``).
+``sigdigger_tpu/cli.py``).  Headless subcommands over a capture file:
 
-    python -m sigdigger_tpu_torch tv capture.cf32 --freq 1e6 [--mode am]
+    info     capture metadata probe
+    psd      averaged spectrum of a capture (CSV, waterfall PNG)
+    demod    audio demodulation → WAV            (``audio`` inspector)
+    symbols  digital demodulation → symbols      (``psk``/``fsk``/``ask``)
+    rms      power log → CSV                     (``power`` inspector)
+    tv       analog TV decode → frame PNGs       (``audio`` + TVProcessor)
 
-The port carries the ``tv`` subcommand: analog TV decode of a capture to
-frame PNGs through the class-path ``Analyzer``, an ``audio`` inspector
-and ``TVProcessor``, with the reference's arguments and defaults plus
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-versions).  The reference's other subcommands (``info``, ``psd``,
-``demod``, ``symbols``, ``rms``, ``scan``, ``doppler``, ...) are
-ROADMAP.md queue 1 item 11.
+    python -m sigdigger_tpu_torch symbols capture_1024000sps.cf32 \
+        --freq -200e3 --baud 4800 --mode psk --bps 2 --device cpu
+
+Each takes the reference's arguments and defaults plus ``--device``
+(default ``cuda``, which raises without a card; ``cpu`` runs the plain
+PyTorch versions).  ``demod``, ``symbols``, ``rms`` and ``tv`` run the
+class-path ``Analyzer``; ``psd`` runs the four-step PSD kernel
+(``tasks/psdutil.pallas_mean_psd``, ``csrc/psd.cu``) on the card and
+``SpectrumEstimator`` on the CPU.  The reference's ``scan``,
+``doppler``, ``live`` and ``remote`` are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from dataclasses import dataclass
 
 import numpy as np
+
+from sigdigger_tpu_torch.backend import resolve_device
+
+
+def _profile(args):
+    from sigdigger_tpu_torch.sources import guess_metadata
+
+    prof = guess_metadata(args.file)
+    if getattr(args, "rate", None):
+        prof.sample_rate = int(args.rate)
+    return prof
+
+
+def _load_capture(args) -> tuple[np.ndarray, float]:
+    from sigdigger_tpu_torch.sources import make_source
+
+    prof = _profile(args)
+    src = make_source(prof)
+    total = src.total_samples or 0
+    data = src.read(total) if total else np.zeros(0, np.complex64)
+    src.close()
+    return data, prof.sample_rate
+
+
+def _analyzer(args):
+    from sigdigger_tpu_torch.analyzer import Analyzer
+    from sigdigger_tpu_torch.types import AnalyzerParams
+
+    return Analyzer(profile=_profile(args),
+                    params=AnalyzerParams(psd_update_interval=1e9),
+                    device=args.device)
+
+
+def cmd_info(args) -> int:
+    from sigdigger_tpu_torch.sources import make_source
+
+    prof = _profile(args)
+    src = make_source(prof)
+    info = {
+        "path": args.file,
+        "format": prof.format.value,
+        "sample_rate": prof.sample_rate,
+        "frequency": prof.freq,
+        "samples": src.total_samples,
+        "duration_s": (src.total_samples or 0) / prof.sample_rate,
+    }
+    src.close()
+    print(json.dumps(info, indent=1))
+    return 0
+
+
+def cmd_psd(args) -> int:
+    from sigdigger_tpu_torch.dsp import SpectrumEstimator, psd_frequencies
+    from sigdigger_tpu_torch.tasks.psdutil import pallas_mean_psd, use_pallas
+    from sigdigger_tpu_torch.types import WindowFunction
+
+    data, rate = _load_capture(args)
+    n = args.fft
+    usable = (len(data) // n) * n
+    if usable == 0:
+        print("capture shorter than one FFT", file=sys.stderr)
+        return 1
+    # the device the caller named, never a fallback: cuda runs the PSD
+    # kernel (and raised above without a card), cpu the estimator
+    pallas = use_pallas("auto", args.device)
+
+    def kernel_psd(chunk):
+        return np.fft.fftshift(pallas_mean_psd(chunk, rate, fft_size=n,
+                                               device=args.device))
+
+    def estimator(alpha):
+        return SpectrumEstimator(n, rate, WindowFunction.BLACKMANN_HARRIS,
+                                 alpha=alpha, device=args.device)
+
+    if args.waterfall:
+        from sigdigger_tpu_torch.utils.waterfall import Waterfall
+
+        wf = Waterfall(bins=n)
+        est_wf = None if pallas else estimator(0.5)
+        rows = min(512, usable // n)
+        per_row = usable // rows // n * n
+        for i in range(rows):
+            chunk = data[i * per_row:(i + 1) * per_row]
+            if pallas:
+                wf.feed(kernel_psd(chunk))
+            else:
+                est_wf.feed(chunk)
+                wf.feed(est_wf.shifted())
+        wf.save_png(args.waterfall)
+        print(f"wrote {args.waterfall} ({wf.rows} rows)")
+    if pallas:
+        psd = kernel_psd(data[:usable])
+    else:
+        est = estimator(2.0 / (usable // n + 1))
+        est.feed(data[:usable])
+        psd = est.shifted()
+    freqs = psd_frequencies(n, rate)
+    db = 10 * np.log10(psd + 1e-30)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write("freq_hz,psd_db\n")
+            for fr, d in zip(freqs, db):
+                f.write(f"{fr:.1f},{d:.2f}\n")
+        print(f"wrote {args.output}")
+    peak = int(np.argmax(psd))
+    print(json.dumps({
+        "peak_freq_hz": float(freqs[peak]),
+        "peak_db": float(db[peak]),
+        "noise_floor_db": float(np.median(db)),
+    }))
+    return 0
+
+
+def cmd_demod(args) -> int:
+    from sigdigger_tpu_torch.analyzer import MessageKind
+    from sigdigger_tpu_torch.io.wav import WavWriter
+    from sigdigger_tpu_torch.types import Channel
+
+    modes = {"am": 1, "fm": 2, "usb": 3, "lsb": 4, "raw": 5}
+    an = _analyzer(args)
+    an.open_inspector(
+        "audio", Channel(fc=args.freq, bw=args.bw),
+        config={"audio.demodulator": modes[args.mode],
+                "audio.sample-rate": args.audio_rate,
+                "audio.cutoff": min(args.bw / 2, 15000.0),
+                "audio.volume": 1.0,
+                "agc.enabled": args.mode in ("am", "usb", "lsb")})
+    writer = WavWriter(args.output, args.audio_rate, channels=1)
+    n = 0
+    while an.step():
+        for m in an.poll():
+            if m.kind == MessageKind.SAMPLES:
+                writer.write(np.real(m.samples))
+                n += len(m.samples)
+    writer.close()
+    an.source.close()
+    print(f"wrote {args.output}: {n} samples at {args.audio_rate} Hz")
+    return 0
+
+
+def cmd_symbols(args) -> int:
+    from sigdigger_tpu_torch.analyzer import MessageKind
+    from sigdigger_tpu_torch.types import Channel
+
+    an = _analyzer(args)
+    cfg = {"clock.baud": args.baud, "clock.type": 1, "mf.type": 1}
+    if args.mode == "psk":
+        cfg["afc.bits-per-symbol"] = args.bps
+    elif args.mode == "fsk":
+        cfg["fsk.bits-per-symbol"] = args.bps
+    else:
+        cfg["ask.bits-per-symbol"] = args.bps
+    an.open_inspector(args.mode, Channel(fc=args.freq, bw=args.bw),
+                      config=cfg)
+    symbols = []
+    while an.step():
+        for m in an.poll():
+            if m.kind == MessageKind.SAMPLES and "symbols" in m.extras:
+                st = m.extras.get("strobes")
+                ids = m.extras["symbols"]
+                symbols.append(ids[st] if st is not None else ids)
+    an.source.close()
+    out = np.concatenate(symbols) if symbols else np.zeros(0, np.uint8)
+    if args.symview:
+        from sigdigger_tpu_torch.utils.symview import SymView
+
+        sv = SymView(bits_per_symbol=args.bps)
+        sv.feed(out)
+        sv.autofit()
+        sv.save_png(args.symview)
+        print(f"wrote {args.symview}: {len(out)} symbols, "
+              f"width {sv.width}")
+    if args.output:
+        out.tofile(args.output)
+        print(f"wrote {args.output}: {len(out)} symbols")
+    elif not args.symview:
+        sys.stdout.write("".join(str(int(s)) for s in out[:10000]))
+        sys.stdout.write("\n")
+    return 0
+
+
+def cmd_rms(args) -> int:
+    from sigdigger_tpu_torch.analyzer import MessageKind
+    from sigdigger_tpu_torch.types import Channel
+
+    an = _analyzer(args)
+    an.open_inspector(
+        "power", Channel(fc=args.freq, bw=args.bw),
+        config={"power.integrate-samples": args.integrate})
+    rows = []
+    t = 0.0
+    while an.step():
+        for m in an.poll():
+            if m.kind == MessageKind.SAMPLES:
+                for v in np.ravel(m.samples):
+                    rows.append((t, float(v)))
+                    t += args.integrate / an.sample_rate
+    an.source.close()
+    with open(args.output, "w") as f:
+        f.write("time_s,rms\n")
+        for ts, v in rows:
+            f.write(f"{ts:.6f},{v:.9e}\n")
+    print(f"wrote {args.output}: {len(rows)} points")
+    return 0
 
 
 @dataclass
@@ -38,18 +251,12 @@ def decode_tv(args) -> TVDecode:
     (reference Default/GenericInspector TVProcessorTab, headless).
     ``cmd_tv`` runs it for ``main``; an in-process caller that wants the
     run passes ``build_parser().parse_args(argv)``."""
-    from sigdigger_tpu_torch.analyzer import Analyzer, MessageKind
+    from sigdigger_tpu_torch.analyzer import MessageKind
     from sigdigger_tpu_torch.dsp.tv import TVProcessor, TVProcessorParams
-    from sigdigger_tpu_torch.sources import guess_metadata
-    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+    from sigdigger_tpu_torch.types import Channel
     from sigdigger_tpu_torch.utils.waterfall import write_png
 
-    prof = guess_metadata(args.file)
-    if args.rate:
-        prof.sample_rate = int(args.rate)
-    an = Analyzer(profile=prof,
-                  params=AnalyzerParams(psd_update_interval=1e9),
-                  device=args.device)
+    an = _analyzer(args)
     mode = {"am": 1, "fm": 2}[args.mode]
     an.open_inspector(
         "audio", Channel(fc=args.freq, bw=args.bw),
@@ -92,6 +299,42 @@ def build_parser() -> argparse.ArgumentParser:
         description="signal analyzer on PyTorch and CUDA (headless)")
     sub = p.add_subparsers(dest="command", required=True)
 
+    pi = sub.add_parser("info", help="probe capture metadata")
+    pi.add_argument("file")
+    pi.set_defaults(fn=cmd_info)
+
+    pp = sub.add_parser("psd", help="averaged PSD of a capture")
+    pp.add_argument("file")
+    pp.add_argument("--fft", type=int, default=4096)
+    pp.add_argument("--rate", type=float)
+    pp.add_argument("-o", "--output", help="CSV output path")
+    pp.add_argument("--waterfall", help="PNG waterfall output path")
+    pp.set_defaults(fn=cmd_psd)
+
+    pd = sub.add_parser("demod", help="audio demodulation to WAV")
+    pd.add_argument("file")
+    pd.add_argument("--freq", type=float, required=True)
+    pd.add_argument("--bw", type=float, default=12500.0)
+    pd.add_argument("--mode", choices=["am", "fm", "usb", "lsb", "raw"],
+                    default="fm")
+    pd.add_argument("--rate", type=float)
+    pd.add_argument("--audio-rate", type=int, default=44100)
+    pd.add_argument("-o", "--output", default="audio.wav")
+    pd.set_defaults(fn=cmd_demod)
+
+    ps = sub.add_parser("symbols", help="digital demodulation")
+    ps.add_argument("file")
+    ps.add_argument("--freq", type=float, required=True)
+    ps.add_argument("--bw", type=float, default=25000.0)
+    ps.add_argument("--mode", choices=["psk", "fsk", "ask"],
+                    default="psk")
+    ps.add_argument("--baud", type=float, required=True)
+    ps.add_argument("--bps", type=int, default=1)
+    ps.add_argument("--rate", type=float)
+    ps.add_argument("-o", "--output")
+    ps.add_argument("--symview", help="SymView raster PNG output path")
+    ps.set_defaults(fn=cmd_symbols)
+
     pt = sub.add_parser("tv", help="analog TV decode to frame PNGs")
     pt.add_argument("file")
     pt.add_argument("--freq", type=float, required=True)
@@ -105,14 +348,26 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--invert", action="store_true")
     pt.add_argument("--max-frames", type=int, default=25)
     pt.add_argument("-o", "--output-prefix", default="frame_")
-    pt.add_argument("--device", default="cuda",
-                    help="torch device (cpu runs the plain versions)")
     pt.set_defaults(fn=cmd_tv)
+
+    pr = sub.add_parser("rms", help="power log to CSV")
+    pr.add_argument("file")
+    pr.add_argument("--freq", type=float, default=0.0)
+    pr.add_argument("--bw", type=float, default=100000.0)
+    pr.add_argument("--integrate", type=int, default=1000)
+    pr.add_argument("--rate", type=float)
+    pr.add_argument("-o", "--output", default="rms.csv")
+    pr.set_defaults(fn=cmd_rms)
+
+    for cmd in sub.choices.values():
+        cmd.add_argument("--device", default="cuda",
+                         help="torch device (cpu runs the plain versions)")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    resolve_device(args.device)   # raises for cuda without a card
     return args.fn(args)
 
 

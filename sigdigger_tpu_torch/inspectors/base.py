@@ -5,11 +5,9 @@ An inspector instance processes a [channels, T] block of channelizer
 output per step; all state lives in the DSP stage objects, which carry
 it across blocks.  Runs on ``cuda`` unless ``device`` says otherwise.
 
-The registry holds the classes the port carries (``audio``).  The
-reference's other classes (``psk``, ``fsk``, ``ask``, ``power``,
-``raw``) are known by name and raise ``NotImplementedError`` naming
-their ROADMAP item; any other name raises ``ValueError`` as in the
-reference.
+The registry holds the reference's six classes (``audio``, ``psk``,
+``fsk``, ``ask``, ``power``, ``raw``); any other name raises
+``ValueError`` as in the reference.
 """
 
 from __future__ import annotations
@@ -19,11 +17,6 @@ from typing import Any
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.config import INSPECTOR_SCHEMAS, Config
-
-# reference inspector classes the port does not carry yet
-UNPORTED = ("ask", "fsk", "power", "psk", "raw")
-_UNPORTED_ITEM = "ROADMAP.md queue 1 item 5"
-
 
 class Inspector(abc.ABC):
     """One demod chain over [channels, T] complex blocks."""
@@ -78,17 +71,13 @@ def inspector_classes() -> list[str]:
 
 
 def inspector_class(class_name: str) -> type[Inspector]:
-    """The registered class; ``NotImplementedError`` for a reference
-    class the port does not carry, ``ValueError`` for an unknown name."""
-    cls = _REGISTRY.get(class_name)
-    if cls is not None:
-        return cls
-    if class_name in UNPORTED:
-        raise NotImplementedError(
-            f"the {class_name!r} inspector is not ported ({_UNPORTED_ITEM});"
-            f" the port has {inspector_classes()}")
-    raise ValueError(
-        f"unknown inspector class {class_name!r}; have {inspector_classes()}")
+    """The registered class; ``ValueError`` for an unknown name."""
+    try:
+        return _REGISTRY[class_name]
+    except KeyError:
+        raise ValueError(
+            f"unknown inspector class {class_name!r}; have "
+            f"{inspector_classes()}") from None
 
 
 def make_inspector(class_name: str, sample_rate: float, channels: int = 1,

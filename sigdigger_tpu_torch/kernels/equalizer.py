@@ -237,6 +237,25 @@ def cma_kernel(x_re, x_im, taps_re, taps_im, rate, locked) -> tuple:
 cma_kernel.launches = 0
 
 
+def cma_apply(x: torch.Tensor, taps_re: torch.Tensor, taps_im: torch.Tensor,
+              rate: torch.Tensor, locked: torch.Tensor) -> tuple:
+    """One CMA block on complex symbols ``x`` [C, T] (any T): the block
+    laid out as [T, C] float32 planes for :func:`cma_kernel`.  Returns
+    (y complex64 [C, T], taps_re, taps_im [K, C])."""
+    yr, yi, taps_re, taps_im = cma_kernel(
+        x.real.T.contiguous(), x.imag.T.contiguous(), taps_re, taps_im,
+        rate, locked)
+    return torch.complex(yr, yi).T, taps_re, taps_im
+
+
+def centre_taps(k: int, c: int, device) -> tuple:
+    """The pass-through start: (taps_re, taps_im) [K, C], one at the
+    centre tap K // 2."""
+    taps_re = torch.zeros((k, c), device=device)
+    taps_re[k // 2] = 1.0
+    return taps_re, torch.zeros((k, c), device=device)
+
+
 class CMABank:
     """Streaming batched CMA over [C, T] symbol blocks.  Runs on
     ``cuda`` unless ``device`` says otherwise."""
@@ -263,18 +282,13 @@ class CMABank:
         if tuple(x.shape) != want:
             raise ValueError(f"CMABank takes [C, T] = {want}, got "
                              f"{tuple(x.shape)}")
-        xr = x.real.T.contiguous()
-        xi = x.imag.T.contiguous()
-        yr, yi, self.taps_re, self.taps_im = cma_kernel(
-            xr, xi, self.taps_re, self.taps_im, self.rate, self.locked)
-        return torch.complex(yr, yi).T
+        y, self.taps_re, self.taps_im = cma_apply(
+            x, self.taps_re, self.taps_im, self.rate, self.locked)
+        return y
 
     def reset(self) -> None:
-        k, c = self.cfg.n_taps, self.cfg.n_channels
-        taps_re = np.zeros((k, c), np.float32)
-        taps_re[k // 2, :] = 1.0
-        self.taps_re = torch.as_tensor(taps_re, device=self.device)
-        self.taps_im = torch.zeros((k, c), device=self.device)
+        self.taps_re, self.taps_im = centre_taps(
+            self.cfg.n_taps, self.cfg.n_channels, self.device)
 
     def state_dict(self) -> dict[str, np.ndarray]:
         """Taps ``[K, C]`` and the rate and lock rows ``[1, C]``, as the

@@ -3,10 +3,10 @@
 ``make_source`` maps a profile's type to a source class through the
 ``register_source`` table of ``sources/registry.py:33-42``.  The port
 registers the types whose modules it carries, ``file`` (raw captures
-and WAV), ``synth`` and ``tonegen``; any other type (``soapy``,
-``stdin``) raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.  ``guess_metadata`` (``sources/registry.py``) builds a file
-profile from a capture's name.
+and WAV), ``stdin`` (raw samples piped in), ``synth`` and ``tonegen``;
+any other type (``soapy``) raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.  ``guess_metadata`` (``sources/registry.py``)
+builds a file profile from a capture's name.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from sigdigger_tpu_torch.profiles import SourceProfile
 from sigdigger_tpu_torch.sources.base import SignalSource
 from sigdigger_tpu_torch.sources.file import FileSource, convert_raw
 from sigdigger_tpu_torch.sources.registry import guess_metadata
+from sigdigger_tpu_torch.sources.stdin_src import StdinSource
 from sigdigger_tpu_torch.sources.synth import Emitter, SynthBandSource
 from sigdigger_tpu_torch.sources.tonegen import ToneGenSource
 
@@ -29,6 +30,7 @@ def register_source(type_name: str,
 
 
 register_source("file", FileSource)
+register_source("stdin", StdinSource)
 register_source("tonegen", ToneGenSource)
 register_source("synth", SynthBandSource)
 
@@ -50,6 +52,7 @@ __all__ = [
     "Emitter",
     "FileSource",
     "SignalSource",
+    "StdinSource",
     "SynthBandSource",
     "ToneGenSource",
     "convert_raw",

@@ -13,6 +13,9 @@
   symbols within 2e-3 plus one 1/8192 step on re and im up to the first
   strobe that moves, the strobe counts within ±1; PSD 1e-5 of the
   largest bin).
+- The class path's generic format: a port round trip resumes with the
+  same carries and the next PSD bit for bit; the reference's checkpoint
+  loads into the port and the port's into the reference.
 - The reference's fault at ``checkpoint.py:89-92`` (a save with the
   threaded drain emits the in-flight blocks before the queued ones) is
   not carried over: the messages around a save stay in stream order.
@@ -25,6 +28,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from sigdigger_tpu.analyzer.checkpoint import (
     save_checkpoint as ref_save_checkpoint,
@@ -284,17 +288,112 @@ def test_save_with_threaded_drain_keeps_stream_order(tmp_path, capture,
         np.testing.assert_array_equal(g, x)
 
 
-def test_class_path_format_names_its_roadmap_item(tmp_path):
+def _class_session(path, ref=False):
+    """A class-path session on the capture: an FM audio inspector with an
+    estimator off, a psk inspector with a spectrum source."""
+    from sigdigger_tpu.analyzer import Analyzer as RefAnalyzer
+
+    prof = (RefProfile if ref else SourceProfile)(
+        type="file", path=path, sample_rate=FS)
+    params = (RefParams if ref else AnalyzerParams)()
+    params.window_size = 1024
+    params.psd_update_interval = 0.0
+    an = (RefAnalyzer(profile=prof, params=params) if ref else
+          Analyzer(profile=prof, params=params, device="cpu"))
+    chan = RefChannel if ref else Channel
+    an.open_inspector("audio", chan(fc=-60e3, bw=10e3),
+                      config={"audio.demodulator": 2,
+                              "audio.sample-rate": 16000})
+    h = an.open_inspector("psk", chan(fc=40e3, bw=8e3), config=PSK_CFG)
+    an.set_inspector_id(h, 77)
+    an._inspectors[h].spectrum_source = 1
+    return an
+
+
+def _psd_after_step(an) -> np.ndarray:
+    assert an.step()
+    (m,) = [m for m in an.poll() if m.kind.name == "PSD"]
+    return np.asarray(m.data)
+
+
+def test_class_path_format_names_its_roadmap_item(tmp_path, capture):
+    """The class path's generic checkpoint (the reference's format):
+    saved after 2 blocks and loaded, the session resumes at the same
+    stream position with the same channelizer tail, frame index, channel
+    phases, PSD and inspectors (class, config, ids, spectrum source), and
+    its next PSD equals the uninterrupted one bit for bit (the same
+    operations on the same state; the demod loops re-acquire, as in the
+    reference).  The reference's class-path checkpoint loads into the
+    port and the port's into the reference: the carries equal as saved,
+    the next PSD within 1e-5 of its largest bin (float32 FFTs in another
+    order)."""
     import json
     import zipfile
 
-    with pytest.raises(NotImplementedError, match="queue 1 items 4-5"):
-        save_checkpoint(object.__new__(Analyzer), str(tmp_path / "x"))
+    from sigdigger_tpu.analyzer.checkpoint import (
+        load_checkpoint as ref_load_checkpoint,
+    )
+
+    a = _class_session(capture)
+    for _ in range(2):
+        assert a.step()
+    a.poll()
     path = str(tmp_path / "generic.sdckpt")
-    with zipfile.ZipFile(path, "w") as z:
-        z.writestr("meta.json", json.dumps({"version": 2}))
-    with pytest.raises(NotImplementedError, match="queue 1 items 4-5"):
-        load_checkpoint(path, device="cpu")
+    save_checkpoint(a, path)
+    with zipfile.ZipFile(path) as z:
+        meta = json.loads(z.read("meta.json"))
+        assert sorted(z.namelist()) == ["meta.json", "psd.npy", "tail.npy"]
+        tail = np.load(z.open("tail.npy"))
+    assert "engine" not in meta and meta["frame_index"] > 0
+    b = load_checkpoint(path, device="cpu")
+    assert type(b) is Analyzer and b.source.position == a.source.position
+    assert b._channelizer._frame_index == a._channelizer._frame_index
+    assert torch.equal(b._channelizer._tail, a._channelizer._tail)
+    assert torch.equal(b._spectrum.state.psd, a._spectrum.state.psd)
+    sa = sorted(a._inspectors.values(), key=lambda s: s.inspector_id)
+    sb = sorted(b._inspectors.values(), key=lambda s: s.inspector_id)
+    assert [(s.class_name, s.inspector_id, s.spectrum_source,
+             s.inspector.config.as_dict()) for s in sa] == \
+        [(s.class_name, s.inspector_id, s.spectrum_source,
+          s.inspector.config.as_dict()) for s in sb]
+    for x, y in zip(sa, sb):
+        cx = a._channelizer._buckets[a._channelizer.slot_of(
+            x.chan_handle)[0]].slots[a._channelizer.slot_of(x.chan_handle)[1]]
+        cy = b._channelizer._buckets[b._channelizer.slot_of(
+            y.chan_handle)[0]].slots[b._channelizer.slot_of(y.chan_handle)[1]]
+        assert (cx.f0, cx.phase) == (cy.f0, cy.phase)
+    np.testing.assert_array_equal(_psd_after_step(b), _psd_after_step(a))
+
+    # the reference's checkpoint into the port
+    r = _class_session(capture, ref=True)
+    for _ in range(2):
+        r.step()
+    r.poll()
+    rpath = str(tmp_path / "ref.sdckpt")
+    from sigdigger_tpu.analyzer.checkpoint import (
+        save_checkpoint as ref_save,
+    )
+
+    ref_save(r, rpath)
+    p = load_checkpoint(rpath, device="cpu")
+    assert p.source.position == r.source.position
+    np.testing.assert_array_equal(p._channelizer._tail.numpy(),
+                                  np.asarray(r._channelizer._tail))
+    np.testing.assert_array_equal(p._spectrum.state.psd.numpy(),
+                                  np.asarray(r._spectrum.state.psd))
+    assert sorted(s.inspector_id for s in p._inspectors.values()) == \
+        sorted(s.inspector_id for s in r._inspectors.values())
+    want = _psd_after_step(r)
+    np.testing.assert_allclose(_psd_after_step(p), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    # the port's checkpoint into the reference
+    q = ref_load_checkpoint(path)
+    assert q.source.position == meta["position"]
+    np.testing.assert_array_equal(np.asarray(q._channelizer._tail), tail)
+    assert sorted(s.class_name for s in q._inspectors.values()) == \
+        ["audio", "psk"]
+
+    path = str(tmp_path / "newer.sdckpt")
     with zipfile.ZipFile(path, "w") as z:
         z.writestr("meta.json", json.dumps({"version": 3,
                                             "engine": "kernel"}))

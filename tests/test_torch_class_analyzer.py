@@ -283,8 +283,25 @@ def test_file_source_to_eos(tmp_path):
 
 
 def test_unported_inspector_classes_name_their_item():
+    """The classes that raised before the port carried them (psk, fsk,
+    ask, power, raw) open on the class path and run a block on the CPU:
+    each sends its SAMPLES, the digital ones with host-array strobes,
+    symbols (and psk's frequency estimate) beside them."""
     an = _session("ours")
-    for cls in ("psk", "fsk", "ask", "power", "raw"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            an.open_inspector(cls, Channel(fc=0.0, bw=10e3))
-    assert not an._inspectors and not an._channelizer._buckets
+    hs = {cls: an.open_inspector(cls, Channel(fc=100_000.0, bw=10e3),
+                                 config={"clock.baud": 4000.0})
+          for cls in ("psk", "fsk", "ask")}
+    for cls in ("power", "raw"):
+        hs[cls] = an.open_inspector(cls, Channel(fc=100_000.0, bw=10e3))
+    assert len(an._inspectors) == 5
+    assert an.step()
+    got = {m.handle: m for m in an.poll() if m.kind == MessageKind.SAMPLES}
+    assert set(got) == set(hs.values())
+    for cls, h in hs.items():
+        m = got[h]
+        assert np.isfinite(m.samples).all() and len(m.samples) > 0
+        if cls in ("psk", "fsk", "ask"):
+            assert m.extras["strobes"].dtype == bool
+            assert m.extras["symbols"].shape == m.samples.shape
+            assert m.extras["strobes"].any()
+    assert np.isfinite(got[hs["psk"]].extras["freq_offset"])

@@ -1,11 +1,14 @@
 """The CUDA kernels of the port against their plain PyTorch versions,
 on the card: the FM channelizer v2 (fused table form, unfused table and
 cos/sin forms), the v1 channelizer, the standalone PSD, the PSD read
-from the window buffer (with and without the device EMA), the raw bank,
+from the window buffer (with and without the device EMA), the standalone
+PSD at ``cli psd``'s waterfall-row shapes (one frame a launch), the raw bank,
 the recovery bank, the audio bank (and its hang walk bit for bit),
 the column compactor, the symbol squeeze, the drain packer, the TV line resampler and the CMA bank (and its chain timer), the
 analyzer session through them, on the compactor drain and on the packed
-one, and ``cli tv`` on the line resampler.  Skipped where CUDA is absent; on a machine with
+one, ``cli tv`` on the line resampler, the class path's CMA equalizer
+on the CMA kernel, a class-path psk inspector's extras fetched from the
+card, and ``cli psd`` on the PSD kernel.  Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
 
     SIGDIGGER_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
@@ -153,6 +156,39 @@ def test_psd_kernel_matches_plain_version(cuda, n, frames, i16):
     torch.cuda.synchronize()
     assert fft.psd_kernel.launches == before + 1
     assert bool(((got - want).abs() <= 1e-4 * want.abs()).all())
+
+
+@pytest.mark.parametrize("n,frames,fpp", [(4096, 1, 1), (16384, 1, 1),
+                                          (512, 1, 1), (4096, 3, 3)])
+def test_psd_kernel_at_cli_row_shapes_matches_float64(cuda, n, frames, fpp):
+    """``cli psd --waterfall`` feeds each row through the PSD that
+    ``psdutil.prepare_mean_psd`` builds for it: one frame a launch at a
+    row of one FFT (F 1, fpp 1), a few at longer rows.  One frame's bins
+    can sit far under its energy, where no float32 FFT, the plain
+    version's included, keeps 1e-4 of the bin: the kernel and the plain
+    version are each held to a float64 np.fft of the same frames within
+    every bin's conditioning bound (``chip_smoke.psd_f64_bound``: 1e-4
+    of the bin plus 8u·log2(N) of the frame's L1 norm on |X|)."""
+    from chip_smoke import psd_f64_bound
+    from sigdigger_tpu_torch.tasks import psdutil
+
+    p, _ = psdutil.prepare_mean_psd(n * frames, FS, n, device=cuda)
+    assert (p.cfg.frames_per_block, p.cfg.frames_per_program) == (frames,
+                                                                  fpp)
+    rng = np.random.default_rng(n + frames)
+    k = np.arange(n * frames)
+    x = (0.05 * (rng.standard_normal(len(k)) + 1j * rng.standard_normal(
+        len(k))) + 0.8 * np.exp(2j * np.pi * 0.2 * k)).astype(np.complex64)
+    xp_h = p.prepare(x)
+    xp = torch.from_numpy(xp_h).to(cuda)
+    before = fft.psd_kernel.launches
+    got = fft.psd_kernel(xp, p.consts, p.params)
+    want = fft.psd_kernel_reference(xp, p.consts, p.params)
+    torch.cuda.synchronize()
+    assert fft.psd_kernel.launches == before + 1
+    p64, bound = psd_f64_bound(xp_h, p.cfg.a, p.cfg.b, p.params.scale)
+    for v in (got, want):
+        assert np.all(np.abs(v.double().cpu().numpy() - p64) <= bound)
 
 
 @pytest.mark.parametrize("packed", [None, "i16", "i8"])
@@ -1665,3 +1701,112 @@ def test_cli_tv_runs_through_the_kernel(cuda, tmp_path):
     a, b = fh[1], fd[1]
     assert np.corrcoef(a.ravel(), b.ravel())[0, 1] > 0.995
     assert float(np.mean(np.abs(a - b))) < 0.02
+
+
+@pytest.mark.parametrize("locked", [False, True])
+@pytest.mark.parametrize("c", [1, 3])
+def test_cma_equalizer_on_the_card_is_its_plain_version(cuda, c, locked):
+    """``dsp.CMAEqualizer`` on the card (the class path's psk equalizer)
+    over 3 chained blocks of a class-path block's length: each call one
+    ``cma_kernel`` launch, y and taps bit-equal to the plain version on
+    the same input and taps (C 1 runs one 32-lane block with 31 clamped
+    lanes); a locked equalizer's taps stay bit for bit.  Other tap
+    counts raise on the card."""
+    from sigdigger_tpu_torch.dsp.equalizer import CMAEqualizer
+    from sigdigger_tpu_torch.kernels import equalizer
+
+    rng = np.random.default_rng(c + 10 * locked)
+    eq = CMAEqualizer(c, rate=3e-3, locked=locked, device=cuda)
+    start = (eq.taps_re.clone(), eq.taps_im.clone())
+    for _ in range(3):
+        s = np.exp(1j * (rng.integers(0, 4, (c, 512)) * 2 + 1) * np.pi / 4)
+        x = (s + 0.3 * np.roll(s, 1, axis=1)).astype(np.complex64)
+        xt = torch.from_numpy(x).to(cuda)
+        taps = (eq.taps_re.clone(), eq.taps_im.clone())
+        n0 = equalizer.cma_kernel.launches
+        y = eq(xt)
+        assert equalizer.cma_kernel.launches == n0 + 1
+        want = equalizer.cma_kernel_reference(
+            xt.real.T.contiguous(), xt.imag.T.contiguous(), *taps,
+            torch.full((c,), 3e-3, device=cuda),
+            torch.full((c,), float(locked), device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(y.real.T.contiguous(), want[0])
+        assert torch.equal(y.imag.T.contiguous(), want[1])
+        assert torch.equal(eq.taps_re, want[2])
+        assert torch.equal(eq.taps_im, want[3])
+    if locked:
+        assert torch.equal(eq.taps_re, start[0])
+        assert torch.equal(eq.taps_im, start[1])
+    with pytest.raises(ValueError, match="K = 5"):
+        CMAEqualizer(c, taps=4, device=cuda)(xt)
+
+
+def test_class_path_psk_extras_are_fetched_from_the_card(cuda):
+    """A psk inspector (equalizer on) on the class-path ``Analyzer`` on
+    the card: its extras (strobes, symbols, the Costas frequency
+    estimate) leave as host arrays, and the equalizer launched
+    ``cma_kernel`` once per block."""
+    from sigdigger_tpu_torch.analyzer import Analyzer, MessageKind
+    from sigdigger_tpu_torch.kernels import equalizer
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources import make_source
+    from sigdigger_tpu_torch.types import Channel
+
+    an = Analyzer(source=make_source(SourceProfile(
+        type="tonegen", sample_rate=256_000, tone_freq=20e3)), device=cuda)
+    h = an.open_inspector("psk", Channel(fc=20e3, bw=8e3),
+                          config={"clock.baud": 2000.0,
+                                  "equalizer.type": 1})
+    n0 = equalizer.cma_kernel.launches
+    for _ in range(2):
+        assert an.step()
+    msgs = [m for m in an.poll()
+            if m.kind == MessageKind.SAMPLES and m.handle == h]
+    assert len(msgs) == 2
+    assert equalizer.cma_kernel.launches == n0 + 2
+    for m in msgs:
+        assert isinstance(m.samples, np.ndarray)
+        assert isinstance(m.extras["strobes"], np.ndarray)
+        assert m.extras["strobes"].dtype == bool
+        assert m.extras["symbols"].dtype == np.uint8
+        assert np.isfinite(m.extras["freq_offset"])
+
+
+def test_cli_psd_runs_the_psd_kernel(cuda, tmp_path, capsys):
+    """``cli psd --waterfall`` on the card: ``psd_kernel`` once per
+    waterfall row and once for the mean, the peak on the carrier, the
+    printed mean PSD that of the kernel's plain version."""
+    import json
+
+    from sigdigger_tpu_torch import cli
+
+    fs, n = 1_024_000, 1 << 16
+    t = np.arange(n) / fs
+    x = (0.5 * np.exp(2j * np.pi * 150e3 * t)
+         + 0.01 * np.random.default_rng(1).standard_normal(n)
+         ).astype(np.complex64)
+    path = str(tmp_path / f"c_{fs}sps.cf32")
+    x.tofile(path)
+    n0 = fft.psd_kernel.launches
+    assert cli.main(["psd", path, "--waterfall",
+                     str(tmp_path / "wf.png"), "-o",
+                     str(tmp_path / "psd.csv")]) == 0
+    out = capsys.readouterr().out
+    assert "(16 rows)" in out
+    assert fft.psd_kernel.launches == n0 + 16 + 1
+    peak = json.loads(out.splitlines()[-1])
+    assert abs(peak["peak_freq_hz"] - 150e3) <= fs / 4096
+    # the mean PSD the command printed (0.01 dB) against the plain version
+    # of the kernel on the same frames, every bin within 1e-4 of itself
+    from sigdigger_tpu_torch.tasks import psdutil
+
+    p, _ = psdutil.prepare_mean_psd(n, fs, 4096, device=cuda)
+    p.reset()
+    xp = torch.from_numpy(p.prepare(x)).to(cuda)
+    plain = np.fft.fftshift(p.fold(fft.psd_kernel_reference(
+        xp, p.consts, p.params).cpu().numpy()).copy())
+    printed = np.loadtxt(tmp_path / "psd.csv", delimiter=",", skiprows=1)
+    tol_db = 10 * np.log10(1 + 1e-4)
+    assert np.abs(printed[:, 1] - 10 * np.log10(plain + 1e-30)).max() <= (
+        0.005 + tol_db + 1e-6)

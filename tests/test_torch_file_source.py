@@ -18,10 +18,11 @@ import pytest
 from sigdigger_tpu.io.wav import write_wav as ref_write_wav
 from sigdigger_tpu.profiles import SourceProfile as RefProfile
 from sigdigger_tpu.sources.file import FileSource as RefFileSource
+from sigdigger_tpu.sources.stdin_src import StdinSource as RefStdinSource
 from sigdigger_tpu.types import SampleFormat as RefFormat
 from sigdigger_tpu_torch.io.wav import read_wav, write_wav
 from sigdigger_tpu_torch.profiles import SourceProfile
-from sigdigger_tpu_torch.sources import FileSource, make_source
+from sigdigger_tpu_torch.sources import FileSource, StdinSource, make_source
 from sigdigger_tpu_torch.types import SampleFormat
 
 N = 3000
@@ -119,3 +120,31 @@ def test_missing_file_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         make_source(SourceProfile(type="file",
                                   path=str(tmp_path / "missing.cf32")))
+
+
+@pytest.mark.parametrize("fmt", ["cf32", "cs16", "cu8"])
+def test_stdin_matches_reference(tmp_path, fmt, monkeypatch):
+    """The ``stdin`` source reads raw samples from a pipe as the
+    reference's does: equal blocks, a zero-padded short read and EOS
+    once the pipe ends; ``make_source`` builds it over ``sys.stdin``;
+    WAV is refused."""
+    import io
+    import sys
+
+    raw = open(_capture(tmp_path, fmt, seed=7), "rb").read()
+    fmt_name = FORMATS[fmt]
+    ref = RefStdinSource(RefProfile(type="stdin", format=RefFormat[fmt_name],
+                                    sample_rate=48_000), io.BytesIO(raw))
+    monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(io.BytesIO(raw)))
+    ours = make_source(SourceProfile(type="stdin",
+                                     format=SampleFormat[fmt_name],
+                                     sample_rate=48_000))
+    assert isinstance(ours, StdinSource)
+    for n in (1000, 1024, 700, 1000):
+        _same(ours.read(n), ref.read(n), fmt)
+        assert ours.eos == ref.eos
+        assert ours.position == ref.position
+    assert ours.eos
+    with pytest.raises(ValueError, match="WAV"):
+        StdinSource(SourceProfile(type="stdin", format=SampleFormat.WAV),
+                    io.BytesIO(b""))

@@ -25,17 +25,25 @@ MODULES = [
     "sigdigger_tpu_torch.sources.synth",
     "sigdigger_tpu_torch.sources.tonegen",
     "sigdigger_tpu_torch.sources.registry",
+    "sigdigger_tpu_torch.sources.stdin_src",
     "sigdigger_tpu_torch.io",
     "sigdigger_tpu_torch.io.wav",
     "sigdigger_tpu_torch.utils",
     "sigdigger_tpu_torch.utils.logger",
     "sigdigger_tpu_torch.utils.waterfall",
+    "sigdigger_tpu_torch.utils.palette",
+    "sigdigger_tpu_torch.utils.symview",
     "sigdigger_tpu_torch.tasks",
     "sigdigger_tpu_torch.tasks.psdutil",
     "sigdigger_tpu_torch.dsp",
     "sigdigger_tpu_torch.dsp.window",
     "sigdigger_tpu_torch.dsp.filters",
     "sigdigger_tpu_torch.dsp.pll",
+    "sigdigger_tpu_torch.dsp.clock",
+    "sigdigger_tpu_torch.dsp.decider",
+    "sigdigger_tpu_torch.dsp.equalizer",
+    "sigdigger_tpu_torch.dsp.iir",
+    "sigdigger_tpu_torch.dsp.snr",
     "sigdigger_tpu_torch.dsp.ncqo",
     "sigdigger_tpu_torch.dsp.quad",
     "sigdigger_tpu_torch.dsp.resample",
@@ -46,6 +54,8 @@ MODULES = [
     "sigdigger_tpu_torch.inspectors",
     "sigdigger_tpu_torch.inspectors.base",
     "sigdigger_tpu_torch.inspectors.audio",
+    "sigdigger_tpu_torch.inspectors.digital",
+    "sigdigger_tpu_torch.inspectors.simple",
     "sigdigger_tpu_torch.kernels",
     "sigdigger_tpu_torch.kernels._build",
     "sigdigger_tpu_torch.kernels.ops",
