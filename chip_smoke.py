@@ -174,8 +174,30 @@ printing the seconds it took:
    after lock); ``rms`` (the FM level within 1 dB); each command's wall
    time.  Then the psk chain with the CMA equalizer through
    ``Analyzer(device="cuda")`` per layer (channelizer, AGC, Costas, MF,
-   CMA, Gardner, the rest): ``cma_kernel`` once per block fed, every
-   call bit-equal to ``cma_kernel_reference`` at C 1.
+   CMA, Gardner, the rest): ``cma_kernel`` once per block fed to the
+   unlocked equalizer (a locked one runs its FIR without the kernel),
+   every call bit-equal to ``cma_kernel_reference`` at C 1.
+3j. the spectrum users off the main path: ``cli.main(["scan", ...])`` at
+   its defaults over 88-108 MHz (2.048 Msps, FFT 2048, 4 frames a hop,
+   200 progressive hops, four emitters): coverage >= 0.99, a hot bin
+   within 8 view bins of each emitter, ``psd_kernel`` once a hop; the
+   wall per hop and a hop's layers (retune + read, framing, H2D, kernel,
+   rebin matmul, span D2H, stitch); a 20 Msps sweep at N 32768 and 65536
+   (the FFT cap; both the PSD's two-pass form), the kernel held against
+   its plain version on a hop's capture, the emitters found;
+   ``CarrierDetector`` and ``DopplerCalculator`` on the card, each
+   within a bin of a seeded tone's offset, one ``psd_kernel`` launch
+   each; ``cli doppler`` on an ISS element set (elevation, azimuth,
+   range and Doppler physical); then phase 3f's session on a 437.5 MHz
+   source with 64 FM inspectors under Doppler correction by the ISS
+   predictor, anchored where the pass's Doppler moves fastest and
+   advanced 0.5 s of pass a block, the four FM-tone carriers shifted by
+   the same Doppler in the source: 64 retunes a block, each corrected
+   centre within 2 Hz of its offset plus the predicted Doppler at each
+   block, the FM-tone slots' audio centred within 50 Hz of their
+   carriers while the carriers move over 500 Hz, ORBIT_REPORTs,
+   ``audio_kernel`` once a block, the session's Msps beside phase 3f's
+   and the corrections' host time a block.
 4. the TPU kernel list (all 13 ported, each with its bound at the inputs
    phase 2 timed) and the ``kernels`` line (``cma_kernel``'s launches
    from phase 3i, the system path).
@@ -288,6 +310,8 @@ TOL_AUDIO_FRAC = 1e-3
 # 4096, block 8192·64, compact width 1024, depth 3, threaded drain
 SESSION_BLOCKS = 12
 SESSION_WARM = 2
+# the session Msps of phase 3f, read by phase 3j in the same process
+SESSION_MSPS: dict = {}
 FM_SLOTS = {40: 1000.0, 120: 1500.0, 200: 2000.0, 280: 2500.0}
 QPSK_SLOTS = (2, 10, 20)
 CARRIER_POWER_SLOT = 64
@@ -772,6 +796,18 @@ def phase2_psd(fftm, torch) -> dict:
                 library_ms=library_ms, bound_ms=bms, bound_by=by)
 
 
+def psd_err(got, want) -> float:
+    """The PSD kernel against its plain version, in units of phase 2's
+    tolerance: every bin within TOL_PSD_BIN of itself; at B 256 and more
+    each magnitude within 1e-5 of itself plus 1e-6 of the largest
+    (tests/test_torch_psd.py: a 256-term float32 sum rounds the tone's
+    terms into noise bins some 1e7 below it)."""
+    if got.shape[1] >= 256:
+        mg, mw = got.double().sqrt(), want.double().sqrt()
+        return float(((mg - mw).abs() / (1e-5 * mw + 1e-6 * mw.max())).max())
+    return float(((got - want).abs() / (TOL_PSD_BIN * want.abs())).max())
+
+
 # the four-step PSD at factorings outside the fast path's powers of two
 # in [16, 128]: (N, frames, A or 0 for the reference's rule)
 PSD_SIZES = [(16, 8, 0), (64, 8, 0), (128, 8, 0), (1536, 8, 0),
@@ -802,13 +838,7 @@ def phase2_psd_sizes(fftm, torch) -> None:
         torch.cuda.synchronize()
         check(fftm.psd_kernel.launches == before + 1, n)
         check(got.shape == (p.cfg.a, p.cfg.b) and torch.isfinite(got).all())
-        if p.cfg.b >= 256:
-            mg, mw = got.double().sqrt(), want.double().sqrt()
-            err = float(((mg - mw).abs() / (1e-5 * mw + 1e-6 * mw.max()))
-                        .max())
-        else:
-            err = float(((got - want).abs() / (TOL_PSD_BIN * want.abs()))
-                        .max())
+        err = psd_err(got, want)
         check(err <= 1.0, (n, err))
         form = ", two passes" if fftm.psd_two_pass(p.cfg.a, p.cfg.b) else ""
         out.append(f"N {n} (A {p.cfg.a}, B {p.cfg.b}{form}): {err:.3g} of "
@@ -2505,9 +2535,10 @@ def phase2_pack(dpm, torch) -> dict:
     return res
 
 
-def ring_source(blocks):
+def ring_source(blocks, freq: float = 0.0):
     """A SignalSource replaying pre-made distinct blocks, one per read
-    (the reference bench's RingSource, bench.py:233-246)."""
+    (the reference bench's RingSource, bench.py:233-246), tuned to
+    ``freq``."""
     from sigdigger_tpu_torch.profiles import SourceProfile
     from sigdigger_tpu_torch.sources.base import SignalSource
 
@@ -2517,13 +2548,16 @@ def ring_source(blocks):
             check(len(b) == n, (len(b), n))
             return b
 
-    return RingSource(SourceProfile(type="synth", sample_rate=int(FS)))
+    return RingSource(SourceProfile(type="synth", sample_rate=int(FS),
+                                    freq=freq))
 
 
-def session_iq(n: int, seed: int) -> np.ndarray:
+def session_iq(n: int, seed: int, doppler=None) -> np.ndarray:
     """FM tones on the FM_SLOTS audio channels, QPSK at 200 kbaud on the
     QPSK_SLOTS psk channels, a pure carrier on the CARRIER_POWER_SLOT
-    power channel, and noise."""
+    power channel, and noise.  ``doppler`` maps an FM slot to its
+    carrier's shift in Hz in each block of BLOCK_OUT·64 samples (the
+    phase stays continuous across the steps)."""
     from sigdigger_tpu_torch.dsp.filters import rrc_taps
 
     rng = np.random.default_rng(seed)
@@ -2531,9 +2565,12 @@ def session_iq(n: int, seed: int) -> np.ndarray:
     x = 0.02 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
     for slot, tone in FM_SLOTS.items():
         fc = -48e6 + slot * 115e3
-        x += 0.25 * np.exp(1j * (2 * np.pi * fc * t + 2 * np.pi * 50e3
-                                 * np.cumsum(np.sin(2 * np.pi * tone * t))
-                                 / FS))
+        ph = 2 * np.pi * fc * t + 2 * np.pi * 50e3 * np.cumsum(
+            np.sin(2 * np.pi * tone * t)) / FS
+        if doppler and slot in doppler:
+            ph += 2 * np.pi * np.cumsum(np.repeat(
+                doppler[slot], BLOCK_OUT * 64)[:n]) / FS
+        x += 0.25 * np.exp(1j * ph)
     taps = rrc_taps(8.0, span=8, rolloff=0.35)
     m = n // 64
     for slot in QPSK_SLOTS:
@@ -2662,10 +2699,11 @@ def drain_errors() -> list:
             if r.severity >= Severity.ERROR]
 
 
-def bench_session(blocks, **kw):
-    """``bench.py:255-259``'s ``KernelAnalyzer`` over ``blocks`` with the
-    1024-inspector mix opened in ``bulk_config``; ``kw`` overrides its
-    options.  Returns (analyzer, handles, seconds the opens took)."""
+def bench_session(blocks, freq: float = 0.0, **kw):
+    """``bench.py:255-259``'s ``KernelAnalyzer`` over ``blocks`` (a source
+    tuned to ``freq``) with the 1024-inspector mix opened in
+    ``bulk_config``; ``kw`` overrides its options.  Returns (analyzer,
+    handles, seconds the opens took)."""
     from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
     from sigdigger_tpu_torch.types import AnalyzerParams, Channel
 
@@ -2675,7 +2713,7 @@ def bench_session(blocks, **kw):
                 compact_cols=1024, pipeline_depth=3, symbol_group=4,
                 drain_thread=True)
     opts.update(kw)
-    an = KernelAnalyzer(source=ring_source(blocks), params=params,
+    an = KernelAnalyzer(source=ring_source(blocks, freq), params=params,
                         block_size=BLOCK_OUT * 64, **opts)
     check(an.device.type == "cuda" and an._in_i16 and an._drain_bf16
           and an._psd_bucket is an._buckets[64])
@@ -2803,9 +2841,9 @@ def session_line(name: str, open_s: float, launches: dict, wall: float,
             f"{res['carrier']:.4g} vs noise {res['noise']:.4g} | card: {card}")
 
 
-def session_blocks(n: int, seed: int) -> list:
+def session_blocks(n: int, seed: int, doppler=None) -> list:
     block = BLOCK_OUT * 64
-    x = session_iq(n * block, seed)
+    x = session_iq(n * block, seed, doppler)
     return [x[i * block:(i + 1) * block] for i in range(n)]
 
 
@@ -2868,6 +2906,7 @@ def phase3f_bench_session(torch, card: str) -> dict:
     print(session_line("phase3f bench session, packed drain + squeeze",
                        open_s, launches, wall, SESSION_BLOCKS, res, card),
           flush=True)
+    SESSION_MSPS["phase3f"] = BLOCK_OUT * 64 * SESSION_BLOCKS / wall / 1e6
     an._drain_thread_on = False
     print(f"phase3f layers (synchronous, median ms over 4 blocks; drain "
           f"bytes per block): {session_layers(an, blocks, torch)}",
@@ -3714,8 +3753,9 @@ def cli_layers(path: str, torch) -> tuple:
     source read, spectrum, channelizer, the inspector's AGC, Costas, RRC
     matched filter, CMA equalizer and Gardner clock, the rest of the
     inspector (decisions) and of the step, the block; the kernel alone at
-    this path's shape beside its bound.  The equalizer launches
-    ``cma_kernel`` once per block the inspector is fed; every call's y
+    this path's shape beside its bound.  The equalizer (unlocked: a
+    locked one runs its FIR without the kernel) launches ``cma_kernel``
+    once per block the inspector is fed; every call's y
     and taps are bit-equal to ``cma_kernel_reference`` on the same input
     and taps on the card.  Returns (layers, launches, blocks fed, T per
     call)."""
@@ -3902,9 +3942,451 @@ def phase3i_cli(torch, card: str) -> dict:
           f"per analyzer block of 32768 samples, {t_call} channel samples "
           f"a block): {layers}; the step loops per channel sample (µs): "
           f"{per_step}; cma_kernel launches {cma_launches} for {fed} blocks "
-          f"fed, each call bit-equal to cma_kernel_reference (C 1, T "
-          f"{t_call}) | card: {card}", flush=True)
+          f"fed to the unlocked equalizer, each call bit-equal to "
+          f"cma_kernel_reference (C 1, T {t_call}) | card: {card}",
+          flush=True)
     return {"psd_cli": psd_launches, "cma": cma_launches}
+
+
+# phase 3j: the spectrum users off the main path.  (a) ``cli scan`` at its
+# defaults (2.048 Msps, FFT 2048, 4 frames a hop) over the FM broadcast
+# band, the view's 65536 bins of 305 Hz; (b) a 20 Msps SDR swept at
+# 1 kHz/bin (N 32768) and 305 Hz/bin (N 65536, the cap); (c) the carrier
+# and Doppler tasks; (d) ``cli doppler`` on an ISS element set
+# (tests/test_orbit.py's, checksums fixed); (e) the bench session on a
+# 70 cm source with 64 FM inspectors under Doppler correction
+SCAN_EMITTERS = (89.1e6, 95.8e6, 101.3e6, 104.9e6)
+SCAN_HOPS = 200
+WIDE_FS = 20_000_000
+WIDE_EMITTERS = (433.2e6, 441.7e6, 447.9e6)
+WIDE_HOPS = 4
+ISS_TLE = """\
+ISS (ZARYA)
+1 25544U 98067A   20001.00000000  .00016717  00000-0  10270-3 0  9000
+2 25544  51.6416 247.4627 0006703 130.5360 325.0288 15.49512410 21396
+"""
+TRACK_RF = 437.5e6                   # the 70 cm satellite band
+TRACK_SITE = (40.0, -105.0, 1.6)     # lat, lon (deg), alt (km)
+# 64 of the mix's FM audio inspectors, the four with FM tones among them
+TRACK_SLOTS = tuple(sorted(set(range(0, 780, 13)) | set(FM_SLOTS)))
+TRACK_LAPSE = 0.5                    # pass seconds added to each block
+
+
+def scan_layers(sc, torch, hops: int) -> dict:
+    """``hops`` calls of ``sc.hop()`` (a ``Scanner`` on the PSD kernel),
+    each layer it calls wrapped in a ``StageTimer``: retune + read
+    (``capture``, the settle block included), framing (``PSD.prepare``),
+    H2D (``feed_async`` less framing and kernel), kernel
+    (``fft.psd_kernel``), rebin matmul (``DeviceRebin.product``), span
+    D2H (the rebin call less its product) and stitch
+    (``SpectrumView.feed_binned``); the median ms of each and of the
+    whole hop.  The wrappers are taken off again."""
+    from sigdigger_tpu_torch.kernels import fft
+
+    est, rb, view = sc._est, sc._rebin, sc.view
+    kernel = fft.psd_kernel
+    t = {"retune_read": StageTimer(sc.capture, torch),
+         "framing": StageTimer(est.prepare, torch),
+         "feed": StageTimer(est.feed_async, torch),
+         "kernel": StageTimer(kernel, torch),
+         "rebin": StageTimer(rb.product, torch),
+         "rebin_call": StageTimer(rb, torch),
+         "stitch": StageTimer(view.feed_binned, torch)}
+    sc.capture, est.prepare, est.feed_async = (t["retune_read"],
+                                               t["framing"], t["feed"])
+    fft.psd_kernel, rb.product = t["kernel"], t["rebin"]
+    sc._rebin, view.feed_binned = t["rebin_call"], t["stitch"]
+    hop = StageTimer(sc.hop, torch)
+    try:
+        for _ in range(hops):
+            hop()
+    finally:
+        fft.psd_kernel, sc._rebin = kernel, rb
+        for o, a in ((sc, "capture"), (est, "prepare"), (est, "feed_async"),
+                     (rb, "product"), (view, "feed_binned")):
+            delattr(o, a)
+    ms = {k: np.array(v.ms) for k, v in t.items()}
+    ms["h2d"] = ms["feed"] - ms["framing"] - ms["kernel"]
+    ms["span_d2h"] = ms["rebin_call"] - ms["rebin"]
+    ms["hop"] = np.array(hop.ms)
+    keys = ("retune_read", "framing", "h2d", "kernel", "rebin", "span_d2h",
+            "stitch", "hop")
+    return {k: round(float(np.median(ms[k])), 4) for k in keys}
+
+
+def hot_near(csv: str, emitters, bin_hz: float) -> dict:
+    """The view bins 10 dB over the median of a scan CSV, and each
+    emitter's distance in view bins to the nearest."""
+    v = np.loadtxt(csv, delimiter=",", skiprows=1)
+    db = 10 * np.log10(v[:, 1] + 1e-30)
+    hot = v[db > np.median(db) + 10.0, 0]
+    return {f: float(np.abs(hot - f).min() / bin_hz) if len(hot) else
+            float("inf") for f in emitters}
+
+
+def phase3j_scan(torch, card: str) -> dict:
+    """(a) ``cli scan`` at its defaults over 88-108 MHz, 200 progressive
+    hops, four emitters: the coverage at least 0.99, a hot bin within 8
+    view bins of each emitter, ``psd_kernel`` launched once a hop; the
+    command's wall per hop; then a scanner of the same band hop by hop
+    through its layers.  (b) a 20 Msps sweep at N 32768 and 65536: the
+    kernel held against its plain version on a hop's capture, WIDE_HOPS
+    hops, each emitter standing 50x over the median.  Returns the
+    launches."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from sigdigger_tpu_torch import cli
+    from sigdigger_tpu_torch.analyzer.sweep import Scanner
+    from sigdigger_tpu_torch.kernels import fft
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources.synth import Emitter, SynthBandSource
+    from sigdigger_tpu_torch.types import SweepStrategy
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "scan.csv")
+        argv = ["scan", "--fmin", "88e6", "--fmax", "108e6", "--hops",
+                str(SCAN_HOPS), "--progressive", "--emitters",
+                *[str(f) for f in SCAN_EMITTERS], "-o", csv,
+                "--device", "cuda"]
+        fft.psd_kernel.launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        scan_launches = fft.psd_kernel.launches
+        out = json.loads(buf.getvalue().splitlines()[-1])
+        near = hot_near(csv, SCAN_EMITTERS, 20e6 / 65536)
+    check(rc == 0 and out["hops"] == SCAN_HOPS and out["coverage"] >= 0.99
+          and scan_launches == SCAN_HOPS
+          and all(d <= 8 for d in near.values()),
+          (rc, out, scan_launches, near))
+
+    def source(rate, emitters):
+        return SynthBandSource(SourceProfile(type="synth", sample_rate=rate,
+                                             noise_db=-60.0),
+                               [Emitter(freq=f) for f in emitters])
+
+    sc = Scanner(source(2_048_000, SCAN_EMITTERS), 88e6, 108e6,
+                 strategy=SweepStrategy.PROGRESSIVE, device="cuda")
+    check(isinstance(sc._est, fft.PSD) and sc.fft_size == 2048)
+    scan_layers(sc, torch, 5)                       # warm
+    layers = scan_layers(sc, torch, 50)
+    print(f"phase3j cli scan (88-108 MHz at 2.048 Msps, FFT {sc.fft_size}, "
+          f"4 frames a hop, view 65536 bins of {20e6 / 65536:.2f} Hz, "
+          f"--device cuda): {out}; psd_kernel launches {scan_launches} "
+          f"(one a hop); emitters' distance to a hot bin (view bins, <= 8) "
+          f"{ {f / 1e6: round(d, 2) for f, d in near.items()} }; wall "
+          f"{wall:.3f} s, {wall * 1e3 / SCAN_HOPS:.4f} ms a hop | card: "
+          f"{card}", flush=True)
+    print(f"phase3j scan layers (synchronous, median ms a hop over 50 "
+          f"hops): {layers}", flush=True)
+
+    wide = {}
+    wide_launches = 0
+    for res in (1000.0, 305.0):
+        sc = Scanner(source(WIDE_FS, WIDE_EMITTERS), 430e6, 450e6,
+                     strategy=SweepStrategy.PROGRESSIVE, resolution_hz=res,
+                     device="cuda")
+        est = sc._est
+        x = sc.capture(435e6)
+        xp = torch.from_numpy(est.prepare(x)).cuda()
+        got = fft.psd_kernel(xp, est.consts, est.params)
+        want = fft.psd_kernel_reference(xp, est.consts, est.params)
+        torch.cuda.synchronize()
+        err = psd_err(got, want)
+        check(err <= 1.0 and bool(torch.isfinite(got).all()), (res, err))
+        fft.psd_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psd = sc.sweep(WIDE_HOPS)
+        torch.cuda.synchronize()
+        hop_ms = (time.perf_counter() - t0) * 1e3 / WIDE_HOPS
+        wide_launches += fft.psd_kernel.launches
+        freqs = sc.view.frequencies()
+        floor = float(np.median(psd))
+        over = {}
+        for f in WIDE_EMITTERS:
+            i = int(np.argmin(np.abs(freqs - f)))
+            over[f / 1e6] = round(float(psd[max(0, i - 8):i + 8].max())
+                                  / floor, 1)
+        check(fft.psd_kernel.launches == WIDE_HOPS
+              and sc.view.coverage() > 0.99
+              and all(v > 50 for v in over.values()),
+              (res, fft.psd_kernel.launches, sc.view.coverage(), over))
+        a, b = est.cfg.a, est.cfg.b
+        form = ", two passes" if fft.psd_two_pass(a, b) else ""
+        wide[sc.fft_size] = (f"A {a}, B {b}{form}: kernel vs plain "
+                             f"{err:.3g} of its tolerance; {WIDE_HOPS} hops "
+                             f"{hop_ms:.3f} ms a hop; emitters over the "
+                             f"median {over}")
+    print(f"phase3j wide sweep (430-450 MHz at 20 Msps, 4 frames a hop): "
+          f"{wide} | card: {card}", flush=True)
+    return {"psd_scan": scan_launches, "psd_wide": wide_launches}
+
+
+def phase3j_tasks(torch, card: str) -> dict:
+    """(c) ``CarrierDetector`` and ``DopplerCalculator`` on the card on
+    a seeded tone capture with a known offset: each on the PSD kernel
+    (one launch), each within one bin of the offset, the detector within
+    a bin of its plain version on the CPU.  (d) ``cli doppler`` on the ISS
+    set from its epoch over 90 minutes: elevation, azimuth, range and
+    Doppler physical; its wall."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    from sigdigger_tpu_torch import cli
+    from sigdigger_tpu_torch.kernels import fft
+    from sigdigger_tpu_torch.orbit import parse_tle
+    from sigdigger_tpu_torch.tasks import CarrierDetector, DopplerCalculator
+
+    rng = np.random.default_rng(SEED + 40)
+
+    def capture(n, f_norm):
+        k = np.arange(n)
+        return (np.exp(2j * np.pi * f_norm * k) + 0.05 * (
+            rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                ).astype(np.complex64)
+
+    fs, f0, n = 1_024_000.0, 123_456.7, 1 << 16
+    x = capture(n, f0 / fs)
+    fft.psd_kernel.launches = 0
+    t0 = time.perf_counter()
+    got = CarrierDetector(x, fs, device="cuda").run()
+    carrier_s = time.perf_counter() - t0
+    carrier_launches = fft.psd_kernel.launches
+    plain = CarrierDetector(x, fs, estimator="pallas", device="cpu").run()
+    bin_hz = fs / 16384
+    check(got.done and carrier_launches == 1
+          and abs(got.result - f0) <= bin_hz
+          and abs(got.result - plain.result) <= bin_hz,
+          (got.error, carrier_launches, got.result, plain.result))
+
+    fs2, rf, shift, n2 = 50_000.0, 437e6, 2000.0, 8192
+    lam = 299_792_458.0 / rf
+    y = capture(n2, shift / fs2)
+    fft.psd_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = DopplerCalculator(y, fs2, rf, device="cuda").run()
+    doppler_s = time.perf_counter() - t0
+    doppler_launches = fft.psd_kernel.launches
+    r = res.result
+    v_peak = float(r.velocities[int(np.argmax(r.spectrum))])
+    bin_v = fs2 / len(r.spectrum) * lam
+    check(res.done and doppler_launches == 1
+          and abs(v_peak + shift * lam) <= bin_v
+          and abs(r.center_velocity + shift * lam) < 0.05 * shift * lam,
+          (res.error, doppler_launches, v_peak, r.center_velocity))
+    print(f"phase3j tasks on the card: CarrierDetector ({n} samples at "
+          f"{fs / 1e6} Msps, tone at {f0} Hz): {got.result:.2f} Hz (plain "
+          f"version {plain.result:.2f}, bin {bin_hz:.2f} Hz), psd_kernel "
+          f"launches {carrier_launches}, {carrier_s * 1e3:.3f} ms; "
+          f"DopplerCalculator ({n2} samples at {fs2 / 1e3} ksps, {shift} Hz "
+          f"at {rf / 1e6} MHz): peak {v_peak:.2f} m/s, centroid "
+          f"{r.center_velocity:.2f} m/s (want {-shift * lam:.2f}, bin "
+          f"{bin_v:.2f}), psd_kernel launches {doppler_launches}, "
+          f"{doppler_s * 1e3:.3f} ms | card: {card}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "iss.txt")
+        with open(path, "w") as fh:
+            fh.write(ISS_TLE)
+        start = parse_tle(ISS_TLE)[0].epoch_unix
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["doppler", path, "--freq", str(TRACK_RF), "--lat",
+                           str(TRACK_SITE[0]), "--lon", str(TRACK_SITE[1]),
+                           "--alt", str(TRACK_SITE[2] * 1000.0), "--start",
+                           str(start), "--duration", "5400", "--step", "30"])
+        wall = time.perf_counter() - t0
+    rows = [tuple(map(float, m)) for m in re.findall(
+        r"dopp\s+([-+0-9.]+) Hz\s+el\s+([-+0-9.]+)°\s+az\s+([0-9.]+)°\s+"
+        r"range\s+([0-9.]+) km", buf.getvalue())]
+    d, el, az, rng_km = (np.array(c) for c in zip(*rows))
+    check(rc == 0 and len(rows) == 180 and np.all(np.abs(el) <= 90.0)
+          and np.all((az >= 0.0) & (az < 360.0))
+          and np.all((rng_km > 300.0) & (rng_km < 14000.0))
+          and np.all(np.abs(d) < 12_000.0), (rc, len(rows)))
+    print(f"phase3j cli doppler (ISS, {TRACK_RF / 1e6} MHz, site "
+          f"{TRACK_SITE}, 90 min in 30 s steps): {len(rows)} lines, "
+          f"Doppler {d.min():+.1f}..{d.max():+.1f} Hz, elevation "
+          f"{el.min():+.2f}..{el.max():+.2f} deg, range {rng_km.min():.1f}.."
+          f"{rng_km.max():.1f} km; wall {wall * 1e3:.3f} ms (numpy)",
+          flush=True)
+    return {"psd_tasks": carrier_launches + doppler_launches}
+
+
+def pass_time(pred) -> float:
+    """The time near epoch, the bird over the horizon, at which its
+    Doppler moves fastest (near closest approach): there a pass retunes
+    the tracked channels most."""
+    t0 = pred.tle.epoch_unix
+    best, best_rate = t0, -1.0
+    for dt in np.arange(0.0, 86400.0, 10.0):
+        info = pred.predict(t0 + dt, TRACK_RF)
+        if info.elevation_deg > 2.0:
+            rate = abs(pred.predict(t0 + dt + 1.0, TRACK_RF).doppler_hz
+                       - info.doppler_hz)
+            if rate > best_rate:
+                best_rate, best = rate, t0 + dt
+    check(best_rate * TRACK_LAPSE > 10.0, best_rate)
+    return best
+
+
+def fm_offset_hz(blocks, tone: float, rate: float) -> list:
+    """The carrier's offset from the channel's centre in each block of
+    an FM inspector's audio (deviation 50 kHz, a tone at ``tone``): the
+    least-squares DC over the tone's amplitude, times the deviation."""
+    out, k = [], 0
+    for a in blocks:
+        t = (k + np.arange(len(a))) / rate
+        k += len(a)
+        m = np.stack([np.ones_like(t), np.sin(2 * np.pi * tone * t),
+                      np.cos(2 * np.pi * tone * t)], axis=1)
+        c = np.linalg.lstsq(m, a.astype(np.float64), rcond=None)[0]
+        out.append(float(c[0] / np.hypot(c[1], c[2]) * 50e3))
+    return out
+
+
+def phase3j_tracked_session(torch, card: str) -> dict:
+    """(e) phase 3f's bench session on a source centred on 437.5 MHz with
+    64 of its FM audio inspectors under Doppler correction by the ISS
+    predictor: SESSION_BLOCKS timed blocks after SESSION_WARM.  Stream
+    time is anchored where the pass's Doppler moves fastest, and each
+    block adds TRACK_LAPSE seconds of pass to it, so the Doppler moves
+    some 50 to 100 Hz a block and every tracked channel is retuned every
+    block (the engine skips moves under 1 Hz).  The four FM-tone slots
+    are among the tracked ones and their carriers carry the same Doppler
+    in the source, block by block.  Checks: 64 retunes a block; each
+    corrected channel's centre (the audio and the raw bank's) within 2 Hz
+    of its offset plus the predicted Doppler at the rx_time the engine
+    used; the Doppler over 100 Hz somewhere; the demodulated audio of
+    each FM-tone slot centred within 50 Hz of its carrier in every
+    drained block after the first two, while the carrier moves over
+    500 Hz (a retune the kernel never saw leaves the whole move in the
+    audio's DC); ORBIT_REPORTs; ``audio_kernel`` once a block and the
+    bench mix's checks.  The session's Msps beside phase 3f's."""
+    from sigdigger_tpu_torch import MessageKind
+    from sigdigger_tpu_torch.orbit import OrbitPredictor, parse_tle
+
+    drain_errors()
+    pred = OrbitPredictor(parse_tle(ISS_TLE)[0], *TRACK_SITE)
+    wall0 = pass_time(pred)
+    n_blocks = SESSION_WARM + SESSION_BLOCKS
+    step_s = TRACK_LAPSE + BLOCK_OUT * 64 / FS
+    # block j runs under the correction made at its start, j·step_s on
+    fm_lo = {s: -48e6 + s * 115e3 for s in FM_SLOTS}
+    fm_dopp = {s: np.array([pred.predict(wall0 + j * step_s,
+                                         TRACK_RF + lo).doppler_hz
+                            for j in range(n_blocks)])
+               for s, lo in fm_lo.items()}
+    blocks = session_blocks(n_blocks, SEED + 18, fm_dopp)
+    an, hs, open_s = bench_session(blocks, freq=TRACK_RF)
+    an._wall0 = wall0
+    an.orbit_report_interval = 0.01
+    tracked = [hs[i] for i in TRACK_SLOTS]
+    check(len(tracked) == 64)
+    for h in tracked:
+        an.set_inspector_doppler_correction(h, pred)
+    ks = [an._kslots[h] for h in tracked]
+    bucket = ks[0].bucket
+    check(all(k.bucket is bucket for k in ks))
+    idx = np.array([k.idx for k in ks])
+    offs = np.array([k.offset for k in ks])
+    los = np.array([an._inspectors[h].lo for h in tracked])
+    # each block's correction: the pass advanced by TRACK_LAPSE, its
+    # rx_time, its time and its retunes
+    orbit_ms, rx, retunes = [], [], [0]
+    apply, retune = an._apply_orbit_corrections, an._retune_channel
+
+    def lapsed_apply():
+        an._wall0 += TRACK_LAPSE
+        rx.append(an._rx_time())
+        t = time.perf_counter()
+        apply()
+        orbit_ms.append((time.perf_counter() - t) * 1e3)
+
+    def counted_retune(slot, f0):
+        retunes[0] += 1
+        retune(slot, f0)
+
+    an._apply_orbit_corrections = lapsed_apply
+    an._retune_channel = counted_retune
+    msgs = []
+    for _ in range(SESSION_WARM):
+        an.step()
+        msgs += an.poll()
+    kernels = session_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    retunes[0] = 0
+    del rx[:], orbit_ms[:]
+    f0s = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SESSION_BLOCKS):
+        an.step()
+        msgs += an.poll()
+        f0s.append((bucket.audio._f0[idx].copy(),
+                    bucket.raw._f0[idx] - offs))
+    an._drain_q.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    msgs += an.poll()
+    launches = {name: k.launches for name, k in kernels.items()}
+    dopp = np.array([[pred.predict(t, TRACK_RF + lo).doppler_hz
+                      for lo in los] for t in rx])
+    err = max(float(np.abs(f - (los + dd)).max())
+              for (fa, fr), dd in zip(f0s, dopp) for f in (fa, fr))
+    check(np.allclose(rx, wall0 + step_s * np.arange(
+        SESSION_WARM + 1, n_blocks + 1), rtol=0, atol=1e-5), rx)
+    reports = [m for m in msgs if m.kind == MessageKind.INSPECTOR
+               and m.inspector_kind.value == "orbit_report"]
+    check(retunes[0] == 64 * SESSION_BLOCKS and err < 2.0
+          and np.abs(dopp).max() > 100.0 and reports
+          and launches["audio"] == SESSION_BLOCKS
+          and all(an._inspectors[h].lo == lo for h, lo in zip(tracked, los)),
+          (retunes[0], err, float(np.abs(dopp).max()), len(reports),
+           launches))
+    res = session_checks(an, hs, msgs, n_blocks)
+    # the tracked FM carriers, centred in their channels by the kernel
+    centred = {}
+    for s, tone in FM_SLOTS.items():
+        aud = [m.samples for m in msgs if m.kind == MessageKind.SAMPLES
+               and m.handle == hs[s]]
+        off = fm_offset_hz(aud, tone, an.audio_rate)[2:]
+        moved = float(np.ptp(fm_dopp[s][:len(aud)]))
+        centred[s] = (round(max(off, key=abs), 3), round(moved, 1))
+        check(max(abs(o) for o in off) < 50.0 and moved > 500.0,
+              (s, off, moved))
+    msps = BLOCK_OUT * 64 * SESSION_BLOCKS / wall / 1e6
+    base = SESSION_MSPS.get("phase3f")
+    print(session_line("phase3j Doppler-tracked bench session (437.5 MHz, "
+                       "64 FM inspectors tracking the ISS)", open_s,
+                       launches, wall, SESSION_BLOCKS, res, card),
+          flush=True)
+    print(f"phase3j tracking ({TRACK_LAPSE} s of pass a block): Doppler "
+          f"{dopp.min():+.1f}..{dopp.max():+.1f} Hz over the timed blocks, "
+          f"{retunes[0]} retunes in {SESSION_BLOCKS} blocks (64 a block), "
+          f"the channels' centres within {err:.4f} Hz of offset + "
+          f"predicted Doppler (< 2); the FM-tone slots' carriers in their "
+          f"demodulated audio (worst offset Hz, < 50; the carrier's move "
+          f"Hz, > 500) {centred}; {len(reports)} ORBIT_REPORTs; session "
+          f"{msps:.2f} Msps against phase 3f's {base:.2f} Msps in this "
+          f"process (ratio {msps / base:.4f}); the corrections (64 "
+          f"predictions, retunes and reports) "
+          f"{float(np.median(orbit_ms)):.4f} ms a block (median) | card: "
+          f"{card}", flush=True)
+    return {"audio_tracked": launches["audio"]}
 
 
 # the end-to-end phases of one tree, run in a child process by --pairs:
@@ -4157,6 +4639,14 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(phase3i_cli(torch, card))
     print(f"phase3i: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3j_scan(torch, card))
+    launches.update(phase3j_tasks(torch, card))
+    launches.update(phase3j_tracked_session(torch, card))
+    print(f"phase3j: {time.perf_counter() - t0:.2f} s (launches of the "
+          f"spectrum users: psd_kernel scan {launches['psd_scan']}, wide "
+          f"{launches['psd_wide']}, tasks {launches['psd_tasks']}; "
+          f"audio_kernel tracked {launches['audio_tracked']})", flush=True)
 
     # each kernel form: (name, key, source, TPU kernel); the FM forms'
     # library yardstick (the channelize matmul alone) computes part of

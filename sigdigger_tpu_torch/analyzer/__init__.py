@@ -1,7 +1,8 @@
 """The analyzer session of the port (counterpart of
 ``sigdigger_tpu/analyzer``): the session protocol (``engine``), its run
 on the kernel banks (``kernel_engine``), the typed messages, the channel
-detector and the in-channel estimators.  Names resolve lazily, so
+detector, the in-channel estimators, the request tracker, the PSD
+mediator and the panoramic sweep.  Names resolve lazily, so
 ``import sigdigger_tpu_torch.analyzer`` stays light."""
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ _MESSAGES = (
     "SourceInfoMessage", "StatusMessage",
 )
 
-__all__ = ["Analyzer", "AnalyzerState", "KernelAnalyzer", *_MESSAGES]
+__all__ = ["Analyzer", "AnalyzerRequest", "AnalyzerRequestTracker",
+           "AnalyzerState", "KernelAnalyzer", *_MESSAGES]
 
 
 def __getattr__(name):
@@ -24,6 +26,10 @@ def __getattr__(name):
         from sigdigger_tpu_torch.analyzer.kernel_engine import KernelAnalyzer
 
         return KernelAnalyzer
+    if name in ("AnalyzerRequest", "AnalyzerRequestTracker"):
+        from sigdigger_tpu_torch.analyzer import tracker
+
+        return getattr(tracker, name)
     if name in _MESSAGES:
         from sigdigger_tpu_torch.analyzer import messages
 

@@ -7,17 +7,22 @@
     symbols  digital demodulation → symbols      (``psk``/``fsk``/``ask``)
     rms      power log → CSV                     (``power`` inspector)
     tv       analog TV decode → frame PNGs       (``audio`` + TVProcessor)
+    scan     panoramic sweep over a synth band   (``analyzer/sweep.py``)
+    doppler  satellite Doppler prediction        (``orbit``)
 
     python -m sigdigger_tpu_torch symbols capture_1024000sps.cf32 \
         --freq -200e3 --baud 4800 --mode psk --bps 2 --device cpu
 
-Each takes the reference's arguments and defaults plus ``--device``
-(default ``cuda``, which raises without a card; ``cpu`` runs the plain
-PyTorch versions).  ``demod``, ``symbols``, ``rms`` and ``tv`` run the
-class-path ``Analyzer``; ``psd`` runs the four-step PSD kernel
+Each takes the reference's arguments and defaults, and each but
+``doppler`` (host numpy) also ``--device`` (default ``cuda``, which
+raises without a card; ``cpu`` runs the plain PyTorch versions).
+``demod``, ``symbols``, ``rms`` and ``tv`` run the class-path
+``Analyzer``; ``psd`` runs the four-step PSD kernel
 (``tasks/psdutil.pallas_mean_psd``, ``csrc/psd.cu``) on the card and
-``SpectrumEstimator`` on the CPU.  The reference's ``scan``,
-``doppler``, ``live`` and ``remote`` are not ported (ROADMAP.md).
+``SpectrumEstimator`` on the CPU, and ``scan`` runs a ``Scanner`` whose
+hops go through the same kernel on the card (one launch a hop) and the
+estimator on the CPU.  The reference's ``live`` and ``remote`` are not
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -234,6 +240,55 @@ def cmd_rms(args) -> int:
     return 0
 
 
+def cmd_scan(args) -> int:
+    from sigdigger_tpu_torch.analyzer.sweep import Scanner
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources.synth import Emitter, SynthBandSource
+    from sigdigger_tpu_torch.types import SweepStrategy
+
+    prof = SourceProfile(type="synth", sample_rate=args.rate or 2_048_000,
+                         noise_db=-60.0)
+    emitters = [Emitter(freq=f) for f in args.emitters or []]
+    src = SynthBandSource(prof, emitters)
+    sc = Scanner(src, args.fmin, args.fmax,
+                 strategy=SweepStrategy.PROGRESSIVE
+                 if args.progressive else SweepStrategy.STOCHASTIC,
+                 device=args.device)
+    psd = sc.sweep(args.hops)
+    freqs = sc.view.frequencies()
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write("freq_hz,psd\n")
+            for fr, p in zip(freqs, psd):
+                f.write(f"{fr:.1f},{p:.6e}\n")
+    db = 10 * np.log10(psd + 1e-30)
+    floor = np.median(db)
+    peaks = freqs[db > floor + 10.0]
+    print(json.dumps({"hops": sc.hops_done,
+                      "coverage": sc.view.coverage(),
+                      "hot_bins": len(peaks)}))
+    return 0
+
+
+def cmd_doppler(args) -> int:
+    from sigdigger_tpu_torch.orbit import OrbitPredictor, parse_tle
+
+    with open(args.tle) as f:
+        tles = parse_tle(f.read())
+    if not tles:
+        print("no TLEs found", file=sys.stderr)
+        return 1
+    tle = tles[0]
+    pred = OrbitPredictor(tle, args.lat, args.lon, args.alt / 1000.0)
+    t0 = args.start if args.start else time.time()
+    for dt in range(0, args.duration, args.step):
+        info = pred.predict(t0 + dt, args.freq)
+        print(f"{dt:6d}s  dopp {info.doppler_hz:+9.1f} Hz  "
+              f"el {info.elevation_deg:+6.2f}°  az {info.azimuth_deg:6.2f}°"
+              f"  range {info.range_km:8.1f} km")
+    return 0
+
+
 @dataclass
 class TVDecode:
     """What one ``tv`` run produced: the frames written, the analyzer
@@ -359,15 +414,38 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("-o", "--output", default="rms.csv")
     pr.set_defaults(fn=cmd_rms)
 
+    pc = sub.add_parser("scan", help="panoramic sweep (synth band demo)")
+    pc.add_argument("--fmin", type=float, required=True)
+    pc.add_argument("--fmax", type=float, required=True)
+    pc.add_argument("--hops", type=int, default=50)
+    pc.add_argument("--rate", type=float)
+    pc.add_argument("--progressive", action="store_true")
+    pc.add_argument("--emitters", type=float, nargs="*")
+    pc.add_argument("-o", "--output")
+    pc.set_defaults(fn=cmd_scan)
+
     for cmd in sub.choices.values():
         cmd.add_argument("--device", default="cuda",
                          help="torch device (cpu runs the plain versions)")
+
+    # numpy only: no device
+    po = sub.add_parser("doppler", help="satellite Doppler prediction")
+    po.add_argument("tle", help="TLE file")
+    po.add_argument("--freq", type=float, required=True)
+    po.add_argument("--lat", type=float, required=True)
+    po.add_argument("--lon", type=float, required=True)
+    po.add_argument("--alt", type=float, default=0.0, help="meters")
+    po.add_argument("--start", type=float, help="unix time (default now)")
+    po.add_argument("--duration", type=int, default=600)
+    po.add_argument("--step", type=int, default=60)
+    po.set_defaults(fn=cmd_doppler, device=None)
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    resolve_device(args.device)   # raises for cuda without a card
+    if args.device is not None:
+        resolve_device(args.device)   # raises for cuda without a card
     return args.fn(args)
 
 

@@ -6,16 +6,22 @@ type 0 = bypass, 1 = constant-modulus algorithm.  An N-tap complex FIR
 adapted per symbol with the soft-clipped, power-normalized CMA error
 e = y·(|y|² − 1); taps frozen when ``locked``.
 
-The same math as the port's CMA bank, so :class:`CMAEqualizer` runs on
-it: each call lays the block out as ``[T, C]`` float32 planes for
-``kernels/equalizer.py::cma_kernel`` (``cma_apply``), which launches
-``csrc/cma.cu`` on the card and runs ``cma_kernel_reference`` on the
-CPU.  The taps carry
-across calls and the delay line restarts at each call, as the
-reference's ``_cma_scan`` does.  ``locked`` is the kernel's lock row (a
-zero gain, which leaves the taps bit for bit as they were) and ``rate``
-its rate row.  The kernel is built for 5 taps: on the card any other
-count raises ``ValueError``, as the bank does.
+The same math as the port's CMA bank, so an adapting
+:class:`CMAEqualizer` runs on it: each call lays the block out as
+``[T, C]`` float32 planes for ``kernels/equalizer.py::cma_kernel``
+(``cma_apply``), which launches ``csrc/cma.cu`` on the card and runs
+``cma_kernel_reference`` on the CPU.  The taps carry across calls and
+the delay line restarts at each call, as the reference's ``_cma_scan``
+does.  ``rate`` is the kernel's rate row.  The kernel is built for 5
+taps: on the card any other count raises ``ValueError``, as the bank
+does.
+
+A locked equalizer launches no kernel: as the reference's locked scan
+skips the update, it computes y = Σ_j taps_j·x[t − j] with the carried
+taps over a fresh delay line (:func:`locked_fir`) and leaves the taps
+untouched.  A zero gain would not do: past |y| ≈ 7e12 (or on an inf or
+NaN sample) the error is not finite, 0·NaN is NaN, and the taps would
+be lost for every later block.
 """
 
 from __future__ import annotations
@@ -25,6 +31,17 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.kernels.equalizer import cma_apply, centre_taps
+
+
+def locked_fir(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The locked equalizer's output: ``x`` complex64 [C, T] through the
+    K-tap FIR ``taps`` [C, K] over a delay line that starts at zero,
+    ``y[t] = sum(taps * buf)`` with ``buf[j] = x[t - j]`` (the
+    reference's order)."""
+    k = taps.shape[1]
+    padded = torch.nn.functional.pad(x, (k - 1, 0))
+    buf = padded.unfold(1, k, 1).flip(-1)            # [C, T, K]
+    return (taps[:, None, :] * buf).sum(-1)
 
 
 class CMAEqualizer:
@@ -40,8 +57,8 @@ class CMAEqualizer:
         self.rate = float(rate)
         self.locked = bool(locked)
         self._rate = torch.full((channels,), self.rate, device=self.device)
-        self._locked = torch.full((channels,), float(self.locked),
-                                  device=self.device)
+        # the kernel's lock row: only an adapting equalizer launches it
+        self._unlocked = torch.zeros(channels, device=self.device)
         self.reset()
 
     def __call__(self, x) -> torch.Tensor:
@@ -49,8 +66,11 @@ class CMAEqualizer:
         squeeze = x.ndim == 1
         if squeeze:
             x = x[None, :]
-        y, self.taps_re, self.taps_im = cma_apply(
-            x, self.taps_re, self.taps_im, self._rate, self._locked)
+        if self.locked:
+            y = locked_fir(x, self.taps)
+        else:
+            y, self.taps_re, self.taps_im = cma_apply(
+                x, self.taps_re, self.taps_im, self._rate, self._unlocked)
         return y[0] if squeeze else y
 
     @property

@@ -47,6 +47,14 @@ def use_pallas(estimator: str = "auto", device=None) -> bool:
     return estimator == "pallas"
 
 
+def refuse_host_estimator(estimator: str, device, host: str = "numpy") -> None:
+    """A CUDA device has one PSD path, the kernel: the host estimator's
+    name (``host``) raises there instead of running a second one."""
+    if estimator == host and torch.device(device).type == "cuda":
+        raise ValueError(f"estimator {host!r} does not run on {device}: "
+                         f"use 'auto' or 'pallas'")
+
+
 def _geometry(n: int, fft_size: int | None) -> tuple[int, int]:
     if fft_size is None:
         fft_size = min(MAX_FFT, next_pow2(max(n, 16)))

@@ -1,7 +1,7 @@
-"""The port's ``info``, ``psd``, ``demod``, ``symbols`` and ``rms``
-subcommands (``python -m sigdigger_tpu_torch ... --device cpu``) against
-the reference's CLI on one capture, on the CPU, with the oracles of
-``tests/test_cli.py`` beside them.
+"""The port's ``info``, ``psd``, ``demod``, ``symbols``, ``rms``,
+``scan`` and ``doppler`` subcommands (``python -m sigdigger_tpu_torch
+... --device cpu``) against the reference's CLI on one capture, on the
+CPU, with the oracles of ``tests/test_cli.py`` beside them.
 
 The capture: 2^16 samples at 1.024 Msps (cf32, its rate and frequency in
 its name) holding QPSK at 4800 baud, an FM tone channel, an OOK channel,
@@ -26,6 +26,12 @@ a 2-FSK channel and noise.  Tolerances:
   known sequence recovered after lock.
 - ``rms``: times equal, levels within 1e-6 of each (float64 power sums
   in another order, printed to 10 digits).
+- ``scan`` (no capture: a synthetic FM band, both on the spectrum
+  estimator): the JSON line equal; the CSV's frequencies equal and each
+  power within 1e-4 of itself plus 1e-6 of the largest (the float32
+  FFT's rounding is relative to a frame's energy, see
+  ``tests/test_torch_sweep.py``).
+- ``doppler``: the printed lines equal (the same float64 numpy).
 """
 
 from __future__ import annotations
@@ -179,3 +185,57 @@ def test_device_is_never_a_fallback(capture, monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(args)
     assert use_pallas("auto", "cuda") and not use_pallas("auto", "cpu")
+
+
+SCAN = ["scan", "--fmin", "88e6", "--fmax", "108e6", "--hops", "40",
+        "--progressive", "--emitters", "89.1e6", "95.8e6", "101.3e6",
+        "104.9e6"]
+
+
+def test_scan(capsys, tmp_path):
+    ref_out, out = _both(SCAN, capsys, ("-o", str(tmp_path / "ref.csv")),
+                         ("-o", str(tmp_path / "s.csv")))
+    got = json.loads(out)
+    assert got == json.loads(ref_out)
+    assert got["hops"] == 40 and got["coverage"] > 0.99
+    want = np.loadtxt(tmp_path / "ref.csv", delimiter=",", skiprows=1)
+    csv = np.loadtxt(tmp_path / "s.csv", delimiter=",", skiprows=1)
+    np.testing.assert_array_equal(csv[:, 0], want[:, 0])
+    # magnitudes within 1e-5 of themselves plus 1e-6 of the largest,
+    # which holds the -60 dB floor too (tests/test_torch_sweep.py)
+    mg, mw = np.sqrt(csv[:, 1]), np.sqrt(want[:, 1])
+    assert (np.abs(mg - mw) <= 1e-5 * mw + 1e-6 * mw.max()).all()
+    # each emitter lights a bin within 8 view bins of it
+    db = 10 * np.log10(csv[:, 1] + 1e-30)
+    hot = csv[db > np.median(db) + 10.0, 0]
+    bin_hz = 20e6 / 65536
+    for f in (89.1e6, 95.8e6, 101.3e6, 104.9e6):
+        assert np.abs(hot - f).min() <= 8 * bin_hz, f
+
+
+def test_scan_needs_a_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(SCAN)
+
+
+def test_doppler(capsys, tmp_path):
+    from sigdigger_tpu_torch.orbit import parse_tle
+
+    from test_orbit import ISS_TLE, fix_checksums
+
+    path = tmp_path / "iss.txt"
+    path.write_text(fix_checksums(ISS_TLE))
+    start = parse_tle(path.read_text())[0].epoch_unix
+    args = ["doppler", str(path), "--freq", "437.5e6", "--lat", "40",
+            "--lon", "-105", "--alt", "1600", "--start", str(start),
+            "--duration", "5400", "--step", "90"]
+    assert ref_cli.main(args) == 0
+    want = capsys.readouterr().out
+    assert cli.main(args) == 0          # numpy only: no --device
+    out = capsys.readouterr().out
+    assert out == want and len(out.splitlines()) == 60
+    empty = tmp_path / "none.txt"
+    empty.write_text("no sets here\n")
+    assert cli.main(["doppler", str(empty), "--freq", "1e8", "--lat", "0",
+                     "--lon", "0"]) == 1

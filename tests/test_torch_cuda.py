@@ -1707,11 +1707,14 @@ def test_cli_tv_runs_through_the_kernel(cuda, tmp_path):
 @pytest.mark.parametrize("c", [1, 3])
 def test_cma_equalizer_on_the_card_is_its_plain_version(cuda, c, locked):
     """``dsp.CMAEqualizer`` on the card (the class path's psk equalizer)
-    over 3 chained blocks of a class-path block's length: each call one
-    ``cma_kernel`` launch, y and taps bit-equal to the plain version on
-    the same input and taps (C 1 runs one 32-lane block with 31 clamped
-    lanes); a locked equalizer's taps stay bit for bit.  Other tap
-    counts raise on the card."""
+    over 3 chained blocks of a class-path block's length: an adapting
+    equalizer launches ``cma_kernel`` once a call, y and taps bit-equal
+    to the plain version on the same input and taps (C 1 runs one
+    32-lane block with 31 clamped lanes).  A locked one launches none:
+    its y is the FIR of its taps (``locked_fir``), within 1e-6 of the
+    plain kernel version's at a zero gain (the same products summed in
+    another order), and its taps stay bit for bit.  Other tap counts
+    raise on the card."""
     from sigdigger_tpu_torch.dsp.equalizer import CMAEqualizer
     from sigdigger_tpu_torch.kernels import equalizer
 
@@ -1725,14 +1728,18 @@ def test_cma_equalizer_on_the_card_is_its_plain_version(cuda, c, locked):
         taps = (eq.taps_re.clone(), eq.taps_im.clone())
         n0 = equalizer.cma_kernel.launches
         y = eq(xt)
-        assert equalizer.cma_kernel.launches == n0 + 1
+        assert equalizer.cma_kernel.launches == n0 + (0 if locked else 1)
         want = equalizer.cma_kernel_reference(
             xt.real.T.contiguous(), xt.imag.T.contiguous(), *taps,
             torch.full((c,), 3e-3, device=cuda),
             torch.full((c,), float(locked), device=cuda))
         torch.cuda.synchronize()
-        assert torch.equal(y.real.T.contiguous(), want[0])
-        assert torch.equal(y.imag.T.contiguous(), want[1])
+        if locked:
+            got = torch.stack([y.real.T, y.imag.T])
+            assert (got - torch.stack(want[:2])).abs().max() <= 1e-6
+        else:
+            assert torch.equal(y.real.T.contiguous(), want[0])
+            assert torch.equal(y.imag.T.contiguous(), want[1])
         assert torch.equal(eq.taps_re, want[2])
         assert torch.equal(eq.taps_im, want[3])
     if locked:
@@ -1810,3 +1817,124 @@ def test_cli_psd_runs_the_psd_kernel(cuda, tmp_path, capsys):
     tol_db = 10 * np.log10(1 + 1e-4)
     assert np.abs(printed[:, 1] - 10 * np.log10(plain + 1e-30)).max() <= (
         0.005 + tol_db + 1e-6)
+
+
+@pytest.mark.parametrize("bad", [np.inf, np.nan, 1e30],
+                         ids=["inf", "nan", "1e30"])
+def test_cma_equalizer_locked_keeps_its_taps_on_the_card(cuda, bad):
+    """A locked equalizer on the card through an inf, NaN or huge
+    sample: no ``cma_kernel`` launch, the taps bit for bit as they were,
+    non-finite outputs exactly where the CPU's are and the rest within
+    1e-5 of its scale, and the next clean block finite and within 1e-5
+    of the CPU's (the same FIR; the card may contract into FMAs)."""
+    from sigdigger_tpu_torch.dsp.equalizer import CMAEqualizer
+    from sigdigger_tpu_torch.kernels import equalizer
+
+    rng = np.random.default_rng(5)
+    taps = (np.eye(5)[2] + 0.05 * (rng.standard_normal((2, 5))
+                                   + 1j * rng.standard_normal((2, 5)))
+            ).astype(np.complex64)
+    eqs = [CMAEqualizer(2, rate=3e-3, locked=True, device=d)
+           for d in (cuda, "cpu")]
+    for eq in eqs:
+        eq.load_state({"taps": taps})
+    s = np.exp(1j * (rng.integers(0, 4, (2, 600)) * 2 + 1) * np.pi / 4)
+    x = (s + 0.3 * np.roll(s, 1, axis=1)).astype(np.complex64)
+    x[0, 100] = bad
+    x[1, 300] = bad
+    n0 = equalizer.cma_kernel.launches
+    for block in (x, s.astype(np.complex64)):
+        got = eqs[0](torch.from_numpy(block).to(cuda)).cpu().numpy()
+        want = eqs[1](block).numpy()
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), fin)
+        assert np.abs(got[fin] - want[fin]).max() <= \
+            1e-5 * np.abs(want[fin]).max()
+        np.testing.assert_array_equal(eqs[0].state_dict()["taps"], taps)
+    assert fin.all()
+    assert equalizer.cma_kernel.launches == n0
+
+
+@pytest.mark.parametrize("resolution", [1000.0, 305.0])
+def test_psd_kernel_at_the_scanners_wide_shapes(cuda, resolution):
+    """A hop of the wideband sweep (20 Msps): N 32768 at 1 kHz/bin and
+    65536 (the cap) at 305 Hz/bin, 4 frames a hop, the scanner's own PSD
+    on its own capture: the kernel against its plain version, each
+    magnitude within 1e-5 of itself plus 1e-6 of the largest (B 256, as
+    ``test_psd_kernel_any_factoring_matches_plain_version``)."""
+    from sigdigger_tpu_torch.analyzer.sweep import Scanner
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources.synth import Emitter, SynthBandSource
+
+    src = SynthBandSource(SourceProfile(type="synth", sample_rate=20_000_000,
+                                        noise_db=-60.0),
+                          [Emitter(freq=433.2e6), Emitter(freq=441.7e6)])
+    sc = Scanner(src, 430e6, 450e6, resolution_hz=resolution, device=cuda)
+    assert sc.fft_size == (32768 if resolution == 1000.0 else 65536)
+    assert sc._est.cfg.b == 256
+    xp = torch.from_numpy(sc._est.prepare(sc.capture(435e6))).to(cuda)
+    got = fft.psd_kernel(xp, sc._est.consts, sc._est.params)
+    want = fft.psd_kernel_reference(xp, sc._est.consts, sc._est.params)
+    mg, mw = got.double().sqrt(), want.double().sqrt()
+    assert bool(((mg - mw).abs() <= 1e-5 * mw + 1e-6 * mw.max()).all())
+
+
+def test_host_estimators_are_refused_on_the_card(cuda):
+    """On the card the PSD users have one spectrum path, the kernel: the
+    scanner's ``"xla"`` and the detector's and the calculator's
+    ``"numpy"`` raise."""
+    from sigdigger_tpu_torch.analyzer.sweep import Scanner
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources.synth import SynthBandSource
+    from sigdigger_tpu_torch.tasks import CarrierDetector, DopplerCalculator
+
+    x = np.ones(4096, np.complex64)
+    src = SynthBandSource(SourceProfile(type="synth", sample_rate=2_048_000))
+    with pytest.raises(ValueError, match="'xla'"):
+        Scanner(src, 88e6, 108e6, estimator="xla", device=cuda)
+    with pytest.raises(ValueError, match="'numpy'"):
+        CarrierDetector(x, 1e5, estimator="numpy", device=cuda)
+    with pytest.raises(ValueError, match="'numpy'"):
+        DopplerCalculator(x, 1e5, 437e6, estimator="numpy", device=cuda)
+
+
+def test_scanner_auto_runs_the_psd_kernel(cuda):
+    """``Scanner`` with ``estimator="auto"`` on the card holds the PSD
+    kernel (never the spectrum estimator): one ``psd_kernel`` launch a
+    hop, each magnitude of the stitched view within 1e-5 of itself plus
+    1e-6 of the largest of the same sweep on the CPU's plain version (the
+    same samples: the synthetic source is seeded), which holds the -60 dB
+    noise floor to some 3% of its magnitude (tests/test_torch_sweep.py),
+    and the emitters found."""
+    from sigdigger_tpu_torch.analyzer.sweep import Scanner
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources.synth import Emitter, SynthBandSource
+    from sigdigger_tpu_torch.types import SweepStrategy
+
+    def scanner(device, estimator):
+        src = SynthBandSource(SourceProfile(type="synth",
+                                            sample_rate=2_048_000,
+                                            noise_db=-60.0),
+                              [Emitter(freq=f) for f in (89.1e6, 95.8e6,
+                                                         101.3e6)])
+        return Scanner(src, 88e6, 108e6, strategy=SweepStrategy.PROGRESSIVE,
+                       estimator=estimator, device=device)
+
+    ours = scanner(cuda, "auto")
+    assert ours.estimator == "pallas" and isinstance(ours._est, fft.PSD)
+    n0 = fft.psd_kernel.launches
+    psd = ours.sweep(40)
+    assert fft.psd_kernel.launches == n0 + 40
+    plain = scanner("cpu", "pallas")
+    plain.sweep(40)
+    np.testing.assert_array_equal(ours.view.count, plain.view.count)
+    hit = plain.view.count > 0
+    mg = np.sqrt(ours.view.psd[hit].astype(np.float64))
+    mw = np.sqrt(plain.view.psd[hit].astype(np.float64))
+    assert (np.abs(mg - mw) <= 1e-5 * mw + 1e-6 * mw.max()).all()
+    assert ours.view.coverage() > 0.99
+    freqs = ours.view.frequencies()
+    floor = np.median(psd)
+    for f in (89.1e6, 95.8e6, 101.3e6):
+        i = np.argmin(np.abs(freqs - f))
+        assert psd[max(0, i - 8):i + 8].max() > 50 * floor, f

@@ -28,13 +28,26 @@ MODULES = [
     "sigdigger_tpu_torch.sources.stdin_src",
     "sigdigger_tpu_torch.io",
     "sigdigger_tpu_torch.io.wav",
+    "sigdigger_tpu_torch.io.mat",
     "sigdigger_tpu_torch.utils",
     "sigdigger_tpu_torch.utils.logger",
     "sigdigger_tpu_torch.utils.waterfall",
     "sigdigger_tpu_torch.utils.palette",
     "sigdigger_tpu_torch.utils.symview",
+    "sigdigger_tpu_torch.utils.views",
+    "sigdigger_tpu_torch.orbit",
+    "sigdigger_tpu_torch.orbit.tle",
+    "sigdigger_tpu_torch.orbit.sgp4",
+    "sigdigger_tpu_torch.library",
     "sigdigger_tpu_torch.tasks",
     "sigdigger_tpu_torch.tasks.psdutil",
+    "sigdigger_tpu_torch.tasks.base",
+    "sigdigger_tpu_torch.tasks.transforms",
+    "sigdigger_tpu_torch.tasks.sampler",
+    "sigdigger_tpu_torch.tasks.carrier",
+    "sigdigger_tpu_torch.tasks.doppler",
+    "sigdigger_tpu_torch.tasks.export",
+    "sigdigger_tpu_torch.tasks.tle",
     "sigdigger_tpu_torch.dsp",
     "sigdigger_tpu_torch.dsp.window",
     "sigdigger_tpu_torch.dsp.filters",
@@ -82,6 +95,9 @@ MODULES = [
     "sigdigger_tpu_torch.analyzer.engine",
     "sigdigger_tpu_torch.analyzer.kernel_engine",
     "sigdigger_tpu_torch.analyzer.checkpoint",
+    "sigdigger_tpu_torch.analyzer.tracker",
+    "sigdigger_tpu_torch.analyzer.mediator",
+    "sigdigger_tpu_torch.analyzer.sweep",
     "sigdigger_tpu_torch.cli",
     "sigdigger_tpu_torch.__main__",
 ]

@@ -296,3 +296,44 @@ def test_cma_equalizer_locked_and_state():
         ours.load_state({"taps": np.zeros((2, 4), np.complex64)})
     ours.reset()
     assert ours.state_dict()["taps"][:, 2].tolist() == [1, 1]
+
+
+@pytest.mark.parametrize("bad", [np.inf, np.nan, 1e30],
+                         ids=["inf", "nan", "1e30"])
+def test_cma_equalizer_locked_survives_a_bad_sample(bad, monkeypatch):
+    """A locked equalizer keeps its taps through an inf, NaN or huge
+    sample, as the reference's locked scan (which skips the update)
+    does: the taps stay equal to the reference's, the block's outputs
+    are non-finite exactly where the reference's are and within 1e-5
+    elsewhere, the next clean block is within 1e-5, and no
+    ``cma_kernel`` runs."""
+    from sigdigger_tpu_torch.kernels import equalizer
+
+    adapted = ref_eq.CMAEqualizer(2, rate=3e-3)
+    adapted(_isi_qpsk(2, 300, seed=82))
+    ref = ref_eq.CMAEqualizer(2, rate=3e-3, locked=True)
+    ref.taps = adapted.taps
+    ours = CMAEqualizer(2, rate=3e-3, locked=True, device="cpu")
+    ours.load_state({"taps": np.asarray(adapted.taps)})
+    x = _isi_qpsk(2, 64, seed=83)
+    x[0, 10] = bad
+    x[1, 40] = bad * 1j if np.isfinite(bad) else bad
+    calls = []
+    orig = equalizer.cma_kernel_reference
+    monkeypatch.setattr(equalizer, "cma_kernel_reference",
+                        lambda *a: calls.append(a) or orig(*a))
+    got = ours(x).numpy()
+    want = np.asarray(ref(x))
+    np.testing.assert_array_equal(ours.state_dict()["taps"],
+                                  np.asarray(ref.taps))
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    scale = float(np.abs(want[fin]).max())
+    assert np.abs(got[fin] - want[fin]).max() <= TOL * scale
+    clean = _isi_qpsk(2, 64, seed=84)
+    got2, want2 = ours(clean).numpy(), np.asarray(ref(clean))
+    assert np.isfinite(got2).all()
+    assert np.abs(got2 - want2).max() <= TOL * np.abs(want2).max()
+    np.testing.assert_array_equal(ours.state_dict()["taps"],
+                                  np.asarray(adapted.taps))
+    assert not calls
