@@ -198,6 +198,34 @@ printing the seconds it took:
    carriers while the carriers move over 500 Hz, ORBIT_REPORTs,
    ``audio_kernel`` once a block, the session's Msps beside phase 3f's
    and the corrections' host time a block.
+3k. the live session and ``pipeline.py`` (the user-facing layer): (a)
+   ``app.LiveSession`` around phase 3f's engine (the same options) on a
+   capture of 14 session blocks written to a temporary directory and
+   replayed with throttle off, with every consumer on: the suscan-wire
+   server (user and password), the REPL, the web view, the raw-IQ
+   recorder, the waterfall PNG and an FM audio inspector to a WAV (null
+   playback).  The 1024-inspector mix opens while a gate holds the
+   analyzer's first step: the four FM-tone slots through the port's
+   ``SuscanWireClient`` (their OPEN acks carry the request ids), one
+   through the web view's POST, the session's own audio inspector in
+   slot 831's place, the rest in-process under ``bulk_config``; the REPL
+   retunes.  Every kernel once a block (as 3f), no drain error, every
+   inspector's SAMPLES at the session's pump every block, the wire's
+   PSDs on the carrier and its inspectors' audio on their tones (the
+   wire's tap drops its oldest: the drops are counted), the retune at
+   the engine, ``/psd.json`` = the last PSD row and ``/waterfall.png`` a
+   PNG, the recording the capture byte for byte, the WAV's tone; the
+   session's Msps beside phase 3f's, each consumer's host milliseconds
+   a block (wire encode, framing and sends; the pump; the recorder; the
+   web feed) and the web GETs.  (b) ``cli.main(["live", ...])`` in a
+   thread at its defaults on the card (1.024 Msps FM capture replayed at
+   its rate, wire, REPL, web, audio WAV, recording) and
+   ``cli.main(["remote", ...])`` against it: both exit 0, remote's PSDs
+   in the FM swing, both WAVs on the tone, the recording the capture's
+   prefix.  (c) ``pipeline.py`` at ``benchmarks.py:61-79``'s geometry
+   (8.192 Msps, FFT 2048, 256 channels, n_sub 64, block 2^17): fm, am
+   and raw against the same function on the CPU, each one's Msps; psk
+   (per-sample loops) on one block of 2^13 samples, its time.
 4. the TPU kernel list (all 13 ported, each with its bound at the inputs
    phase 2 timed) and the ``kernels`` line (``cma_kernel``'s launches
    from phase 3i, the system path).
@@ -2583,32 +2611,29 @@ def session_iq(n: int, seed: int, doppler=None) -> np.ndarray:
     return x.astype(np.complex64)
 
 
-def open_bench_mix(an, Channel) -> list:
-    """bench.py:260-284's inspector mix, with request ids 1..1024;
-    returns the handles in opening order."""
-    hs, rid = [], 0
-
-    def opn(kind, fc, bw, cfg):
-        nonlocal rid
-        rid += 1
-        hs.append(an.open_inspector(kind, Channel(fc=fc, bw=bw),
-                                    request_id=rid, config=cfg))
-
-    for i in range(832):
-        opn("audio", -48e6 + i * 115e3, 200e3,
+def bench_mix(an) -> list:
+    """bench.py:260-284's inspector mix as (class, fc, bw, config), in
+    opening order: 832 FM audio, 48 psk, 8 fsk, 8 ask, 128 power."""
+    mix = [("audio", -48e6 + i * 115e3, 200e3,
             {"audio.demodulator": 2, "audio.volume": 1.0,
-             "audio.sample-rate": an.audio_rate})
+             "audio.sample-rate": an.audio_rate}) for i in range(832)]
     for kind, f0, n, key in (("psk", 1e6, 48, "afc.bits-per-symbol"),
                              ("fsk", 26e6, 8, "fsk.bits-per-symbol"),
                              ("ask", 31e6, 8, "ask.bits-per-symbol")):
-        for i in range(n):
-            opn(kind, f0 + i * 500e3, 400e3,
-                {key: 2 if kind == "psk" else 1,
-                 "clock.baud": an.channel_rate / 8.0})
-    for i in range(128):
-        opn("power", 34e6 + i * 100e3, 100e3,
-            {"power.integrate-samples": BLOCK_OUT})
-    return hs
+        mix += [(kind, f0 + i * 500e3, 400e3,
+                 {key: 2 if kind == "psk" else 1,
+                  "clock.baud": an.channel_rate / 8.0}) for i in range(n)]
+    mix += [("power", 34e6 + i * 100e3, 100e3,
+             {"power.integrate-samples": BLOCK_OUT}) for i in range(128)]
+    return mix
+
+
+def open_bench_mix(an, Channel) -> list:
+    """The bench mix with request ids 1..1024; returns the handles in
+    opening order."""
+    return [an.open_inspector(kind, Channel(fc=fc, bw=bw),
+                              request_id=i + 1, config=cfg)
+            for i, (kind, fc, bw, cfg) in enumerate(bench_mix(an))]
 
 
 def session_layers(an, blocks, torch) -> dict:
@@ -2699,6 +2724,12 @@ def drain_errors() -> list:
             if r.severity >= Severity.ERROR]
 
 
+# bench.py:255-259's KernelAnalyzer options
+BENCH_OPTS = dict(n_slots=1024, decimation=64, audio_decim=AUDIO_DECIM,
+                  compact_cols=1024, pipeline_depth=3, symbol_group=4,
+                  drain_thread=True)
+
+
 def bench_session(blocks, freq: float = 0.0, **kw):
     """``bench.py:255-259``'s ``KernelAnalyzer`` over ``blocks`` (a source
     tuned to ``freq``) with the 1024-inspector mix opened in
@@ -2709,10 +2740,7 @@ def bench_session(blocks, freq: float = 0.0, **kw):
 
     params = AnalyzerParams()
     params.window_size = 4096
-    opts = dict(n_slots=1024, decimation=64, audio_decim=AUDIO_DECIM,
-                compact_cols=1024, pipeline_depth=3, symbol_group=4,
-                drain_thread=True)
-    opts.update(kw)
+    opts = dict(BENCH_OPTS, **kw)
     an = KernelAnalyzer(source=ring_source(blocks, freq), params=params,
                         block_size=BLOCK_OUT * 64, **opts)
     check(an.device.type == "cuda" and an._in_i16 and an._drain_bf16
@@ -4480,6 +4508,756 @@ KERNEL_METRICS = [
 ]
 
 
+# phase 3k(a): the live session around phase 3f's engine.  Slot 831 of
+# the mix is the session's own audio inspector, tuned to slot 40's FM-tone
+# carrier so its WAV holds a tone; slot 1 opens through the web view and
+# the four FM-tone slots through the wire client, each at its place in
+# the mix's opening order, between runs of in-process opens
+LIVE_OWN_SLOT = 831
+LIVE_OWN_CARRIER = 40
+LIVE_WEB_SLOT = 1
+LIVE_USER, LIVE_PASSWORD = "op", "live-pw"
+LIVE_FREQ = 145.8e6          # the REPL's retune
+LIVE_AUDIO_RATE = FS / 64 / AUDIO_DECIM
+LIVE_OWN_FC, LIVE_OWN_BW = -48e6 + LIVE_OWN_CARRIER * 115e3, 200e3
+
+
+class HostClock:
+    """Host seconds spent in wrapped callables, summed per name over
+    every call from any thread (no synchronise: the live consumers are
+    host work beside the session's pipeline, which a synchronise would
+    stall)."""
+
+    def __init__(self) -> None:
+        self.s: dict = {}
+        self.calls: dict = {}
+
+    def wrap(self, name: str, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s[name] = self.s.get(name, 0.0) \
+                    + time.perf_counter() - t0
+                self.calls[name] = self.calls.get(name, 0) + 1
+        return timed
+
+    def per_block_ms(self, blocks: int) -> dict:
+        return {k: round(v / blocks * 1e3, 4) for k, v in self.s.items()}
+
+
+def tone_peak_hz(a: np.ndarray, rate: float, pad: int = 1) -> tuple:
+    """The strongest frequency of ``a`` past DC (Hann window, the FFT
+    zero-padded ``pad`` times) and the window's own bin, rate/len(a)."""
+    a = np.asarray(a, np.float64).ravel()
+    spec = np.abs(np.fft.rfft((a - a.mean()) * np.hanning(len(a)),
+                              n=pad * len(a)))
+    step = rate / (pad * len(a))
+    return (int(np.argmax(spec[2 * pad:])) + 2 * pad) * step, rate / len(a)
+
+
+def http_get(base: str, path: str) -> tuple:
+    """(body, milliseconds) of one GET."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(base + path, timeout=30) as r:
+        body = r.read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def http_post(base: str, path: str, obj: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method="POST",
+                                 data=json.dumps(obj).encode())
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+
+
+# the remote client of phase 3k(a), in a process of its own as a remote
+# SigDigger is: the port's SuscanWireClient, driven by JSON lines on
+# stdin ("open": one inspector, answered with the handle its OPEN ack
+# carries; "collect": every message until 2 s pass without one, answered
+# with the count, each PSD's peak bin and the SAMPLES of its inspectors)
+_WIRE_CHILD = r"""
+import base64, json, sys, time
+sys.path.insert(0, {root!r})
+from sigdigger_tpu_torch.io.suscan_wire import SuscanWireClient
+from sigdigger_tpu_torch.types import Channel
+
+cl = SuscanWireClient("127.0.0.1", int(sys.argv[1]), user=sys.argv[2],
+                      password=sys.argv[3])
+mine, got = set(), dict(n=0, psd_peaks=[], samples={{}})
+
+
+def take(m):
+    got["n"] += 1
+    if m.kind.name == "PSD":
+        got["psd_peaks"].append(int(m.data.argmax()))
+    elif m.kind.name == "SAMPLES" and m.handle in mine:
+        a = m.samples
+        got["samples"].setdefault(str(m.handle), []).append(
+            [str(a.dtype), base64.b64encode(a.tobytes()).decode()])
+
+
+print(json.dumps({{"ready": True}}), flush=True)
+for line in sys.stdin:
+    cmd = json.loads(line)
+    if cmd["op"] == "open":
+        cl.open_inspector(cmd["kind"], Channel(fc=cmd["fc"], bw=cmd["bw"]),
+                          request_id=cmd["rid"], config=cmd["cfg"])
+        h, deadline = None, time.time() + 60.0
+        while h is None and time.time() < deadline:
+            m = cl.read(timeout=0.5)
+            if m is None:
+                continue
+            take(m)
+            if (m.kind.name == "INSPECTOR" and m.inspector_kind.name == "OPEN"
+                    and m.request_id == cmd["rid"]):
+                h = m.handle
+                mine.add(h)
+        print(json.dumps({{"handle": h}}), flush=True)
+    else:
+        deadline = time.time() + 120.0
+        while time.time() < deadline:
+            m = cl.read(timeout=2.0)
+            if m is None:
+                break
+            take(m)
+        cl.close()
+        print(json.dumps(got), flush=True)
+        break
+"""
+
+
+class WireChild:
+    """The remote client process of phase 3k(a)."""
+
+    def __init__(self, port: int) -> None:
+        import os
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.p = subprocess.Popen(
+            [sys.executable, "-c", _WIRE_CHILD.format(root=root), str(port),
+             LIVE_USER, LIVE_PASSWORD], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True, cwd=root)
+        check(self.ask(None) == {"ready": True})
+
+    def ask(self, cmd) -> dict:
+        if cmd is not None:
+            self.p.stdin.write(json.dumps(cmd) + "\n")
+            self.p.stdin.flush()
+        line = self.p.stdout.readline()
+        check(line, "the wire client process ended")
+        return json.loads(line)
+
+    def close(self) -> None:
+        if self.p.poll() is None:
+            self.p.kill()
+        self.p.wait(timeout=30)
+
+
+def live_session_run(torch, device: str, cap: str, tmp: str,
+                     instrument: bool) -> dict:
+    """One run of phase 3k(a)'s session over the capture ``cap``: built
+    with every consumer, the bench mix opened in its order (the session's
+    own audio slot at start, the web slot by POST, the four FM-tone slots
+    by the wire client, the rest in-process under ``bulk_config``) while
+    a gate holds the analyzer's first step, the REPL's retune, then the
+    capture to its end.  A hook on the pump counts each inspector's
+    SAMPLES and keeps the PSDs and the wire slots' SAMPLES (no copies).
+    With ``instrument`` the consumers are wrapped in a HostClock.
+    Returns what the checks and the prints read."""
+    import socket
+    import threading
+
+    from sigdigger_tpu_torch.app import LiveSession, build_profile
+    from sigdigger_tpu_torch.io import suscan_wire
+    from sigdigger_tpu_torch.io.wav import read_wav
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    gate, steps = threading.Event(), []
+    counts: dict = {}
+    psds: list = []
+    kept: dict = {}
+    clock = HostClock()
+
+    class GatedSession(LiveSession):
+        """Holds the analyzer's steps (outside the engine lock) until
+        the mix is open, stamps each step's start, and counts at the
+        pump."""
+
+        def _make_analyzer(self):
+            an = super()._make_analyzer()
+            step = an.step
+
+            def gated():
+                gate.wait()
+                steps.append(time.perf_counter())
+                return step()
+
+            an.step = gated
+            return an
+
+        def _handle(self, msg):
+            if msg.kind.name == "SAMPLES":
+                counts[msg.handle] = counts.get(msg.handle, 0) + 1
+                if msg.handle in kept:
+                    kept[msg.handle].append(msg.samples)
+            elif msg.kind.name == "PSD":
+                psds.append(msg)
+            return super()._handle(msg)
+
+    params = AnalyzerParams()
+    params.window_size = 4096
+    sess = GatedSession(
+        build_profile(cap, throttle=False), params=params,
+        engine="kernel", block_size=BLOCK_OUT * 64,
+        engine_kw=dict(BENCH_OPTS), wire_port=0, user=LIVE_USER,
+        password=LIVE_PASSWORD, control_port=0, http_port=0,
+        record_path=f"{tmp}/rec.cf32", waterfall_png=f"{tmp}/wf.png",
+        waterfall_interval=0.0,
+        audio={"fc": LIVE_OWN_FC, "demod": 2, "rate": LIVE_AUDIO_RATE,
+               "bw": LIVE_OWN_BW, "wav": f"{tmp}/own.wav",
+               "backend": "null"},
+        device=device)
+    sess.start()
+    an = sess.analyzer
+    check(an.device.type == device and an._in_i16 == an._drain_bf16
+          == (device == "cuda") and an._psd_bucket is an._buckets[64])
+    wire = sess.wire_server
+    wire_tap = sess._taps[0]
+    saved = (suscan_wire.encode_message, suscan_wire.write_pdu)
+    if instrument:
+        # the recorder tee (on the analyzer's thread, under the engine
+        # lock); the pump's handling of each message and its parts (the
+        # waterfall's row and PNG, the audio sinks, the web view's feed);
+        # the wire tap's puts beside it; the wire's encode, framing and
+        # sends
+        an._bb_filters[0] = clock.wrap("recorder", an._bb_filters[0])
+        sess._handle = clock.wrap("pump", sess._handle)
+        wf = sess.waterfall
+        wf.feed = clock.wrap("pump_waterfall", wf.feed)
+        wf.save_png = clock.wrap("pump_png", wf.save_png)
+        sess.wav_saver.play = clock.wrap("pump_audio", sess.wav_saver.play)
+        sess.playback.write = clock.wrap("pump_audio", sess.playback.write)
+        sess.web_server.feed = clock.wrap("web_feed", sess.web_server.feed)
+        wire_tap.put = clock.wrap("pump_tap", wire_tap.put)
+        wire._send = clock.wrap("wire_send", wire._send)
+        suscan_wire.encode_message = clock.wrap("wire_encode", saved[0])
+        suscan_wire.write_pdu = clock.wrap("wire_frame", saved[1])
+    child = None
+    try:
+        child = WireChild(wire.address[1])
+        mix = bench_mix(an)
+        wire_slots = sorted(FM_SLOTS)
+        base = f"http://127.0.0.1:{sess.web_server.address[1]}"
+        hs = {LIVE_OWN_SLOT: sess.audio_handle}
+        run: list = []
+
+        def bulk():
+            with an.bulk_config():
+                for i in run:
+                    kind, fc, bw, cfg = mix[i]
+                    hs[i] = an.open_inspector(kind, Channel(fc=fc, bw=bw),
+                                              request_id=i + 1, config=cfg)
+            run.clear()
+
+        t0 = time.perf_counter()
+        for i, (kind, fc, bw, cfg) in enumerate(mix):
+            if i == LIVE_WEB_SLOT:
+                bulk()
+                hs[i] = http_post(
+                    base, "/control/inspector/open",
+                    {"class": kind, "fc": fc, "bw": bw,
+                     "config": cfg})["handle"]
+            elif i in FM_SLOTS:
+                bulk()
+                hs[i] = child.ask({"op": "open", "kind": kind, "fc": fc,
+                                   "bw": bw, "cfg": cfg, "rid": i + 1})[
+                                       "handle"]
+                check(hs[i] is not None, ("no OPEN ack over the wire", i))
+                kept[hs[i]] = []
+            elif i != LIVE_OWN_SLOT:
+                run.append(i)
+        bulk()
+        open_s = time.perf_counter() - t0
+        check(len(hs) == len(mix) == len(an._inspectors) == N_CHANNELS,
+              (len(hs), len(an._inspectors)))
+        check(len(an._buckets[64].cmap) == N_CHANNELS)
+        # the REPL retunes the source
+        with socket.create_connection(
+                ("127.0.0.1", sess.control_server.address[1]),
+                timeout=30) as s:
+            f = s.makefile("rw", newline="\n")
+            f.write(f"set frequency {LIVE_FREQ}\n")
+            f.flush()
+            check(f.readline().strip() == "OK")
+        check(an.profile.freq == LIVE_FREQ, an.profile.freq)
+
+        kernels = session_kernels()
+        for k in kernels.values():
+            k.launches = 0
+        drain_errors()
+        gate.set()
+        sess.run(duration=600.0)
+        check(sess.eos.is_set())
+        an._thread.join(timeout=120.0)
+        check(not an._thread.is_alive())
+        t_end = time.perf_counter()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        blocks = an._blocks
+        # the web view, while the session still stands
+        body, psd_ms = http_get(base, "/psd.json")
+        png, png_ms = http_get(base, "/waterfall.png")
+        _, page_ms = http_get(base, "/")
+        state, state_ms = http_get(base, "/control/state")
+        check(len(json.loads(state)["inspectors"]) == N_CHANNELS)
+        remote = child.ask({"op": "collect"})
+    finally:
+        suscan_wire.encode_message, suscan_wire.write_pdu = saved
+        if child is not None:
+            child.close()
+        sess.halt()
+    own_wav, own_rate = read_wav(f"{tmp}/own.wav")
+    return dict(
+        hs=hs, wire_slots=wire_slots, open_s=open_s, launches=launches,
+        blocks=blocks, steps=steps, t_end=t_end, counts=counts, psds=psds,
+        kept=kept, web=json.loads(body), png=png, remote=remote,
+        dropped=wire_tap.dropped, own_wav=own_wav, own_rate=own_rate,
+        rec=np.fromfile(f"{tmp}/rec.cf32", np.complex64),
+        wf_png=open(f"{tmp}/wf.png", "rb").read(8), clock=clock,
+        web_ms=dict(psd=psd_ms, png=png_ms, page=page_ms, state=state_ms))
+
+
+def live_session_checks(r: dict, x: np.ndarray, device: str) -> dict:
+    """Phase 3k(a)'s checks on one run; returns the wire's summary."""
+    import base64
+
+    block = BLOCK_OUT * 64
+    blocks, hs = r["blocks"], r["hs"]
+    errors = drain_errors()
+    check(not errors, errors[:3])
+    check(blocks == len(x) // block + 1, blocks)
+    # every kernel of phase 3f once a block
+    per_block = {"audio": 1, "raw": 1, "recovery": 1, "psd_xw_ema": 1,
+                 "squeeze": 1, "pack": 1, "compact": 1, "psd": 0}
+    if device == "cuda":
+        check(all(r["launches"][k] == n * blocks
+                  for k, n in per_block.items()), r["launches"])
+    # the pump saw every inspector's SAMPLES every block
+    check(set(r["counts"]) == set(hs.values())
+          and set(r["counts"].values()) == {blocks},
+          sorted(set(r["counts"].values())))
+    psds = r["psds"]
+    check(psds and all(m.frequency == LIVE_FREQ for m in psds))
+    # the wire: every PSD on the carrier; each wire inspector's SAMPLES
+    # equal, bit for bit, to the pump's of some block, and each of those
+    # past the first two blocks and short of the EOS read's on its tone
+    f_car = 34e6 + CARRIER_POWER_SLOT * 100e3
+    freqs = np.linspace(-FS / 2, FS / 2, 4096, endpoint=False)
+    remote = r["remote"]
+    check(remote["psd_peaks"], ("no PSD over the wire", remote["n"],
+                                r["dropped"]))
+    for k in remote["psd_peaks"]:
+        check(abs(freqs[k] - f_car) <= 2 * FS / 4096, (freqs[k], f_car))
+    arrived = {}
+    for i in r["wire_slots"]:
+        pumped = r["kept"][hs[i]]
+        got = [np.frombuffer(base64.b64decode(b), dtype=np.dtype(dt))
+               for dt, b in remote["samples"].get(str(hs[i]), [])]
+        at = []
+        for a in got:
+            j = [j for j, p in enumerate(pumped)
+                 if p.shape == a.shape and np.array_equal(p, a)]
+            check(j, (i, "a wire message the pump did not hand over"))
+            at.append(j[0])
+        arrived[i] = (got, at)
+    seen = {i: sorted(at) for i, (_, at) in arrived.items()}
+    why = (f"wire: {remote['n']} messages received, {r['dropped']} dropped "
+           f"by its tap; the wire slots' blocks {seen}")
+    tones = {}
+    for i, (got, at) in arrived.items():
+        mid = [a for a, j in zip(got, at) if 2 <= j < blocks - 1]
+        check(mid, (i, "no SAMPLES past the warm-up over the wire", why))
+        pk = [tone_peak_hz(a, LIVE_AUDIO_RATE, pad=16)[0] for a in mid]
+        res = LIVE_AUDIO_RATE / len(mid[0])
+        check(all(abs(p - FM_SLOTS[i]) <= 2 * res for p in pk),
+              (i, FM_SLOTS[i], pk))
+        tones[FM_SLOTS[i]] = (len(got), round(float(np.median(pk)), 1))
+    # /psd.json is the last PSD row; /waterfall.png is a PNG
+    web = r["web"]
+    last_db = 10.0 * np.log10(np.asarray(psds[-1].data, np.float64) + 1e-30)
+    check(web["rows"] == len(psds) and np.allclose(
+        web["psd_db"], np.round(last_db, 2), atol=0.0051),
+        (web["rows"], len(psds)))
+    check(r["png"].startswith(b"\x89PNG")
+          and r["wf_png"].startswith(b"\x89PNG"))
+    # the recording: 8 bytes a sample read, the capture, then zeros
+    rec = r["rec"]
+    check(len(rec) == blocks * block, (len(rec), blocks * block))
+    check(rec[:len(x)].tobytes() == x.tobytes() and not rec[len(x):].any())
+    # the session's own WAV holds slot 40's tone (past its first 2 blocks,
+    # short of the EOS read's)
+    per_blk = BLOCK_OUT // AUDIO_DECIM
+    own_wav, own_rate = r["own_wav"], r["own_rate"]
+    check(len(own_wav) == blocks * per_blk, (len(own_wav), blocks))
+    pk, res = tone_peak_hz(own_wav[2 * per_blk:-per_blk, 0], own_rate)
+    check(own_rate == int(LIVE_AUDIO_RATE)
+          and abs(pk - FM_SLOTS[LIVE_OWN_CARRIER]) <= 2 * res, (pk, res))
+    return dict(tones=tones, wav_hz=round(pk, 1),
+                sent=remote["n"], psds=len(remote["psd_peaks"]))
+
+
+def phase3k_live_session(torch, card: str, device: str = "cuda") -> dict:
+    """(a) ``app.LiveSession`` with phase 3f's engine options on a capture
+    of SESSION_WARM + SESSION_BLOCKS session blocks (throttle off), every
+    consumer on: the wire server (user and password) with a remote client
+    in its own process, the REPL, the web view, the raw-IQ recorder, the
+    waterfall PNG and an FM audio inspector to a WAV with the null
+    backend (``live_session_run``).  Two runs: the first as a user runs
+    it, with only a counting hook on the pump, gives the session's Msps;
+    the second wraps each consumer in a HostClock for its host
+    milliseconds a block.  Each run is held to ``live_session_checks``:
+    every kernel once a block (as phase 3f), no drain error, every
+    inspector's SAMPLES at the pump every block, the wire's PSD on the
+    carrier, the wire inspectors' audio on their tones, the retune at
+    the engine, ``/psd.json`` = the last PSD row and ``/waterfall.png`` a
+    PNG, the recording = the capture byte for byte (then the zeros of the
+    read that met its end), the WAV's tone.  Prints the wire tap's drops.
+    Returns the launches of the first run."""
+    import tempfile
+
+    n_file = SESSION_WARM + SESSION_BLOCKS
+    x = np.concatenate(session_blocks(n_file, SEED + 18))
+    out = {}
+    for instrument in (False, True):
+        drain_errors()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_live_") as tmp:
+            cap = f"{tmp}/live_{int(FS)}sps.cf32"
+            x.tofile(cap)
+            r = live_session_run(torch, device, cap, tmp, instrument)
+        out[instrument] = (r, live_session_checks(r, x, device))
+    (r, w), (ri, wi) = out[False], out[True]
+    blocks = r["blocks"]
+    timed = blocks - SESSION_WARM
+    wall = r["t_end"] - r["steps"][SESSION_WARM]
+    msps = BLOCK_OUT * 64 * timed / wall / 1e6
+    walli = ri["t_end"] - ri["steps"][SESSION_WARM]
+    ref = SESSION_MSPS.get("phase3f")
+    per = ri["clock"].per_block_ms(ri["blocks"])
+    per["wire"] = round(sum(per.get(k, 0.0) for k in
+                            ("wire_encode", "wire_frame", "wire_send")), 4)
+    n_bulk = N_CHANNELS - 2 - len(r["wire_slots"])
+    print(f"phase3k live session (phase 3f's engine, every consumer, the "
+          f"remote client in its own process; {N_CHANNELS} inspectors: "
+          f"{n_bulk} in-process, 1 web, {len(r['wire_slots'])} wire at "
+          f"their places in the mix, the session's own audio; opened in "
+          f"{r['open_s']:.3f} s): {blocks} blocks ({SESSION_WARM} warm-up), "
+          f"launches {r['launches']}, block wall {wall / timed * 1e3:.3f} ms, "
+          f"{msps:.2f} Msps against phase 3f's "
+          f"{ref if ref is None else round(ref, 2)} in this process "
+          f"(instrumented run {BLOCK_OUT * 64 * timed / walli / 1e6:.2f}); "
+          f"{sum(r['counts'].values())} SAMPLES at the pump ({blocks} a "
+          f"inspector), no drain error; wire (every message to every "
+          f"connection): {w['sent']} messages received, {r['dropped']} "
+          f"dropped by its tap (instrumented run: {wi['sent']}, "
+          f"{ri['dropped']}), {w['psds']} PSDs on the carrier, the wire "
+          f"inspectors' (messages, median peak Hz) {w['tones']}; REPL "
+          f"retune at the engine; /psd.json = the last of {len(r['psds'])} "
+          f"PSD rows; recording {len(r['rec']) * 8} bytes = the capture + "
+          f"the EOS read's zeros; WAV tone {w['wav_hz']} Hz | card: {card}",
+          flush=True)
+    print(f"phase3k consumers (instrumented run, host wall ms a block over "
+          f"{ri['blocks']} blocks, waits for the interpreter lock included; "
+          f"pump = the session's _handle, which holds pump_waterfall, "
+          f"pump_png, pump_audio and web_feed; pump_tap the wire tap's puts "
+          f"beside it; wire = encode + frame + send, the sends one a run of "
+          f"PDUs; calls): {per} {ri['clock'].calls}; web GET ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in r["web_ms"].items())
+          + f" | card: {card}", flush=True)
+    return {"live_" + k: v for k, v in r["launches"].items()}
+
+
+# phase 3k(b): `cli live` and `cli remote` on a capture an RTL-class
+# receiver would write: an FM carrier with a tone, and noise
+LIVE_CLI_FS = 1_024_000
+LIVE_CLI_FC = 100e3
+LIVE_CLI_TONE = 700.0
+LIVE_CLI_SECONDS = 7
+LIVE_CLI_MIN_AUDIO_S = 1.0   # of the 3 s remote run and the 6 s live one
+
+
+def phase3k_cli(torch, card: str, device: str = "cuda") -> dict:
+    """(b) ``cli.main(["live", <capture>, "--port", "0", "--control-port",
+    "0", "--http", "0", "--audio", <fc>, "--audio-wav", ..., "--record",
+    ..., "--duration", "6"])`` in a thread, at its defaults otherwise
+    (``--device cuda``, the kernel engine, the file replayed at its
+    rate), then ``cli.main(["remote", "127.0.0.1", <port>, "--audio",
+    <fc>, "-o", <wav>, "--duration", "3"])`` against it.  Checks: both
+    exit 0; ``remote`` counts more than one PSD, each peak inside the FM
+    swing, and its WAV holds the tone; ``live`` reports its message
+    count, its WAV holds the tone and its recording is the capture's
+    prefix.  Returns the session kernels' launches over the run."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+
+    from sigdigger_tpu_torch import cli
+    from sigdigger_tpu_torch.io.wav import read_wav
+
+    fs, fc, tone = LIVE_CLI_FS, LIVE_CLI_FC, LIVE_CLI_TONE
+    n = fs * LIVE_CLI_SECONDS
+    rng = np.random.default_rng(SEED + 30)
+    t = np.arange(n) / fs
+    x = (0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         + 0.5 * np.exp(1j * (2 * np.pi * fc * t + 2 * np.pi * 5e3 * np.cumsum(
+             np.sin(2 * np.pi * tone * t)) / fs))).astype(np.complex64)
+    # the user's command line: --device only off the card
+    device_args = () if device == "cuda" else ("--device", device)
+    kernels = session_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_live_") as tmp:
+        cap = f"{tmp}/live_{fs}sps.cf32"
+        x.tofile(cap)
+        err, rout = io.StringIO(), io.StringIO()
+
+        def live():
+            out["rc"] = cli.main([
+                "live", cap, "--port", "0", "--control-port", "0",
+                "--http", "0", "--audio", str(fc), "--audio-wav",
+                f"{tmp}/live.wav", "--record", f"{tmp}/rec.cf32",
+                "--duration", "6", *device_args])
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            th = threading.Thread(target=live, daemon=True, name="cli-live")
+            th.start()
+            port = None
+            deadline = time.time() + 120.0
+            while port is None and th.is_alive() and time.time() < deadline:
+                time.sleep(0.05)
+                for line in err.getvalue().splitlines():
+                    if line.startswith("live:") and "wire=" in line:
+                        port = line.split("wire=")[1].split()[0].rstrip("]")
+            check(port is not None, err.getvalue()[-2000:])
+            with contextlib.redirect_stdout(rout):
+                rc = cli.main(["remote", "127.0.0.1", port, "--audio",
+                               str(fc), "-o", f"{tmp}/remote.wav",
+                               "--duration", "3"])
+            th.join(timeout=120.0)
+        wall = time.perf_counter() - t0
+        check(not th.is_alive() and out.get("rc") == 0 and rc == 0,
+              (out, rc, err.getvalue()[-2000:]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        rec = np.fromfile(f"{tmp}/rec.cf32", np.complex64)
+        wavs = {w: read_wav(f"{tmp}/{w}.wav") for w in ("live", "remote")}
+    log = err.getvalue()
+    halted = [ln for ln in log.splitlines() if ln.startswith("halted after")]
+    check(len(halted) == 1, log[-2000:])
+    n_msgs = int(halted[0].split()[2])
+    summary = [ln for ln in log.splitlines() if "PSD messages," in ln]
+    check(len(summary) == 1, log[-2000:])
+    n_psd, n_samples = int(summary[0].split()[0]), int(summary[0].split()[3])
+    peaks = [float(ln.split("peak ")[1].split()[0]) * 1e6
+             for ln in rout.getvalue().splitlines() if ln.startswith("psd ")]
+    check(n_psd > 1 and len(peaks) == n_psd and n_samples > 0 and n_msgs > 0,
+          (n_psd, len(peaks), n_samples, n_msgs))
+    # each PSD's peak inside the carrier's ±5 kHz swing (plus two bins)
+    check(all(abs(p - fc) <= 5e3 + 2 * fs / 4096 for p in peaks), peaks)
+    tones = {}
+    for w, (a, rate) in wavs.items():
+        check(rate == 44100 and len(a) > LIVE_CLI_MIN_AUDIO_S * rate,
+              (w, rate, len(a)))
+        a = a[rate // 10:, 0]
+        if w == "live":
+            pk, res = tone_peak_hz(a, rate)
+        else:
+            # the server sends every inspector's samples to every client
+            # and `remote` writes all it receives (as the reference's
+            # does): live's own inspector's chunks and remote's, each on
+            # the tone, alternate in its WAV with a phase step at each
+            # seam, so the tone is read on segments of 2048 samples
+            # (shorter than a chunk), their spectra averaged
+            seg = 2048
+            segs = a[:len(a) // seg * seg].reshape(-1, seg).astype(
+                np.float64)
+            segs = (segs - segs.mean(1, keepdims=True)) * np.hanning(seg)
+            spec = (np.abs(np.fft.rfft(segs, 8 * seg, axis=1)) ** 2).mean(0)
+            pk = (int(np.argmax(spec[16:])) + 16) * rate / (8 * seg)
+            res = rate / seg
+        check(abs(pk - tone) <= 2 * res, (w, pk, tone, res))
+        tones[w] = round(pk, 1)
+    check(len(rec) > 0 and rec.tobytes() == x[:len(rec)].tobytes(),
+          len(rec))
+    check(device != "cuda" or (launches["audio"] > 0
+                               and launches["psd"] > 0), launches)
+    print(f"phase3k cli live + remote ({fs / 1e6:.3f} Msps capture of "
+          f"{LIVE_CLI_SECONDS} s, FM carrier at {fc / 1e3:.0f} kHz with a "
+          f"{tone:.0f} Hz tone; live --duration 6 at its defaults, remote "
+          f"--duration 3): both exit 0; live halted after {n_msgs} "
+          f"messages, recorded {len(rec)} samples = the capture's prefix; "
+          f"remote: {n_psd} PSDs, peaks {min(peaks) / 1e3:.2f}.."
+          f"{max(peaks) / 1e3:.2f} kHz, {n_samples} audio samples; WAV tones "
+          f"{tones} Hz; launches {launches}; {wall:.2f} s | card: {card}",
+          flush=True)
+    return {"cli_live_" + k: v for k, v in launches.items()}
+
+
+# phase 3k(c): pipeline.py at benchmarks.py:61-79's geometry
+PIPE_GEOM = dict(sample_rate=8_192_000.0, fft_size=2048, n_channels=256,
+                 n_sub=64)
+PIPE_BLOCK = 1 << 17
+PIPE_PSK_BLOCK = 1 << 13
+PIPE_REPS = 10
+
+
+def pipe_input(n: int, seed: int) -> np.ndarray:
+    """benchmarks.py's unit noise plus an FM carrier (1 kHz tone, 5 kHz
+    deviation) on every 32nd channel's centre."""
+    rng = np.random.default_rng(seed)
+    fs = PIPE_GEOM["sample_rate"]
+    t = np.arange(n) / fs
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    for f0 in np.linspace(-3.5e6, 3.5e6, 256)[::32]:
+        x += 2.0 * np.exp(1j * (2 * np.pi * f0 * t + 2 * np.pi * 5e3
+                                * np.cumsum(np.sin(2 * np.pi * 1e3 * t))
+                                / fs))
+    return x.astype(np.complex64)
+
+
+def phase3k_pipeline(torch, card: str, device: str = "cuda") -> dict:
+    """(c) ``pipeline_step`` on ``device`` against the same function on
+    the CPU over 2 chained blocks of 2^17 samples, raw, fm and am: the
+    PSD within TOL_PSD_BIN of its largest bin, raw iq and AM audio
+    within TOL_REL of their scale (cuFFT and the CPU's FFT round in
+    another order).  FM is held through its discriminator: the product
+    y·conj(y_prev) of raw's channel samples (the FM path's, the same
+    stages) on every element of every channel within 2·TOL_REL of the
+    largest |y|^2 (the rounding of y, which it doubles), and the audio on
+    every element within TOL_AUDIO plus the FIR's |taps| over what that
+    rounding lets each discriminator sample move: arcsin of the
+    product's relative error (twice the error measured, π where it is
+    not smaller than the product), and one branch flip of the atan2 (2)
+    where the CPU's product lies within that error of the negative real
+    axis (a near-zero product in the noise-only channels, or a
+    channel's start-up out of the zero tail); then each one's Msps over
+    PIPE_REPS blocks, host input included.
+    psk runs the per-sample loops (one step a channel sample, ~60 small
+    launches a step): one block of 2^13 samples, its time."""
+    from sigdigger_tpu_torch import pipeline as pl
+
+    f0s = np.linspace(-3.5e6, 3.5e6, 256)
+    bws = np.full(256, 40e3)
+    x = pipe_input(3 * PIPE_BLOCK, SEED + 31)
+    blocks = [x[i * PIPE_BLOCK:(i + 1) * PIPE_BLOCK] for i in range(3)]
+    out, errs = {}, {}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    iq, fm_room = {}, {}
+    for demod in ("raw", "fm", "am"):
+        cfg = pl.PipelineConfig(demod=demod, **PIPE_GEOM)
+        step = pl.jit_pipeline(cfg)
+        runs = {}
+        for dev in (device, "cpu"):
+            consts = pl.make_constants(cfg, f0s, bws, device=dev)
+            state = pl.init_state(cfg, device=dev)
+            outs = []
+            for b in blocks[:2]:
+                state, o = step(consts, state, b)
+                outs.append({k: v.cpu().numpy() for k, v in o.items()})
+            runs[dev] = (consts, state, outs)
+        worst = {}
+        for got, want in zip(runs[device][2], runs["cpu"][2]):
+            e = float(np.abs(got["psd"] - want["psd"]).max()
+                      / np.abs(want["psd"]).max())
+            check(e <= TOL_PSD_BIN, (demod, "psd", e))
+            worst["psd"] = max(worst.get("psd", 0.0), e)
+            key = "iq" if demod == "raw" else "audio"
+            check(np.all(np.isfinite(got[key])), demod)
+            if demod != "fm":
+                d = np.abs(got[key] - want[key])
+                e = float(d.max() / np.abs(want[key]).max())
+                check(e <= TOL_REL, (demod, key, e))
+                worst[key] = max(worst.get(key, 0.0), e)
+        if demod == "raw":
+            iq = {dev: np.concatenate([o["iq"] for o in runs[dev][2]], 1)
+                  for dev in (device, "cpu")}
+            prod = {dev: y * np.conj(np.concatenate(
+                [np.zeros_like(y[:, :1]), y[:, :-1]], 1))
+                for dev, y in iq.items()}
+            dp = np.abs(prod[device] - prod["cpu"])
+            scale = float(np.abs(iq["cpu"]).max()) ** 2
+            e = float(dp.max() / scale)
+            check(e <= 2 * TOL_REL, ("fm", "discriminator product", e))
+            worst["product"] = e
+            mag = np.abs(prod["cpu"])
+            r = np.where(mag > 0, 2 * dp / np.where(mag > 0, mag, 1), 2.0)
+            turn = np.where(r < 1, np.arcsin(np.minimum(r, 1)), np.pi)
+            flip = (prod["cpu"].real < 0) & (np.abs(prod["cpu"].imag)
+                                             <= 2 * dp)
+            fm_room["move"] = np.minimum(turn / np.pi + 2 * flip, 2.0)
+            fm_room["flips"] = int(flip.sum())
+        if demod == "fm":
+            got = np.concatenate([o["audio"] for o in runs[device][2]], 1)
+            want = np.concatenate([o["audio"] for o in runs["cpu"][2]], 1)
+            taps = np.abs(runs["cpu"][0]["audio_taps"].cpu().numpy())
+            room = TOL_AUDIO + np.stack(
+                [np.convolve(m, taps)[:m.size] for m in fm_room["move"]])
+            d = np.abs(got - want)
+            over = d > room
+            check(not over.any(), ("fm", "audio", int(over.sum()),
+                                   float((d - room).max())))
+            worst["audio_over_tol"] = float(np.mean(d > TOL_AUDIO))
+            worst["flips"] = fm_room["flips"]
+            worst["audio_room_used"] = float((d / room).max())
+        errs[demod] = {k: float(f"{v:.3g}") for k, v in worst.items()}
+        consts, state, _ = runs[device]
+        for _ in range(2):
+            state, o = step(consts, state, blocks[2])
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(PIPE_REPS):
+            state, o = step(consts, state, blocks[2])
+        sync()
+        wall = time.perf_counter() - t0
+        out[demod] = round(PIPE_BLOCK * PIPE_REPS / wall / 1e6, 3)
+    cfg = pl.PipelineConfig(demod="psk", **PIPE_GEOM)
+    consts = pl.make_constants(cfg, f0s, bws, device=device)
+    state = pl.init_state(cfg, device=device)
+    step = pl.jit_pipeline(cfg)
+    sync()
+    t0 = time.perf_counter()
+    state, o = step(consts, state, x[:PIPE_PSK_BLOCK])
+    sync()
+    psk_s = time.perf_counter() - t0
+    m = PIPE_PSK_BLOCK // cfg.decimation
+    check(o["symbols"].shape == (256, m) and o["strobes"].shape == (256, m)
+          and bool(torch.isfinite(o["symbols"]).all()))
+    print(f"phase3k pipeline.py (benchmarks.py:61-79: 8.192 Msps, FFT 2048, "
+          f"256 channels, n_sub 64, block 2^17, host input included): Msps "
+          f"{out}; against the CPU (2 chained blocks; worst PSD and iq/AM "
+          f"error of the largest, FM: the discriminator product's of the "
+          f"largest |y|^2, the audio's share over TOL_AUDIO, the possible "
+          f"branch flips and the largest share of its room used) {errs}; psk (the "
+          f"per-sample loops) one block of 2^13 samples ({m} channel samples) "
+          f"in {psk_s:.3f} s, {psk_s / m * 1e6:.1f} µs a channel sample "
+          f"| card: {card}", flush=True)
+    return out
+
+
 def metric_value(name: str, text: str) -> float:
     """A metric's number from its line; NaN for a trace that held no
     device time ("not measured")."""
@@ -4647,6 +5425,14 @@ def main() -> int:
           f"spectrum users: psd_kernel scan {launches['psd_scan']}, wide "
           f"{launches['psd_wide']}, tasks {launches['psd_tasks']}; "
           f"audio_kernel tracked {launches['audio_tracked']})", flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3k_live_session(torch, card))
+    launches.update(phase3k_cli(torch, card))
+    phase3k_pipeline(torch, card)
+    print(f"phase3k: {time.perf_counter() - t0:.2f} s (launches of the live "
+          f"session: { {k[5:]: v for k, v in launches.items() if k.startswith('live_')} }; "
+          f"of cli live: { {k[9:]: v for k, v in launches.items() if k.startswith('cli_live_') and v} })",
+          flush=True)
 
     # each kernel form: (name, key, source, TPU kernel); the FM forms'
     # library yardstick (the channelize matmul alone) computes part of

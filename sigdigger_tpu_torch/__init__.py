@@ -10,8 +10,13 @@ Entry points: ``KernelReceiver`` (the wideband receiver),
 ``KernelAnalyzer`` (the dynamic analyzer session on the kernel banks),
 ``Analyzer`` (the same session protocol on the class path: channelizer,
 spectrum and ``inspectors/``), with ``AnalyzerState`` and the typed
-messages, and the command line, ``python -m sigdigger_tpu_torch
-{info,psd,demod,symbols,rms,tv}`` (``cli.py``).
+messages, ``app.LiveSession`` (the live session: wire server, REPL,
+web view, audio and recorder around either engine),
+``pipeline.pipeline_step`` (the functional receiver), and the command
+line, ``python -m sigdigger_tpu_torch {info,psd,demod,symbols,rms,tv,
+scan,doppler,live,serve,remote}`` (``cli.py``).  The light names of
+the reference's top level (the types, ``Config``, ``SourceProfile``,
+``Library``) are here too.
 
 The package never imports JAX or ``sigdigger_tpu``: it keeps its own
 copy of every constant builder it needs.
@@ -19,6 +24,18 @@ copy of every constant builder it needs.
 
 from __future__ import annotations
 
+from sigdigger_tpu_torch.config import Config, ConfigSchema
+from sigdigger_tpu_torch.profiles import SourceProfile
+from sigdigger_tpu_torch.types import (
+    AnalyzerMode,
+    AnalyzerParams,
+    Channel,
+    SampleFormat,
+    WindowFunction,
+)
+
+_TYPES = ("AnalyzerMode", "AnalyzerParams", "Channel", "SampleFormat",
+          "SourceProfile", "WindowFunction", "Config", "ConfigSchema")
 _RECEIVER = ("KernelReceiver", "ReceiverBlock")
 _ANALYZER = (
     "Analyzer", "AnalyzerState", "KernelAnalyzer", "ChannelMessage",
@@ -26,7 +43,7 @@ _ANALYZER = (
     "PSDMessage", "SamplesMessage", "SourceInfoMessage", "StatusMessage",
 )
 
-__all__ = [*_RECEIVER, *_ANALYZER]
+__all__ = [*_TYPES, *_RECEIVER, *_ANALYZER, "Library"]
 
 
 def __getattr__(name):
@@ -40,4 +57,8 @@ def __getattr__(name):
         from sigdigger_tpu_torch import analyzer
 
         return getattr(analyzer, name)
+    if name == "Library":
+        from sigdigger_tpu_torch.library import Library
+
+        return Library
     raise AttributeError(name)

@@ -9,20 +9,25 @@
     tv       analog TV decode → frame PNGs       (``audio`` + TVProcessor)
     scan     panoramic sweep over a synth band   (``analyzer/sweep.py``)
     doppler  satellite Doppler prediction        (``orbit``)
+    live     live capture session (alias ``serve``): analyzer + wire
+             server + REPL + audio + web view + waterfall (``app.py``)
+    remote   headless QuickConnect client of a live session's wire
+             server (``io/suscan_wire.py``)
 
     python -m sigdigger_tpu_torch symbols capture_1024000sps.cf32 \
         --freq -200e3 --baud 4800 --mode psk --bps 2 --device cpu
 
 Each takes the reference's arguments and defaults, and each but
-``doppler`` (host numpy) also ``--device`` (default ``cuda``, which
-raises without a card; ``cpu`` runs the plain PyTorch versions).
+``doppler`` (host numpy) and ``remote`` (a pure client) also
+``--device`` (default ``cuda``, which raises without a card; ``cpu``
+runs the plain PyTorch versions).
 ``demod``, ``symbols``, ``rms`` and ``tv`` run the class-path
 ``Analyzer``; ``psd`` runs the four-step PSD kernel
 (``tasks/psdutil.pallas_mean_psd``, ``csrc/psd.cu``) on the card and
 ``SpectrumEstimator`` on the CPU, and ``scan`` runs a ``Scanner`` whose
 hops go through the same kernel on the card (one launch a hop) and the
-estimator on the CPU.  The reference's ``live`` and ``remote`` are not
-ported (ROADMAP.md).
+estimator on the CPU.  ``live`` runs ``LiveSession`` on the kernel
+engine (``--engine auto``) or the class path (``--engine generic``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from sigdigger_tpu_torch.backend import resolve_device
+
+# `audio.demodulator` values of the --mode names
+_AUDIO_DEMODS = {"am": 1, "fm": 2, "usb": 3, "lsb": 4, "raw": 5}
 
 
 def _profile(args):
@@ -152,11 +160,10 @@ def cmd_demod(args) -> int:
     from sigdigger_tpu_torch.io.wav import WavWriter
     from sigdigger_tpu_torch.types import Channel
 
-    modes = {"am": 1, "fm": 2, "usb": 3, "lsb": 4, "raw": 5}
     an = _analyzer(args)
     an.open_inspector(
         "audio", Channel(fc=args.freq, bw=args.bw),
-        config={"audio.demodulator": modes[args.mode],
+        config={"audio.demodulator": _AUDIO_DEMODS[args.mode],
                 "audio.sample-rate": args.audio_rate,
                 "audio.cutoff": min(args.bw / 2, 15000.0),
                 "audio.volume": 1.0,
@@ -348,6 +355,123 @@ def cmd_tv(args) -> int:
     return 0 if saved else 1
 
 
+def cmd_live(args) -> int:
+    """One command starts the live session the reference is built
+    around (reference App/Application.cpp:357-458 + main.cpp:176-249):
+    source → analyzer → wire server / REPL / audio / waterfall."""
+    from sigdigger_tpu_torch.app import LiveSession, build_profile
+    from sigdigger_tpu_torch.types import AnalyzerParams
+
+    prof = build_profile(args.source, rate=args.rate, freq=args.freq,
+                         loop=args.loop,
+                         throttle=(False if args.no_throttle else None))
+    params = AnalyzerParams()
+    params.window_size = args.fft
+    audio = None
+    if args.audio is not None:
+        audio = {"fc": args.audio, "demod": _AUDIO_DEMODS[args.mode],
+                 "rate": args.audio_rate, "bw": args.bw,
+                 "squelch": args.squelch is not None,
+                 "squelch_level": args.squelch or 0.0}
+        if args.audio_wav:
+            audio["wav"] = args.audio_wav
+    engine_kw = {"pipeline_depth": args.depth,
+                 "decimation": args.decimation}
+    if args.i8:
+        engine_kw["in_i8"] = True
+    sess = LiveSession(
+        prof, params=params, engine=args.engine,
+        engine_kw=engine_kw,
+        block_size=args.block_size,
+        wire_port=args.port, wire_host=args.host,
+        user=args.user, password=args.password,
+        control_port=args.control_port,
+        audio=audio, record_path=args.record,
+        waterfall_png=args.waterfall, tty=args.tty,
+        http_port=args.http, device=args.device)
+    sess.start()
+    ports = []
+    if sess.wire_server is not None:
+        ports.append(f"wire={sess.wire_server.address[1]}")
+    if sess.control_server is not None:
+        ports.append(f"control={sess.control_server.address[1]}")
+    if sess.web_server is not None:
+        ports.append(
+            f"http=http://127.0.0.1:{sess.web_server.address[1]}/")
+    print(f"live: {prof.type} @ {prof.sample_rate} sps "
+          f"[{' '.join(ports) or 'local only'}]", file=sys.stderr)
+    try:
+        sess.run(duration=args.duration)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        sess.halt()
+    print(f"halted after {sess.messages_seen} messages",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_remote(args) -> int:
+    """Headless QuickConnect (reference Components/QuickConnectDialog +
+    the remote-analyzer protocol): connect to a live session's
+    suscan-wire server, optionally retune / open an audio inspector,
+    and stream PSD peaks (and demodulated audio to WAV)."""
+    from sigdigger_tpu_torch.analyzer.messages import MessageKind
+    from sigdigger_tpu_torch.io.suscan_wire import SuscanWireClient
+    from sigdigger_tpu_torch.types import Channel
+
+    cli = SuscanWireClient(args.host, args.port, user=args.user,
+                           password=args.password)
+    print(f"connected: {cli.server_name} "
+          f"(protocol {cli.protocol_major}.{cli.protocol_minor})",
+          file=sys.stderr)
+    if args.freq is not None:
+        cli.set_frequency(args.freq)
+    writer = None
+    if args.audio is not None:
+        cli.open_inspector("audio", Channel(fc=args.audio, bw=args.bw),
+                           request_id=1,
+                           config={"audio.demodulator":
+                                   _AUDIO_DEMODS[args.mode]})
+        if args.output:
+            from sigdigger_tpu_torch.io.wav import WavWriter
+
+            writer = WavWriter(args.output, int(args.audio_rate),
+                               channels=1)
+    deadline = time.time() + args.duration
+    psd_seen = samples = 0
+    try:
+        while time.time() < deadline:
+            m = cli.read(timeout=0.5)
+            if m is None:
+                continue
+            if m.kind == MessageKind.PSD and m.data is not None:
+                psd_seen += 1
+                if psd_seen % max(1, args.every) == 0:
+                    d = np.asarray(m.data, np.float64)
+                    k = int(np.argmax(d))
+                    n = len(d)
+                    pk = m.frequency + (k - n // 2) \
+                        * m.sample_rate / n
+                    db = 10.0 * np.log10(d[k] + 1e-30)
+                    print(f"psd {psd_seen}: peak {pk / 1e6:.4f} MHz "
+                          f"{db:.1f} dB")
+            elif m.kind == MessageKind.SAMPLES:
+                samples += len(np.atleast_1d(m.samples))
+                if writer is not None:
+                    writer.write(np.real(np.asarray(m.samples,
+                                                    np.complex64)))
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if writer is not None:
+            writer.close()
+        cli.close()
+    print(f"{psd_seen} PSD messages, {samples} samples",
+          file=sys.stderr)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sigdigger-tpu-torch",
@@ -424,6 +548,58 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("-o", "--output")
     pc.set_defaults(fn=cmd_scan)
 
+    for name in ("live", "serve"):
+        pl = sub.add_parser(
+            name, help="live capture session (analyzer + wire server "
+            "+ REPL + audio + waterfall)")
+        pl.add_argument("source",
+                        help="capture file | tonegen:<hz>[,<noise_db>]"
+                        " | synth | stdin")
+        pl.add_argument("--rate", type=int)
+        pl.add_argument("--freq", type=float, default=0.0)
+        pl.add_argument("--fft", type=int, default=4096)
+        pl.add_argument("--block-size", type=int)
+        pl.add_argument("--engine",
+                        choices=["auto", "kernel", "generic"],
+                        default="auto")
+        pl.add_argument("--i8", action="store_true",
+                        help="int8 device uploads (8-bit SDR wire "
+                             "precision; quarters the H2D bytes)")
+        pl.add_argument("--depth", type=int, default=2,
+                        help="block pipeline depth (kernel engine)")
+        pl.add_argument("--decimation", type=int, default=16,
+                        help="channel decimation class (kernel engine)")
+        pl.add_argument("--port", type=int,
+                        help="suscan-wire server port (0 = ephemeral)")
+        pl.add_argument("--host", default="127.0.0.1")
+        pl.add_argument("--user", default="")
+        pl.add_argument("--password", default="")
+        pl.add_argument("--control-port", type=int,
+                        help="remote-control REPL port (0 = ephemeral)")
+        pl.add_argument("--audio", type=float, metavar="FC",
+                        help="open a live audio inspector at FC Hz")
+        pl.add_argument("--mode",
+                        choices=["am", "fm", "usb", "lsb", "raw"],
+                        default="fm")
+        pl.add_argument("--bw", type=float, default=12500.0)
+        pl.add_argument("--audio-rate", type=int, default=44100)
+        pl.add_argument("--audio-wav", help="record audio to WAV")
+        pl.add_argument("--squelch", type=float, nargs="?", const=0.0,
+                        help="enable squelch (optional power level)")
+        pl.add_argument("--record", help="raw IQ recording path")
+        pl.add_argument("--waterfall", help="live waterfall PNG path")
+        pl.add_argument("--http", type=int,
+                        help="serve a live web waterfall on this port "
+                             "(0 = ephemeral)")
+        pl.add_argument("--tty", action="store_true",
+                        help="ANSI waterfall rows on stdout")
+        pl.add_argument("--loop", action="store_true")
+        pl.add_argument("--no-throttle", action="store_true",
+                        help="replay files faster than wall clock")
+        pl.add_argument("--duration", type=float,
+                        help="stop after N seconds")
+        pl.set_defaults(fn=cmd_live)
+
     for cmd in sub.choices.values():
         cmd.add_argument("--device", default="cuda",
                          help="torch device (cpu runs the plain versions)")
@@ -439,6 +615,28 @@ def build_parser() -> argparse.ArgumentParser:
     po.add_argument("--duration", type=int, default=600)
     po.add_argument("--step", type=int, default=60)
     po.set_defaults(fn=cmd_doppler, device=None)
+
+    # a pure client: no device
+    pr = sub.add_parser("remote",
+                        help="connect to a live session's wire server "
+                             "(headless QuickConnect)")
+    pr.add_argument("host")
+    pr.add_argument("port", type=int)
+    pr.add_argument("--user", default="")
+    pr.add_argument("--password", default="")
+    pr.add_argument("--freq", type=float,
+                    help="retune the remote source first")
+    pr.add_argument("--audio", type=float, metavar="FC",
+                    help="open a remote audio inspector at FC Hz")
+    pr.add_argument("--mode", choices=["am", "fm", "usb", "lsb",
+                                       "raw"], default="fm")
+    pr.add_argument("--bw", type=float, default=12500.0)
+    pr.add_argument("--audio-rate", type=int, default=44100)
+    pr.add_argument("-o", "--output", help="record audio to WAV")
+    pr.add_argument("--every", type=int, default=1,
+                    help="print every Nth PSD")
+    pr.add_argument("--duration", type=float, default=10.0)
+    pr.set_defaults(fn=cmd_remote, device=None)
     return p
 
 

@@ -34,6 +34,8 @@ Tolerances, with their reason:
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -416,3 +418,238 @@ def test_bank_matches_reference_by_agc_and_seed_tile(seed_tile, hang):
         xw, hist = _frames(ours, x[b * n:(b + 1) * n], "f32", hist)
         assert_bank_close(ours, ref, _feed(ours, xw, "f32"),
                           _feed(ref, xw, "f32"))
+
+
+# ---------------------------------------------------------------------------
+# audio/: playback, the WAV backend and the ctypes players
+# (tests/test_support.py's and tests/test_hw_backends.py's cases on the
+# port's classes; exact comparisons: sample counts, bytes, tone bins)
+# ---------------------------------------------------------------------------
+
+def test_playback_to_wav_holds_the_tone(tmp_path):
+    from sigdigger_tpu_torch.audio import AudioFileSaver, AudioPlayback
+    from sigdigger_tpu_torch.io.wav import read_wav
+
+    path = str(tmp_path / "rec.wav")
+    pb = AudioPlayback(8000, player=AudioFileSaver(path, 8000),
+                       max_buffers=64)
+    t = np.arange(8000) / 8000.0
+    pb.write(np.sin(2 * np.pi * 440 * t).astype(np.float32))
+    pb.drain()
+    pb.close()
+    back, rate = read_wav(path)
+    assert rate == 8000
+    # whole 20 ms buffers reach the file, the partial tail waits
+    assert len(back) == 8000 // pb.buffer_size * pb.buffer_size
+    spec = np.abs(np.fft.rfft(back[:4096, 0]))
+    assert abs(np.argmax(spec) * 8000 / 4096 - 440) < 10
+
+
+@pytest.mark.parametrize("rate,size", [(8000, 256), (12000, 256),
+                                       (44100, 882), (48000, 960)])
+def test_playback_buffers_are_20_ms_at_least_256(rate, size):
+    from sigdigger_tpu_torch.audio import AudioPlayback
+
+    pb = AudioPlayback(rate, backend="null")
+    try:
+        assert pb.buffer_size == size
+    finally:
+        pb.close()
+
+
+def test_playback_gain_and_starvation():
+    from sigdigger_tpu_torch.audio import AudioPlayback, NullAudioPlayer
+
+    starved = []
+    pb = AudioPlayback(48000, backend="null",
+                       on_starvation=lambda: starved.append(1))
+    pb.gain = 0.5
+    assert pb.gain == 0.5
+    pb.write(np.ones(4800, np.float32))
+    pb.drain()
+    time.sleep(0.3)          # the worker finds the queue empty, started
+    pb.close()
+    assert pb.starved and starved
+    assert isinstance(pb._player, NullAudioPlayer)
+    assert pb._player.samples_played == 4800
+
+
+def test_playback_drops_the_oldest_buffer_when_full():
+    """Live audio never blocks the DSP thread: a full ring drops its
+    oldest buffer."""
+    import threading
+
+    from sigdigger_tpu_torch.audio import AudioPlayback, GenericAudioPlayer
+
+    gate, taken, played = threading.Event(), threading.Event(), []
+
+    class Held(GenericAudioPlayer):
+        def play(self, samples):
+            taken.set()
+            gate.wait(5.0)
+            played.append(float(samples[0]))
+
+    pb = AudioPlayback(8000, player=Held(8000), max_buffers=2)
+    n = pb.buffer_size
+    pb.write(np.full(n, 0.0, np.float32))
+    assert taken.wait(5.0)                 # buffer 0 is in the player
+    for k in range(1, 6):
+        pb.write(np.full(n, float(k), np.float32))
+    gate.set()
+    pb.drain()
+    pb.close()
+    assert played == [0.0, 4.0, 5.0]
+
+
+def test_backend_registry_and_exports():
+    import sigdigger_tpu.audio as ref_audio
+    import sigdigger_tpu_torch.audio as port_audio
+    from sigdigger_tpu_torch.audio import AudioPlayback, NullAudioPlayer
+    from sigdigger_tpu_torch.audio.playback import (
+        available_backends,
+        register_player,
+    )
+
+    assert port_audio.__all__ == ref_audio.__all__
+    assert "null" in available_backends()
+
+    class Sink(NullAudioPlayer):
+        pass
+
+    register_player("sink-under-test", Sink)
+    pb = AudioPlayback(8000, backend="sink-under-test")
+    try:
+        assert isinstance(pb._player, Sink)
+    finally:
+        pb.close()
+    with pytest.raises(KeyError):
+        AudioPlayback(8000, backend="no-such-backend")
+
+
+@pytest.mark.parametrize("name", ["alsa", "portaudio"])
+def test_players_without_their_library(name, monkeypatch):
+    """Neither library is installed here nor on the card's machine: the
+    loader answers None, the player raises its own error, the backend is
+    not registered."""
+    from sigdigger_tpu_torch.audio import alsa, portaudio
+
+    mod, load, player, err = {
+        "alsa": (alsa, "load_alsa", alsa.AlsaPlayer, alsa.AlsaError),
+        "portaudio": (portaudio, "load_portaudio",
+                      portaudio.PortAudioPlayer, portaudio.PortAudioError),
+    }[name]
+    assert getattr(mod, load)("/nonexistent/lib-under-test.so") is None
+    monkeypatch.setattr(mod, load, lambda path=None: None)
+    with pytest.raises(err, match="not available"):
+        player(8000)
+    assert mod.register_if_available() is False
+
+
+@pytest.fixture(scope="module")
+def mock_libs(tmp_path_factory):
+    """The ALSA and PortAudio mocks of tests/test_hw_backends.py, built
+    twice each: one copy declared by the port, one by the reference."""
+    import ctypes
+
+    from test_hw_backends import _ALSA_MOCK, _PA_MOCK, _build
+
+    from sigdigger_tpu.audio.alsa import _declare as ref_alsa
+    from sigdigger_tpu.audio.portaudio import _declare as ref_pa
+    from sigdigger_tpu_torch.audio.alsa import _declare as port_alsa
+    from sigdigger_tpu_torch.audio.portaudio import _declare as port_pa
+
+    d = tmp_path_factory.mktemp("audio_mocks")
+    libs = {}
+    for name, src, port_decl, ref_decl in (
+            ("alsa", _ALSA_MOCK, port_alsa, ref_alsa),
+            ("pa", _PA_MOCK, port_pa, ref_pa)):
+        port_lib = ctypes.CDLL(_build(d, f"{name}port", src))
+        ref_lib = ctypes.CDLL(_build(d, f"{name}ref", src))
+        port_decl(port_lib)
+        ref_decl(ref_lib)
+        libs[name] = (port_lib, ref_lib)
+    port_alsa_lib = libs["alsa"][0]
+    port_alsa_lib.mock_total.restype = ctypes.c_long
+    port_alsa_lib.mock_rate.restype = ctypes.c_uint
+    port_alsa_lib.mock_last_sample.restype = ctypes.c_float
+    pa = libs["pa"][0]
+    pa.pa_mock_total.restype = ctypes.c_long
+    pa.pa_mock_rate.restype = ctypes.c_double
+    pa.pa_mock_fmt.restype = ctypes.c_ulong
+    pa.pa_mock_last.restype = ctypes.c_float
+    return libs
+
+
+_DECLARED = {
+    "alsa": ("snd_pcm_open", "snd_pcm_set_params", "snd_pcm_writei",
+             "snd_pcm_recover", "snd_pcm_drain", "snd_pcm_close",
+             "snd_strerror"),
+    "pa": ("Pa_Initialize", "Pa_Terminate", "Pa_GetDeviceCount",
+           "Pa_GetDefaultOutputDevice", "Pa_GetDeviceInfo", "Pa_OpenStream",
+           "Pa_StartStream", "Pa_WriteStream", "Pa_StopStream",
+           "Pa_CloseStream", "Pa_GetErrorText"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DECLARED))
+def test_ctypes_declarations_equal_the_reference(name, mock_libs):
+    port_lib, ref_lib = mock_libs[name]
+
+    def sig(lib, fn):
+        f = getattr(lib, fn)
+        return ([t.__name__ for t in f.argtypes or []],
+                getattr(f.restype, "__name__", f.restype))
+
+    for fn in _DECLARED[name]:
+        assert sig(port_lib, fn) == sig(ref_lib, fn), fn
+
+
+def test_alsa_player_against_the_mock(mock_libs):
+    from sigdigger_tpu_torch.audio.alsa import AlsaPlayer
+
+    lib = mock_libs["alsa"][0]
+    player = AlsaPlayer(48_000, lib=lib)
+    assert lib.mock_rate() == 48_000 and lib.mock_format() == 14
+    before = lib.mock_total()
+    player.play(np.linspace(-1, 1, 1000, dtype=np.float32))  # partial writes
+    assert lib.mock_total() - before == 1000
+    assert lib.mock_last_sample() == pytest.approx(1.0)
+    lib.mock_fail_next()
+    player.play(np.zeros(64, np.float32))                      # -EPIPE
+    assert player.underruns == 1 and lib.mock_recovered() >= 1
+    player.close()
+
+
+def test_portaudio_player_against_the_mock(mock_libs):
+    from sigdigger_tpu_torch.audio.playback import AudioPlayback
+    from sigdigger_tpu_torch.audio.portaudio import (
+        PA_FLOAT32,
+        PortAudioError,
+        PortAudioPlayer,
+    )
+
+    lib = mock_libs["pa"][0]
+    p = PortAudioPlayer(48000, lib=lib)
+    assert lib.pa_mock_inited() == 1 and lib.pa_mock_rate() == 48000.0
+    assert lib.pa_mock_fmt() == PA_FLOAT32 and lib.pa_mock_device() == 0
+    p.play(np.linspace(-0.5, 0.5, 480).astype(np.float32))
+    assert lib.pa_mock_total() == 480
+    assert abs(lib.pa_mock_last() - 0.5) < 1e-6
+    p.close()
+    p = PortAudioPlayer(44100, device="USB", lib=lib)
+    assert lib.pa_mock_device() == 1
+    lib.pa_mock_underflow_next()
+    p.play(np.zeros(128, np.float32))
+    assert p.underruns == 1
+    p.close()
+    with pytest.raises(PortAudioError):
+        PortAudioPlayer(48000, device="nope-no-such", lib=lib)
+    before = lib.pa_mock_total()
+    pb = AudioPlayback(8000, player=PortAudioPlayer(8000, lib=lib))
+    pb.write(np.ones(4096, np.float32))
+    deadline = time.time() + 5.0
+    while time.time() < deadline and lib.pa_mock_total() - before < 3840:
+        time.sleep(0.02)
+    pb.close()
+    # every whole 20 ms buffer of the 4096 samples reached the stream
+    assert lib.pa_mock_total() - before == 4096 // 256 * 256

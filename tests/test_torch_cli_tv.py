@@ -104,25 +104,26 @@ def test_python_dash_m_runs_the_tv_command(capture):
 
 
 def test_parser_matches_reference_defaults():
-    """Every ported subcommand parses to the reference's defaults, plus
-    ``--device`` (default cuda; ``doppler``, numpy only, has none); the
-    unported ones are not offered."""
+    """Every subcommand parses to the reference's defaults, plus
+    ``--device`` (default cuda; ``doppler``, numpy only, and ``remote``,
+    a pure client, have none)."""
     for argv in (["tv", "x.cf32", "--freq", "1"], ["info", "x.cf32"],
                  ["psd", "x.cf32"], ["demod", "x.cf32", "--freq", "1"],
                  ["symbols", "x.cf32", "--freq", "1", "--baud", "2"],
                  ["rms", "x.cf32"], ["scan", "--fmin", "1", "--fmax", "2"],
                  ["doppler", "x.tle", "--freq", "1", "--lat", "2",
-                  "--lon", "3"]):
+                  "--lon", "3"], ["live", "synth"], ["serve", "synth"],
+                 ["remote", "127.0.0.1", "4000"]):
         ours = cli.build_parser().parse_args(argv)
         ref = ref_cli.build_parser().parse_args(argv)
         want = {k: v for k, v in vars(ref).items() if k != "fn"}
         got = {k: v for k, v in vars(ours).items()
                if k not in ("fn", "device")}
         assert got == want
-        assert ours.device == (None if argv[0] == "doppler" else "cuda")
-    for argv in (["live", "synth"], ["serve", "synth"]):
-        with pytest.raises(SystemExit):
-            cli.build_parser().parse_args(argv)
+        assert ours.device == (None if argv[0] in ("doppler", "remote")
+                               else "cuda")
+    assert set(cli.build_parser()._subparsers._group_actions[0].choices) \
+        == set(ref_cli.build_parser()._subparsers._group_actions[0].choices)
 
 
 def test_png_and_metadata_match_reference():

@@ -8,7 +8,9 @@ the column compactor, the symbol squeeze, the drain packer, the TV line resample
 analyzer session through them, on the compactor drain and on the packed
 one, ``cli tv`` on the line resampler, the class path's CMA equalizer
 on the CMA kernel, a class-path psk inspector's extras fetched from the
-card, and ``cli psd`` on the PSD kernel.  Skipped where CUDA is absent; on a machine with
+card, ``cli psd`` on the PSD kernel, and a short live session
+(``app.LiveSession``: wire, REPL, recorder) on the kernel engine.
+Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
 
     SIGDIGGER_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
@@ -1938,3 +1940,101 @@ def test_scanner_auto_runs_the_psd_kernel(cuda):
     for f in (89.1e6, 95.8e6, 101.3e6):
         i = np.argmin(np.abs(freqs - f))
         assert psd[max(0, i - 8):i + 8].max() > 50 * floor, f
+
+
+def test_live_session_on_the_card(cuda, tmp_path):
+    """A short live session on a 128-slot kernel session (threaded,
+    pipelined drain) with the wire server, the REPL and the raw-IQ
+    recorder: every kernel of the path once a block, no error logged by
+    the drain worker, the session's audio inspector one SAMPLES message
+    a block at the pump, the inspector opened through the wire answered
+    and fed, the REPL's retune at the engine, and the recording the
+    capture byte for byte (then the zeros of the read that met its
+    end)."""
+    import socket
+    import time
+
+    from sigdigger_tpu_torch.app import LiveSession, _Tap, build_profile
+    from sigdigger_tpu_torch.io.suscan_wire import SuscanWireClient
+    from sigdigger_tpu_torch.kernels import audio, drainpack
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+    from sigdigger_tpu_torch.utils.logger import Logger, Severity
+
+    fs, block, n_blocks = 1_024_000, 65_536, 8
+    n = n_blocks * block
+    t = np.arange(n) / fs
+    rng = np.random.default_rng(5)
+    x = (0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         + 0.3 * np.exp(1j * (2 * np.pi * 200e3 * t + 2 * np.pi * 5e3
+                              * np.cumsum(np.sin(2 * np.pi * 500.0 * t))
+                              / fs))).astype(np.complex64)
+    cap = tmp_path / f"live_{fs}sps.cf32"
+    x.tofile(cap)
+    params = AnalyzerParams()
+    params.window_size = 4096
+    params.psd_update_interval = 0.0
+    sess = LiveSession(
+        build_profile(str(cap), throttle=False), params=params,
+        engine="kernel", block_size=block, wire_port=0, control_port=0,
+        record_path=str(tmp_path / "rec.cf32"),
+        audio={"fc": 200e3, "demod": 2, "rate": 8000.0, "bw": 20e3,
+               "backend": "null"},
+        engine_kw={"n_slots": 128, "decimation": 64, "audio_decim": 8,
+                   "pipeline_depth": 2, "drain_thread": True})
+    assert sess.device.type == "cuda"
+    Logger.instance().drain()
+    before = [k.launches for k in (audio.audio_kernel,
+                                   drainpack.pack_kernel)]
+    sess.start()
+    tap = _Tap(maxsize=1 << 16)
+    sess._taps.append(tap)
+    try:
+        cl = SuscanWireClient("127.0.0.1", sess.wire_server.address[1])
+        cl.open_inspector("audio", Channel(fc=200e3, bw=20e3),
+                          request_id=9, config={"audio.demodulator": 2})
+        with socket.create_connection(
+                ("127.0.0.1", sess.control_server.address[1]),
+                timeout=5) as s:
+            f = s.makefile("rw", newline="\n")
+            f.write("set frequency 433920000\n")
+            f.flush()
+            assert f.readline().strip() == "OK"
+        sess.run(duration=60.0)
+        assert sess.eos.is_set()
+        assert sess.analyzer.profile.freq == 433.92e6
+        blocks = sess.analyzer._blocks
+        wire = []
+        deadline = time.time() + 5.0
+        while time.time() < deadline:
+            m = cl.read(timeout=0.2)
+            if m is None:
+                break
+            wire.append(m)
+        cl.close()
+    finally:
+        sess.halt()
+    errors = [r for r in Logger.instance().drain()
+              if r.severity >= Severity.ERROR]
+    assert not errors, errors
+    assert blocks == n_blocks + 1
+    assert [k.launches - b for k, b in zip(
+        (audio.audio_kernel, drainpack.pack_kernel), before)] == \
+        [blocks, blocks]
+    pumped = []
+    while (m := tap.read(timeout=0.01)) is not None:
+        pumped.append(m)
+    own = [m for m in pumped if m.kind.name == "SAMPLES"
+           and m.handle == sess.audio_handle]
+    assert len(own) == blocks
+    assert all(np.all(np.isfinite(m.samples)) and len(m.samples)
+               for m in own)
+    opened = [m for m in wire if m.kind.name == "INSPECTOR"
+              and m.inspector_kind.name == "OPEN"]
+    assert [m.request_id for m in opened] == [9]
+    assert any(m.kind.name == "SAMPLES" and m.handle == opened[0].handle
+               for m in pumped)
+    assert any(m.kind.name == "SAMPLES" and m.handle == opened[0].handle
+               for m in wire)
+    rec = np.fromfile(tmp_path / "rec.cf32", np.complex64)
+    assert len(rec) == blocks * block
+    assert rec[:n].tobytes() == x.tobytes() and not rec[n:].any()

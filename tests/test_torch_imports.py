@@ -29,12 +29,25 @@ MODULES = [
     "sigdigger_tpu_torch.io",
     "sigdigger_tpu_torch.io.wav",
     "sigdigger_tpu_torch.io.mat",
+    "sigdigger_tpu_torch.io.cbor",
+    "sigdigger_tpu_torch.io.suscan_wire",
+    "sigdigger_tpu_torch.io.remote_analyzer",
+    "sigdigger_tpu_torch.io.remote",
+    "sigdigger_tpu_torch.io.webspectrum",
+    "sigdigger_tpu_torch.io.datasaver",
+    "sigdigger_tpu_torch.io.forwarder",
+    "sigdigger_tpu_torch.io.rmsviewer",
+    "sigdigger_tpu_torch.audio",
+    "sigdigger_tpu_torch.audio.playback",
+    "sigdigger_tpu_torch.audio.alsa",
+    "sigdigger_tpu_torch.audio.portaudio",
     "sigdigger_tpu_torch.utils",
     "sigdigger_tpu_torch.utils.logger",
     "sigdigger_tpu_torch.utils.waterfall",
     "sigdigger_tpu_torch.utils.palette",
     "sigdigger_tpu_torch.utils.symview",
     "sigdigger_tpu_torch.utils.views",
+    "sigdigger_tpu_torch.utils.globalprop",
     "sigdigger_tpu_torch.orbit",
     "sigdigger_tpu_torch.orbit.tle",
     "sigdigger_tpu_torch.orbit.sgp4",
@@ -98,6 +111,8 @@ MODULES = [
     "sigdigger_tpu_torch.analyzer.tracker",
     "sigdigger_tpu_torch.analyzer.mediator",
     "sigdigger_tpu_torch.analyzer.sweep",
+    "sigdigger_tpu_torch.pipeline",
+    "sigdigger_tpu_torch.app",
     "sigdigger_tpu_torch.cli",
     "sigdigger_tpu_torch.__main__",
 ]
