@@ -226,6 +226,26 @@ printing the seconds it took:
    (8.192 Msps, FFT 2048, 256 channels, n_sub 64, block 2^17): fm, am
    and raw against the same function on the CPU, each one's Msps; psk
    (per-sample loops) on one block of 2^13 samples, its time.
+3l. the multi-device path (``parallel/``) on one card: (a) phase 3f's
+   bench mix (1024 slots, block 8192·64, synchronous drain, a PSD every
+   block) in a meshed ``KernelAnalyzer`` on a one-device mesh, a ("ch",)
+   mesh of 2 and a ("time", "ch") mesh of 2 x 2, every cell on cuda:0
+   (shards run one after another: the Msps is not a scale-out figure);
+   each meshed session against the one-device one (audio share beyond
+   TOL_AUDIO_BANK at most TOL_AUDIO_FRAC, PSD TOL_PSD_BIN, power
+   TOL_RAW, digital symbols equal up to the first moved strobe);
+   ``psd_kernel``, ``raw_kernel``, ``recovery_kernel`` and
+   ``audio_kernel`` launched blocks x shards times (x 2 for the exact
+   audio passes), each shard launch held against its plain version at
+   its local shape (the time mesh's audio at seed_tile 2 with the
+   power-EMA AGC; recovery on its first 512 rows, bit-equal); the time
+   mesh's recovery hand-off bit-equal to one unsharded launch; each
+   session's layers on ``utils/profiling.StageTimer``.  (b)
+   ``shard_pipeline`` on the 2 x 2 mesh at ``benchmarks.py:61-79``'s
+   geometry against ``jit_pipeline`` on the card (fm, am, raw; psk with
+   the exact hand-off).  (c) two processes on the card in a gloo group
+   (``parallel.distributed``), each its channel half of a hybrid mesh,
+   rank 0 against the single-process step.
 4. the TPU kernel list (all 13 ported, each with its bound at the inputs
    phase 2 timed) and the ``kernels`` line (``cma_kernel``'s launches
    from phase 3i, the system path).
@@ -245,6 +265,18 @@ import time
 
 import numpy as np
 
+from sigdigger_tpu_torch.utils.profiling import StageTimer
+# the H100's published peaks and the phase-2 bounds (one home for both)
+from sigdigger_tpu_torch.utils.roofline import (
+    bound,
+    bound_line,
+    kernel2_bound_ms,
+    psd_bound,
+    psd_xw_bound,
+    raw_bound,
+    tc_bounds,
+)
+
 SEED = 1234
 FS = 102_400_000.0
 N_CHANNELS = 1024
@@ -253,15 +285,6 @@ BW = 800e3
 BLOCK_OUT = 8192
 AUDIO_DECIM = 32
 E2E_BLOCKS = 12
-
-# published H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA
-# cores, dense TF32 on the tensor cores and HBM3 bandwidth
-PEAK_F32 = 67e12
-PEAK_TF32 = 495e12
-PEAK_BYTES = 3.35e12
-# TF32 passes of the tensor-core channelize product (hi·hi, hi·lo, lo·hi:
-# kernels/tcsplit.py)
-TC_PASSES = 3
 
 # kernel vs plain version on the card (both float32, no TF32):
 # - PSD block, rotated carry row: 1e-4 of the largest value (summation
@@ -388,40 +411,6 @@ def synth_iq(f0s_snapped: np.ndarray, n: int, seed: int):
     pure = 512
     x += 0.5 * np.exp(2j * np.pi * f0s_snapped[pure] * t)
     return x.astype(np.complex64), tones, pure
-
-
-def kernel2_bound_ms(m, c, in_bytes, audio_bytes, ka, da, fused=True,
-                     mt=None) -> tuple:
-    """Least time of one block on the card: the larger of the
-    operations (the channelize product, 8·M·K·C, on the tensor cores at
-    the TF32 peak in TC_PASSES passes, the rest over the float32 peak)
-    and the bytes (inputs read once, outputs written once) over the
-    memory rate.  The fused PSD counts at the cost of an FFT,
-    5·N·log2(N) per frame, not the dense DFT products the kernel does.
-    ``mt`` set: the cos/sin rotator with that tile (phase 2, sin and cos
-    2, rotation 6 per element, θ and the tile phases read) instead of
-    the Q·R tables (table product 6, rotation 6).  Returns
-    :func:`tc_bounds`."""
-    k, n = 64, 4096
-    frames = m // 64
-    rot = 36 if mt else 38               # rotator, discriminator, atan2
-    product = 8 * m * k * c              # channelize, complex product
-    ops = (rot * m * c
-           + 2 * ka * (m // da) * c)     # audio FIR
-    nbytes = (2 * m * k * in_bytes               # packed windows
-              + 2 * k * c * 4                    # H
-              + ((1 + m // mt) * c * 4 if mt     # θ, tile phases
-                 else (2 * (m // 64) + 128) * c * 4)   # Q, R tables
-              + (2 + 2 * (ka - 1)) * c * 4       # carries in and out
-              + (m // da) * c * audio_bytes      # audio
-              + ka * 4)                          # taps
-    if fused:
-        ops += frames * (2 * n            # window (real × complex)
-                         + 5 * n * 12     # 4096-point FFT
-                         + 3 * n          # |X|²
-                         + n)             # frame sum
-        nbytes += 4 * 4096 * 4 + 4096 * 4   # PSD constants, PSD block
-    return tc_bounds(product, ops, nbytes)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -594,56 +583,6 @@ def time_once_ms(fn) -> tuple:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
-
-
-def bound(ops: float, nbytes: float, tf32_ops: float = 0.0) -> tuple:
-    """(least time in ms, what bounds it): the operations (``tf32_ops``
-    of them on the tensor cores at the TF32 peak, the rest over the
-    float32 peak) or the bytes over the memory rate, whichever is
-    larger."""
-    ops_ms = (ops / PEAK_F32 + tf32_ops / PEAK_TF32) * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
-
-
-def tc_bounds(product: float, rest: float, nbytes: float) -> tuple:
-    """A stage whose complex product (``product`` flops, 8·M·K·C) runs on
-    the tensor cores in TC_PASSES TF32 passes and the rest on the CUDA
-    cores: (bound ms, what bounds it, operations, bytes, the bound the
-    same work has all on the CUDA cores)."""
-    ms, by = bound(rest, nbytes, TC_PASSES * product)
-    simt_ms, _ = bound(product + rest, nbytes)
-    return ms, by, TC_PASSES * product + rest, nbytes, simt_ms
-
-
-def bound_line(bms, by, ops, nbytes, simt_ms) -> str:
-    return (f"bound {bms:.4f} ms by {by} ({ops / 1e9:.3f} GFLOP with the "
-            f"product's {TC_PASSES} TF32 passes at {PEAK_TF32 / 1e12:.0f} "
-            f"TFLOP/s, {nbytes / 2 ** 20:.2f} MiB), CUDA-core bound "
-            f"{simt_ms:.4f} ms")
-
-
-def psd_bound(n: int, frames: int, in_bytes: int) -> tuple:
-    """At FFT cost: 5·N·log2(N) per frame, |X|² (3 per bin) and the
-    frame sum; bytes: the packed frames read once, twiddles and tables,
-    the [A, B] block written once."""
-    a = 1 << (int(np.log2(n)) // 2)
-    ops = frames * (5 * n * int(np.log2(n)) + 3 * n + n)
-    nbytes = 2 * n * frames * in_bytes + 2 * n * 4 + 2 * (a + n // a) * 4 \
-        + n * 4
-    return bound(ops, nbytes) + (ops, nbytes)
-
-
-def raw_bound(m: int, k: int, c: int, m_tiles: int) -> tuple:
-    """The complex product (8·M·K·C, on the tensor cores) plus 13 per
-    output element: phase (2), sin and cos (2), rotation (6), |y|² and
-    its sum (3); bytes: both window planes, the taps, θ and φ0 read
-    once, both output planes and the power written once.  Returns
-    :func:`tc_bounds`."""
-    nbytes = 2 * m * k * 4 + 2 * k * c * 4 + c * 4 + m_tiles * c * 4 \
-        + 2 * m * c * 4 + c * 4
-    return tc_bounds(8 * m * k * c, 13 * m * c, nbytes)
 
 
 # operations of the recovery bank, counted from kernels/recovery.py at
@@ -1574,22 +1513,6 @@ def phase2_kernel2_cossin(ch2, torch) -> tuple:
           flush=True)
     return dict(max_abs_err=worst["audio_max"], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bms, bound_by=by), uploads
-
-
-def psd_xw_bound(n: int, kept: int, in_bytes: int, ema: bool) -> tuple:
-    """At FFT cost per frame read (5·N·log2 N), the window (2 per
-    sample: real x complex), |X|² (3 per bin) and the frame sum; bytes:
-    the frames read, the window, twiddles and tables once, the [A, B]
-    block written once.  The EMA adds 3 operations per bin and the
-    running PSD read."""
-    a = n // 64
-    ops = kept * (5 * n * int(np.log2(n)) + 2 * n + 3 * n + n)
-    nbytes = 2 * n * kept * in_bytes + n * 4 + 2 * n * 4 \
-        + 2 * (a + 64) * 4 + n * 4
-    if ema:
-        ops += 3 * n
-        nbytes += n * 4
-    return bound(ops, nbytes) + (ops, nbytes)
 
 
 def phase2_psd_xw(fftm, torch, uploads) -> tuple:
@@ -3475,17 +3398,8 @@ def tv_layers(path: str, torch) -> dict:
     host = TVProcessor(params, backend="host")
     check(dev.backend == "device", dev.backend)
     tvline.tv_kernel.launches = 0
-    acc: dict[str, list] = {}
-
-    def timed(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            acc.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
-            return out
-        return run
+    timer = StageTimer("cuda")
+    timed = timer.wrap
 
     last: list = []
 
@@ -3516,6 +3430,7 @@ def tv_layers(path: str, torch) -> dict:
     launches = tvline.tv_kernel.launches
     check(launches == dev.line_feeds == dev.feeds - dev.locked_at >= 1,
           (launches, dev.feeds, dev.line_feeds, dev.locked_at))
+    acc = {k: timer.ms(k) for k in list(timer.stages)}
     n = len(acc["step"]) - 1         # the last step reads the EOS
     med = {k: float(np.median(v[:n] if k in ("step", "read") else v))
            for k, v in acc.items()}
@@ -3686,35 +3601,6 @@ def recovered(got: np.ndarray, known: np.ndarray, m: int,
     return best
 
 
-class StageTimer:
-    """Stands in for ``fn`` (an inspector stage or a bound method; other
-    attributes read through to it): each call runs it between two
-    synchronises and keeps its milliseconds.  With ``keep``, a function
-    of ``fn`` giving its state, it also keeps each call's input, the
-    state before and after, and the output (the CMA equalizer's taps)."""
-
-    def __init__(self, fn, torch, keep=None) -> None:
-        self.fn, self.torch, self.keep = fn, torch, keep
-        self.ms: list = []
-        self.calls: list = []
-
-    def __getattr__(self, name):
-        return getattr(self.fn, name)
-
-    def __call__(self, *a, **k):
-        torch = self.torch
-        before = self.keep(self.fn) if self.keep else None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = self.fn(*a, **k)
-        torch.cuda.synchronize()
-        self.ms.append((time.perf_counter() - t0) * 1e3)
-        if self.keep:
-            self.calls.append((a[0].clone(), before, out.clone(),
-                               self.keep(self.fn)))
-        return out
-
-
 def cli_psd_held(x: np.ndarray, csv: str, peak: dict, torch) -> dict:
     """``cli psd``'s PSDs on the chunks it fed, through the cached PSDs
     the command used (``psdutil.prepare_mean_psd``).  Each waterfall row
@@ -3805,7 +3691,8 @@ def cli_layers(path: str, torch) -> tuple:
     stages = {"agc": "_agc", "costas": "_costas", "mf": "_mf",
               "cma": "_eq", "gardner": "_clock"}
     taps = (lambda eq: (eq.taps_re.clone(), eq.taps_im.clone()))
-    timers = {k: StageTimer(getattr(insp, a), torch,
+    timer = StageTimer("cuda")
+    timers = {k: timer.wrap(k, getattr(insp, a),
                             keep=taps if k == "cma" else None)
               for k, a in stages.items()}
     for k, a in stages.items():
@@ -3814,25 +3701,25 @@ def cli_layers(path: str, torch) -> tuple:
     around = {"read": (an.source, "read"), "spectrum": (an._spectrum, "feed"),
               "channelizer": (an._channelizer, "feed"),
               "inspector": (insp, "process")}
-    outer = {k: StageTimer(getattr(o, a), torch)
+    outer = {k: timer.wrap(k, getattr(o, a))
              for k, (o, a) in around.items()}
     for k, (o, a) in around.items():
         setattr(o, a, outer[k])
-    outer["step"] = step = StageTimer(an.step, torch)
-    acc = {k: t.ms for k, t in outer.items()}
+    outer["step"] = step = timer.wrap("step", an.step)
     equalizer.cma_kernel.launches = 0
     fed = 0
     while step():
         fed += sum(m.kind == MessageKind.SAMPLES and m.handle == h
                    for m in an.poll())
     launches = equalizer.cma_kernel.launches
+    acc = {k: t.ms for k, t in outer.items()}
     calls = timers["cma"].calls
     check(launches == fed == len(calls) >= CLI_N // 32768,
           (launches, fed, len(calls)))
     # every call against the plain version on the card
     rate = torch.full((1,), float(insp._eq.rate), device="cuda")
     locked = torch.zeros(1, device="cuda")
-    for x, (tr, ti), y, (tr2, ti2) in calls:
+    for (x,), (tr, ti), y, (tr2, ti2) in calls:
         want = equalizer.cma_kernel_reference(
             x.real.T.contiguous(), x.imag.T.contiguous(), tr, ti, rate,
             locked)
@@ -3843,7 +3730,7 @@ def cli_layers(path: str, torch) -> tuple:
     # the kernel alone at this path's shape (C 1, T a block's channel
     # samples), on the second-to-last call's input and taps: the last
     # full block (the last call is the zero-padded block at the EOS)
-    x, taps, _, _ = calls[-2]
+    (x,), taps, _, _ = calls[-2]
     args = (x.real.T.contiguous(), x.imag.T.contiguous(), *taps, rate,
             locked)
     kernel_ms = time_ms(lambda: equalizer.cma_kernel(*args), 50)
@@ -3866,7 +3753,7 @@ def cli_layers(path: str, torch) -> tuple:
     layers["cma_kernel_ms"] = round(kernel_ms, 4)
     layers["cma_bound_ms"] = (bms, by)
     an.source.close()
-    return layers, launches, fed, int(calls[0][0].shape[1])
+    return layers, launches, fed, int(calls[0][0][0].shape[1])
 
 
 def phase3i_cli(torch, card: str) -> dict:
@@ -4013,18 +3900,17 @@ def scan_layers(sc, torch, hops: int) -> dict:
 
     est, rb, view = sc._est, sc._rebin, sc.view
     kernel = fft.psd_kernel
-    t = {"retune_read": StageTimer(sc.capture, torch),
-         "framing": StageTimer(est.prepare, torch),
-         "feed": StageTimer(est.feed_async, torch),
-         "kernel": StageTimer(kernel, torch),
-         "rebin": StageTimer(rb.product, torch),
-         "rebin_call": StageTimer(rb, torch),
-         "stitch": StageTimer(view.feed_binned, torch)}
+    timer = StageTimer("cuda")
+    t = {k: timer.wrap(k, fn) for k, fn in (
+        ("retune_read", sc.capture), ("framing", est.prepare),
+        ("feed", est.feed_async), ("kernel", kernel),
+        ("rebin", rb.product), ("rebin_call", rb),
+        ("stitch", view.feed_binned))}
     sc.capture, est.prepare, est.feed_async = (t["retune_read"],
                                                t["framing"], t["feed"])
     fft.psd_kernel, rb.product = t["kernel"], t["rebin"]
     sc._rebin, view.feed_binned = t["rebin_call"], t["stitch"]
-    hop = StageTimer(sc.hop, torch)
+    hop = timer.wrap("hop", sc.hop)
     try:
         for _ in range(hops):
             hop()
@@ -5258,6 +5144,501 @@ def phase3k_pipeline(torch, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: the multi-device path on one card (parallel/)
+# ---------------------------------------------------------------------------
+
+MESH_BLOCKS = 3                 # timed blocks of each meshed session
+MESH_REC_ROWS = 512             # rows of the recovery plain-version check
+MESH_PIPE_BLOCK = 1 << 15       # sharded pipeline block (psk: 2^13)
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_layouts(dev) -> dict:
+    """The meshes of phase 3l, every cell on ``dev``: one device (the
+    reference configuration of a meshed session), a ("ch",) mesh of 2
+    and a ("time", "ch") mesh of 2 x 2."""
+    from sigdigger_tpu_torch.parallel.banks import make_ch_mesh
+    from sigdigger_tpu_torch.parallel.timebanks import make_time_ch_mesh
+
+    return {"one": make_ch_mesh(1, [dev]), "ch2": make_ch_mesh(2, [dev] * 2),
+            "t2c2": make_time_ch_mesh(2, 2, [dev] * 4)}
+
+
+def mesh_session(blocks, mesh):
+    """bench.py:255-259's session and 1024-inspector mix on ``mesh``,
+    drained synchronously (depth 1, no drain thread), a PSD message every
+    block.  Returns (analyzer, handles)."""
+    from sigdigger_tpu_torch import KernelAnalyzer
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    params = AnalyzerParams()
+    params.window_size = 4096
+    params.psd_update_interval = 0.0          # a PSD message every block
+    opts = dict(BENCH_OPTS, pipeline_depth=1, drain_thread=False)
+    an = KernelAnalyzer(source=ring_source(blocks), params=params,
+                        block_size=BLOCK_OUT * 64, mesh=mesh, **opts)
+    b = an._buckets[64]
+    # the reference's meshed configuration: power-EMA AGC, no squeeze,
+    # compactor, packer or shared-upload PSD, the PSD's frames sharded
+    check(an.device == mesh.home and not b.audio.cfg.hang_agc
+          and b.squeeze is None and b.comp_digital is None
+          and an._psd_bucket is None and an._spectrum.mesh is mesh,
+          mesh)
+    an.poll()
+    with an.bulk_config():
+        hs = open_bench_mix(an, Channel)
+    check(len(an.poll()) >= 1024)
+    return an, hs
+
+
+class Keeper:
+    """A kernel wrapper's stand-in that keeps its last launch at each
+    input shape (pass B of the exact audio); its ``launches`` count is
+    the wrapper's own (the wrapper adds to it through its module name,
+    which names the stand-in)."""
+
+    def __init__(self, name: str, fn, kept: dict) -> None:
+        self.name, self.fn, self.kept = name, fn, kept
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def __call__(self, *a):
+        out = self.fn(*a)
+        self.kept[(self.name, tuple(a[0].shape))] = (a, out)
+        return out
+
+
+class ShardCalls:
+    """Stands in for the kernel wrappers on their modules while a meshed
+    block runs, and keeps the last launch of each at each local shape
+    (its arguments and outputs) for the plain-version checks."""
+
+    def __init__(self, mods: dict) -> None:
+        self.mods = mods
+        self.kept: dict = {}
+
+    def __enter__(self):
+        self.real = {name: getattr(mod, name)
+                     for name, mod in self.mods.items()}
+        for name, mod in self.mods.items():
+            setattr(mod, name, Keeper(name, self.real[name], self.kept))
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            setattr(mod, name, self.real[name])
+
+
+def mesh_run(name, mesh, blocks, torch) -> dict:
+    """One meshed session: a warm-up block, then MESH_BLOCKS with the
+    counts of kernels 4-7 set to 0 just before and read just after, each
+    block's layers on ``utils/profiling.StageTimer`` (the spectrum, each
+    bank, the drain, the step); the last block's shard launches kept;
+    on the time mesh the recovery hand-off's inputs and outputs too."""
+    from sigdigger_tpu_torch import MessageKind
+    from sigdigger_tpu_torch.kernels import audio, fft, rawbank, recovery
+    from sigdigger_tpu_torch.utils.profiling import StageTimer
+
+    an, hs = mesh_session(blocks, mesh)
+    b = an._buckets[64]
+    timer = StageTimer(mesh.home)
+    an._spectrum.feed = timer.wrap("spectrum", an._spectrum.feed)
+    hand = []
+    if an._tmesh:
+        feed_planes = b.t_rec.feed_planes
+
+        def handoff(y_re, y_im, fetch=True):
+            st0 = torch.as_tensor(b.rec.state).to(y_re.device).clone()
+            out = feed_planes(y_re, y_im, fetch)
+            hand[:] = [(y_re, y_im, st0, out, b.rec.state)]
+            return out
+
+        b.t_audio.feed = timer.wrap("audio", b.t_audio.feed)
+        b.t_raw.feed = timer.wrap("raw", b.t_raw.feed)
+        b.t_rec.feed_planes = timer.wrap("recovery", handoff)
+    else:
+        b.audio.feed_frames = timer.wrap("audio", b.audio.feed_frames)
+        b.raw.feed_frames = timer.wrap("raw", b.raw.feed_frames)
+        b.rec.feed_planes = timer.wrap("recovery", b.rec.feed_planes)
+    an._drain_bucket = timer.wrap("drain", an._drain_bucket)
+    step = timer.wrap("step", an.step)
+    check(step())
+    an.poll()
+    kernels = {"psd": fft.psd_kernel, "raw": rawbank.raw_kernel,
+               "recovery": recovery.recovery_kernel,
+               "audio": audio.audio_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    msgs = []
+    sync(mesh.home)
+    t0 = time.perf_counter()
+    for i in range(MESH_BLOCKS):
+        if i == MESH_BLOCKS - 1:
+            with ShardCalls({"psd_kernel": fft, "raw_kernel": rawbank,
+                             "recovery_kernel": recovery,
+                             "audio_kernel": audio}) as calls:
+                check(step())
+        else:
+            check(step())
+        msgs += an.poll()
+    sync(mesh.home)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernels.items()}
+    check(not drain_errors())
+    by_h: dict = {h: [] for h in hs}
+    psds = []
+    for m in msgs:
+        if m.kind == MessageKind.SAMPLES:
+            by_h[m.handle].append((np.asarray(m.samples),
+                                   m.extras.get("strobes")))
+        elif m.kind == MessageKind.PSD:
+            psds.append(np.asarray(m.data))
+    check(all(len(v) == MESH_BLOCKS for v in by_h.values()),
+          sorted({len(v) for v in by_h.values()}))
+    layers = {k: round(float(np.median(timer.ms(k)[-MESH_BLOCKS:])), 4)
+              for k in ("spectrum", "audio", "raw", "recovery", "drain",
+                        "step")}
+    kinds = [an._inspectors[h].class_name for h in hs]
+    return dict(name=name, hs=hs, kinds=kinds, by_h=by_h, psds=psds,
+                launches=launches, wall=wall, layers=layers,
+                kept=calls.kept, hand=hand[0] if hand else None,
+                rec=(b.rec.consts, b.rec.params))
+
+
+def mesh_compare(got: dict, want: dict) -> dict:
+    """A meshed session's payloads against the one-device mesh's: audio
+    (the share of all its elements beyond TOL_AUDIO_BANK, at most
+    TOL_AUDIO_FRAC: on a noise-only channel the discriminator's atan2 may
+    take its other branch where a halo row's phase rounds apart), PSD (TOL_PSD_BIN of the largest bin), block power
+    (TOL_RAW of itself), and every digital inspector's strobes and
+    symbols EQUAL up to its first moved strobe."""
+    import torch
+
+    worst = {"psd": 0.0, "power": 0.0, "moved": 0}
+    audio = ([], [])
+    for h, kind in zip(got["hs"], got["kinds"]):
+        a = np.concatenate([s for s, _ in got["by_h"][h]])
+        w = np.concatenate([s for s, _ in want["by_h"][h]])
+        check(a.shape == w.shape, (kind, a.shape, w.shape))
+        if kind == "audio":
+            audio[0].append(a)
+            audio[1].append(w)
+        elif kind == "power":
+            e = float(np.max(np.abs(a - w) / np.maximum(np.abs(w), 1e-30)))
+            worst["power"] = max(worst["power"], e)
+        else:
+            sa = np.concatenate([st for _, st in got["by_h"][h]])
+            sw = np.concatenate([st for _, st in want["by_h"][h]])
+            moved = np.flatnonzero(sa != sw)
+            n = int(moved[0]) if len(moved) else len(sa)
+            worst["moved"] += int(len(moved) > 0)
+            check(n > 0 and np.array_equal(a[:n], w[:n]),
+                  (kind, n, float(np.abs(a[:n] - w[:n]).max())))
+    # over every audio element of the session, as phase 2 counts a plane
+    worst["audio_frac"], worst["audio_max"] = beyond(
+        *(torch.from_numpy(np.stack(v)) for v in audio), TOL_AUDIO_BANK)
+    check(len(got["psds"]) == len(want["psds"]) >= 1)
+    for p, q in zip(got["psds"], want["psds"]):
+        worst["psd"] = max(worst["psd"],
+                           float(np.abs(p - q).max() / np.abs(q).max()))
+    check(worst["audio_frac"] <= TOL_AUDIO_FRAC and worst["psd"]
+          <= TOL_PSD_BIN and worst["power"] <= TOL_RAW, (got["name"], worst))
+    return {k: float(f"{v:.3g}") for k, v in worst.items()}
+
+
+def mesh_plain_checks(run: dict, torch) -> dict:
+    """Each shard launch kept from the last block against its plain
+    version on the same inputs at its local shape: psd_kernel (TOL_PSD_BIN
+    of the largest bin), raw_kernel (TOL_RAW of the largest plane value
+    and of each power), audio_kernel (the share beyond TOL_AUDIO_BANK,
+    audio and carries, at most TOL_AUDIO_FRAC), recovery_kernel on the
+    first MESH_REC_ROWS rows, bit-equal (a comparison launch, after the
+    counts were read).  Returns {kernel: (local shape, error)}."""
+    from sigdigger_tpu_torch.kernels import audio, fft, rawbank, recovery
+
+    out = {}
+    for (name, shape), (a, got) in run["kept"].items():
+        if name == "psd_kernel":
+            want = fft.psd_kernel_reference(*a)
+            e = float((got - want).abs().max() / want.abs().max())
+            check(e <= TOL_PSD_BIN, (name, shape, e))
+            shape = tuple(a[0].shape)
+        elif name == "raw_kernel":
+            want = rawbank.raw_kernel_reference(*a[:7])
+            top = max(float(want[0].abs().max()), float(want[1].abs().max()))
+            e = max(float((g - w).abs().max()) / top
+                    for g, w in zip(got[:2], want[:2]))
+            e = max(e, float(((got[2] - want[2]).abs() / want[2]).max()))
+            check(e <= TOL_RAW, (name, shape, e))
+            shape = (*a[0].shape, a[2].shape[1])
+        elif name == "audio_kernel":
+            want = audio.audio_kernel_reference(*a)
+            e = max(beyond(g, w, TOL_AUDIO_BANK)[0]
+                    for g, w in zip(got, want))
+            check(e <= TOL_AUDIO_FRAC, (name, shape, e))
+            p = a[6]
+            shape = (a[0].shape[0], a[2]["h_re"].shape[1], f"m_tile {p.mt}",
+                     f"seed_tile {p.seed_tile}", f"hang {p.hang}")
+        else:
+            y_re, y_im, state, params, mf, p = a
+            r = MESH_REC_ROWS
+            args = (y_re[:r].contiguous(), y_im[:r].contiguous(), state,
+                    params, mf, p)
+            ok = recovery.recovery_kernel(*args)
+            op = recovery.recovery_kernel_reference(*args)
+            check(all(torch.equal(g, w) for g, w in zip(ok, op)),
+                  (name, shape))
+            e = 0.0
+            shape = (r, y_re.shape[1])
+        out[name] = (shape, float(f"{e:.3g}"))
+    check(set(out) == {"psd_kernel", "raw_kernel", "audio_kernel",
+                       "recovery_kernel"}, sorted(out))
+    return out
+
+
+def phase3l_mesh(torch, card: str, device: str = "cuda") -> dict:
+    """(a) The meshed ``KernelAnalyzer`` at the bench width: the bench
+    mix on a one-device mesh, a ("ch",) mesh of 2 and a ("time", "ch")
+    mesh of 2 x 2, every cell on one card (shards on one device run one
+    after another: not a scale-out figure).  Each meshed session against
+    the one-device one (``mesh_compare``), its kernels 4-7 launched
+    blocks x shards times (x 2 for the exact audio passes), each held
+    against its plain version at its local shapes
+    (``mesh_plain_checks``), the time mesh's recovery hand-off bit-equal
+    to one unsharded launch on the same planes and state.  (b)
+    ``shard_pipeline`` on the 2 x 2 mesh at benchmarks.py:61-79's
+    geometry against ``jit_pipeline``.  (c) two processes on the card
+    (gloo), each its channel half of a hybrid mesh.  Returns the
+    launches of the ("ch",) session."""
+    from sigdigger_tpu_torch.kernels import recovery
+
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    blocks = session_blocks(1 + MESH_BLOCKS, SEED + 40)
+    meshes = mesh_layouts(dev)
+    runs = {}
+    for name, mesh in meshes.items():
+        runs[name] = mesh_run(name, mesh, blocks, torch)
+    shards = {"one": (1, 1, 1, 1), "ch2": (2, 2, 2, 2),
+              "t2c2": (2, 4, 4, 8)}
+    for name, (n_psd, n_raw, n_rec, n_audio) in shards.items():
+        want = {"psd": n_psd, "raw": n_raw, "recovery": n_rec,
+                "audio": n_audio}
+        got = runs[name]["launches"]
+        # (a CPU rehearsal runs the plain versions, which count nothing)
+        check(dev.type != "cuda" or all(
+            got[k] == MESH_BLOCKS * n for k, n in want.items()),
+            (name, got, want))
+    msps = {k: round(BLOCK_OUT * 64 * MESH_BLOCKS / r["wall"] / 1e6, 3)
+            for k, r in runs.items()}
+    errs = {k: mesh_compare(runs[k], runs["one"]) for k in ("ch2", "t2c2")}
+    plain = {k: mesh_plain_checks(runs[k], torch) for k in ("ch2", "t2c2")}
+    # the hand-off's last block against one unsharded launch on the
+    # same planes and state (a comparison launch)
+    y_re, y_im, st0, (sr, si, sb), st1 = runs["t2c2"]["hand"]
+    consts, p = runs["t2c2"]["rec"]
+    ok = recovery.recovery_kernel(y_re, y_im, st0, consts["params"],
+                                  consts["mf"], p)
+    check(all(torch.equal(g, w) for g, w in zip(ok, (sr, si, sb, st1))),
+          "time-sharded recovery hand-off")
+    print(f"phase3l meshed KernelAnalyzer (bench.py:255-259's mix, 1024 "
+          f"slots, block 8192*64, decimation 64; every shard on one card: "
+          f"shards run one after another, Msps is not a scale-out figure): "
+          f"Msps {msps}; launches over {MESH_BLOCKS} blocks "
+          f"{ {k: r['launches'] for k, r in runs.items()} } (blocks x shards, "
+          f"x 2 for the exact audio passes); against the one-device mesh "
+          f"(audio share beyond {TOL_AUDIO_BANK} and max abs, PSD of the "
+          f"largest bin, power of itself, digital lanes with a moved "
+          f"strobe; symbols equal before it) {errs}; time-sharded recovery "
+          f"bit-equal to one unsharded launch | card: {card}", flush=True)
+    print(f"phase3l shard launches against their plain versions at their "
+          f"local shapes (shape, error): {plain} | card: {card}",
+          flush=True)
+    print(f"phase3l layers (utils/profiling.StageTimer, each stage from a "
+          f"synchronize; median ms a block over the {MESH_BLOCKS} timed): "
+          f"{ {k: r['layers'] for k, r in runs.items()} } | card: {card}",
+          flush=True)
+    phase3l_pipeline(torch, card, dev)
+    phase3l_two_process(card, device)
+    return {"mesh_" + k: v for k, v in runs["ch2"]["launches"].items()}
+
+
+def pipe_close(demod: str, got: dict, want: dict, rows=slice(None)) -> float:
+    """A sharded pipeline step's outputs (``got``, channel ``rows`` of
+    the whole) against the unsharded step's on the same card: the PSD
+    within TOL_PSD_BIN of its largest bin; raw and AM within TOL_REL of
+    their scale; FM within TOL_REL on the carrier channels (every 32nd)
+    and at most TOL_AUDIO_FRAC of all elements beyond TOL_AUDIO_BANK (the
+    time shards' channel samples round apart by ~1e-7, and the
+    discriminator's atan2 may pick the other branch on a noise-only
+    channel); psk: at most 0.5% of strobes moved, and the symbols where
+    both strobe within TOL_SYM times max(1, |symbol|) on 99.5% (the
+    oracle tests/test_pipeline.py's bounds).  Returns the worst error."""
+    import torch
+
+    e = float((got["psd"] - want["psd"]).abs().max()
+              / want["psd"].abs().max())
+    check(e <= TOL_PSD_BIN, (demod, "psd", e))
+    if demod == "psk":
+        sa, sb = want["strobes"][rows], got["strobes"]
+        check(float((sa == sb).float().mean()) > 0.995, demod)
+        both = sa & sb
+        ya = want["symbols"][rows][both]
+        d = (got["symbols"][both] - ya).abs()
+        check(float((d < TOL_SYM * torch.clamp(ya.abs(), min=1.0)).float()
+                    .mean()) > 0.995, (demod, float(d.max())))
+        return float(d.max())
+    k = "iq" if demod == "raw" else "audio"
+    a, w = got[k], want[k][rows]
+    scale = float(want[k].abs().max())
+    if demod == "fm":
+        frac, _ = beyond(a, w, TOL_AUDIO_BANK)
+        check(frac <= TOL_AUDIO_FRAC, (demod, frac))
+        lo = rows.start or 0
+        car = [c - lo for c in range(0, 256, 32) if c - lo in
+               range(a.shape[0])]
+        e = float((a[car] - w[car]).abs().max()) / scale
+    else:
+        e = float((a - w).abs().max()) / scale
+    check(e <= TOL_REL, (demod, k, e))
+    return e
+
+
+def phase3l_pipeline(torch, card: str, dev) -> None:
+    """``shard_pipeline`` on a 2 x 2 mesh over ``dev`` at
+    benchmarks.py:61-79's geometry against ``jit_pipeline`` on ``dev``,
+    2 chained blocks of MESH_PIPE_BLOCK, fm, am and raw; psk
+    (``handoff="exact"``) on one block of PIPE_PSK_BLOCK; each held by
+    ``pipe_close``."""
+    from sigdigger_tpu_torch import pipeline as pl
+    from sigdigger_tpu_torch.parallel.sharding import make_mesh, shard_pipeline
+    from sigdigger_tpu_torch.utils.profiling import StageTimer
+
+    f0s = np.linspace(-3.5e6, 3.5e6, 256)
+    bws = np.full(256, 40e3)
+    x = pipe_input(2 * MESH_PIPE_BLOCK, SEED + 41)
+    mesh = make_mesh(2, 2, [dev] * 4)
+    timer = StageTimer(dev)
+    errs = {}
+    for demod in ("fm", "am", "raw", "psk"):
+        cfg = pl.PipelineConfig(demod=demod, **PIPE_GEOM)
+        consts = pl.make_constants(cfg, f0s, bws, device=dev)
+        n = PIPE_PSK_BLOCK if demod == "psk" else MESH_PIPE_BLOCK
+        nb = 1 if demod == "psk" else 2
+        one = pl.jit_pipeline(cfg)
+        sh = timer.wrap(demod, shard_pipeline(cfg, mesh, handoff="exact")(
+            consts, pl.init_state(cfg, device=dev)))
+        s1 = s2 = None
+        worst = 0.0
+        for b in range(nb):
+            blk = x[b * n:(b + 1) * n]
+            s1, o1 = one(consts, s1 or pl.init_state(cfg, device=dev), blk)
+            s2, o2 = sh(consts, s2 or pl.init_state(cfg, device=dev), blk)
+            worst = max(worst, pipe_close(demod, o2, o1))
+        errs[demod] = float(f"{worst:.3g}")
+    ms = {k: round(float(np.median(timer.ms(k))), 3) for k in errs}
+    print(f"phase3l shard_pipeline (benchmarks.py:61-79: 8.192 Msps, FFT "
+          f"2048, 256 channels, n_sub 64; a 2 x 2 mesh on one card, "
+          f"handoff exact) against jit_pipeline on the card, 2 chained "
+          f"blocks of {MESH_PIPE_BLOCK} (psk: one of {PIPE_PSK_BLOCK}): "
+          f"worst error (fm carriers/am/raw of the largest, psk symbols "
+          f"abs where both strobe) {errs}; ms a sharded step {ms} | card: "
+          f"{card}",
+          flush=True)
+
+
+def phase3l_two_process(card: str, device: str) -> None:
+    """Two processes on the card join a gloo group
+    (``parallel.distributed``), each drives its channel half of a hybrid
+    ("time", "ch") mesh (time 2 on its own cells) with the sharded
+    pipeline at benchmarks.py:61-79's geometry, and rank 0 holds its
+    audio and the PSD against the single-process step (``pipe_close``).
+    Each child has a 240 s timeout."""
+    import os
+    import socket
+    import subprocess
+    import tempfile
+
+    worker = f'''
+import sys, numpy as np, torch
+pid, port = int(sys.argv[1]), sys.argv[2]
+from sigdigger_tpu_torch.parallel import distributed
+from sigdigger_tpu_torch.parallel.sharding import shard_pipeline
+from sigdigger_tpu_torch import pipeline as pl
+import chip_smoke as cs
+distributed.initialize(f"localhost:{{port}}", num_processes=2,
+                       process_id=pid, backend="gloo")
+dev = torch.device({device!r}, 0) if {device!r} == "cuda" else \\
+    torch.device({device!r})
+cfg = pl.PipelineConfig(demod="fm", **cs.PIPE_GEOM)
+consts = pl.make_constants(cfg, np.linspace(-3.5e6, 3.5e6, 256),
+                           np.full(256, 40e3), device=dev)
+x = cs.pipe_input({MESH_PIPE_BLOCK}, cs.SEED + 42)
+mesh = distributed.make_hybrid_mesh(n_time=2, devices=[dev] * 2)
+assert mesh.shape == {{"time": 2, "ch": 2}}, mesh.shape
+step = shard_pipeline(cfg, mesh)(consts, pl.init_state(cfg, device=dev))
+state, out = step(consts, pl.init_state(cfg, device=dev),
+                  distributed.host_array(mesh, None, x))
+mine = distributed.local_outputs(out["audio"])
+assert [i[0] for i, _ in mine] == [slice(128 * pid, 128 * pid + 128)]
+if pid == 0:
+    _, ref = pl.jit_pipeline(cfg)(consts, pl.init_state(cfg, device=dev), x)
+    (idx, data), = mine
+    got = {{"audio": torch.from_numpy(data).to(dev), "psd": out["psd"]}}
+    e = cs.pipe_close("fm", got, ref, rows=idx[0])
+    print(f"ERR fm carriers {{e:.3g}} of the largest", flush=True)
+torch.distributed.barrier()
+distributed.shutdown()
+print(f"OK {{pid}}", flush=True)
+'''
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "worker.py")
+        with open(script, "w") as fh:
+            fh.write(worker)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, script, str(i), str(port)], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=240)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"OK {i}" in out, (i, out[-2000:]))
+    err = [ln for ln in outs[0].splitlines() if ln.startswith("ERR")]
+    print(f"phase3l two processes (gloo, each its channel half of a 2 x 2 "
+          f"hybrid mesh on the card, fm at benchmarks.py:61-79's geometry, "
+          f"one block of {MESH_PIPE_BLOCK}): both exit 0; rank 0 against "
+          f"the single-process step: {err[0][4:]}; {wall:.2f} s with the "
+          f"processes' start | card: {card}", flush=True)
+
+
 def metric_value(name: str, text: str) -> float:
     """A metric's number from its line; NaN for a trace that held no
     device time ("not measured")."""
@@ -5433,6 +5814,9 @@ def main() -> int:
           f"session: { {k[5:]: v for k, v in launches.items() if k.startswith('live_')} }; "
           f"of cli live: { {k[9:]: v for k, v in launches.items() if k.startswith('cli_live_') and v} })",
           flush=True)
+    t0 = time.perf_counter()
+    launches.update(phase3l_mesh(torch, card))
+    print(f"phase3l: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # each kernel form: (name, key, source, TPU kernel); the FM forms'
     # library yardstick (the channelize matmul alone) computes part of

@@ -33,6 +33,7 @@ from sigdigger_tpu_torch.types import (
     SampleFormat,
     WindowFunction,
 )
+from sigdigger_tpu_torch.version import __version__
 
 _TYPES = ("AnalyzerMode", "AnalyzerParams", "Channel", "SampleFormat",
           "SourceProfile", "WindowFunction", "Config", "ConfigSchema")
@@ -43,7 +44,7 @@ _ANALYZER = (
     "PSDMessage", "SamplesMessage", "SourceInfoMessage", "StatusMessage",
 )
 
-__all__ = [*_TYPES, *_RECEIVER, *_ANALYZER, "Library"]
+__all__ = [*_TYPES, *_RECEIVER, *_ANALYZER, "Library", "__version__"]
 
 
 def __getattr__(name):

@@ -35,8 +35,14 @@ Where the port's signature differs from the reference's:
   ``drain_bf16`` default to on for ``cuda`` and off for ``cpu``.
 - ``symbol_group`` squeezes only on the packed drain, as in the
   reference.
-- ``mesh`` other than None raises ``NotImplementedError`` (queue 1
-  item 12).
+- ``mesh`` is a ``parallel.Mesh`` of ``torch.device``s driven by this
+  process (``parallel/banks.py``); ``device`` defaults to its first
+  device.  A ("ch",) mesh shards the banks and the PSD's frames on the
+  channel axis, a ("time", "ch") mesh time-shards the banks
+  (``parallel/timebanks.py``).  As in the reference, a meshed session
+  keeps the block power-EMA AGC (``hang_agc`` off), uploads float32
+  frames, and builds no squeeze, compactor, packer or shared-upload
+  PSD: it drains the full planes.
 
 Three faults of the reference are not carried over:
 - ``kernel_engine.py:929`` (``ADVICE.md``): the threaded drain fetches
@@ -233,6 +239,10 @@ class _Bucket:
         # int16 compactors for sections too narrow for the packer's lane
         # grouping, keyed (section, width, rows)
         self.sides: dict[tuple, ColumnCompactor] = {}
+        # time-sharded wrappers (("time", "ch") mesh; parallel/timebanks)
+        self.t_raw = None
+        self.t_audio = None
+        self.t_rec = None
 
     @property
     def channel_rate(self) -> float:
@@ -268,8 +278,14 @@ class KernelAnalyzer(Analyzer):
                  symbol_group: int = 1,
                  drain_thread: bool = False) -> None:
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported (ROADMAP.md queue 1 item 12)")
+            from sigdigger_tpu_torch.parallel.banks import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if device is None:
+                device = mesh.home
+        self._mesh = mesh
         self._compact_cols = int(compact_cols)
         # int16 packed uploads (in-kernel dequantization at 4096
         # counts/unit) default on for cuda, off for cpu so CPU runs stay
@@ -318,12 +334,31 @@ class KernelAnalyzer(Analyzer):
             self._in_i16 = on_card
         if self._drain_bf16 is None:
             self._drain_bf16 = on_card
+        mesh = self._mesh
+        # a ("time", "ch") mesh time-shards one wideband stream on the
+        # banks; a ("ch",) mesh shards their channels
+        self._tmesh = (mesh is not None and "time" in mesh.axis_names
+                       and mesh.shape["time"] > 1)
+        n_mesh = mesh.shape["ch"] if mesh is not None else 1
+        if self._n_slots % n_mesh:
+            raise ValueError(
+                f"n_slots {self._n_slots} must be a multiple of the "
+                f"mesh size {n_mesh}")
         frames = self.block_size // w
+        if frames % n_mesh:
+            raise ValueError(
+                f"PSD frames per block {frames} must be a multiple of "
+                f"the mesh size {n_mesh}")
         self._spectrum = PSD(
             PSDConfig(fft_size=w, frames_per_block=frames,
-                      frames_per_program=largest_divisor(frames, 8)),
+                      frames_per_program=largest_divisor(frames // n_mesh,
+                                                         8)),
             rate, self.params.window_function,
             alpha=self.params.spectrum_avg_alpha, device=dev)
+        if mesh is not None:
+            from sigdigger_tpu_torch.parallel.banks import shard_psd
+
+            shard_psd(self._spectrum, mesh)
 
         in_scale = 64.0 if self._in_i8 else 4096.0
         self._buckets: dict[int, _Bucket] = {}
@@ -346,7 +381,12 @@ class KernelAnalyzer(Analyzer):
                 sample_rate=rate, n_channels=self._n_slots,
                 decimation=d, audio_decim=self._audio_decim,
                 block_out=block_out, m_tile=m_tile, enable_ssb=True,
-                in_scale=in_scale, fir_tile=ft, hang_agc=True), device=dev)
+                in_scale=in_scale, fir_tile=ft,
+                # the su_agc hang follower runs in the kernel on single-
+                # device sessions; meshed sessions keep the block power-
+                # EMA AGC (the follower state is a sequential cross-
+                # shard carry), as the reference's kernel_engine.py:370-375
+                hang_agc=mesh is None), device=dev)
             raw = RawBank(RawBankConfig(
                 sample_rate=rate, n_channels=self._n_slots,
                 decimation=d, block_out=block_out, m_tile=m_tile,
@@ -354,11 +394,31 @@ class KernelAnalyzer(Analyzer):
             rec = RecoveryBank(RecoveryBankConfig(
                 n_channels=self._n_slots, block_len=block_out), device=dev)
             bucket = _Bucket(d, raw, audio, rec, self._n_slots)
-            if self._symbol_group > 1:
+            if self._tmesh:
+                from sigdigger_tpu_torch.parallel.timebanks import (
+                    TimeShardedAudioBank,
+                    TimeShardedRawBank,
+                    TimeShardedRecoveryBank,
+                )
+
+                bucket.t_raw = TimeShardedRawBank(raw, mesh)
+                bucket.t_audio = TimeShardedAudioBank(audio, mesh)
+                bucket.t_rec = TimeShardedRecoveryBank(rec, mesh)
+            elif mesh is not None:
+                from sigdigger_tpu_torch.parallel.banks import (
+                    shard_audio_bank,
+                    shard_raw_bank,
+                    shard_recovery_bank,
+                )
+
+                shard_audio_bank(audio, mesh)
+                shard_raw_bank(raw, mesh)
+                shard_recovery_bank(rec, mesh)
+            if self._symbol_group > 1 and mesh is None:
                 bucket.squeeze = SymbolSqueeze(SymbolSqueezeConfig(
                     n_rows=block_out, n_channels=self._n_slots,
                     group=self._symbol_group), device=dev)
-            if 0 < self._compact_cols <= self._n_slots:
+            if mesh is None and 0 < self._compact_cols <= self._n_slots:
                 cw = self._compact_cols
                 bucket.comp_digital = ColumnCompactor(ColumnCompactorConfig(
                     n_rows=block_out, n_channels=self._n_slots, width=cw,
@@ -377,7 +437,7 @@ class KernelAnalyzer(Analyzer):
         # (decimation == taps == B): per block the host uploads ONE
         # buffer for PSD + AudioBank + RawBank
         self._psd_bucket = None
-        if self.params.mode != AnalyzerMode.WIDE_SPECTRUM:
+        if mesh is None and self.params.mode != AnalyzerMode.WIDE_SPECTRUM:
             b_fac = self._spectrum.cfg.b
             for d in self._decimations:
                 if d == b_fac and self._buckets[d].raw.cfg.taps == b_fac:
@@ -898,16 +958,40 @@ class KernelAnalyzer(Analyzer):
 
         h: dict = {"bucket": bucket, "slots": slots, "comp": comp,
                    "cmap": dict(bucket.cmap)}
-        if xw is None:
+        if self._tmesh:
+            # ("time", "ch") mesh: the time-sharded wrappers frame the
+            # block themselves (input halos for the audio chain); the
+            # full planes drain
+            if any_audio:
+                h["audio"] = bucket.t_audio.feed(x, fetch=False)
+                h["sq"] = bucket.audio._sq
+                h["sq_level"] = bucket.audio._sq_level.copy()
+                h["squelch"] = bucket.audio._squelch.copy()
+            y_re = y_im = None
+            if need_raw_compute:
+                y_re, y_im = bucket.t_raw.feed(x, fetch=False)
+                h["power"] = bucket.raw._power_dev
+            if any_digital:
+                h["dig"] = bucket.t_rec.feed_planes(y_re, y_im, fetch=False)
+            if need_host_raw:
+                h["raw"] = (y_re, y_im)
+            return h
+        # a meshed session feeds float32 frames, as the reference's
+        frames = bucket.raw.frame(x) if self._mesh is not None else None
+        if xw is None and frames is None:
             xw = self._upload(bucket, x)
         audio = None
         if any_audio:
-            audio = bucket.audio.feed_packed(xw, fetch=False)
+            audio = (bucket.audio.feed_frames(*frames, fetch=False)
+                     if frames is not None else
+                     bucket.audio.feed_packed(xw, fetch=False))
             h["sq_level"] = bucket.audio._sq_level.copy()
             h["squelch"] = bucket.audio._squelch.copy()
         y_re = y_im = None
         if need_raw_compute:
-            y_re, y_im = bucket.raw.feed_packed(xw, fetch=False)
+            y_re, y_im = (bucket.raw.feed_frames(*frames, fetch=False)
+                          if frames is not None else
+                          bucket.raw.feed_packed(xw, fetch=False))
         dig = None
         if any_digital:
             dig = bucket.rec.feed_planes(y_re, y_im, fetch=False)

@@ -807,6 +807,14 @@ class AudioBank:
         xi = torch.as_tensor(xw_im).to(self.device)
         return self._feed_call(xr, xi, fetch)
 
+    def _call(self, xr: torch.Tensor, xi: torch.Tensor,
+              consts: dict[str, torch.Tensor], carries: tuple,
+              phi0: torch.Tensor, phs0: torch.Tensor):
+        """The block's launch.  ``parallel.shard_audio_bank`` replaces it
+        on the instance with one launch per channel shard."""
+        return audio_kernel(xr, xi, consts, carries, phi0, phs0,
+                            self.params)
+
     def _feed_call(self, xr: torch.Tensor, xi: torch.Tensor, fetch: bool):
         cfg = self.cfg
         mta = cfg.m_tile // cfg.audio_decim
@@ -818,8 +826,7 @@ class AudioBank:
                                            mta))
         (audio, self._prev_re, self._prev_im, self._ftail1, self._ftail2,
          self._atail1, self._atail2, self._sq, self._dc, power,
-         self._agcs) = audio_kernel(xr, xi, self.consts, carries, phi0,
-                                    phs0, self.params)
+         self._agcs) = self._call(xr, xi, self.consts, carries, phi0, phs0)
         # the carries stay on the device; squelch state and block power
         # are fetched lazily, once per block, by their consumers
         self._sq_host = None

@@ -372,6 +372,11 @@ class PSD(PSDFold):
         """Frame, upload once and launch; returns the DEVICE ``(k1, k2)``
         PSD block.  Fold fetched blocks IN ORDER with :meth:`fold`."""
         xp = torch.from_numpy(self.prepare(x)).to(self.device)
+        return self._call(xp)
+
+    def _call(self, xp: torch.Tensor) -> torch.Tensor:
+        """The block's launch.  ``parallel.shard_psd`` replaces it on the
+        instance with one launch per frame shard."""
         return psd_kernel(xp, self.consts, self.params)
 
     def feed(self, x: np.ndarray) -> np.ndarray:

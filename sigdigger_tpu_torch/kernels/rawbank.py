@@ -297,12 +297,17 @@ class RawBank:
         self._history = ext[-(cfg.taps - 1):].copy()
         return xw
 
+    def _call(self, xr: torch.Tensor, xi: torch.Tensor,
+              consts: dict[str, torch.Tensor], phi0: torch.Tensor):
+        """The block's launch.  ``parallel.shard_raw_bank`` replaces it
+        on the instance with one launch per channel shard."""
+        return raw_kernel(xr, xi, consts["h_re"], consts["h_im"],
+                          consts["theta"], phi0, self.params, consts["bmat"])
+
     def _launch(self, xr: torch.Tensor, xi: torch.Tensor, fetch: bool):
         cfg = self.cfg
         phi0 = torch.from_numpy(self._phi_tiles()).to(self.device)
-        y_re, y_im, power = raw_kernel(
-            xr, xi, self.consts["h_re"], self.consts["h_im"],
-            self.consts["theta"], phi0, self.params, self.consts["bmat"])
+        y_re, y_im, power = self._call(xr, xi, self.consts, phi0)
         self._phi = np.mod(self._phi + self._theta64 * cfg.block_out,
                            _TWO_PI)
         # fetched lazily, by the consumers of block_power only

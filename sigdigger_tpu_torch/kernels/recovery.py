@@ -557,6 +557,13 @@ class RecoveryBank:
             "mf": torch.as_tensor(self._mf.copy(), device=self.device),
         }
 
+    def _call(self, y_re: torch.Tensor, y_im: torch.Tensor,
+              state: torch.Tensor, consts: dict[str, torch.Tensor]):
+        """The block's launch.  ``parallel.shard_recovery_bank`` replaces
+        it on the instance with one launch per channel shard."""
+        return recovery_kernel(y_re, y_im, state, consts["params"],
+                               consts["mf"], self.params)
+
     def feed_planes(self, y_re, y_im, fetch: bool = True):
         """``[M, C]`` float32 channel-baseband planes (host or device)
         → (soft complex64 ``[M, C]``, strobe bool ``[M, C]``) on the
@@ -566,9 +573,8 @@ class RecoveryBank:
         y_re = torch.as_tensor(y_re).to(self.device)
         y_im = torch.as_tensor(y_im).to(self.device)
         state = torch.as_tensor(self.state).to(self.device)
-        sr, si, strobe, self.state = recovery_kernel(
-            y_re, y_im, state, self.consts["params"], self.consts["mf"],
-            self.params)
+        sr, si, strobe, self.state = self._call(y_re, y_im, state,
+                                                self.consts)
         if not fetch:
             return sr, si, strobe
         return (torch.complex(sr, si).cpu().numpy(),

@@ -1,12 +1,13 @@
 """Signal sources of the port (counterpart of ``sigdigger_tpu/sources``).
 
 ``make_source`` maps a profile's type to a source class through the
-``register_source`` table of ``sources/registry.py:33-42``.  The port
-registers the types whose modules it carries, ``file`` (raw captures
-and WAV), ``stdin`` (raw samples piped in), ``synth`` and ``tonegen``;
-any other type (``soapy``) raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.  ``guess_metadata`` (``sources/registry.py``)
-builds a file profile from a capture's name.
+``register_source`` table of ``sources/registry.py:33-42``: ``file``
+(raw captures and WAV), ``stdin`` (raw samples piped in), ``synth`` and
+``tonegen``, and ``soapysdr`` where ``libSoapySDR`` loads
+(``sources/soapy.py``, registered at import as the reference's
+``sources/__init__.py:9-17`` does).  An unknown type raises the
+reference's ``ValueError``.  ``guess_metadata``
+(``sources/registry.py``) builds a file profile from a capture's name.
 """
 
 from __future__ import annotations
@@ -40,18 +41,29 @@ def source_types() -> list[str]:
 
 
 def make_source(profile: SourceProfile) -> SignalSource:
-    ctor = _REGISTRY.get(profile.type)
-    if ctor is None:
-        raise NotImplementedError(
-            f"source type {profile.type!r} is not ported (the port has "
-            f"{source_types()}; the rest is ROADMAP.md queue 1 item 11)")
+    try:
+        ctor = _REGISTRY[profile.type]
+    except KeyError:
+        raise ValueError(
+            f"unknown source type {profile.type!r}; have {source_types()}"
+        ) from None
     return ctor(profile)
+
+
+# after the table: soapy.py registers into it
+from sigdigger_tpu_torch.sources.soapy import SoapySource  # noqa: E402
+from sigdigger_tpu_torch.sources.soapy import (  # noqa: E402
+    register_if_available as _soapy_register,
+)
+
+_soapy_register()
 
 
 __all__ = [
     "Emitter",
     "FileSource",
     "SignalSource",
+    "SoapySource",
     "StdinSource",
     "SynthBandSource",
     "ToneGenSource",

@@ -8,8 +8,9 @@ the column compactor, the symbol squeeze, the drain packer, the TV line resample
 analyzer session through them, on the compactor drain and on the packed
 one, ``cli tv`` on the line resampler, the class path's CMA equalizer
 on the CMA kernel, a class-path psk inspector's extras fetched from the
-card, ``cli psd`` on the PSD kernel, and a short live session
-(``app.LiveSession``: wire, REPL, recorder) on the kernel engine.
+card, ``cli psd`` on the PSD kernel, a short live session
+(``app.LiveSession``: wire, REPL, recorder) on the kernel engine, and a
+meshed ``KernelAnalyzer`` on ``[cuda:0] * 2`` (``parallel/``).
 Skipped where CUDA is absent; on a machine with
 a card and nvcc (and no JAX) run it as
 
@@ -935,6 +936,10 @@ AUDIO_CASES = {
     "hang_i8_seed": dict(kind="i8", kw=dict(hang_agc=True, seed_tile=1,
                                             in_scale=64.0)),
     "no_ssb": dict(kind="f32", kw=dict(enable_ssb=False)),
+    # the time-sharded bank's forms: the seeds injected at tile 2 of 4,
+    # the block power-EMA AGC (a meshed session's) and the hang walk
+    "block_seed2": dict(kind="f32", kw=dict(seed_tile=2)),
+    "hang_seed2": dict(kind="f32", kw=dict(hang_agc=True, seed_tile=2)),
     # m_tile no multiple of 64: raw_rot's last row block of a tile is
     # ragged (480 = 7·64 + 32)
     "ragged_tiles": dict(kind="i16", kw=dict(hang_agc=True, block_out=1920,
@@ -2038,3 +2043,80 @@ def test_live_session_on_the_card(cuda, tmp_path):
     rec = np.fromfile(tmp_path / "rec.cf32", np.complex64)
     assert len(rec) == blocks * block
     assert rec[:n].tobytes() == x.tobytes() and not rec[n:].any()
+
+
+def test_meshed_session_on_one_card(cuda):
+    """A ("ch",) mesh of two shards on one card against a one-device
+    mesh: one launch of each bank kernel and of the PSD a shard a block,
+    the audio and PSD payloads within 1e-4, the psk symbols and strobes
+    equal (each kernel's columns are independent of the bank's width)."""
+    from sigdigger_tpu_torch import KernelAnalyzer, MessageKind
+    from sigdigger_tpu_torch.kernels import audio
+    from sigdigger_tpu_torch.parallel.banks import make_ch_mesh
+    from sigdigger_tpu_torch.profiles import SourceProfile
+    from sigdigger_tpu_torch.sources import Emitter, SynthBandSource
+    from sigdigger_tpu_torch.types import AnalyzerParams, Channel
+
+    def run(n):
+        prof = SourceProfile(type="synth", sample_rate=256_000, freq=0.0)
+        src = SynthBandSource(prof, [
+            Emitter(freq=60e3, amplitude=1.0, fm_rate=200.0, fm_dev=2000.0),
+            Emitter(freq=-40e3, amplitude=0.5, kind="psk", order=4,
+                    baud=4000.0)], seed=1)
+        params = AnalyzerParams()
+        params.window_size = 4096
+        params.psd_update_interval = 0.0
+        # 16 frames a block: each of 2 shards folds 8, so both meshes
+        # keep the PSD's EMA weight (frames_per_program 8)
+        an = KernelAnalyzer(source=src, params=params, block_size=65536,
+                            decimation=16, n_slots=32,
+                            mesh=make_ch_mesh(n, [cuda] * n))
+        an.open_inspector("audio", Channel(fc=60e3, bw=12e3),
+                          config={"audio.demodulator": 2})
+        an.open_inspector("psk", Channel(fc=-40e3, bw=8e3),
+                          config={"afc.bits-per-symbol": 2,
+                                  "clock.baud": 4000.0})
+        an.poll()
+        kernels = (fft.psd_kernel, rawbank.raw_kernel,
+                   recovery.recovery_kernel, audio.audio_kernel)
+        before = [k.launches for k in kernels]
+        msgs = []
+        for _ in range(3):
+            assert an.step()
+            msgs += an.poll()
+        counts = [k.launches - b for k, b in zip(kernels, before)]
+        return msgs, counts
+
+    one, c1 = run(1)
+    two, c2 = run(2)
+    assert c1 == [3] * 4 and c2 == [6] * 4
+    assert [m.kind for m in one] == [m.kind for m in two]
+    for a, b in zip(one, two):
+        if a.kind == MessageKind.PSD:
+            np.testing.assert_allclose(b.data, a.data, rtol=1e-4,
+                                       atol=1e-4 * np.abs(a.data).max())
+        elif a.kind == MessageKind.SAMPLES and "strobes" in a.extras:
+            np.testing.assert_array_equal(b.extras["strobes"],
+                                          a.extras["strobes"])
+            np.testing.assert_array_equal(b.samples, a.samples)
+        elif a.kind == MessageKind.SAMPLES:
+            np.testing.assert_allclose(b.samples, a.samples, atol=1e-4)
+
+
+def test_stage_timer_times_with_events(cuda):
+    """``utils/profiling.StageTimer`` on the card: a stage is listed as
+    soon as it starts, its events resolve when the times are asked for,
+    and a wrapped call's time covers its device work."""
+    from sigdigger_tpu_torch.utils.profiling import StageTimer
+
+    t = StageTimer(cuda)
+    a = torch.randn(2048, 2048, device=cuda)
+    mm = t.wrap("mm", torch.matmul)
+    for _ in range(3):
+        mm(a, a)
+    with t.stage("empty"):
+        pass
+    assert set(t.stages) == {"mm", "empty"}
+    ms = t.ms("mm")
+    assert len(ms) == 3 and min(ms) > 0.0
+    assert t.report()["empty"]["calls"] == 1

@@ -115,6 +115,20 @@ MODULES = [
     "sigdigger_tpu_torch.app",
     "sigdigger_tpu_torch.cli",
     "sigdigger_tpu_torch.__main__",
+    "sigdigger_tpu_torch.parallel",
+    "sigdigger_tpu_torch.parallel.banks",
+    "sigdigger_tpu_torch.parallel.timebanks",
+    "sigdigger_tpu_torch.parallel.sharding",
+    "sigdigger_tpu_torch.parallel.distributed",
+    "sigdigger_tpu_torch.device",
+    "sigdigger_tpu_torch.plugin",
+    "sigdigger_tpu_torch.version",
+    "sigdigger_tpu_torch.sources.soapy",
+    "sigdigger_tpu_torch.utils.averager",
+    "sigdigger_tpu_torch.utils.compile_cache",
+    "sigdigger_tpu_torch.utils.profiling",
+    "sigdigger_tpu_torch.utils.roofline",
+    "sigdigger_tpu_torch.utils.waveform",
 ]
 
 _FORBIDDEN = ("jax", "sigdigger_tpu")
@@ -185,3 +199,25 @@ def test_forbidden_match_is_by_whole_name():
     assert _forbidden("jax.numpy") and _forbidden("sigdigger_tpu.native")
     assert not _forbidden("sigdigger_tpu_torch.native")
     assert not _forbidden("jaxtyping")
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every ``sigdigger_tpu/**.py`` has a module of the same path in the
+    port; the reference's ``native/__init__.py`` (a package of one
+    module) is the port's ``native.py``."""
+    ref = os.path.join(ROOT, "sigdigger_tpu")
+    renamed = {"sigdigger_tpu_torch.native.__init__":
+               "sigdigger_tpu_torch.native"}
+    missing = []
+    for d, _, names in os.walk(ref):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, n), ref)[:-3]
+            mod = "sigdigger_tpu_torch." + rel.replace(os.sep, ".")
+            mod = renamed.get(mod, mod)
+            if mod.endswith(".__init__"):
+                mod = mod[:-len(".__init__")]
+            if mod not in MODULES:
+                missing.append(mod)
+    assert not missing, missing
