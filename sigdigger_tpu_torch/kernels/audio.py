@@ -49,6 +49,7 @@ from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.filters import fir_lowpass
 from sigdigger_tpu_torch.kernels._build import launch, load_library
 from sigdigger_tpu_torch.kernels.ops import atan2
+from sigdigger_tpu_torch.utils import profiling
 
 _TWO_PI = 2.0 * np.pi
 
@@ -520,6 +521,7 @@ def hang_floor_ms(cycles: dict, m: int) -> float:
     return cycles["cycles"] * m / (cycles["ghz"] * 1e9) * 1e3
 
 
+@profiling.launch("audio_kernel")
 def audio_kernel(xr: torch.Tensor, xi: torch.Tensor,
                  consts: dict[str, torch.Tensor], carries: tuple,
                  phi0: torch.Tensor, phs0: torch.Tensor, p: AudioParams,

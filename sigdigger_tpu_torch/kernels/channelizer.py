@@ -39,6 +39,7 @@ from sigdigger_tpu_torch.kernels._build import (
 from sigdigger_tpu_torch.kernels.ops import atan2
 from sigdigger_tpu_torch.kernels.tcsplit import tc_bmat, tc_product
 from sigdigger_tpu_torch.native import frame_windows
+from sigdigger_tpu_torch.utils import profiling
 
 _TWO_PI = 2.0 * np.pi
 
@@ -234,6 +235,7 @@ def _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
     return out[:ma], out[ma:ma + 1], out[ma + 1:]
 
 
+@profiling.launch("kernel1")
 def kernel1(xr: torch.Tensor, xi: torch.Tensor,
             consts: dict[str, torch.Tensor], phi0: torch.Tensor,
             prev_re: torch.Tensor, prev_im: torch.Tensor, p: Kernel1Params):

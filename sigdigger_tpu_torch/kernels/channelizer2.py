@@ -53,6 +53,7 @@ from sigdigger_tpu_torch.native import (
     frame_windows_packed_i16,
 )
 from sigdigger_tpu_torch.types import WindowFunction
+from sigdigger_tpu_torch.utils import profiling
 
 _TWO_PI = 2.0 * np.pi
 # the reference's psd_fb: its fused PSD pairs two frames in the lanes,
@@ -422,6 +423,7 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
     return audio, last_re, last_im, ftail_out, psd
 
 
+@profiling.launch("kernel2")
 def kernel2(xw: torch.Tensor, consts: dict[str, torch.Tensor],
             prev_re: torch.Tensor, prev_im: torch.Tensor,
             ftail: torch.Tensor, p: Kernel2Params,
@@ -524,7 +526,9 @@ class MatChannelizer2:
             return None
         if self._phi0_dev is not None:
             return self._phi0_dev
-        return torch.from_numpy(self._phi_tiles()).to(self.device)
+        return profiling.copy_to("rx.upload",
+                                 torch.from_numpy(self._phi_tiles()),
+                                 self.device)
 
     def feed_async(self, x: np.ndarray) -> torch.Tensor:
         """Frame + launch one block; returns the DEVICE audio tensor."""
@@ -534,7 +538,8 @@ class MatChannelizer2:
         """Launch one pre-framed packed ``[2M, K]`` buffer (numpy or
         tensor); with ``fuse_psd`` the ``(k1, k2)`` PSD block lands in
         ``psd_block``."""
-        xw = torch.as_tensor(xw).to(self.device)
+        xw = profiling.copy_to("rx.upload", torch.as_tensor(xw),
+                               self.device)
         phi0 = self.phi0()
         if self.events is not None:
             ev = (torch.cuda.Event(enable_timing=True),
@@ -553,20 +558,21 @@ class MatChannelizer2:
         return audio
 
     def _frame(self, x: np.ndarray) -> np.ndarray:
-        cfg = self.cfg
-        x = np.asarray(x, np.complex64)
-        if len(x) != cfg.block_in:
-            raise ValueError(f"block holds {len(x)} samples, the "
-                             f"channelizer takes {cfg.block_in}")
-        ext = np.concatenate([self._history, x])
-        if cfg.in_i8:
-            xw = frame_windows_packed_i8(ext, cfg.block_out, cfg.taps,
-                                         cfg.decimation, cfg.i8_scale)
-        elif cfg.in_i16:
-            xw = frame_windows_packed_i16(ext, cfg.block_out, cfg.taps,
-                                          cfg.decimation, cfg.i16_scale)
-        else:
-            xw = frame_windows_packed(ext, cfg.block_out, cfg.taps,
-                                      cfg.decimation)
-        self._history = ext[-(cfg.taps - 1):].copy()
-        return xw
+        with profiling.span("rx.frame", cpu=True, samples=len(x)):
+            cfg = self.cfg
+            x = np.asarray(x, np.complex64)
+            if len(x) != cfg.block_in:
+                raise ValueError(f"block holds {len(x)} samples, the "
+                                 f"channelizer takes {cfg.block_in}")
+            ext = np.concatenate([self._history, x])
+            if cfg.in_i8:
+                xw = frame_windows_packed_i8(ext, cfg.block_out, cfg.taps,
+                                             cfg.decimation, cfg.i8_scale)
+            elif cfg.in_i16:
+                xw = frame_windows_packed_i16(ext, cfg.block_out, cfg.taps,
+                                              cfg.decimation, cfg.i16_scale)
+            else:
+                xw = frame_windows_packed(ext, cfg.block_out, cfg.taps,
+                                          cfg.decimation)
+            self._history = ext[-(cfg.taps - 1):].copy()
+            return xw

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.utils import profiling
 
 MAX_PLANES = 4               # planes one kernel launch gathers
 
@@ -173,6 +174,7 @@ def _compact_cuda(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
     return out
 
 
+@profiling.launch("compact_kernel")
 def compact_kernel(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
                    cfg: ColumnCompactorConfig) -> torch.Tensor:
     """One compaction through the map ``slots`` and its :func:`run_table`

@@ -60,7 +60,7 @@ from sigdigger_tpu_torch.kernels._build import (
     launch,
     load_library,
 )
-from sigdigger_tpu_torch.utils import largest_divisor
+from sigdigger_tpu_torch.utils import largest_divisor, profiling
 
 A_SCALE = 4096.0       # audio samples (±8 range)
 S_SCALE = 256.0        # squelch EMA / block power (±128 range)
@@ -404,6 +404,7 @@ def _pack_cuda(planes: dict, sq, pw, maps: dict,
     return out
 
 
+@profiling.launch("pack_kernel")
 def pack_kernel(planes: dict, sq: torch.Tensor, pw: torch.Tensor,
                 maps: dict, cfg: DrainPackerConfig) -> torch.Tensor:
     """One pack: the CUDA kernel for CUDA tensors, the plain version for

@@ -35,6 +35,7 @@ from sigdigger_tpu_torch.kernels._build import (
     launch,
     load_library,
 )
+from sigdigger_tpu_torch.utils import profiling
 
 KERNEL_TAPS = 5
 
@@ -222,6 +223,7 @@ def cma_floor_ms(cycles: dict, t: int) -> float:
     return cycles["cycles"] * t / (cycles["ghz"] * 1e9) * 1e3
 
 
+@profiling.launch("cma_kernel")
 def cma_kernel(x_re, x_im, taps_re, taps_im, rate, locked) -> tuple:
     """One CMA block: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors.  ``rate`` and ``locked`` are ``[C]`` rows.

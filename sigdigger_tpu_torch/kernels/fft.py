@@ -43,6 +43,7 @@ from sigdigger_tpu_torch.kernels._build import (
 )
 from sigdigger_tpu_torch.native import frame_psd_packed
 from sigdigger_tpu_torch.types import WindowFunction
+from sigdigger_tpu_torch.utils import profiling
 
 
 def _dft_matrix(n: int, sign: float = -1.0, dtype=np.float32
@@ -91,13 +92,14 @@ class PSDFold:
 
     def fold(self, out: np.ndarray) -> np.ndarray:
         """EMA-fold one fetched ``(k1, k2)`` block into the running PSD."""
-        mean_psd = self.unpermute(np.asarray(out))
-        if self._count == 0:
-            self.psd = mean_psd.astype(np.float64)
-        else:
-            self.psd += self.alpha_block * (mean_psd - self.psd)
-        self._count += 1
-        return self.psd.astype(np.float32)
+        with profiling.span("rx.fold"):
+            mean_psd = self.unpermute(np.asarray(out))
+            if self._count == 0:
+                self.psd = mean_psd.astype(np.float64)
+            else:
+                self.psd += self.alpha_block * (mean_psd - self.psd)
+            self._count += 1
+            return self.psd.astype(np.float32)
 
     def reset(self) -> None:
         """Restart the cross-block EMA."""
@@ -296,6 +298,7 @@ def _psd_cuda(xp: torch.Tensor, consts: dict[str, torch.Tensor],
     return psd
 
 
+@profiling.launch("psd_kernel")
 def psd_kernel(xp: torch.Tensor, consts: dict[str, torch.Tensor],
                p: PSDParams) -> torch.Tensor:
     """One block's mean PSD ``[A, B]`` in ``(k1, k2)`` order: the CUDA
@@ -371,7 +374,9 @@ class PSD(PSDFold):
     def feed_async(self, x: np.ndarray) -> torch.Tensor:
         """Frame, upload once and launch; returns the DEVICE ``(k1, k2)``
         PSD block.  Fold fetched blocks IN ORDER with :meth:`fold`."""
-        xp = torch.from_numpy(self.prepare(x)).to(self.device)
+        xp = profiling.copy_to("rx.upload",
+                               torch.from_numpy(self.prepare(x)),
+                               self.device)
         return self._call(xp)
 
     def _call(self, xp: torch.Tensor) -> torch.Tensor:
@@ -483,6 +488,7 @@ def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
     return psd
 
 
+@profiling.launch("psd_xw_kernel")
 def psd_xw_kernel(xw: torch.Tensor, consts: dict[str, torch.Tensor],
                   p: PSDXWParams) -> torch.Tensor:
     """One block's mean PSD ``[A, B]`` read from the channelizer's
@@ -498,6 +504,7 @@ def psd_xw_kernel(xw: torch.Tensor, consts: dict[str, torch.Tensor],
     raise ValueError(f"psd_xw_kernel runs on cuda or cpu, not {xw.device}")
 
 
+@profiling.launch("psd_xw_ema_kernel")
 def psd_xw_ema_kernel(xw: torch.Tensor, consts: dict[str, torch.Tensor],
                       p: PSDXWParams, prev: torch.Tensor,
                       alpha: float) -> torch.Tensor:
@@ -576,7 +583,8 @@ class PSDFromXW(PSD):
         """xw: the channelizer's packed ``[2M, K]`` buffer (numpy or
         tensor; a device tensor adds no upload).  Returns the DEVICE
         ``(k1, k2)`` PSD block; fold fetched blocks in order."""
-        xw = torch.as_tensor(xw).to(self.device)
+        xw = profiling.copy_to("rx.upload", torch.as_tensor(xw),
+                               self.device)
         return psd_xw_kernel(xw, self.consts, self.xw_params)
 
     def feed(self, xw) -> np.ndarray:

@@ -43,6 +43,7 @@ from sigdigger_tpu_torch.native import (
     frame_windows_packed_i8,
     frame_windows_packed_i16,
 )
+from sigdigger_tpu_torch.utils import profiling
 
 _TWO_PI = 2.0 * np.pi
 
@@ -168,6 +169,7 @@ def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams, bmat):
     return y_re, y_im, power
 
 
+@profiling.launch("raw_kernel")
 def raw_kernel(xr: torch.Tensor, xi: torch.Tensor, h_re: torch.Tensor,
                h_im: torch.Tensor, theta: torch.Tensor, phi0: torch.Tensor,
                p: RawParams, bmat: torch.Tensor | None = None):
@@ -306,7 +308,9 @@ class RawBank:
 
     def _launch(self, xr: torch.Tensor, xi: torch.Tensor, fetch: bool):
         cfg = self.cfg
-        phi0 = torch.from_numpy(self._phi_tiles()).to(self.device)
+        phi0 = profiling.copy_to("rx.upload",
+                                 torch.from_numpy(self._phi_tiles()),
+                                 self.device)
         y_re, y_im, power = self._call(xr, xi, self.consts, phi0)
         self._phi = np.mod(self._phi + self._theta64 * cfg.block_out,
                            _TWO_PI)
@@ -333,8 +337,10 @@ class RawBank:
     def feed_frames(self, xw_re, xw_im, fetch: bool = True):
         """``fetch=False`` leaves the ``[M, C]`` output planes on the
         device (for chaining into the recovery bank)."""
-        xr = torch.as_tensor(xw_re).to(self.device)
-        xi = torch.as_tensor(xw_im).to(self.device)
+        xr = profiling.copy_to("rx.upload", torch.as_tensor(xw_re),
+                               self.device)
+        xi = profiling.copy_to("rx.upload", torch.as_tensor(xw_im),
+                               self.device)
         return self._launch(xr, xi, fetch)
 
     @property

@@ -38,6 +38,7 @@ from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.filters import rrc_taps
 from sigdigger_tpu_torch.dsp.pll import loop_gains
 from sigdigger_tpu_torch.kernels.ops import atan2
+from sigdigger_tpu_torch.utils import profiling
 
 KIND_PSK = 0
 KIND_FSK = 1
@@ -342,6 +343,7 @@ def latency_floor_ms(cycles: dict, m: int, strobes: int) -> float:
     return chain / (cycles["ghz"] * 1e9) * 1e3
 
 
+@profiling.launch("recovery_kernel")
 def recovery_kernel(y_re: torch.Tensor, y_im: torch.Tensor,
                     state: torch.Tensor, params: torch.Tensor,
                     mf: torch.Tensor, p: RecoveryParams):

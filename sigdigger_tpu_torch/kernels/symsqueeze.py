@@ -37,6 +37,7 @@ from sigdigger_tpu_torch.kernels._build import (
     launch,
     load_library,
 )
+from sigdigger_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -115,6 +116,7 @@ def _squeeze_cuda(sr, si, st, group: int) -> tuple:
     return out.unbind(0)
 
 
+@profiling.launch("squeeze_kernel")
 def squeeze_kernel(sr: torch.Tensor, si: torch.Tensor, st: torch.Tensor,
                    group: int) -> tuple:
     """One squeeze: the CUDA kernel for CUDA tensors, the plain version

@@ -46,6 +46,7 @@ from sigdigger_tpu_torch.kernels._build import (
     launch,
     load_library,
 )
+from sigdigger_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -200,6 +201,7 @@ def _tv_cuda(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
     return out
 
 
+@profiling.launch("tv_kernel")
 def tv_kernel(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
               starts: torch.Tensor | None = None) -> torch.Tensor:
     """One line resample of the framed windows ``x`` [L, W] or, with

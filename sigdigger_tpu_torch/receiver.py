@@ -16,6 +16,14 @@ per block: the standalone PSD, the raw bank
 (``kernels/recovery.recovery_kernel``), whose input planes never leave
 the device.  The host fetches the audio or the symbols and strobes,
 and folds the PSD into a running EMA.
+
+Each block is traced (``utils/profiling``) while a ``torch.profiler``
+session is active: ``rx.feed`` (its framing ``rx.frame``, uploads
+``rx.upload`` and kernel calls ``launch``) and ``rx.drain`` (``rx.wait``
+for the block's last launch, the fetches ``rx.fetch``, the bf16
+conversion ``rx.convert``, the PSD fold ``rx.fold``), under the block
+id that :meth:`KernelReceiver.feed_async` assigns and its handle
+carries.
 """
 
 from __future__ import annotations
@@ -42,8 +50,14 @@ from sigdigger_tpu_torch.kernels.recovery import (
     RecoveryBankConfig,
 )
 from sigdigger_tpu_torch.types import WindowFunction
+from sigdigger_tpu_torch.utils import profiling
 
 _KINDS = {"psk": KIND_PSK, "fsk": KIND_FSK, "ask": KIND_ASK}
+_HOST = torch.device("cpu")
+
+
+def _fetch(t: torch.Tensor) -> torch.Tensor:
+    return profiling.copy_to("rx.fetch", t, _HOST)
 
 
 class BlockSource(Protocol):
@@ -52,6 +66,16 @@ class BlockSource(Protocol):
     eos: bool
 
     def read(self, n: int) -> np.ndarray: ...
+
+
+@dataclass
+class Inflight:
+    """A block fed and not yet drained."""
+
+    block: int                     # its id (``profiling.new_block``)
+    outs: tuple                    # the device outputs to fetch
+    done: torch.cuda.Event | None  # recorded after its last launch while
+    #                                tracing on a card, else None
 
 
 @dataclass
@@ -98,6 +122,7 @@ class KernelReceiver:
         if mode != "fm" and mode not in _KINDS:
             raise ValueError(f"mode must be fm, psk, fsk or ask, not {mode!r}")
         self.device = resolve_device(device)
+        self._fed = self._drained = 0
         f0s = np.asarray(f0s, np.float64)
         n_channels = len(f0s)
         self.mode = mode
@@ -179,11 +204,23 @@ class KernelReceiver:
     def feed(self, x: np.ndarray) -> ReceiverBlock:
         return self.drain(self.feed_async(x))
 
-    def feed_async(self, x: np.ndarray):
+    def feed_async(self, x: np.ndarray) -> Inflight:
         """Frame, upload and launch one block, deferring every
         device-to-host fetch.  Returns an in-flight handle for
         :meth:`drain`; handles MUST be drained in feed order (the PSD
         EMA fold is sequential)."""
+        block = profiling.new_block()
+        with profiling.span("rx.feed", block=block, cpu=True,
+                            inflight=self._fed - self._drained):
+            outs = self._launch(x)
+            done = None
+            if self.device.type == "cuda" and profiling.enabled():
+                done = torch.cuda.Event()
+                done.record()
+        self._fed += 1
+        return Inflight(block, outs, done)
+
+    def _launch(self, x: np.ndarray) -> tuple:
         if self.mode == "fm":
             if self.cfg.fuse_psd:
                 # one upload, one launch: the PSD block comes out of the
@@ -192,7 +229,9 @@ class KernelReceiver:
                 return (self._chan.psd_block, audio)
             if self._shared_psd:
                 # one upload, two kernels
-                xw = torch.from_numpy(self._chan._frame(x)).to(self.device)
+                xw = profiling.copy_to(
+                    "rx.upload", torch.from_numpy(self._chan._frame(x)),
+                    self.device)
                 return (self._psd.feed_async(xw), self._chan.feed_packed(xw))
             return (self._psd.feed_async(x), self._chan.feed_async(x))
         psd_h = self._psd.feed_async(x)
@@ -200,17 +239,25 @@ class KernelReceiver:
         y_re, y_im = self._raw.feed_frames(*self._raw.frame(x), fetch=False)
         return (psd_h,) + self._rec.feed_planes(y_re, y_im, fetch=False)
 
-    def drain(self, handle) -> ReceiverBlock:
-        psd = self._psd.fold(handle[0].cpu().numpy())
-        if self.mode == "fm":
-            audio = handle[1].cpu()
-            if audio.dtype != torch.float32:      # bf16 drain
-                audio = audio.float()
-            return ReceiverBlock(psd=psd, audio=audio.numpy())
-        sym_re, sym_im, strobe = handle[1:]
-        return ReceiverBlock(
-            psd=psd, symbols=torch.complex(sym_re, sym_im).cpu().numpy(),
-            strobes=(strobe > 0.5).cpu().numpy())
+    def drain(self, handle: Inflight) -> ReceiverBlock:
+        self._drained += 1
+        with profiling.span("rx.drain", block=handle.block):
+            with profiling.span("rx.wait"):
+                if handle.done is not None:
+                    handle.done.synchronize()
+            outs = handle.outs
+            psd = self._psd.fold(_fetch(outs[0]).numpy())
+            if self.mode == "fm":
+                audio = _fetch(outs[1])
+                if audio.dtype != torch.float32:      # bf16 drain
+                    with profiling.span("rx.convert"):
+                        audio = audio.float()
+                return ReceiverBlock(psd=psd, audio=audio.numpy())
+            sym_re, sym_im, strobe = outs[1:]
+            return ReceiverBlock(
+                psd=psd,
+                symbols=_fetch(torch.complex(sym_re, sym_im)).numpy(),
+                strobes=_fetch(strobe > 0.5).numpy())
 
     def run(self, source: BlockSource,
             max_blocks: int | None = None,

@@ -2120,3 +2120,90 @@ def test_stage_timer_times_with_events(cuda):
     ms = t.ms("mm")
     assert len(ms) == 3 and min(ms) > 0.0
     assert t.report()["empty"]["calls"] == 1
+
+
+def test_receiver_spans_on_the_card(cuda, tmp_path):
+    """The receiver's spans on the card (``utils/profiling``): kernel2's
+    launch call lies inside its ``launch`` range, each block's feed
+    records an event after its last launch and its ``rx.wait``
+    synchronizes on it after the block's kernels, the copies are spans
+    with their bytes, and the outputs are bit-equal to an untraced
+    receiver's."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sigdigger_tpu_torch.utils import profiling
+
+    def receiver():
+        return KernelReceiver(sample_rate=FS,
+                              f0s=np.linspace(-800e3, 700e3, 8), bw=100e3,
+                              block_out=512, in_i16=True, audio_bf16=True)
+
+    rx, plain = receiver(), receiver()
+    x = _signal(rx._chan.f0s, 4 * rx.block_in, seed=3)
+    blocks = [x[i * rx.block_in:(i + 1) * rx.block_in] for i in range(4)]
+    want = [plain.feed(b) for b in blocks]
+    rx.feed(blocks[0])                  # loads the library untraced
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        handles = [rx.feed_async(b) for b in blocks[1:]]
+        got = [rx.drain(h) for h in handles]
+    recs = profiling.records()
+    path = str(tmp_path / "trace.json")
+    profiling.export_chrome_trace(prof, path)
+    profiling.clear()
+    for a, b in zip(got, want[1:]):
+        np.testing.assert_array_equal(a.audio, b.audio)
+        np.testing.assert_array_equal(a.psd, b.psd)
+    assert all(h.done is not None for h in handles)
+    ids = [h.block for h in handles]
+
+    def named(name):
+        return {r.block: [s for s in recs if s.name == name
+                          and s.block == r.block] for r in recs
+                if r.name == "rx.feed"}
+
+    for b in ids:
+        (up,) = named("rx.upload")[b]
+        assert up.attrs == {"bytes": 2 * 512 * 64 * 2, "pinned": False}
+        fetches = named("rx.fetch")[b]
+        assert len(fetches) == 2 and not any(
+            f.attrs["pinned"] for f in fetches)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+
+    def span_of(name, block, **args):
+        (e,) = [e for e in ranges if e["name"] == name
+                and e["args"].get("block") == block
+                and all(e["args"].get(k) == v for k, v in args.items())]
+        return float(e["ts"]), float(e["ts"]) + float(e["dur"])
+
+    def inside(e, lo_hi):
+        t = float(e["ts"])
+        return lo_hi[0] <= t and t + float(e.get("dur", 0)) <= lo_hi[1]
+
+    for b in ids:
+        feed, launch = span_of("rx.feed", b), span_of("launch", b,
+                                                      kernel="kernel2")
+        wait = span_of("rx.wait", b)
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and e["args"].get("correlation") in calls
+                   and inside(calls[e["args"]["correlation"]], feed)]
+        assert any("chan_rot_disc_tc" in k["name"] for k in kernels)
+        for k in kernels:
+            if "chan_rot_disc_tc" in k["name"]:
+                assert inside(calls[k["args"]["correlation"]], launch)
+        records = [e for e in calls.values() if "EventRecord" in e["name"]
+                   and inside(e, feed) and float(e["ts"]) >= launch[1]]
+        assert records, b
+        assert any("EventSynchronize" in e["name"] and inside(e, wait)
+                   for e in calls.values()), b
+        # the wait ends once the block's kernels have (clocks to 50 µs)
+        assert wait[1] + 50.0 >= max(float(k["ts"]) + float(k["dur"])
+                                     for k in kernels)

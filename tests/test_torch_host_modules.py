@@ -2,7 +2,7 @@
 (``tests/test_extras.py``), the SoapySDR source and discoverer against
 ``tests/test_hw_backends.py``'s gcc-built mock library, the plugin
 loader (``tests/test_remote.py``), the averager (``tests/test_support.py``),
-the meters (``tests/test_profiling.py``), the waveform view's PNG byte
+the stage timer (``tests/test_profiling.py``), the waveform view's PNG byte
 for byte against the reference's, the version, the compile-cache
 directory, and the roofline bounds that ``chip_smoke.py`` prints (pinned
 at ``PERF.md`` §6's values, to the digits it prints)."""
@@ -189,17 +189,6 @@ def test_averager_semantics():
     assert np.allclose(b, [2.0, 3.0])
     av.reset()
     assert av.data is None
-
-
-def test_sample_rate_meter():
-    from sigdigger_tpu_torch.utils.profiling import SampleRateMeter
-
-    m = SampleRateMeter(alpha=1.0)
-    m.feed(1000)
-    time.sleep(0.05)
-    rate = m.feed(1000)
-    assert 10_000 < rate < 40_000
-    assert m.total == 2000
 
 
 def test_stage_timer():
