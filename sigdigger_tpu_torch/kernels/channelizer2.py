@@ -48,9 +48,9 @@ from sigdigger_tpu_torch.kernels.fft import _dft_matrix, psd_parts
 from sigdigger_tpu_torch.kernels.ops import atan2
 from sigdigger_tpu_torch.kernels.tcsplit import tc_bmat, tc_product
 from sigdigger_tpu_torch.native import (
-    frame_windows_packed,
-    frame_windows_packed_i8,
-    frame_windows_packed_i16,
+    carry,
+    frame_packed,
+    framer_library,
 )
 from sigdigger_tpu_torch.types import WindowFunction
 from sigdigger_tpu_torch.utils import profiling
@@ -558,21 +558,20 @@ class MatChannelizer2:
         return audio
 
     def _frame(self, x: np.ndarray) -> np.ndarray:
-        with profiling.span("rx.frame", cpu=True, samples=len(x)):
+        with profiling.span("rx.frame", cpu=True, samples=len(x),
+                            native=framer_library() is not None):
             cfg = self.cfg
             x = np.asarray(x, np.complex64)
             if len(x) != cfg.block_in:
                 raise ValueError(f"block holds {len(x)} samples, the "
                                  f"channelizer takes {cfg.block_in}")
-            ext = np.concatenate([self._history, x])
             if cfg.in_i8:
-                xw = frame_windows_packed_i8(ext, cfg.block_out, cfg.taps,
-                                             cfg.decimation, cfg.i8_scale)
+                dtype, scale = np.int8, cfg.i8_scale
             elif cfg.in_i16:
-                xw = frame_windows_packed_i16(ext, cfg.block_out, cfg.taps,
-                                              cfg.decimation, cfg.i16_scale)
+                dtype, scale = np.int16, cfg.i16_scale
             else:
-                xw = frame_windows_packed(ext, cfg.block_out, cfg.taps,
-                                          cfg.decimation)
-            self._history = ext[-(cfg.taps - 1):].copy()
+                dtype, scale = np.float32, 1.0
+            xw = frame_packed(self._history, x, cfg.block_out, cfg.taps,
+                              cfg.decimation, dtype, scale)
+            self._history = carry(self._history, x, cfg.taps - 1)
             return xw

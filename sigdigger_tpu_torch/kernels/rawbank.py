@@ -38,10 +38,9 @@ from sigdigger_tpu_torch.kernels.tcsplit import (
     tc_product,
 )
 from sigdigger_tpu_torch.native import (
+    carry,
+    frame_packed,
     frame_windows,
-    frame_windows_packed,
-    frame_windows_packed_i8,
-    frame_windows_packed_i16,
 )
 from sigdigger_tpu_torch.utils import profiling
 
@@ -286,17 +285,11 @@ class RawBank:
         saturating int16/int8 at ``cfg.in_scale`` counts/unit) with
         carried history."""
         cfg = self.cfg
-        ext = np.concatenate([self._history, np.asarray(x, np.complex64)])
-        if i8:
-            xw = frame_windows_packed_i8(ext, cfg.block_out, cfg.taps,
-                                         cfg.decimation, cfg.in_scale)
-        elif i16:
-            xw = frame_windows_packed_i16(ext, cfg.block_out, cfg.taps,
-                                          cfg.decimation, cfg.in_scale)
-        else:
-            xw = frame_windows_packed(ext, cfg.block_out, cfg.taps,
-                                      cfg.decimation)
-        self._history = ext[-(cfg.taps - 1):].copy()
+        x = np.asarray(x, np.complex64)
+        dtype = np.int8 if i8 else np.int16 if i16 else np.float32
+        xw = frame_packed(self._history, x, cfg.block_out, cfg.taps,
+                          cfg.decimation, dtype, cfg.in_scale)
+        self._history = carry(self._history, x, cfg.taps - 1)
         return xw
 
     def _call(self, xr: torch.Tensor, xi: torch.Tensor,

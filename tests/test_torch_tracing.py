@@ -16,6 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from sigdigger_tpu_torch import KernelReceiver
+from sigdigger_tpu_torch.native import framer_library
 from sigdigger_tpu_torch.utils import profiling
 
 FEED_SIDE = {"rx.frame", "rx.upload", "launch"}
@@ -132,6 +133,8 @@ def test_each_block_has_one_feed_and_one_drain(traced, geometry):
     frames = [r for r in recs if r.name == "rx.frame"]
     assert all(r.attrs["samples"] == 32768 and 0 <= r.cpu_ns <= r.ns
                for r in frames)
+    native = framer_library() is not None
+    assert all(r.attrs["native"] is native for r in frames)
 
 
 def test_outputs_are_bit_equal_traced_and_not(traced, geometry):
