@@ -44,6 +44,19 @@ Where the port's signature differs from the reference's:
   frames, and builds no squeeze, compactor, packer or shared-upload
   PSD: it drains the full planes.
 
+Each block is traced (``utils/profiling``) while a ``torch.profiler``
+session is active, under the block id :meth:`KernelAnalyzer._compute_block`
+assigns: on the stepping thread ``an.feed`` (the framing ``an.frame``,
+the upload ``an.upload``, the PSD's ``an.psd`` and the banks'
+``an.dispatch``; the drain queue's depth at the put as its attribute
+``queue_depth``), and on the thread that drains it ``an.drain`` (the
+copies ``an.fetch``, the demap ``an.demap`` and the emission
+``an.emit`` with its ``messages``).  Each drained block leaves a record,
+its id and the number of SAMPLES payloads it emitted, or the error its
+drain raised: :meth:`KernelAnalyzer.wait_block` waits for one and
+raises for a block whose drain failed.  With no profiler a span costs
+one flag read.
+
 Three faults of the reference are not carried over:
 - ``kernel_engine.py:929`` (``ADVICE.md``): the threaded drain fetches
   without the engine lock but demaps the slots' state under it, so
@@ -58,6 +71,8 @@ Three faults of the reference are not carried over:
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Any
 
@@ -98,7 +113,7 @@ from sigdigger_tpu_torch.kernels.symsqueeze import (
     SymbolSqueezeConfig,
 )
 from sigdigger_tpu_torch.types import AnalyzerMode, Channel
-from sigdigger_tpu_torch.utils import largest_divisor
+from sigdigger_tpu_torch.utils import largest_divisor, profiling
 from sigdigger_tpu_torch.utils.logger import Logger
 
 _DIGITAL = {"psk": KIND_PSK, "fsk": KIND_FSK, "ask": KIND_ASK}
@@ -156,6 +171,14 @@ class _HostResampler:
         self._pos = self._pos + n_out * self.ratio - len(x)
         self._last = x[-1]
         return out.astype(np.float32)
+
+
+class _Entry(list):
+    """One block's bucket handles in the pipeline, with its block id."""
+
+    def __init__(self, handles: list, block: int | None) -> None:
+        super().__init__(handles)
+        self.block = block
 
 
 class _KernelSlotExtra:
@@ -264,6 +287,9 @@ class KernelAnalyzer(Analyzer):
     Runs on ``cuda`` unless ``device`` says otherwise.
     """
 
+    # drain records kept (ids and counts: a few hundred kB)
+    RECORDS = 4096
+
     def __init__(self, profile=None, params=None, source=None,
                  block_size: int | None = None, n_slots: int = 128,
                  decimation: int = 64, audio_decim: int = 8,
@@ -319,6 +345,11 @@ class KernelAnalyzer(Analyzer):
         self._audio_decim = int(audio_decim)
         self._decimations = tuple(sorted(
             set(decimations or ()) | {int(decimation)}, reverse=True))
+        # id of the last block step() took in, and each drained block's
+        # record {id: (SAMPLES payloads, error or None)}
+        self.last_block: int | None = None
+        self._records: OrderedDict = OrderedDict()
+        self._records_cv = threading.Condition()
         super().__init__(profile=profile, params=params, source=source,
                          block_size=block_size, device=device)
 
@@ -813,35 +844,90 @@ class KernelAnalyzer(Analyzer):
     def _upload(self, bucket: _Bucket, x: np.ndarray) -> torch.Tensor:
         """Frame one block into the bucket's packed window buffer
         (int16/int8 when asked) and upload it once."""
-        return torch.from_numpy(bucket.raw.frame_packed(
-            x, i16=self._in_i16, i8=self._in_i8)).to(self.device)
+        with profiling.span("an.frame"):
+            xw = bucket.raw.frame_packed(x, i16=self._in_i16, i8=self._in_i8)
+        return profiling.copy_to("an.upload", torch.from_numpy(xw),
+                                 self.device)
 
     def _compute_block(self, x: np.ndarray) -> list:
         """Depth-``pipeline_depth`` block pipeline: dispatch block n,
         drain block n-(depth-1).  Messages lag (depth-1) blocks;
         ``_flush_pipeline`` drains the tail at EOS."""
-        by_bucket: dict[int, list] = {}
-        for slot in self._inspectors.values():
-            ks = self._kslots[slot.handle]
-            by_bucket.setdefault(ks.bucket.decimation, []).append(slot)
-        xw_shared = None
-        if self._psd_bucket is not None:
-            # ONE packed upload feeds the PSD and this bucket's banks;
-            # the EMA folds on the device, fetched when a message is due
-            xw_shared = self._upload(self._psd_bucket, x)
-            self._spectrum.feed_ema(xw_shared)
-        handles = [self._dispatch_bucket(
-            self._buckets[d], slots, x,
-            xw_shared if self._buckets[d] is self._psd_bucket else None)
-            for d, slots in by_bucket.items()]
-        self._inflight.append(handles)
-        if len(self._inflight) < self._pipeline_depth:
-            return []
-        entry = self._inflight.pop(0)
-        if self._drain_thread_on:
-            self._queue_drain(entry)
-            return []
-        return self._drain_entry(entry)
+        block = profiling.new_block()
+        self.last_block = block
+        with profiling.span("an.feed", block=block, cpu=True) as feed:
+            by_bucket: dict[int, list] = {}
+            for slot in self._inspectors.values():
+                ks = self._kslots[slot.handle]
+                by_bucket.setdefault(ks.bucket.decimation, []).append(slot)
+            xw_shared = None
+            if self._psd_bucket is not None:
+                # ONE packed upload feeds the PSD and this bucket's banks;
+                # the EMA folds on the device, fetched when a message is
+                # due
+                xw_shared = self._upload(self._psd_bucket, x)
+                with profiling.span("an.psd"):
+                    self._spectrum.feed_ema(xw_shared)
+            with profiling.span("an.dispatch"):
+                handles = [self._dispatch_bucket(
+                    self._buckets[d], slots, x,
+                    xw_shared if self._buckets[d] is self._psd_bucket
+                    else None)
+                    for d, slots in by_bucket.items()]
+            for h in handles:
+                h["block"] = block
+            self._inflight.append(_Entry(handles, block))
+            if len(self._inflight) < self._pipeline_depth:
+                return []
+            entry = self._inflight.pop(0)
+            if self._drain_thread_on:
+                depth = self._queue_drain(entry)
+                if feed is not None:
+                    feed.attrs["queue_depth"] = depth
+                return []
+            return self._drain_sync(entry)
+
+    def _drain_sync(self, entry) -> list:
+        """Drain ``entry`` on this thread and record it; the caller
+        emits the payloads."""
+        block = getattr(entry, "block", None)
+        try:
+            with profiling.span("an.drain", block=block):
+                msgs = self._drain_entry(entry)
+        except Exception as e:
+            self._record(block, 0, e)
+            raise
+        self._record(block, len(msgs), None)
+        return msgs
+
+    def _record(self, block: int | None, emitted: int,
+                error: BaseException | None) -> None:
+        if block is None:
+            return
+        with self._records_cv:
+            self._records[block] = (emitted, error)
+            while len(self._records) > self.RECORDS:
+                self._records.popitem(last=False)
+            self._records_cv.notify_all()
+
+    def wait_block(self, block: int, timeout: float | None = None) -> int:
+        """Wait until block ``block`` (an id :attr:`last_block` gave) has
+        drained and its payloads are emitted; returns how many SAMPLES
+        payloads it emitted, one per inspector it fed, in the order they
+        entered the queue after the previous block's.  Raises
+        ``RuntimeError`` when the block's drain or emission failed, and
+        ``TimeoutError`` when ``timeout`` seconds pass first.  Only the
+        newest :attr:`RECORDS` blocks are kept: wait for a block soon."""
+        with self._records_cv:
+            if not self._records_cv.wait_for(
+                    lambda: block in self._records, timeout):
+                raise TimeoutError(f"block {block} not drained in "
+                                   f"{timeout} s")
+            emitted, error = self._records[block]
+        if error is not None:
+            raise RuntimeError(f"block {block}: its drain raised "
+                               f"{error!r}") from error
+        return emitted
 
     def _feed_spectrum(self, x: np.ndarray) -> None:
         if self._psd_bucket is None:
@@ -854,7 +940,7 @@ class KernelAnalyzer(Analyzer):
     def _flush_pipeline(self) -> list:
         out = []
         while self._inflight:
-            out.extend(self._drain_entry(self._inflight.pop(0)))
+            out.extend(self._drain_sync(self._inflight.pop(0)))
         return out
 
     def _emit_block_msgs(self, msgs, now: float) -> None:
@@ -869,9 +955,10 @@ class KernelAnalyzer(Analyzer):
     # threaded drain: fetch + demap + emission on a worker, so the host
     # demap overlaps the next block's framing, upload and compute
     # ------------------------------------------------------------------
-    def _queue_drain(self, entry) -> None:
+    def _queue_drain(self, entry) -> int:
+        """Hand ``entry`` to the drain worker; returns the queue's depth
+        after the put."""
         import queue as _q
-        import threading
 
         if self._drain_q is None:
             # maxsize well above the step() throttle point, so the
@@ -884,6 +971,7 @@ class KernelAnalyzer(Analyzer):
                 name="kernel-drain")
             self._drain_worker.start()
         self._drain_q.put(entry)
+        return self._drain_q.qsize()
 
     def _drain_loop(self) -> None:
         import time as _time
@@ -893,14 +981,20 @@ class KernelAnalyzer(Analyzer):
             if entry is None:
                 self._drain_q.task_done()
                 return
+            block = getattr(entry, "block", None)
+            msgs, error = [], None
             try:
-                msgs = self._drain_entry(entry)
-                self._emit_block_msgs(msgs, _time.time())
+                with profiling.span("an.drain", block=block):
+                    msgs = self._drain_entry(entry)
+                    with profiling.span("an.emit", messages=len(msgs)):
+                        self._emit_block_msgs(msgs, _time.time())
             except Exception as e:  # noqa: BLE001 — worker must live
+                error = e
                 Logger.instance().error(
-                    f"drain worker failed: {e!r}",
+                    f"drain worker failed on block {block}: {e!r}",
                     domain="kernel_engine")
             finally:
+                self._record(block, len(msgs), error)
                 self._drain_q.task_done()
 
     def step(self) -> bool:
@@ -922,7 +1016,7 @@ class KernelAnalyzer(Analyzer):
             else:
                 now = _time.time()
                 for e in entries:
-                    self._emit_block_msgs(self._drain_entry(e), now)
+                    self._emit_block_msgs(self._drain_sync(e), now)
         if not ok and self._drain_q is not None:
             self._drain_q.join()   # every queued drain emitted at EOS
         return ok
@@ -1166,8 +1260,9 @@ class KernelAnalyzer(Analyzer):
         per-slot messages with the lock held: the demap reads and
         updates the slots' config and host state, which control calls
         on other threads change (ADVICE.md, kernel_engine.py:929)."""
-        fetched = self._fetch(h)
-        with self._lock:
+        with profiling.span("an.fetch"):
+            fetched = self._fetch(h)
+        with self._lock, profiling.span("an.demap"):
             return self._demap(h, *fetched)
 
     def _fetch(self, h: dict) -> tuple:
