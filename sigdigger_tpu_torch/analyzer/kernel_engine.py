@@ -28,7 +28,10 @@ Open, retune and close are constant updates of a pre-allocated slot
 shared by the banks.  Per-channel decimation is bucketed: each declared
 decimation class has its own bank trio, and an inspector lands in the
 slowest bucket that covers its bandwidth.  Audio is resampled to
-``audio.sample-rate`` on the host by linear interpolation.
+``audio.sample-rate`` on the host by linear interpolation.  The host
+demap of a drained block runs one numpy pass per inspector class
+(``analyzer/demap.py``), on a plan kept per bucket until the block
+layout or a demap parameter changes.
 
 Where the port's signature differs from the reference's:
 - ``device`` takes the place of ``interpret``; ``in_i16`` and
@@ -50,8 +53,9 @@ assigns: on the stepping thread ``an.feed`` (the framing ``an.frame``,
 the upload ``an.upload``, the PSD's ``an.psd`` and the banks'
 ``an.dispatch``; the drain queue's depth at the put as its attribute
 ``queue_depth``), and on the thread that drains it ``an.drain`` (the
-copies ``an.fetch``, the demap ``an.demap`` and the emission
-``an.emit`` with its ``messages``).  Each drained block leaves a record,
+copies ``an.fetch``, the demap ``an.demap`` with the slots its class
+passes took, ``batched``, and those the per-slot demap took,
+``per_slot``, and the emission ``an.emit`` with its ``messages``).  Each drained block leaves a record,
 its id and the number of SAMPLES payloads it emitted, or the error its
 drain raised: :meth:`KernelAnalyzer.wait_block` waits for one and
 raises for a block whose drain failed.  With no profiler a span costs
@@ -71,6 +75,7 @@ Three faults of the reference are not carried over:
 
 from __future__ import annotations
 
+import operator
 import threading
 from collections import OrderedDict
 from contextlib import contextmanager
@@ -79,6 +84,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from sigdigger_tpu_torch.analyzer.demap import (
+    DemapPlan,
+    decide_amplitude,
+    decide_interval,
+    decide_phase,
+)
 from sigdigger_tpu_torch.analyzer.engine import Analyzer, _host, _InspectorSlot
 from sigdigger_tpu_torch.analyzer.estimators import prepare as prepare_est
 from sigdigger_tpu_torch.analyzer.messages import (
@@ -123,28 +134,6 @@ def ks_schema_keys(slot) -> set[str]:
     """All schema keys of a slot's inspector class (warn only on keys
     that exist in the contract yet have no kernel-path effect)."""
     return {f.name for f in INSPECTOR_SCHEMAS[slot.class_name]}
-
-
-def _decide_phase(syms: np.ndarray, bits: int) -> np.ndarray:
-    levels = 1 << bits
-    sector = np.round(np.angle(syms) * levels / (2.0 * np.pi))
-    return np.mod(sector, levels).astype(np.uint8)
-
-
-def _decide_interval(v: np.ndarray, lo: float, hi: float,
-                     bits: int) -> np.ndarray:
-    levels = 1 << bits
-    idx = np.floor((v - lo) / (hi - lo) * levels)
-    return np.clip(idx, 0, levels - 1).astype(np.uint8)
-
-
-def _decide_amplitude(v: np.ndarray, bits: int,
-                      vmax: float | None = None) -> np.ndarray:
-    if vmax is None:
-        vmax = max(float(np.max(v)) if v.size else 0.0, 1e-12)
-    levels = 1 << bits
-    idx = np.round(v / vmax * (levels - 1))
-    return np.clip(idx, 0, levels - 1).astype(np.uint8)
 
 
 class _HostResampler:
@@ -266,6 +255,9 @@ class _Bucket:
         self.t_raw = None
         self.t_audio = None
         self.t_rec = None
+        # the demap's plan of the last block layout drained
+        # (analyzer/demap.py)
+        self.plan: DemapPlan | None = None
 
     @property
     def channel_rate(self) -> float:
@@ -341,6 +333,12 @@ class KernelAnalyzer(Analyzer):
         self._drain_q = None
         self._n_slots = int(n_slots)
         self._defer_compact = False
+        # version of what the demap reads of the slots: every control
+        # call that changes it (open, close, config, bandwidth, an
+        # estimator, a spectrum source; the compact-map refresh) bumps
+        # it, and a bucket's demap plan is rebuilt at the next block
+        # (a retune changes nothing the demap reads)
+        self._plan_version = 0
         self._decimation = int(decimation)
         self._audio_decim = int(audio_decim)
         self._decimations = tuple(sorted(
@@ -512,6 +510,7 @@ class KernelAnalyzer(Analyzer):
         """Rebuild the bucket's slot->compact-column mapping (a rewrite
         of the compactors' maps).  When the active set outgrows the
         compact width the drain falls back to full planes."""
+        self._plan_version += 1
         if bucket.comp_digital is None or self._defer_compact:
             return
         active = sorted(ks.idx for ks in self._kslots.values()
@@ -595,8 +594,11 @@ class KernelAnalyzer(Analyzer):
 
     def set_estimator(self, handle: int, estimator_id: str,
                       enabled: bool, request_id: int = 0) -> None:
-        super().set_estimator(handle, estimator_id, enabled,
-                              request_id)
+        with self._lock:
+            # the change and the demap's parameter version move together
+            super().set_estimator(handle, estimator_id, enabled,
+                                  request_id)
+            self._plan_version += 1
         slot = self._inspectors.get(handle)
         if slot is None:
             return
@@ -611,7 +613,9 @@ class KernelAnalyzer(Analyzer):
 
     def set_spectrum_source(self, handle: int, source_id: int,
                             request_id: int = 0) -> None:
-        super().set_spectrum_source(handle, source_id, request_id)
+        with self._lock:
+            super().set_spectrum_source(handle, source_id, request_id)
+            self._plan_version += 1
         slot = self._inspectors.get(handle)
         if slot is not None:
             with self._lock:
@@ -767,6 +771,7 @@ class KernelAnalyzer(Analyzer):
             ks = self._kslots[handle]
             ks.config.update(config)
             self._apply_config(slot, ks)
+            self._plan_version += 1
         self._emit(InspectorMessage(
             inspector_kind=InspectorMessageKind.SET_CONFIG,
             request_id=request_id, handle=handle,
@@ -807,6 +812,7 @@ class KernelAnalyzer(Analyzer):
             return
         with self._lock:
             ks = self._kslots[handle]
+            self._plan_version += 1
             slot.bandwidth = bw
             ks.bucket.raw.configure_channel(ks.idx, bw=bw / 2.0)
             if slot.class_name == "audio":
@@ -1262,8 +1268,14 @@ class KernelAnalyzer(Analyzer):
         on other threads change (ADVICE.md, kernel_engine.py:929)."""
         with profiling.span("an.fetch"):
             fetched = self._fetch(h)
-        with self._lock, profiling.span("an.demap"):
-            return self._demap(h, *fetched)
+        with self._lock, profiling.span("an.demap") as demap:
+            msgs = self._demap(h, *fetched)
+            if demap is not None:
+                # how many slots the class passes took, and how many the
+                # per-slot demap
+                demap.attrs.update(batched=h.get("batched"),
+                                   per_slot=h.get("per_slot"))
+            return msgs
 
     def _fetch(self, h: dict) -> tuple:
         """The host side of one dispatched block: (audio, squelch_open,
@@ -1334,12 +1346,42 @@ class KernelAnalyzer(Analyzer):
 
     def _demap(self, h: dict, audio_out, squelch_open, soft, strobe,
                y_re, y_im, power) -> list:
-        """Per-slot messages of one fetched block; the caller holds the
+        """Per-slot messages of one fetched block, in the order of the
+        block's slots: one numpy pass per inspector class of the block's
+        plan (:meth:`_demap_plan`), the plan's per-slot lanes through
+        :meth:`_demap_slot`.  Sets ``h["batched"]`` and
+        ``h["per_slot"]``, the slots each took.  The caller holds the
         engine lock."""
+        plan = self._demap_plan(h, y_re is not None,
+                                0 if soft is None else len(soft[0]))
+        out: list = [None] * len(h["slots"])
+        for pos, slot, ks, cols in plan.per_slot:
+            out[pos] = self._demap_slot(
+                h, slot, ks, *cols, audio_out, squelch_open, soft, strobe,
+                y_re, y_im, power)
+        plan.run(out, audio_out, squelch_open, soft, strobe, power)
+        h["batched"], h["per_slot"] = plan.batched, len(plan.per_slot)
+        return [m for m in out if m is not None]
+
+    def _demap_plan(self, h: dict, has_raw: bool, rows: int) -> DemapPlan:
+        """The bucket's demap plan for block ``h``: the cached one while
+        the block's slots, section maps, drain flags and the parameter
+        version are those it was built for, else a new one, built from
+        the slots' configuration now."""
         bucket: _Bucket = h["bucket"]
         pmaps = h.get("pmaps")
-        msgs = []
-        for slot in h["slots"]:
+        slots = h["slots"]
+        squeezed = bool(h.get("squeezed"))
+        key = (self._plan_version, h["comp"], squeezed, has_raw, rows)
+        maps = (pmaps if pmaps is not None
+                else h["cmap"] if h["comp"] else None)
+        plan = bucket.plan
+        if (plan is not None and plan.key == key and plan.maps == maps
+                and len(plan.slots) == len(slots)
+                and all(map(operator.is_, plan.slots, slots))):
+            return plan
+        audio, digital, power, per_slot = [], [], [], []
+        for pos, slot in enumerate(slots):
             # a control thread may close a slot while its last block is
             # in flight (pipeline_depth > 1): closed slots simply stop
             # producing messages (reference close semantics)
@@ -1363,112 +1405,133 @@ class KernelAnalyzer(Analyzer):
                         or (name == "power" and r_col is None
                             and self._needs_host_raw(slot, ks))):
                     continue
-            c = ks.config
-            raw_col = None
-            if y_re is not None and r_col is not None and (
-                    name in ("raw", "power")
-                    or slot.estimators or slot.spectrum_source):
-                raw_col = (y_re[:, r_col]
-                           + 1j * y_im[:, r_col]).astype(np.complex64)
-            if name == "audio":
-                aud = audio_out[:, a_col]
-                if ks.resampler is not None:
-                    aud = ks.resampler(aud)
-                extras = {"squelch_open": bool(squelch_open[ks.idx])}
-                msgs.append((slot, aud, extras, raw_col))
-            elif name == "raw":
-                if bool(c["agc.enabled"]):
-                    # power-EMA follower honoring agc.ts (channel
-                    # samples), seeded by the block power
-                    p = max(float(power[ks.idx]), 1e-12)
-                    tau = max(float(c["agc.ts"]), 1.0)
-                    alpha = 1.0 - np.exp(-len(raw_col) / tau)
-                    if ks.agc_ema is None:
-                        ks.agc_ema = p
-                    else:
-                        ks.agc_ema += alpha * (p - ks.agc_ema)
-                    g = 1.0 / np.sqrt(max(ks.agc_ema, 1e-12))
+            # lanes with state of their own or a raw column demap alone
+            if (name == "raw" or slot.estimators or slot.spectrum_source
+                    or (name == "audio" and ks.resampler is not None)
+                    or (name == "power" and has_raw
+                        and r_col is not None)):
+                per_slot.append((pos, slot, ks, (a_col, d_col, r_col)))
+            elif name == "audio":
+                audio.append((pos, slot, ks, a_col))
+            elif name == "power":         # reads the status row alone
+                power.append((pos, slot, ks, ks.idx))
+            else:
+                digital.append((pos, slot, ks, d_col))
+        plan = DemapPlan(key, maps, slots, audio, digital, power, per_slot,
+                         bucket.raw.cfg.block_out, rows, squeezed)
+        bucket.plan = plan
+        return plan
+
+    def _demap_slot(self, h: dict, slot, ks: _KernelSlotExtra, a_col,
+                    d_col, r_col, audio_out, squelch_open, soft, strobe,
+                    y_re, y_im, power) -> tuple:
+        """One slot's message of a fetched block, at its columns of the
+        block's sections."""
+        bucket: _Bucket = h["bucket"]
+        name = slot.class_name
+        c = ks.config
+        raw_col = None
+        if y_re is not None and r_col is not None and (
+                name in ("raw", "power")
+                or slot.estimators or slot.spectrum_source):
+            raw_col = (y_re[:, r_col]
+                       + 1j * y_im[:, r_col]).astype(np.complex64)
+        if name == "audio":
+            aud = audio_out[:, a_col]
+            if ks.resampler is not None:
+                aud = ks.resampler(aud)
+            extras = {"squelch_open": bool(squelch_open[ks.idx])}
+            return (slot, aud, extras, raw_col)
+        if name == "raw":
+            if bool(c["agc.enabled"]):
+                # power-EMA follower honoring agc.ts (channel
+                # samples), seeded by the block power
+                p = max(float(power[ks.idx]), 1e-12)
+                tau = max(float(c["agc.ts"]), 1.0)
+                alpha = 1.0 - np.exp(-len(raw_col) / tau)
+                if ks.agc_ema is None:
+                    ks.agc_ema = p
                 else:
-                    ks.agc_ema = None
-                    g = float(c["agc.gain"])
-                msgs.append((slot, raw_col * np.float32(g), {}, raw_col))
-            elif name == "power":
-                n_int = max(1, int(c["power.integrate-samples"]))
-                out = []
-                if raw_col is None:
-                    # device fast path: block-aligned integration on
-                    # the [1, C] block-power row (mean |y|² × M)
-                    m_blk = bucket.raw.cfg.block_out
-                    ks.pw_acc += float(power[ks.idx]) * m_blk
-                    ks.pw_cnt += m_blk
-                    if ks.pw_cnt >= n_int:
+                    ks.agc_ema += alpha * (p - ks.agc_ema)
+                g = 1.0 / np.sqrt(max(ks.agc_ema, 1e-12))
+            else:
+                ks.agc_ema = None
+                g = float(c["agc.gain"])
+            return (slot, raw_col * np.float32(g), {}, raw_col)
+        if name == "power":
+            n_int = max(1, int(c["power.integrate-samples"]))
+            out = []
+            if raw_col is None:
+                # device fast path: block-aligned integration on
+                # the [1, C] block-power row (mean |y|² × M)
+                m_blk = bucket.raw.cfg.block_out
+                ks.pw_acc += float(power[ks.idx]) * m_blk
+                ks.pw_cnt += m_blk
+                if ks.pw_cnt >= n_int:
+                    out.append(np.sqrt(ks.pw_acc / n_int))
+                    ks.pw_acc, ks.pw_cnt = 0.0, 0
+            else:
+                p = (raw_col.real.astype(np.float64) ** 2
+                     + raw_col.imag.astype(np.float64) ** 2)
+                pos = 0
+                while pos < len(p):
+                    take = min(n_int - ks.pw_cnt, len(p) - pos)
+                    ks.pw_acc += float(p[pos:pos + take].sum())
+                    ks.pw_cnt += take
+                    pos += take
+                    if ks.pw_cnt == n_int:
                         out.append(np.sqrt(ks.pw_acc / n_int))
                         ks.pw_acc, ks.pw_cnt = 0.0, 0
-                else:
-                    p = (raw_col.real.astype(np.float64) ** 2
-                         + raw_col.imag.astype(np.float64) ** 2)
-                    pos = 0
-                    while pos < len(p):
-                        take = min(n_int - ks.pw_cnt, len(p) - pos)
-                        ks.pw_acc += float(p[pos:pos + take].sum())
-                        ks.pw_cnt += take
-                        pos += take
-                        if ks.pw_cnt == n_int:
-                            out.append(np.sqrt(ks.pw_acc / n_int))
-                            ks.pw_acc, ks.pw_cnt = 0.0, 0
-                msgs.append((slot, np.asarray(out, np.float32), {},
-                             raw_col))
-            else:                              # psk / fsk / ask
-                sym = soft[0][:, d_col] + 1j * soft[1][:, d_col]
-                st = strobe[:, d_col] > 0.5
-                if name != "fsk":              # fsk is amp-invariant
-                    if h.get("squeezed"):
-                        # the device block-power row (pre-MF channel
-                        # power): the squeezed drain has no full-rate
-                        # stream on the host to measure
-                        g = self._gain_from_power(
-                            ks, max(float(power[ks.idx]), 1e-12),
-                            bucket.raw.cfg.block_out)
-                    else:
-                        g = self._gain_from_power(
-                            ks, float(np.mean(np.abs(sym) ** 2))
-                            if len(sym) else None, len(sym))
-                    sym = sym * np.float32(g)
-                if name == "psk":
-                    bps = max(1, int(c["afc.bits-per-symbol"]))
-                    ids = _decide_phase(sym, bps)
-                    extras = {"strobes": st, "symbols": ids}
-                    msgs.append((slot, sym, extras, raw_col))
-                elif name == "fsk":
-                    bps = max(1, int(c["fsk.bits-per-symbol"]))
-                    vals = np.real(sym)
-                    if st.any():
-                        # per-slot EMA-tracked decision span: symbol
-                        # boundaries stay put across blocks (reference
-                        # Decider fixed min/max)
-                        m = float(np.max(np.abs(vals[st])))
-                        ks.dec_span = m if ks.dec_span is None else \
-                            ks.dec_span + 0.1 * (m - ks.dec_span)
-                        span = max(ks.dec_span, 1e-12)
-                        ids = _decide_interval(
-                            vals[st], -span * (1 + 1e-6),
-                            span * (1 + 1e-6), bps)
-                    else:
-                        ids = np.zeros(0, np.uint8)
-                    extras = {"strobes": st, "symbols": ids}
-                    msgs.append((slot, vals, extras, raw_col))
-                else:
-                    bps = max(1, int(c["ask.bits-per-symbol"]))
-                    vals = np.real(sym)
-                    if st.any():
-                        m = float(np.max(vals[st]))
-                        ks.dec_vmax = m if ks.dec_vmax is None else \
-                            ks.dec_vmax + 0.1 * (m - ks.dec_vmax)
-                        ids = _decide_amplitude(
-                            vals[st], bps,
-                            vmax=max(ks.dec_vmax, 1e-12))
-                    else:
-                        ids = np.zeros(0, np.uint8)
-                    extras = {"strobes": st, "symbols": ids}
-                    msgs.append((slot, vals, extras, raw_col))
-        return msgs
+            return (slot, np.asarray(out, np.float32), {}, raw_col)
+        # psk / fsk / ask
+        sym = soft[0][:, d_col] + 1j * soft[1][:, d_col]
+        st = strobe[:, d_col] > 0.5
+        if name != "fsk":              # fsk is amp-invariant
+            if h.get("squeezed"):
+                # the device block-power row (pre-MF channel
+                # power): the squeezed drain has no full-rate
+                # stream on the host to measure
+                g = self._gain_from_power(
+                    ks, max(float(power[ks.idx]), 1e-12),
+                    bucket.raw.cfg.block_out)
+            else:
+                g = self._gain_from_power(
+                    ks, float(np.mean(np.abs(sym) ** 2))
+                    if len(sym) else None, len(sym))
+            sym = sym * np.float32(g)
+        if name == "psk":
+            bps = max(1, int(c["afc.bits-per-symbol"]))
+            ids = decide_phase(sym, bps)
+            extras = {"strobes": st, "symbols": ids}
+            return (slot, sym, extras, raw_col)
+        if name == "fsk":
+            bps = max(1, int(c["fsk.bits-per-symbol"]))
+            vals = np.real(sym)
+            if st.any():
+                # per-slot EMA-tracked decision span: symbol
+                # boundaries stay put across blocks (reference
+                # Decider fixed min/max)
+                m = float(np.max(np.abs(vals[st])))
+                ks.dec_span = m if ks.dec_span is None else \
+                    ks.dec_span + 0.1 * (m - ks.dec_span)
+                span = max(ks.dec_span, 1e-12)
+                ids = decide_interval(
+                    vals[st], -span * (1 + 1e-6),
+                    span * (1 + 1e-6), bps)
+            else:
+                ids = np.zeros(0, np.uint8)
+            extras = {"strobes": st, "symbols": ids}
+            return (slot, vals, extras, raw_col)
+        bps = max(1, int(c["ask.bits-per-symbol"]))
+        vals = np.real(sym)
+        if st.any():
+            m = float(np.max(vals[st]))
+            ks.dec_vmax = m if ks.dec_vmax is None else \
+                ks.dec_vmax + 0.1 * (m - ks.dec_vmax)
+            ids = decide_amplitude(
+                vals[st], bps, vmax=max(ks.dec_vmax, 1e-12))
+        else:
+            ids = np.zeros(0, np.uint8)
+        extras = {"strobes": st, "symbols": ids}
+        return (slot, vals, extras, raw_col)
+    

@@ -106,6 +106,7 @@ MODULES = [
     "sigdigger_tpu_torch.analyzer.detector",
     "sigdigger_tpu_torch.analyzer.estimators",
     "sigdigger_tpu_torch.analyzer.engine",
+    "sigdigger_tpu_torch.analyzer.demap",
     "sigdigger_tpu_torch.analyzer.kernel_engine",
     "sigdigger_tpu_torch.analyzer.checkpoint",
     "sigdigger_tpu_torch.analyzer.tracker",
