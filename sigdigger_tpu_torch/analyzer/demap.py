@@ -1,28 +1,33 @@
 """The analyzer session's host demap: one numpy pass per inspector class
-over a drained block (``KernelAnalyzer._demap``).
+over a drained block (``KernelAnalyzer._demap``), then one per-lane step.
 
 A :class:`DemapPlan` is one bucket layout's demap: for each class pass
 its lanes (their positions in the block's slot list, their slots and
 host state, their columns in the fetched section and their status
 rows), and the per-lane scalars their configuration gives.  The engine
 builds a plan when the block's layout or a demap parameter changes and
-reuses it for every other block.  Lanes that carry state of their own
-(a host resampler) or need their raw column (raw inspectors, estimators,
-spectrum sources, power integrated off the block grid) are left to the
-engine's per-slot demap.
+reuses it for every other block.  Every audio, psk, fsk, ask and
+block-aligned power lane takes its class pass; each decision and each
+AGC rule is written once, here.  The per-lane step then does only what
+is truly per lane: it attaches the raw column (the message's fourth
+element) to lanes with estimators or spectrum sources, runs an audio
+lane's host resampler on its column, demaps the raw class with its
+``agc.ts`` follower in channel samples, and integrates power over raw
+samples off the block grid.  The ``an.demap`` span's ``batched`` counts
+the lanes of the class passes and ``per_slot`` those that took the
+per-lane step; a lane with an estimator counts in both.
 
 The passes work on views of the fetched [rows, columns] sections: a
 class whose lanes sit in consecutive columns is a slice (no copy), any
 other one column gather.  A lane's samples are a view of its pass's
-result, as the per-slot demap's were: its column, or its row where the
-fsk and ask decisions take each lane's strobed rows from a lane-major
-copy.
+result: its column, or its row where the fsk and ask decisions take
+each lane's strobed rows from a lane-major copy.
 
-The passes compute what the per-slot demap computes, element by element
-and in the same precision.  Each per-lane scalar enters the float32
-arithmetic as the float32 that the scalar form's Python float is cast
-to (numpy's weak scalars): a difference of two such scalars is taken in
-float64 first, then cast.  The AGC's coefficient ``1 - exp(-n / tau)``
+The passes compute what a demap of one lane at a time computes, element
+by element and in the same precision.  Each per-lane scalar enters the
+float32 arithmetic as the float32 that the scalar form's Python float
+is cast to (numpy's weak scalars): a difference of two such scalars is
+taken in float64 first, then cast.  The AGC's coefficient ``1 - exp(-n / tau)``
 is the scalar form's, computed once per lane when the plan is built,
 and a lane's mean power is taken over its own contiguous row, as the
 scalar form's was.  The followers (``agc_ema``, ``dec_span``,
@@ -50,22 +55,6 @@ def decide_phase(syms: np.ndarray, bits: int) -> np.ndarray:
     # power of two is its two's complement masked (float32 np.mod takes
     # a slow scalar loop, the most of this decision's time)
     return (sector.astype(np.int32) & (levels - 1)).astype(np.uint8)
-
-
-def decide_interval(v: np.ndarray, lo: float, hi: float,
-                    bits: int) -> np.ndarray:
-    levels = 1 << bits
-    idx = np.floor((v - lo) / (hi - lo) * levels)
-    return np.clip(idx, 0, levels - 1).astype(np.uint8)
-
-
-def decide_amplitude(v: np.ndarray, bits: int,
-                     vmax: float | None = None) -> np.ndarray:
-    if vmax is None:
-        vmax = max(float(np.max(v)) if v.size else 0.0, 1e-12)
-    levels = 1 << bits
-    idx = np.round(v / vmax * (levels - 1))
-    return np.clip(idx, 0, levels - 1).astype(np.uint8)
 
 
 class _Lanes:
@@ -103,8 +92,8 @@ class DemapPlan:
     ``key`` and ``maps`` are what the engine matched the block against
     (its parameter version and drain flags; the section maps), ``slots``
     the block's slot list.  ``audio``, ``digital`` and ``power`` are the
-    batched lanes, ``per_slot`` the lanes left to the per-slot demap as
-    (position, slot, host state, (audio, digital, raw) columns).
+    class passes' lanes, ``per_slot`` those of the per-lane step as
+    (position, slot, host state, raw column or None).
     ``block_out`` is the bucket's channel samples a block, ``rows`` the
     drained digital rows, ``squeezed`` whether the symbol squeeze ran."""
 
@@ -145,9 +134,11 @@ class DemapPlan:
         self.ask = (n_psk + n_fsk, len(d))
         levels = np.array([1 << b for b in bps], np.float32)
         self.levels, self.top = levels, levels - 1
-        # the gain of the psk and ask lanes (fsk is amplitude-invariant):
-        # manual where AGC is off, a power-EMA follower where it is on
-        # (KernelAnalyzer._gain_from_power)
+        # the gain of the psk and ask lanes (fsk is amplitude-invariant),
+        # the drained stream's gain control (reference
+        # InspectorCtl/GainControl.cpp): manual ``agc.gain`` where AGC is
+        # off; where on, a power-EMA normalizer whose time constant is
+        # ``agc.ts`` symbol periods, stepped once per block
         n_elapsed = self.block_out if self.squeezed else self.rows
         self.gain = np.ones(len(d), np.float32)
         on, alpha, self.off_kss = [], [], []
@@ -169,9 +160,9 @@ class DemapPlan:
         self.on_kss = [d.kss[j] for j in on]
 
     # ------------------------------------------------------------------
-    def run(self, out: list, audio_out, squelch_open, soft, strobe,
-            power) -> None:
-        """Fill ``out`` (one entry a slot of the block) at the batched
+    def run(self, out: list, audio_out, squelch_open, soft, strobe, y_re,
+            y_im, power) -> None:
+        """Fill ``out`` (one entry a slot of the block) at the plan's
         lanes' positions with their message tuples, and step their
         followers."""
         if len(self.audio):
@@ -183,6 +174,20 @@ class DemapPlan:
             self._digital(out, soft, strobe, power)
         if len(self.power):
             self._power(out, power)
+        for pos, slot, ks, col in self.per_slot:
+            raw = (None if y_re is None or col is None else
+                   (y_re[:, col] + 1j * y_im[:, col]).astype(np.complex64))
+            name = slot.class_name
+            if name == "raw":
+                g = np.float32(_raw_gain(ks, power, len(raw)))
+                out[pos] = (slot, raw * g, {}, raw)
+            elif name == "power":
+                out[pos] = (slot, _integrate(ks, raw), {}, raw)
+            else:
+                x, extras = out[pos][1:3]
+                if ks.resampler is not None:
+                    x = ks.resampler(x)
+                out[pos] = (slot, x, extras, raw)
 
     def _digital(self, out: list, soft, strobe, power) -> None:
         d = self.dig
@@ -212,14 +217,15 @@ class DemapPlan:
 
     def _gains(self, sym: np.ndarray, power) -> np.ndarray:
         """The float32 gain of each lane this block (1 on fsk lanes), the
-        AGC followers stepped (``KernelAnalyzer._gain_from_power``)."""
+        AGC followers stepped."""
         for k in self.off_kss:
             k.agc_ema = None
         gain = self.gain.copy()
         if not len(self.on):
             return gain
         if self.squeezed:
-            # the device block-power row (pre-MF channel power)
+            # the device block-power row (pre-MF channel power): the
+            # squeezed drain has no full-rate stream on the host to measure
             p = np.maximum(
                 power[self.dig.idx[self.on]].astype(np.float64), 1e-12)
         elif self.rows:
@@ -297,3 +303,41 @@ class DemapPlan:
                 due.tolist())):
             k.pw_acc, k.pw_cnt = a, c
             out[p] = (slot, val[j:j + 1] if d else val[j:j], {}, None)
+
+
+def _raw_gain(ks, power, n: int) -> float:
+    """A raw lane's gain: ``agc.gain`` where AGC is off; where on, a
+    power-EMA follower of time constant ``agc.ts`` channel samples,
+    seeded by the block power, over the block's ``n`` samples."""
+    c = ks.config
+    if not bool(c["agc.enabled"]):
+        ks.agc_ema = None
+        return float(c["agc.gain"])
+    p = max(float(power[ks.idx]), 1e-12)
+    tau = max(float(c["agc.ts"]), 1.0)
+    alpha = 1.0 - np.exp(-n / tau)
+    if ks.agc_ema is None:
+        ks.agc_ema = p
+    else:
+        ks.agc_ema += alpha * (p - ks.agc_ema)
+    return 1.0 / np.sqrt(max(ks.agc_ema, 1e-12))
+
+
+def _integrate(ks, raw: np.ndarray) -> np.ndarray:
+    """A power lane's readings over its raw samples: windows of
+    ``power.integrate-samples`` that need not line up with the blocks,
+    carried in the ``pw_acc``, ``pw_cnt`` followers."""
+    n_int = max(1, int(ks.config["power.integrate-samples"]))
+    p = (raw.real.astype(np.float64) ** 2
+         + raw.imag.astype(np.float64) ** 2)
+    out = []
+    pos = 0
+    while pos < len(p):
+        take = min(n_int - ks.pw_cnt, len(p) - pos)
+        ks.pw_acc += float(p[pos:pos + take].sum())
+        ks.pw_cnt += take
+        pos += take
+        if ks.pw_cnt == n_int:
+            out.append(np.sqrt(ks.pw_acc / n_int))
+            ks.pw_acc, ks.pw_cnt = 0.0, 0
+    return np.asarray(out, np.float32)

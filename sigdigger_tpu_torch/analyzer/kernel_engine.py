@@ -84,12 +84,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from sigdigger_tpu_torch.analyzer.demap import (
-    DemapPlan,
-    decide_amplitude,
-    decide_interval,
-    decide_phase,
-)
+from sigdigger_tpu_torch.analyzer.demap import DemapPlan
 from sigdigger_tpu_torch.analyzer.engine import Analyzer, _host, _InspectorSlot
 from sigdigger_tpu_torch.analyzer.estimators import prepare as prepare_est
 from sigdigger_tpu_torch.analyzer.messages import (
@@ -123,6 +118,7 @@ from sigdigger_tpu_torch.kernels.symsqueeze import (
     SymbolSqueeze,
     SymbolSqueezeConfig,
 )
+from sigdigger_tpu_torch.native import I8_SCALE, I16_SCALE, counts_per_unit
 from sigdigger_tpu_torch.types import AnalyzerMode, Channel
 from sigdigger_tpu_torch.utils import largest_divisor, profiling
 from sigdigger_tpu_torch.utils.logger import Logger
@@ -389,7 +385,7 @@ class KernelAnalyzer(Analyzer):
 
             shard_psd(self._spectrum, mesh)
 
-        in_scale = 64.0 if self._in_i8 else 4096.0
+        in_scale = I8_SCALE if self._in_i8 else I16_SCALE
         self._buckets: dict[int, _Bucket] = {}
         for d in self._decimations:
             if self.block_size % (d * self._audio_decim):
@@ -475,9 +471,8 @@ class KernelAnalyzer(Analyzer):
                         sample_rate=rate,
                         window=self.params.window_function,
                         alpha=self.params.spectrum_avg_alpha,
-                        in_scale=(1.0 / 64.0 if self._in_i8
-                                  else 1.0 / 4096.0 if self._in_i16
-                                  else 1.0),
+                        in_scale=1.0 / counts_per_unit(self._in_i16,
+                                                       self._in_i8),
                         device=dev)
                     self._psd_bucket = self._buckets[d]
                     break
@@ -1144,30 +1139,6 @@ class KernelAnalyzer(Analyzer):
                         else (y_re, y_im))
         return h
 
-    def _gain_from_power(self, ks: _KernelSlotExtra, p: float | None,
-                         n_elapsed: int) -> float:
-        """Gain-control contract for the drained digital stream
-        (reference InspectorCtl/GainControl.cpp): manual ``agc.gain``
-        when AGC is off; when on, a power-EMA normalizer whose time
-        constant is ``agc.ts`` symbol periods, fed the power estimate
-        ``p`` over ``n_elapsed`` channel-rate samples (None: no
-        estimate this block, unit gain)."""
-        c = ks.config
-        if not bool(c["agc.enabled"]):
-            ks.agc_ema = None
-            return float(c["agc.gain"])
-        if p is None:
-            return 1.0
-        baud = max(float(c["clock.baud"]), 1e-3)
-        sps = max(2.0, ks.bucket.channel_rate / baud)
-        tau = max(float(c["agc.ts"]) * sps, 1.0)
-        alpha = 1.0 - np.exp(-n_elapsed / tau)
-        if ks.agc_ema is None:
-            ks.agc_ema = p
-        else:
-            ks.agc_ema += alpha * (p - ks.agc_ema)
-        return 1.0 / np.sqrt(max(ks.agc_ema, 1e-12))
-
     def _get_packer(self, bucket: _Bucket, any_audio: bool,
                     any_digital: bool, need_raw: bool) -> tuple:
         """The bucket's packer for this block's sections at the widths
@@ -1348,18 +1319,15 @@ class KernelAnalyzer(Analyzer):
                y_re, y_im, power) -> list:
         """Per-slot messages of one fetched block, in the order of the
         block's slots: one numpy pass per inspector class of the block's
-        plan (:meth:`_demap_plan`), the plan's per-slot lanes through
-        :meth:`_demap_slot`.  Sets ``h["batched"]`` and
+        plan (:meth:`_demap_plan`), then its per-lane step
+        (``analyzer/demap.py``).  Sets ``h["batched"]`` and
         ``h["per_slot"]``, the slots each took.  The caller holds the
         engine lock."""
         plan = self._demap_plan(h, y_re is not None,
                                 0 if soft is None else len(soft[0]))
         out: list = [None] * len(h["slots"])
-        for pos, slot, ks, cols in plan.per_slot:
-            out[pos] = self._demap_slot(
-                h, slot, ks, *cols, audio_out, squelch_open, soft, strobe,
-                y_re, y_im, power)
-        plan.run(out, audio_out, squelch_open, soft, strobe, power)
+        plan.run(out, audio_out, squelch_open, soft, strobe, y_re, y_im,
+                 power)
         h["batched"], h["per_slot"] = plan.batched, len(plan.per_slot)
         return [m for m in out if m is not None]
 
@@ -1405,133 +1373,22 @@ class KernelAnalyzer(Analyzer):
                         or (name == "power" and r_col is None
                             and self._needs_host_raw(slot, ks))):
                     continue
-            # lanes with state of their own or a raw column demap alone
-            if (name == "raw" or slot.estimators or slot.spectrum_source
-                    or (name == "audio" and ks.resampler is not None)
-                    or (name == "power" and has_raw
-                        and r_col is not None)):
-                per_slot.append((pos, slot, ks, (a_col, d_col, r_col)))
-            elif name == "audio":
-                audio.append((pos, slot, ks, a_col))
-            elif name == "power":         # reads the status row alone
+            # the raw class and power off the block grid take the
+            # per-lane step alone
+            if name == "raw" or (name == "power" and has_raw
+                                 and r_col is not None):
+                per_slot.append((pos, slot, ks, r_col))
+                continue
+            if name == "power":           # reads the status row alone
                 power.append((pos, slot, ks, ks.idx))
-            else:
-                digital.append((pos, slot, ks, d_col))
+                continue
+            (audio if name == "audio" else digital).append(
+                (pos, slot, ks, a_col if name == "audio" else d_col))
+            # after its class pass: the raw column, the resampler
+            est = bool(slot.estimators or slot.spectrum_source)
+            if est or ks.resampler is not None:
+                per_slot.append((pos, slot, ks, r_col if est else None))
         plan = DemapPlan(key, maps, slots, audio, digital, power, per_slot,
                          bucket.raw.cfg.block_out, rows, squeezed)
         bucket.plan = plan
         return plan
-
-    def _demap_slot(self, h: dict, slot, ks: _KernelSlotExtra, a_col,
-                    d_col, r_col, audio_out, squelch_open, soft, strobe,
-                    y_re, y_im, power) -> tuple:
-        """One slot's message of a fetched block, at its columns of the
-        block's sections."""
-        bucket: _Bucket = h["bucket"]
-        name = slot.class_name
-        c = ks.config
-        raw_col = None
-        if y_re is not None and r_col is not None and (
-                name in ("raw", "power")
-                or slot.estimators or slot.spectrum_source):
-            raw_col = (y_re[:, r_col]
-                       + 1j * y_im[:, r_col]).astype(np.complex64)
-        if name == "audio":
-            aud = audio_out[:, a_col]
-            if ks.resampler is not None:
-                aud = ks.resampler(aud)
-            extras = {"squelch_open": bool(squelch_open[ks.idx])}
-            return (slot, aud, extras, raw_col)
-        if name == "raw":
-            if bool(c["agc.enabled"]):
-                # power-EMA follower honoring agc.ts (channel
-                # samples), seeded by the block power
-                p = max(float(power[ks.idx]), 1e-12)
-                tau = max(float(c["agc.ts"]), 1.0)
-                alpha = 1.0 - np.exp(-len(raw_col) / tau)
-                if ks.agc_ema is None:
-                    ks.agc_ema = p
-                else:
-                    ks.agc_ema += alpha * (p - ks.agc_ema)
-                g = 1.0 / np.sqrt(max(ks.agc_ema, 1e-12))
-            else:
-                ks.agc_ema = None
-                g = float(c["agc.gain"])
-            return (slot, raw_col * np.float32(g), {}, raw_col)
-        if name == "power":
-            n_int = max(1, int(c["power.integrate-samples"]))
-            out = []
-            if raw_col is None:
-                # device fast path: block-aligned integration on
-                # the [1, C] block-power row (mean |y|² × M)
-                m_blk = bucket.raw.cfg.block_out
-                ks.pw_acc += float(power[ks.idx]) * m_blk
-                ks.pw_cnt += m_blk
-                if ks.pw_cnt >= n_int:
-                    out.append(np.sqrt(ks.pw_acc / n_int))
-                    ks.pw_acc, ks.pw_cnt = 0.0, 0
-            else:
-                p = (raw_col.real.astype(np.float64) ** 2
-                     + raw_col.imag.astype(np.float64) ** 2)
-                pos = 0
-                while pos < len(p):
-                    take = min(n_int - ks.pw_cnt, len(p) - pos)
-                    ks.pw_acc += float(p[pos:pos + take].sum())
-                    ks.pw_cnt += take
-                    pos += take
-                    if ks.pw_cnt == n_int:
-                        out.append(np.sqrt(ks.pw_acc / n_int))
-                        ks.pw_acc, ks.pw_cnt = 0.0, 0
-            return (slot, np.asarray(out, np.float32), {}, raw_col)
-        # psk / fsk / ask
-        sym = soft[0][:, d_col] + 1j * soft[1][:, d_col]
-        st = strobe[:, d_col] > 0.5
-        if name != "fsk":              # fsk is amp-invariant
-            if h.get("squeezed"):
-                # the device block-power row (pre-MF channel
-                # power): the squeezed drain has no full-rate
-                # stream on the host to measure
-                g = self._gain_from_power(
-                    ks, max(float(power[ks.idx]), 1e-12),
-                    bucket.raw.cfg.block_out)
-            else:
-                g = self._gain_from_power(
-                    ks, float(np.mean(np.abs(sym) ** 2))
-                    if len(sym) else None, len(sym))
-            sym = sym * np.float32(g)
-        if name == "psk":
-            bps = max(1, int(c["afc.bits-per-symbol"]))
-            ids = decide_phase(sym, bps)
-            extras = {"strobes": st, "symbols": ids}
-            return (slot, sym, extras, raw_col)
-        if name == "fsk":
-            bps = max(1, int(c["fsk.bits-per-symbol"]))
-            vals = np.real(sym)
-            if st.any():
-                # per-slot EMA-tracked decision span: symbol
-                # boundaries stay put across blocks (reference
-                # Decider fixed min/max)
-                m = float(np.max(np.abs(vals[st])))
-                ks.dec_span = m if ks.dec_span is None else \
-                    ks.dec_span + 0.1 * (m - ks.dec_span)
-                span = max(ks.dec_span, 1e-12)
-                ids = decide_interval(
-                    vals[st], -span * (1 + 1e-6),
-                    span * (1 + 1e-6), bps)
-            else:
-                ids = np.zeros(0, np.uint8)
-            extras = {"strobes": st, "symbols": ids}
-            return (slot, vals, extras, raw_col)
-        bps = max(1, int(c["ask.bits-per-symbol"]))
-        vals = np.real(sym)
-        if st.any():
-            m = float(np.max(vals[st]))
-            ks.dec_vmax = m if ks.dec_vmax is None else \
-                ks.dec_vmax + 0.1 * (m - ks.dec_vmax)
-            ids = decide_amplitude(
-                vals[st], bps, vmax=max(ks.dec_vmax, 1e-12))
-        else:
-            ids = np.zeros(0, np.uint8)
-        extras = {"strobes": st, "symbols": ids}
-        return (slot, vals, extras, raw_col)
-    

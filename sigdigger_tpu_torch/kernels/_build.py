@@ -1,4 +1,4 @@
-"""Build and bind the port's CUDA kernels.
+"""Build, bind and call the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/lib<name>.so`` next to
@@ -8,16 +8,17 @@ one ``nvcc`` each.  The libraries are bound with ``ctypes``: every
 pointer and the stream are ``c_void_p``, and each entry point returns
 ``cudaGetLastError()`` for the wrapper to check.
 
-The lean call (:func:`launch`, :func:`checked_once`) keeps a wrapper's
-host work off the launch path: pointers go as the plain ints of
-``data_ptr()`` (the bound ``argtypes`` convert them), the stream handle
-comes from ``torch._C._cuda_getCurrentRawStream`` with no ``Stream``
-object, the device is made current only when the tensors lie on another
-one, and the shape checks run once per distinct argument signature.
-The squeeze, the audio bank, the PSD kernels, the drain packer, the
-line resampler, the CMA bank and the v1 channelizer call through it;
-:func:`scratch` keeps one scratch buffer per device and stream for the
-PSD kernels' partials and counters.
+Every public kernel function is built by :func:`kernel` from its name,
+its CUDA body, its plain PyTorch version, the argument whose device
+decides, and its argument check with that check's key: the check runs
+once per key (:func:`checked_once`), each call is span ``launch``, and
+``<fn>.launches`` counts the CUDA launches.  Every CUDA body calls its
+entry point through :func:`launch`: pointers go as the plain ints of
+``data_ptr()`` (the bound ``argtypes`` convert them, ``None`` is NULL),
+the stream handle comes from ``torch._C._cuda_getCurrentRawStream``
+with no ``Stream`` object, and the device is made current only when the
+tensors lie on another one.  :func:`scratch` keeps one scratch buffer
+per device and stream for the kernels' partials and counters.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import subprocess
 import time
 
 import torch
+
+from sigdigger_tpu_torch.utils import profiling
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
@@ -265,7 +268,65 @@ def checked_once(memo: set, key, check) -> None:
         memo.add(key)
 
 
-# device scratch of the PSD kernels: (device index, raw stream) -> buffer
+def tensor_key(*tensors) -> tuple:
+    """What an argument check reads of each tensor: its shape, dtype,
+    device index and contiguity (``None`` for an absent one), flat, so
+    that a key is cheap to build, hash and compare."""
+    key = []
+    for t in tensors:
+        key += (None,) if t is None else (t.shape, t.dtype, t.get_device(),
+                                          t.is_contiguous())
+    return tuple(key)
+
+
+class Unlaunched(Exception):
+    """Raised by a CUDA body that has its result without a launch (an
+    empty input): the entry returns ``value`` and counts no launch."""
+
+    def __init__(self, value) -> None:
+        super().__init__()
+        self.value = value
+
+
+def kernel(name: str, cuda, plain, *, at: int = 0, key=None, check=None,
+           doc: str | None = None):
+    """The public kernel function ``name``.  A call whose argument ``at``
+    is a CUDA tensor runs ``check`` the first time its ``key`` is seen
+    (both take the call's arguments; the key must hold every property the
+    check reads), then the CUDA body ``cuda``, and counts one launch in
+    ``<fn>.launches``; a call on a CPU tensor runs the plain version
+    ``plain`` and counts nothing; any other device raises ``ValueError``.
+    Each call is span ``launch`` with attribute ``kernel=name``.
+    ``<fn>.cuda`` is the CUDA path alone, ``<fn>.checked`` the keys that
+    have passed, and ``doc`` the function's docstring."""
+
+    def on_cuda(*args, **kw):
+        if key is not None:
+            checked_once(fn.checked, key(*args, **kw),
+                         lambda: check(*args, **kw))
+        try:
+            out = cuda(*args, **kw)
+        except Unlaunched as e:
+            return e.value
+        fn.launches += 1
+        return out
+
+    def dispatch(*args, **kw):
+        dev = args[at].device
+        if dev.type == "cuda":
+            return on_cuda(*args, **kw)
+        if dev.type == "cpu":
+            return plain(*args, **kw)
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+
+    dispatch.__name__ = dispatch.__qualname__ = name
+    dispatch.__doc__ = doc
+    fn = profiling.launch(name)(dispatch)
+    fn.launches, fn.checked, fn.cuda = 0, set(), on_cuda
+    return fn
+
+
+# device scratch of the kernels: (device index, raw stream) -> buffer
 _SCRATCH: dict = {}
 
 # 32-bit counters at the head of every scratch buffer; a kernel that

@@ -47,9 +47,14 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.filters import fir_lowpass
-from sigdigger_tpu_torch.kernels._build import launch, load_library
+from sigdigger_tpu_torch.kernels._build import (
+    kernel,
+    launch,
+    load_library,
+    tensor_key,
+)
 from sigdigger_tpu_torch.kernels.ops import atan2
-from sigdigger_tpu_torch.utils import profiling
+from sigdigger_tpu_torch.native import I16_SCALE, UPLOAD_KIND
 
 _TWO_PI = 2.0 * np.pi
 
@@ -93,7 +98,7 @@ class AudioBankConfig:
     # the reference's banded-FIR chunk (0 → auto ≤256): the plain
     # version's band matrix and flops_per_block read it, the kernel not
     fir_tile: int = 0
-    in_scale: float = 4096.0     # dequant scale for integer uploads
+    in_scale: float = I16_SCALE  # dequant scale for integer uploads
     hang_agc: bool = False       # per-sample su_agc follower
     seed_tile: int = 0           # inject sq/dc/agc seeds at this tile
 
@@ -378,20 +383,15 @@ def audio_kernel_reference(xr: torch.Tensor, xi: torch.Tensor,
             atail1_out, atail2_out, sq_t[-1:], dcs[None], power, agcs_out)
 
 
-_IN_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 MAX_KA = 256                 # decimating FIR taps the kernel stages
 
 
-def _ptr(t: torch.Tensor | None) -> int:
-    return 0 if t is None else t.data_ptr()
-
-
-def _audio_cuda(xr, xi, consts, carries, phi0, phs0, p: AudioParams,
-                scratch: dict | None = None):
+def _check(xr, xi, consts, carries, phi0, phs0, p: AudioParams,
+           scratch: dict | None = None) -> None:
     dev = xr.device
     m, k = xr.shape if xr.dim() == 2 else (0, 0)
     for name, t in (("xr", xr), ("xi", xi)):
-        if (t.dtype not in _IN_KIND or t.dtype != xr.dtype
+        if (t.dtype not in UPLOAD_KIND or t.dtype != xr.dtype
                 or tuple(t.shape) != (m, k) or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(f"audio_kernel {name}: want contiguous [M, K] "
@@ -406,7 +406,7 @@ def _audio_cuda(xr, xi, consts, carries, phi0, phs0, p: AudioParams,
             f"M={m}, m_tile={p.mt}, Da={p.da}, Ka={p.ka}, Ka2={p.ka2}, "
             f"seed_tile={p.seed_tile}")
     c = consts["h_re"].shape[1]
-    m_tiles, ma = m // p.mt, m // p.da
+    m_tiles = m // p.mt
     shapes = {"h_re": (consts["h_re"], (k, c)),
               "h_im": (consts["h_im"], (k, c)),
               "params": (consts["params"], (len(PARAM_ROWS), c)),
@@ -422,7 +422,25 @@ def _audio_cuda(xr, xi, consts, carries, phi0, phs0, p: AudioParams,
             raise ValueError(
                 f"audio_kernel {name}: want contiguous float32 {shape} on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    lib = load_library("audio")
+
+
+_CONSTS = ("h_re", "h_im", "params", "taps2", "ataps")
+
+
+def _key(xr, xi, consts, carries, phi0, phs0, p: AudioParams,
+         scratch: dict | None = None) -> tuple:
+    # everything _check reads: each tensor's shape, dtype, device and
+    # contiguity, the carry count and the scalars
+    return tensor_key(xr, xi, phi0, phs0, *map(consts.get, _CONSTS),
+                      *carries) + (len(carries), p)
+
+
+def _audio_cuda(xr, xi, consts, carries, phi0, phs0, p: AudioParams,
+                scratch: dict | None = None):
+    dev = xr.device
+    m, k = xr.shape
+    c = consts["h_re"].shape[1]
+    m_tiles, ma = m // p.mt, m // p.da
 
     def new(*shape):
         return torch.empty(shape, device=dev)
@@ -440,19 +458,18 @@ def _audio_cuda(xr, xi, consts, carries, phi0, phs0, p: AudioParams,
     # one power partial per row block of up to 64 rows inside a tile
     pow_part, sq_t = new(m_tiles * -(-p.mt // 64), c), new(m_tiles, c)
     err = launch(
-        lib.sd_audio, dev,
-        _ptr(xr), _ptr(xi), _IN_KIND[xr.dtype], p.in_gain,
-        _ptr(consts["h_re"]), _ptr(consts["h_im"]),
-        _ptr(consts["params"]), _ptr(consts["taps2"]),
-        _ptr(consts["ataps"]), _ptr(phi0), _ptr(phs0),
-        *(_ptr(t) for t in carries), *(_ptr(t) for t in outs),
-        _ptr(rot_re), _ptr(rot_im), _ptr(pow_part), _ptr(sq_t),
-        _ptr(gain), _ptr(f1), _ptr(f2), _ptr(a1), _ptr(a2),
+        load_library("audio").sd_audio, dev,
+        xr.data_ptr(), xi.data_ptr(), UPLOAD_KIND[xr.dtype], p.in_gain,
+        *(consts[n].data_ptr() for n in _CONSTS), phi0.data_ptr(),
+        phs0.data_ptr(),
+        *(t.data_ptr() for t in (*carries, *outs, rot_re, rot_im, pow_part,
+                                  sq_t)),
+        *(None if t is None else t.data_ptr()
+          for t in (gain, f1, f2, a1, a2)),
         m, c, k, p.mt, p.ka, p.ka2, p.da, int(p.ssb), int(p.hang),
         p.seed_tile, p.quad_gain, p.beta, p.one_m_beta)
     if err != 0:
         raise RuntimeError(f"sd_audio launch failed: CUDA error {err}")
-    audio_kernel.launches += 1
     if scratch is not None:
         scratch.update(rr=rot_re, ri=rot_im, gain=gain)
     return outs
@@ -486,8 +503,8 @@ def audio_hang_step_cycles(rr: torch.Tensor, ri: torch.Tensor,
                          f">= 64, got C={c}, steps={steps}")
     out = torch.zeros(2 + 32, device=rr.device)
     err = launch(load_library("audio").sd_audio_hang_chain, rr.device,
-                 _ptr(rr), _ptr(ri), _ptr(params), _ptr(agcs), c,
-                 int(steps), _ptr(out))
+                 rr.data_ptr(), ri.data_ptr(), params.data_ptr(),
+                 agcs.data_ptr(), c, int(steps), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"sd_audio_hang_chain failed: CUDA error {err}")
     cycles, ghz = out[:2].tolist()
@@ -521,25 +538,11 @@ def hang_floor_ms(cycles: dict, m: int) -> float:
     return cycles["cycles"] * m / (cycles["ghz"] * 1e9) * 1e3
 
 
-@profiling.launch("audio_kernel")
-def audio_kernel(xr: torch.Tensor, xi: torch.Tensor,
-                 consts: dict[str, torch.Tensor], carries: tuple,
-                 phi0: torch.Tensor, phs0: torch.Tensor, p: AudioParams,
-                 scratch: dict | None = None):
-    """One audio-bank block: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns what :func:`audio_kernel_reference`
-    returns; a ``scratch`` dict receives the rotated planes and the hang
-    gain (``rr``, ``ri``, ``gain``).  ``audio_kernel.launches`` counts
-    the CUDA launches."""
-    if xr.device.type == "cuda":
-        return _audio_cuda(xr, xi, consts, carries, phi0, phs0, p, scratch)
-    if xr.device.type == "cpu":
-        return audio_kernel_reference(xr, xi, consts, carries, phi0, phs0,
-                                      p, scratch)
-    raise ValueError(f"audio_kernel runs on cuda or cpu, not {xr.device}")
-
-
-audio_kernel.launches = 0
+audio_kernel = kernel(
+    "audio_kernel", _audio_cuda, audio_kernel_reference, key=_key,
+    check=_check, doc="""One audio-bank block.  Returns what
+    :func:`audio_kernel_reference` returns; a ``scratch`` dict receives
+    the rotated planes and the hang gain (``rr``, ``ri``, ``gain``).""")
 
 
 class AudioBank:

@@ -31,15 +31,15 @@ from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.filters import fir_lowpass
 from sigdigger_tpu_torch.kernels._build import (
     SCRATCH_COUNTERS,
-    checked_once,
+    kernel,
     launch,
     load_library,
     scratch,
+    tensor_key,
 )
 from sigdigger_tpu_torch.kernels.ops import atan2
 from sigdigger_tpu_torch.kernels.tcsplit import tc_bmat, tc_product
 from sigdigger_tpu_torch.native import frame_windows
-from sigdigger_tpu_torch.utils import profiling
 
 _TWO_PI = 2.0 * np.pi
 
@@ -201,20 +201,7 @@ def _check(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
                              f"{shape} on {dev}, got {got}")
 
 
-# argument signatures whose shapes _kernel1_cuda has checked
-_CHECKED: set = set()
-
-
 def _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
-    bmat, theta, ataps = (consts.get(k) for k in ("bmat", "theta", "ataps"))
-    # the key holds everything _check reads: each tensor's shape and
-    # strides (so contiguity), dtype and device, and the scalars
-    key = tuple(None if t is None else (t.shape, t.stride(), t.dtype,
-                                        t.device)
-                for t in (xr, xi, phi0, prev_re, prev_im, bmat, theta,
-                          ataps)) + (p,)
-    checked_once(_CHECKED, key, lambda: _check(xr, xi, consts, phi0,
-                                               prev_re, prev_im, p))
     dev = xr.device
     m, c = xr.shape[0], phi0.shape[1]
     ma = m // p.da
@@ -225,31 +212,25 @@ def _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p: Kernel1Params):
     f_scr = scratch(dev, m * c).data_ptr() + 4 * SCRATCH_COUNTERS
     o, row = out.data_ptr(), 4 * c
     err = launch(load_library("channelizer").sd_kernel1, dev,
-                 xr.data_ptr(), xi.data_ptr(), bmat.data_ptr(),
-                 theta.data_ptr(), phi0.data_ptr(), prev_re.data_ptr(),
-                 prev_im.data_ptr(), ataps.data_ptr(), o, o + ma * row,
+                 xr.data_ptr(), xi.data_ptr(), consts["bmat"].data_ptr(),
+                 consts["theta"].data_ptr(), phi0.data_ptr(),
+                 prev_re.data_ptr(), prev_im.data_ptr(),
+                 consts["ataps"].data_ptr(), o, o + ma * row,
                  o + (ma + 1) * row, f_scr, m, c, p.ka, p.da, p.quad_gain)
     if err != 0:
         raise RuntimeError(f"sd_kernel1 launch failed: CUDA error {err}")
-    kernel1.launches += 1
     return out[:ma], out[ma:ma + 1], out[ma + 1:]
 
 
-@profiling.launch("kernel1")
-def kernel1(xr: torch.Tensor, xi: torch.Tensor,
-            consts: dict[str, torch.Tensor], phi0: torch.Tensor,
-            prev_re: torch.Tensor, prev_im: torch.Tensor, p: Kernel1Params):
-    """One v1 block: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  Returns what :func:`kernel1_reference` returns.
-    ``kernel1.launches`` counts the CUDA launches."""
-    if xr.device.type == "cuda":
-        return _kernel1_cuda(xr, xi, consts, phi0, prev_re, prev_im, p)
-    if xr.device.type == "cpu":
-        return kernel1_reference(xr, xi, consts, phi0, prev_re, prev_im, p)
-    raise ValueError(f"kernel1 runs on cuda or cpu, not {xr.device}")
-
-
-kernel1.launches = 0
+kernel1 = kernel(
+    "kernel1", _kernel1_cuda, kernel1_reference,
+    # everything _check reads: each tensor's shape, dtype, device and
+    # contiguity, and the scalars
+    key=lambda xr, xi, consts, phi0, prev_re, prev_im, p: tensor_key(
+        xr, xi, phi0, prev_re, prev_im,
+        *(consts.get(k) for k in ("bmat", "theta", "ataps"))) + (p,),
+    check=_check, doc="""One v1 block.  Returns what
+    :func:`kernel1_reference` returns.""")
 
 
 class MatChannelizer:

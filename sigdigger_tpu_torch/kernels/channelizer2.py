@@ -30,7 +30,6 @@ does (``kernels/rawbank.py`` explains why).
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -43,11 +42,21 @@ from sigdigger_tpu_torch.kernels.channelizer import (
     MatChannelizerConfig,
     make_mat_constants,
 )
-from sigdigger_tpu_torch.kernels._build import SCRATCH_COUNTERS, scratch
+from sigdigger_tpu_torch.kernels._build import (
+    SCRATCH_COUNTERS,
+    kernel,
+    launch,
+    load_library,
+    scratch,
+    tensor_key,
+)
 from sigdigger_tpu_torch.kernels.fft import _dft_matrix, psd_parts
 from sigdigger_tpu_torch.kernels.ops import atan2
 from sigdigger_tpu_torch.kernels.tcsplit import tc_bmat, tc_product
 from sigdigger_tpu_torch.native import (
+    I8_SCALE,
+    I16_SCALE,
+    UPLOAD_KIND,
     carry,
     frame_packed,
     framer_library,
@@ -79,9 +88,9 @@ class MatChannelizer2Config:
     fir_tile: int = 0            # audio-FIR chunk (0 → auto)
     quad_gain: float = 1.0 / np.pi
     in_i16: bool = False         # upload framed IQ as int16
-    i16_scale: float = 4096.0    # counts per unit
+    i16_scale: float = I16_SCALE   # counts per unit
     in_i8: bool = False          # int8 upload; wins over in_i16
-    i8_scale: float = 64.0       # counts per unit
+    i8_scale: float = I8_SCALE     # counts per unit
     audio_bf16: bool = False     # drain audio as bfloat16
     fuse_psd: bool = True        # the block's PSD out of the same call
     psd_fft: int = 4096
@@ -331,13 +340,6 @@ def kernel2_reference(xw: torch.Tensor, consts: dict[str, torch.Tensor],
     return (audio, *last, psd)
 
 
-_IN_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
-
-
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
 def _check_f32(name: str, t: torch.Tensor, shape: tuple,
                dev: torch.device) -> None:
     if (t is None or tuple(t.shape) != shape or t.dtype != torch.float32
@@ -347,14 +349,12 @@ def _check_f32(name: str, t: torch.Tensor, shape: tuple,
                          f"on {dev}, got {got}")
 
 
-def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
-                  phi0):
-    from sigdigger_tpu_torch.kernels._build import load_library
-
+def _check(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
+           phi0=None) -> None:
     m = xw.shape[0] // 2
     c = prev_re.shape[1]
     dev = xw.device
-    if (xw.dtype not in _IN_KIND or xw.dim() != 2 or xw.shape[1] != 64
+    if (xw.dtype not in UPLOAD_KIND or xw.dim() != 2 or xw.shape[1] != 64
             or not xw.is_contiguous()):
         raise ValueError(f"xw must be contiguous [2M, 64] f32/i16/i8 on "
                          f"{dev}, got {tuple(xw.shape)} {xw.dtype}")
@@ -384,10 +384,24 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
     for name, (t, shape) in shapes.items():
         _check_f32(name, t, shape, dev)
 
-    def opt(name, on):
-        return consts[name] if on else None
 
-    lib = load_library("channelizer2")
+_CONSTS = ("bmat", "ataps", "q", "r", "theta", "w2d", "w64_re", "w64_im",
+           "tw_re", "tw_im")
+
+
+def _key(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
+         phi0=None) -> tuple:
+    # everything _check reads: each tensor's shape, dtype, device and
+    # contiguity, and the scalars
+    return tensor_key(xw, prev_re, prev_im, ftail, phi0,
+                      *map(consts.get, _CONSTS)) + (p,)
+
+
+def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
+                  phi0=None):
+    m = xw.shape[0] // 2
+    c = prev_re.shape[1]
+    dev = xw.device
     audio = torch.empty((m // p.da, c), device=dev, dtype=(
         torch.bfloat16 if p.audio_bf16 else torch.float32))
     last_re = torch.empty((1, c), device=dev)
@@ -395,51 +409,39 @@ def _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p: Kernel2Params,
     ftail_out = torch.empty((p.ka - 1, c), device=dev)
     f_scr = torch.empty((m, c), device=dev)
     psd = psd_part = psd_count = None
-    if p.fuse_psd:
+    tab, fused = p.table_rot, p.fuse_psd
+    if fused:
         psd = torch.empty((64, 64), device=dev)
         # the frame sum's counters and one partial per cluster of frames
         # (csrc/psd.cuh psd_frames), in the stream's cached scratch
         psd_count = scratch(dev, psd_parts(m // 64) * 4096).data_ptr()
         psd_part = psd_count + 4 * SCRATCH_COUNTERS
-    tab, fused = p.table_rot, p.fuse_psd
+
+    def opt(name, on):
+        return consts[name].data_ptr() if on else None
+
     # every tensor passed stays referenced (by the caller, or for the
     # scratch by PyTorch's stream-ordered allocator) while the launch runs
-    with torch.cuda.device(dev):
-        err = lib.sd_kernel2(
-            _ptr(xw), _IN_KIND[xw.dtype], p.in_gain, _ptr(consts["bmat"]),
-            int(tab), _ptr(opt("q", tab)), _ptr(opt("r", tab)),
-            _ptr(opt("theta", not tab)), _ptr(None if tab else phi0),
-            _ptr(prev_re), _ptr(prev_im), _ptr(ftail),
-            _ptr(consts["ataps"]), int(fused), _ptr(opt("w2d", fused)),
-            _ptr(opt("w64_re", fused)), _ptr(opt("w64_im", fused)),
-            _ptr(opt("tw_re", fused)), _ptr(opt("tw_im", fused)),
-            _ptr(audio), int(p.audio_bf16), _ptr(last_re), _ptr(last_im),
-            _ptr(ftail_out), _ptr(psd), _ptr(f_scr), psd_part, psd_count,
-            m, c, p.mt, p.ka, p.da, p.quad_gain, p.psd_scale,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    err = launch(
+        load_library("channelizer2").sd_kernel2, dev,
+        xw.data_ptr(), UPLOAD_KIND[xw.dtype], p.in_gain,
+        consts["bmat"].data_ptr(), int(tab), opt("q", tab), opt("r", tab),
+        opt("theta", not tab), None if tab else phi0.data_ptr(),
+        prev_re.data_ptr(), prev_im.data_ptr(), ftail.data_ptr(),
+        consts["ataps"].data_ptr(), int(fused), opt("w2d", fused),
+        opt("w64_re", fused), opt("w64_im", fused), opt("tw_re", fused),
+        opt("tw_im", fused), audio.data_ptr(), int(p.audio_bf16),
+        last_re.data_ptr(), last_im.data_ptr(), ftail_out.data_ptr(),
+        None if psd is None else psd.data_ptr(), f_scr.data_ptr(), psd_part,
+        psd_count, m, c, p.mt, p.ka, p.da, p.quad_gain, p.psd_scale)
     if err != 0:
         raise RuntimeError(f"sd_kernel2 launch failed: CUDA error {err}")
-    kernel2.launches += 1
     return audio, last_re, last_im, ftail_out, psd
 
 
-@profiling.launch("kernel2")
-def kernel2(xw: torch.Tensor, consts: dict[str, torch.Tensor],
-            prev_re: torch.Tensor, prev_im: torch.Tensor,
-            ftail: torch.Tensor, p: Kernel2Params,
-            phi0: torch.Tensor | None = None):
-    """One block: the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor.  Returns what :func:`kernel2_reference` returns.
-    ``kernel2.launches`` counts the CUDA launches."""
-    if xw.device.type == "cuda":
-        return _kernel2_cuda(xw, consts, prev_re, prev_im, ftail, p, phi0)
-    if xw.device.type == "cpu":
-        return kernel2_reference(xw, consts, prev_re, prev_im, ftail, p,
-                                 phi0)
-    raise ValueError(f"kernel2 runs on cuda or cpu, not {xw.device}")
-
-
-kernel2.launches = 0
+kernel2 = kernel("kernel2", _kernel2_cuda, kernel2_reference, key=_key,
+                 check=_check, doc="""One block.  Returns what
+    :func:`kernel2_reference` returns.""")
 
 
 class MatChannelizer2:

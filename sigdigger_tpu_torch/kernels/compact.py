@@ -32,14 +32,18 @@ row's whole output into NaN in the reference and not here.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
-from sigdigger_tpu_torch.utils import profiling
+from sigdigger_tpu_torch.kernels._build import (
+    kernel,
+    launch,
+    load_library,
+    tensor_key,
+)
 
 MAX_PLANES = 4               # planes one kernel launch gathers
 
@@ -127,10 +131,8 @@ def run_table(slots, n_channels: int, dtype: torch.dtype) -> np.ndarray:
     return table
 
 
-def _compact_cuda(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
-                  cfg: ColumnCompactorConfig) -> torch.Tensor:
-    from sigdigger_tpu_torch.kernels._build import load_library
-
+def _check(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
+           cfg: ColumnCompactorConfig) -> None:
     dev = slots.device
     m, c, w, n = cfg.n_rows, cfg.n_channels, cfg.width, cfg.n_planes
     if not 1 <= n <= MAX_PLANES or len(planes) != n:
@@ -153,43 +155,44 @@ def _compact_cuda(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
         raise ValueError(f"compact_kernel runs: want contiguous int32 "
                          f"({n_runs},) on {dev}, got {runs.dtype} "
                          f"{tuple(runs.shape)} on {runs.device}")
-    # the run table's float4 loads need 16-byte aligned planes
-    vec_loads = int(all(x.data_ptr() % 16 == 0 for x in planes))
-    lib = load_library("compact")
+
+
+def _compact_cuda(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
+                  cfg: ColumnCompactorConfig) -> torch.Tensor:
+    dev = slots.device
+    m, c, w, n = cfg.n_rows, cfg.n_channels, cfg.width, cfg.n_planes
+    ptrs = [x.data_ptr() for x in planes]
+    # the run table's float4 loads need 16-byte aligned planes: a
+    # property of this call's pointers, so no part of the check
+    vec_loads = int(all(q % 16 == 0 for q in ptrs))
     out = torch.empty((n * m, w), dtype=cfg.dtype, device=dev)
-    ptrs = [ctypes.c_void_p(x.data_ptr()) for x in planes]
-    ptrs += [ctypes.c_void_p(0)] * (MAX_PLANES - n)
     scales = list(cfg.scales if cfg.out_i16 else ())
     scales += [1.0] * (MAX_PLANES - len(scales))
-    with torch.cuda.device(dev):
-        err = lib.sd_compact(
-            *ptrs, n, ctypes.c_void_p(slots.data_ptr()),
-            ctypes.c_void_p(runs.data_ptr()), vec_loads,
-            ctypes.c_void_p(out.data_ptr()), _OUT_KIND[cfg.dtype],
-            *(float(np.float32(s)) for s in scales), m, c, w, cfg.m_tile,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    err = launch(load_library("compact").sd_compact, dev,
+                 *ptrs, *[None] * (MAX_PLANES - n), n, slots.data_ptr(),
+                 runs.data_ptr(), vec_loads, out.data_ptr(),
+                 _OUT_KIND[cfg.dtype],
+                 *(float(np.float32(s)) for s in scales), m, c, w,
+                 cfg.m_tile)
     if err != 0:
         raise RuntimeError(f"sd_compact launch failed: CUDA error {err}")
-    compact_kernel.launches += 1
     return out
 
 
-@profiling.launch("compact_kernel")
-def compact_kernel(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
+def _compact_plain(planes: tuple, slots: torch.Tensor, runs: torch.Tensor,
                    cfg: ColumnCompactorConfig) -> torch.Tensor:
-    """One compaction through the map ``slots`` and its :func:`run_table`
-    ``runs``: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (which reads no run table).
-    ``compact_kernel.launches`` counts the CUDA launches."""
-    if slots.device.type == "cuda":
-        return _compact_cuda(planes, slots, runs, cfg)
-    if slots.device.type == "cpu":
-        return compact_kernel_reference(planes, slots, cfg)
-    raise ValueError(f"compact_kernel runs on cuda or cpu, not "
-                     f"{slots.device}")
+    return compact_kernel_reference(planes, slots, cfg)
 
 
-compact_kernel.launches = 0
+compact_kernel = kernel(
+    "compact_kernel", _compact_cuda, _compact_plain, at=1,
+    # everything _check reads: each tensor's shape, dtype, device and
+    # contiguity, the plane count and the config
+    key=lambda planes, slots, runs, cfg: tensor_key(
+        *planes, slots, runs) + (len(planes), cfg),
+    check=_check, doc="""One compaction through the map ``slots`` and
+    its :func:`run_table` ``runs`` (the plain version reads no run
+    table).""")
 
 
 class ColumnCompactor:

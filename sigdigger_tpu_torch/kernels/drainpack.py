@@ -57,10 +57,12 @@ import torch
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.kernels._build import (
     checked_once,
+    kernel,
     launch,
     load_library,
+    tensor_key,
 )
-from sigdigger_tpu_torch.utils import largest_divisor, profiling
+from sigdigger_tpu_torch.utils import largest_divisor
 
 A_SCALE = 4096.0       # audio samples (±8 range)
 S_SCALE = 256.0        # squelch EMA / block power (±128 range)
@@ -351,17 +353,6 @@ class _Plan:
 _PLANS: dict = {}           # (id(layout), device) -> _Plan
 
 
-def _tensor_key(*tensors) -> tuple:
-    """What :func:`_check` reads of each tensor: its shape, dtype, device
-    index and contiguity (``None`` for an absent one), flat, so that the
-    key is cheap to build, hash and compare."""
-    key = []
-    for t in tensors:
-        key += (None,) if t is None else (t.shape, t.dtype, t.get_device(),
-                                          t.is_contiguous())
-    return tuple(key)
-
-
 def _pack_cuda(planes: dict, sq, pw, maps: dict,
                cfg: DrainPackerConfig) -> torch.Tensor:
     dev = sq.device
@@ -373,9 +364,10 @@ def _pack_cuda(planes: dict, sq, pw, maps: dict,
     xs = [planes.get(n) for n in plan.names]
     ms = [maps.get(s) for s in plan.sels]
     status = maps.get("status")
-    # the key holds everything _check reads: the layout (the plan's own)
-    # and each tensor's shape, dtype, device and contiguity
-    checked_once(plan.checked, _tensor_key(sq, pw, status, *xs, *ms),
+    # the key holds everything _check reads: the layout (the plan's own,
+    # so the memo lives and dies with the layout) and each tensor's
+    # shape, dtype, device and contiguity
+    checked_once(plan.checked, tensor_key(sq, pw, status, *xs, *ms),
                  lambda: _check(planes, sq, pw, maps, cfg, dev))
     # the six planes, then the audio, digital and raw maps (0: absent);
     # the OR of a group's pointers is 16-byte aligned when each is
@@ -400,24 +392,13 @@ def _pack_cuda(planes: dict, sq, pw, maps: dict,
                  pw.data_ptr(), out.data_ptr(), *plan.ints, vec)
     if err != 0:
         raise RuntimeError(f"sd_drainpack launch failed: CUDA error {err}")
-    pack_kernel.launches += 1
     return out
 
 
-@profiling.launch("pack_kernel")
-def pack_kernel(planes: dict, sq: torch.Tensor, pw: torch.Tensor,
-                maps: dict, cfg: DrainPackerConfig) -> torch.Tensor:
-    """One pack: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (arguments as :func:`pack_kernel_reference`).
-    ``pack_kernel.launches`` counts the CUDA launches."""
-    if sq.device.type == "cuda":
-        return _pack_cuda(planes, sq, pw, maps, cfg)
-    if sq.device.type == "cpu":
-        return pack_kernel_reference(planes, sq, pw, maps, cfg)
-    raise ValueError(f"pack_kernel runs on cuda or cpu, not {sq.device}")
-
-
-pack_kernel.launches = 0
+# the argument check runs in _pack_cuda, on the layout's own memo
+pack_kernel = kernel("pack_kernel", _pack_cuda, pack_kernel_reference,
+                     at=1, doc="""One pack (arguments as
+    :func:`pack_kernel_reference`).""")
 
 
 class DrainPacker:

@@ -31,11 +31,11 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.kernels._build import (
-    checked_once,
+    kernel,
     launch,
     load_library,
+    tensor_key,
 )
-from sigdigger_tpu_torch.utils import profiling
 
 KERNEL_TAPS = 5
 
@@ -132,28 +132,25 @@ def _check(x_re, x_im, taps_re, taps_im, rate, locked) -> None:
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-# argument signatures whose shapes _cma_cuda has checked
-_CHECKED: set = set()
-
-
 def _cma_cuda(x_re, x_im, taps_re, taps_im, rate, locked) -> tuple:
-    ins = (x_re, x_im, taps_re, taps_im, rate, locked)
-    # the key holds everything _check reads: shapes and strides (so
-    # contiguity), dtypes and devices
-    key = tuple((t.shape, t.stride(), t.dtype, t.device) for t in ins)
-    checked_once(_CHECKED, key, lambda: _check(*ins))
     t_len, c = x_re.shape
     k = taps_re.shape[0]
     y = torch.empty((2, t_len, c), device=x_re.device)
     taps = torch.empty((2, k, c), device=x_re.device)
     err = launch(load_library("cma").sd_cma, x_re.device,
-                 *(t.data_ptr() for t in ins), y[0].data_ptr(),
-                 y[1].data_ptr(), taps[0].data_ptr(), taps[1].data_ptr(),
-                 t_len, c, k)
+                 *(t.data_ptr() for t in (x_re, x_im, taps_re, taps_im,
+                                          rate, locked)),
+                 y[0].data_ptr(), y[1].data_ptr(), taps[0].data_ptr(),
+                 taps[1].data_ptr(), t_len, c, k)
     if err != 0:
         raise RuntimeError(f"sd_cma launch failed: CUDA error {err}")
-    cma_kernel.launches += 1
     return y[0], y[1], taps[0], taps[1]
+
+
+cma_kernel = kernel(
+    "cma_kernel", _cma_cuda, cma_kernel_reference, key=tensor_key,
+    check=_check, doc="""One CMA block on the float32 ``[T, C]`` symbol
+    planes; ``rate`` and ``locked`` are ``[C]`` rows.""")
 
 
 # symbol rows the chain timer reads (csrc/cma.cu HT, the walker's chunk)
@@ -221,22 +218,6 @@ def cma_floor_ms(cycles: dict, t: int) -> float:
     dependent steps at the cycles and clock of ``cycles``
     (:func:`cma_step_cycles`)."""
     return cycles["cycles"] * t / (cycles["ghz"] * 1e9) * 1e3
-
-
-@profiling.launch("cma_kernel")
-def cma_kernel(x_re, x_im, taps_re, taps_im, rate, locked) -> tuple:
-    """One CMA block: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  ``rate`` and ``locked`` are ``[C]`` rows.
-    ``cma_kernel.launches`` counts the CUDA launches."""
-    if x_re.device.type == "cuda":
-        return _cma_cuda(x_re, x_im, taps_re, taps_im, rate, locked)
-    if x_re.device.type == "cpu":
-        return cma_kernel_reference(x_re, x_im, taps_re, taps_im, rate,
-                                    locked)
-    raise ValueError(f"cma_kernel runs on cuda or cpu, not {x_re.device}")
-
-
-cma_kernel.launches = 0
 
 
 def cma_apply(x: torch.Tensor, taps_re: torch.Tensor, taps_im: torch.Tensor,

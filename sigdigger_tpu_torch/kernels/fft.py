@@ -36,12 +36,17 @@ from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.window import window_taps
 from sigdigger_tpu_torch.kernels._build import (
     SCRATCH_COUNTERS,
-    checked_once,
+    kernel,
     launch,
     load_library,
     scratch,
+    tensor_key,
 )
-from sigdigger_tpu_torch.native import frame_psd_packed
+from sigdigger_tpu_torch.native import (
+    I16_SCALE,
+    UPLOAD_KIND,
+    frame_psd_packed,
+)
 from sigdigger_tpu_torch.types import WindowFunction
 from sigdigger_tpu_torch.utils import profiling
 
@@ -220,9 +225,6 @@ def _frames_power(xr: torch.Tensor, xi: torch.Tensor,
     return s3r * s3r + s3i * s3i
 
 
-_IN_KIND = {torch.float32: 0, torch.int16: 1}
-
-
 # shared memory of one block on sm_90 (csrc/psd.cuh SMEM_MAX)
 _SMEM_MAX = 232448
 
@@ -249,10 +251,6 @@ def _psd_scratch(a: int, b: int, frames: int,
     return count, part, (part + 4 * rows * n if extra else None)
 
 
-# argument signatures whose shapes the CUDA wrappers have checked
-_CHECKED: set = set()
-
-
 def _check_pack(name: str, pack, a: int, b: int, window: bool,
                 dev: torch.device) -> None:
     if (pack is None or pack.dim() != 1
@@ -266,52 +264,38 @@ def _check_pack(name: str, pack, a: int, b: int, window: bool,
                          f"{', w2d' if window else ''}) on {dev}, got {got}")
 
 
-def _check_psd(xp: torch.Tensor, pack, a: int, b: int) -> None:
-    if (xp.dtype not in _IN_KIND or xp.dim() != 2 or xp.shape[0] != 2 * a
-            or xp.shape[1] % b or xp.shape[1] == 0
+def _check_psd(xp: torch.Tensor, consts: dict[str, torch.Tensor],
+               p: PSDParams) -> None:
+    a, b = p.a, p.b
+    if (xp.dtype not in (torch.float32, torch.int16) or xp.dim() != 2
+            or xp.shape[0] != 2 * a or xp.shape[1] % b or xp.shape[1] == 0
             or not xp.is_contiguous()):
         raise ValueError(f"psd xp must be contiguous [2A, F·B] = "
                          f"[{2 * a}, F·{b}] float32/int16, got "
                          f"{tuple(xp.shape)} {xp.dtype}")
-    _check_pack("psd", pack, a, b, False, xp.device)
+    _check_pack("psd", consts.get("pack"), a, b, False, xp.device)
 
 
 def _psd_cuda(xp: torch.Tensor, consts: dict[str, torch.Tensor],
               p: PSDParams) -> torch.Tensor:
     a, b = p.a, p.b
     dev = xp.device
-    pack = consts.get("pack")
-    # the key holds everything _check_psd reads
-    key = ("psd", xp.shape, xp.stride(), xp.dtype, dev, a, b) + (
-        (None,) if pack is None else
-        (pack.shape, pack.stride(), pack.dtype, pack.device))
-    checked_once(_CHECKED, key, lambda: _check_psd(xp, pack, a, b))
     f = xp.shape[1] // b
     psd = torch.empty((a, b), device=dev)
     count, part, scr = _psd_scratch(a, b, f, dev)
     err = launch(load_library("psd").sd_psd, dev, xp.data_ptr(),
-                 _IN_KIND[xp.dtype], p.in_gain, pack.data_ptr(),
+                 UPLOAD_KIND[xp.dtype], p.in_gain, consts["pack"].data_ptr(),
                  psd.data_ptr(), part, scr, count, a, b, f, p.scale)
     if err != 0:
         raise RuntimeError(f"sd_psd launch failed: CUDA error {err}")
-    psd_kernel.launches += 1
     return psd
 
 
-@profiling.launch("psd_kernel")
-def psd_kernel(xp: torch.Tensor, consts: dict[str, torch.Tensor],
-               p: PSDParams) -> torch.Tensor:
-    """One block's mean PSD ``[A, B]`` in ``(k1, k2)`` order: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor.
-    ``psd_kernel.launches`` counts the CUDA launches."""
-    if xp.device.type == "cuda":
-        return _psd_cuda(xp, consts, p)
-    if xp.device.type == "cpu":
-        return psd_kernel_reference(xp, consts, p)
-    raise ValueError(f"psd_kernel runs on cuda or cpu, not {xp.device}")
-
-
-psd_kernel.launches = 0
+psd_kernel = kernel(
+    "psd_kernel", _psd_cuda, psd_kernel_reference,
+    key=lambda xp, consts, p: tensor_key(xp, consts.get("pack")) + (p,),
+    check=_check_psd, doc="""One block's mean PSD ``[A, B]`` in
+    ``(k1, k2)`` order.""")
 
 
 class PSD(PSDFold):
@@ -327,7 +311,7 @@ class PSD(PSDFold):
     def __init__(self, cfg: PSDConfig, sample_rate: float,
                  window: WindowFunction = WindowFunction.BLACKMANN_HARRIS,
                  alpha: float = 0.25, in_i16: bool = False,
-                 i16_scale: float = 4096.0,
+                 i16_scale: float = I16_SCALE,
                  device: str | torch.device | None = None) -> None:
         # the EMA weight follows the caller's frames_per_program, before
         # the cap below (the reference's fft.py:123 then :129-137)
@@ -435,14 +419,12 @@ def psd_xw_kernel_reference(xw: torch.Tensor,
     return prev + alpha32 * (out - prev)
 
 
-_XW_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
-
-
-def _check_xw(xw: torch.Tensor, pack, p: PSDXWParams,
-              prev: torch.Tensor | None) -> None:
+def _check_xw(xw: torch.Tensor, consts: dict[str, torch.Tensor],
+              p: PSDXWParams, prev: torch.Tensor | None = None,
+              alpha: float = 1.0) -> None:
     a, b = p.a, p.b
     dev = xw.device
-    if (xw.dtype not in _XW_KIND or xw.dim() != 2 or xw.shape[1] != 64
+    if (xw.dtype not in UPLOAD_KIND or xw.dim() != 2 or xw.shape[1] != 64
             or b != 64 or xw.shape[0] % (2 * a) or xw.shape[0] == 0
             or not xw.is_contiguous()):
         raise ValueError(f"psd_xw xw must be a contiguous [2M, 64] "
@@ -452,7 +434,7 @@ def _check_xw(xw: torch.Tensor, pack, p: PSDXWParams,
     if p.fb < 1 or p.stride < 1 or f % (p.fb * p.stride):
         raise ValueError(f"psd_xw takes F % (fb·stride) == 0, got A={a}, "
                          f"F={f}, fb={p.fb}, stride={p.stride}")
-    _check_pack("psd_xw", pack, a, b, True, dev)
+    _check_pack("psd_xw", consts.get("pack"), a, b, True, dev)
     if prev is not None and (
             tuple(prev.shape) != (a, b) or prev.dtype != torch.float32
             or prev.device != dev or not prev.is_contiguous()):
@@ -462,24 +444,17 @@ def _check_xw(xw: torch.Tensor, pack, p: PSDXWParams,
 
 
 def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
-                 p: PSDXWParams, prev: torch.Tensor | None,
-                 alpha: float) -> torch.Tensor:
+                 p: PSDXWParams, prev: torch.Tensor | None = None,
+                 alpha: float = 1.0) -> torch.Tensor:
     a, b = p.a, p.b
     dev = xw.device
-    pack = consts.get("pack")
-    # the key holds everything _check_xw reads
-    key = ("psd_xw", xw.shape, xw.stride(), xw.dtype, dev, a, b, p.fb,
-           p.stride) + ((None,) if pack is None else (
-               pack.shape, pack.stride(), pack.dtype, pack.device)) + (
-        (None,) if prev is None else (
-            prev.shape, prev.stride(), prev.dtype, prev.device))
-    checked_once(_CHECKED, key, lambda: _check_xw(xw, pack, p, prev))
     m = xw.shape[0] // 2
     kept = m // a // p.stride
     psd = torch.empty((a, b), device=dev)
     count, part, scr = _psd_scratch(a, b, kept, dev)
     err = launch(load_library("psd_xw").sd_psd_xw, dev, xw.data_ptr(),
-                 _XW_KIND[xw.dtype], pack.data_ptr(), int(prev is not None),
+                 UPLOAD_KIND[xw.dtype], consts["pack"].data_ptr(),
+                 int(prev is not None),
                  None if prev is None else prev.data_ptr(), alpha,
                  psd.data_ptr(), part, scr, count, m, a, b, p.fb, p.stride,
                  p.scale)
@@ -488,41 +463,18 @@ def _psd_xw_cuda(xw: torch.Tensor, consts: dict[str, torch.Tensor],
     return psd
 
 
-@profiling.launch("psd_xw_kernel")
-def psd_xw_kernel(xw: torch.Tensor, consts: dict[str, torch.Tensor],
-                  p: PSDXWParams) -> torch.Tensor:
-    """One block's mean PSD ``[A, B]`` read from the channelizer's
-    packed upload: the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor.  ``psd_xw_kernel.launches`` counts the CUDA
-    launches."""
-    if xw.device.type == "cuda":
-        out = _psd_xw_cuda(xw, consts, p, None, 1.0)
-        psd_xw_kernel.launches += 1
-        return out
-    if xw.device.type == "cpu":
-        return psd_xw_kernel_reference(xw, consts, p)
-    raise ValueError(f"psd_xw_kernel runs on cuda or cpu, not {xw.device}")
+def _xw_key(xw, consts, p, prev=None, alpha=1.0) -> tuple:
+    return tensor_key(xw, consts.get("pack"), prev) + (p,)
 
 
-@profiling.launch("psd_xw_ema_kernel")
-def psd_xw_ema_kernel(xw: torch.Tensor, consts: dict[str, torch.Tensor],
-                      p: PSDXWParams, prev: torch.Tensor,
-                      alpha: float) -> torch.Tensor:
-    """:func:`psd_xw_kernel` blended into ``prev`` on the device, ``prev
-    + α·(new − prev)``.  ``psd_xw_ema_kernel.launches`` counts the CUDA
-    launches."""
-    if xw.device.type == "cuda":
-        out = _psd_xw_cuda(xw, consts, p, prev, alpha)
-        psd_xw_ema_kernel.launches += 1
-        return out
-    if xw.device.type == "cpu":
-        return psd_xw_kernel_reference(xw, consts, p, prev, alpha)
-    raise ValueError(f"psd_xw_ema_kernel runs on cuda or cpu, not "
-                     f"{xw.device}")
-
-
-psd_xw_kernel.launches = 0
-psd_xw_ema_kernel.launches = 0
+psd_xw_kernel = kernel(
+    "psd_xw_kernel", _psd_xw_cuda, psd_xw_kernel_reference, key=_xw_key,
+    check=_check_xw, doc="""One block's mean PSD ``[A, B]`` read from
+    the channelizer's packed upload.""")
+psd_xw_ema_kernel = kernel(
+    "psd_xw_ema_kernel", _psd_xw_cuda, psd_xw_kernel_reference,
+    key=_xw_key, check=_check_xw, doc=""":func:`psd_xw_kernel` blended
+    into ``prev`` on the device, ``prev + α·(new − prev)``.""")
 
 
 class PSDFromXW(PSD):

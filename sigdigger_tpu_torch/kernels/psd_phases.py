@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from sigdigger_tpu_torch.kernels import _build, fft
+from sigdigger_tpu_torch.native import UPLOAD_KIND
 
 # (mark, the line of csrc/psd.cuh it goes after; "^" before)
 _MARKS = [
@@ -120,15 +121,15 @@ def phases(lib: ctypes.CDLL, frames: int, i16: bool,
     buf = torch.zeros(_build.SCRATCH_COUNTERS + fft.psd_parts(frames) * n,
                       device="cuda")
     count = buf.data_ptr()
-    args = (xp.data_ptr(), int(i16), p.params.in_gain,
+    args = (xp.data_ptr(), UPLOAD_KIND[xp.dtype], p.params.in_gain,
             p.consts["pack"].data_ptr(), out.data_ptr(),
             count + 4 * _build.SCRATCH_COUNTERS, None, count, a, b, frames,
-            p.params.scale, torch.cuda.current_stream().cuda_stream)
+            p.params.scale)
     blocks = fft.psd_parts(frames) * fft.PSD_CLUSTER
     steps, spans, lags = [], [], []
     for _ in range(reps):
         lib.sd_phase_zero()
-        if lib.sd_psd(*args) != 0:
+        if _build.launch(lib.sd_psd, xp.device, *args) != 0:
             raise RuntimeError("psd_phases: launch failed")
         torch.cuda.synchronize()
         t = np.zeros((1024, 8), np.uint64)

@@ -23,13 +23,18 @@ rad.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
+from sigdigger_tpu_torch.kernels._build import (
+    kernel,
+    launch,
+    load_library,
+    tensor_key,
+)
 from sigdigger_tpu_torch.kernels.audio import _lowpass_columns
 from sigdigger_tpu_torch.kernels.tcsplit import (
     check_taps,
@@ -38,6 +43,8 @@ from sigdigger_tpu_torch.kernels.tcsplit import (
     tc_product,
 )
 from sigdigger_tpu_torch.native import (
+    I16_SCALE,
+    UPLOAD_KIND,
     carry,
     frame_packed,
     frame_windows,
@@ -57,7 +64,7 @@ class RawBankConfig:
     m_tile: int = 2048           # rows per rotator-phase tile
     # dequantization scale for integer packed uploads (counts/unit):
     # 4096 for int16, typically 64 for int8 (frame_packed modes)
-    in_scale: float = 4096.0
+    in_scale: float = I16_SCALE
 
     def __post_init__(self):
         assert self.block_out % self.m_tile == 0
@@ -117,21 +124,13 @@ def raw_kernel_reference(xr: torch.Tensor, xi: torch.Tensor,
     return rr, ri, acc * (1.0 / m_tiles)
 
 
-_IN_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams, bmat):
-    from sigdigger_tpu_torch.kernels._build import load_library
-
+def _check(xr, xi, h_re, h_im, theta, phi0, p: RawParams,
+           bmat=None) -> None:
     dev = xr.device
     m, k = xr.shape if xr.dim() == 2 else (0, 0)
     c = h_re.shape[1] if h_re.dim() == 2 else 0
     for name, t in (("xr", xr), ("xi", xi)):
-        if (t.dtype not in _IN_KIND or t.dtype != xr.dtype
+        if (t.dtype not in UPLOAD_KIND or t.dtype != xr.dtype
                 or tuple(t.shape) != (m, k) or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(f"raw_kernel {name}: want contiguous [M, K] "
@@ -149,43 +148,41 @@ def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams, bmat):
             got = None if t is None else (t.dtype, tuple(t.shape), t.device)
             raise ValueError(f"raw_kernel {name}: want contiguous float32 "
                              f"{shape} on {dev}, got {got}")
-    lib = load_library("rawbank")
+
+
+def _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p: RawParams, bmat=None):
+    dev = xr.device
+    m, k = xr.shape
+    c = h_re.shape[1]
     y_re = torch.empty((m, c), device=dev)
     y_im = torch.empty((m, c), device=dev)
     power = torch.empty((1, c), device=dev)
     # one power partial per tile of up to 64 rows inside an m-tile
     pow_part = torch.empty((m // p.mt * -(-p.mt // 64), c), device=dev)
-    with torch.cuda.device(dev):
-        err = lib.sd_rawbank(
-            _ptr(xr), _ptr(xi), _IN_KIND[xr.dtype], p.in_gain,
-            _ptr(bmat), _ptr(theta), _ptr(phi0),
-            _ptr(y_re), _ptr(y_im), _ptr(power), _ptr(pow_part),
-            m, c, k, p.mt,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    err = launch(load_library("rawbank").sd_rawbank, dev, xr.data_ptr(),
+                 xi.data_ptr(), UPLOAD_KIND[xr.dtype], p.in_gain,
+                 bmat.data_ptr(), theta.data_ptr(), phi0.data_ptr(),
+                 y_re.data_ptr(), y_im.data_ptr(), power.data_ptr(),
+                 pow_part.data_ptr(), m, c, k, p.mt)
     if err != 0:
         raise RuntimeError(f"sd_rawbank launch failed: CUDA error {err}")
-    raw_kernel.launches += 1
     return y_re, y_im, power
 
 
-@profiling.launch("raw_kernel")
-def raw_kernel(xr: torch.Tensor, xi: torch.Tensor, h_re: torch.Tensor,
-               h_im: torch.Tensor, theta: torch.Tensor, phi0: torch.Tensor,
-               p: RawParams, bmat: torch.Tensor | None = None):
-    """One raw-bank block: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns what :func:`raw_kernel_reference`
-    returns.  ``bmat`` is ``tc_bmat(h_re, h_im)``, the taps as the
-    kernel reads them (the CUDA path needs it; ``RawBank`` builds it
-    with its constants).  ``raw_kernel.launches`` counts the CUDA
-    launches."""
-    if xr.device.type == "cuda":
-        return _raw_cuda(xr, xi, h_re, h_im, theta, phi0, p, bmat)
-    if xr.device.type == "cpu":
-        return raw_kernel_reference(xr, xi, h_re, h_im, theta, phi0, p)
-    raise ValueError(f"raw_kernel runs on cuda or cpu, not {xr.device}")
+def _raw_plain(xr, xi, h_re, h_im, theta, phi0, p: RawParams, bmat=None):
+    return raw_kernel_reference(xr, xi, h_re, h_im, theta, phi0, p)
 
 
-raw_kernel.launches = 0
+raw_kernel = kernel(
+    "raw_kernel", _raw_cuda, _raw_plain,
+    # everything _check reads: each tensor's shape, dtype, device and
+    # contiguity, and the scalars
+    key=lambda xr, xi, h_re, h_im, theta, phi0, p, bmat=None: tensor_key(
+        xr, xi, h_re, theta, phi0, bmat) + (p,),
+    check=_check, doc="""One raw-bank block.  Returns what
+    :func:`raw_kernel_reference` returns.  ``bmat`` is ``tc_bmat(h_re,
+    h_im)``, the taps as the kernel reads them (the CUDA path needs it;
+    ``RawBank`` builds it with its constants).""")
 
 
 class RawBank:

@@ -28,7 +28,6 @@ tight bound up to the first strobe that differs, statistics after it.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,8 +36,13 @@ import torch
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.dsp.filters import rrc_taps
 from sigdigger_tpu_torch.dsp.pll import loop_gains
+from sigdigger_tpu_torch.kernels._build import (
+    kernel,
+    launch,
+    load_library,
+    tensor_key,
+)
 from sigdigger_tpu_torch.kernels.ops import atan2
-from sigdigger_tpu_torch.utils import profiling
 
 KIND_PSK = 0
 KIND_FSK = 1
@@ -224,10 +228,6 @@ def recovery_kernel_reference(y_re: torch.Tensor, y_im: torch.Tensor,
     return sym_re, sym_im, strobe, state_out
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 # the fused kernel's geometry (csrc/recovery.cu): lanes per block, rows
 # per chunk, and the shared memory one block may take
 REC_LANES = 16
@@ -278,29 +278,31 @@ def check_launch(y_re, y_im, state, params, mf,
     return m, c
 
 
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def _recovery_cuda(y_re, y_im, state, params, mf, p: RecoveryParams):
-    from sigdigger_tpu_torch.kernels._build import load_library
-
-    m, c = check_launch(y_re, y_im, state, params, mf, p)
+    m, c = y_re.shape
     dev = y_re.device
-    lib = load_library("recovery")
     sym_re = torch.empty((m, c), device=dev)
     sym_im = torch.empty((m, c), device=dev)
     strobe = torch.empty((m, c), device=dev)
     state_out = torch.empty_like(state)
-    with torch.cuda.device(dev):
-        err = lib.sd_recovery(
-            _ptr(y_re), _ptr(y_im), _ptr(state), _ptr(params), _ptr(mf),
-            _ptr(sym_re), _ptr(sym_im), _ptr(strobe), _ptr(state_out),
-            m, c, p.k, p.keq, p.adc, p.one_m_adc, _stream(dev))
+    err = launch(load_library("recovery").sd_recovery, dev,
+                 *(t.data_ptr() for t in (y_re, y_im, state, params, mf,
+                                          sym_re, sym_im, strobe,
+                                          state_out)),
+                 m, c, p.k, p.keq, p.adc, p.one_m_adc)
     if err != 0:
         raise RuntimeError(f"sd_recovery launch failed: CUDA error {err}")
-    recovery_kernel.launches += 1
     return sym_re, sym_im, strobe, state_out
+
+
+recovery_kernel = kernel(
+    "recovery_kernel", _recovery_cuda, recovery_kernel_reference,
+    # everything check_launch reads: each tensor's shape, dtype, device
+    # and contiguity, and the scalars
+    key=lambda y_re, y_im, state, params, mf, p: tensor_key(
+        y_re, y_im, state, params, mf) + (p,),
+    check=check_launch, doc="""One recovery block.  Returns what
+    :func:`recovery_kernel_reference` returns.""")
 
 
 def recovery_step_cycles(y_re, y_im, state, params, p: RecoveryParams,
@@ -312,8 +314,6 @@ def recovery_step_cycles(y_re, y_im, state, params, p: RecoveryParams,
     from the first 64 rows of ``y_re``, ``y_im``), and the SM clock in
     GHz (``ghz``): what sets the kernel's latency floor.  A diagnostic on
     CUDA tensors; it launches no ``recovery_kernel``."""
-    from sigdigger_tpu_torch.kernels._build import load_library
-
     m, c = check_launch(y_re, y_im, state, params,
                         torch.zeros((p.k, y_re.shape[1]), device=y_re.device),
                         p)
@@ -321,12 +321,11 @@ def recovery_step_cycles(y_re, y_im, state, params, p: RecoveryParams,
         raise ValueError(f"recovery_step_cycles needs CUDA planes of at "
                          f"least [{REC_CHUNK}, {REC_LANES}], got {m, c} on "
                          f"{y_re.device}")
-    dev = y_re.device
-    out = torch.zeros(4 + 2 * REC_LANES, device=dev)
-    with torch.cuda.device(dev):
-        err = load_library("recovery").sd_recovery_chain(
-            _ptr(y_re), _ptr(y_im), _ptr(state), _ptr(params), c, p.k,
-            p.keq, int(steps), p.adc, p.one_m_adc, _ptr(out), _stream(dev))
+    out = torch.zeros(4 + 2 * REC_LANES, device=y_re.device)
+    err = launch(load_library("recovery").sd_recovery_chain, y_re.device,
+                 y_re.data_ptr(), y_im.data_ptr(), state.data_ptr(),
+                 params.data_ptr(), c, p.k, p.keq, int(steps), p.adc,
+                 p.one_m_adc, out.data_ptr())
     if err != 0:
         raise RuntimeError(f"sd_recovery_chain failed: CUDA error {err}")
     front, clock, cma, ghz = out[:4].tolist()
@@ -341,25 +340,6 @@ def latency_floor_ms(cycles: dict, m: int, strobes: int) -> float:
     chain = max(cycles["front"] * m, cycles["clock"] * m,
                 cycles["cma"] * strobes)
     return chain / (cycles["ghz"] * 1e9) * 1e3
-
-
-@profiling.launch("recovery_kernel")
-def recovery_kernel(y_re: torch.Tensor, y_im: torch.Tensor,
-                    state: torch.Tensor, params: torch.Tensor,
-                    mf: torch.Tensor, p: RecoveryParams):
-    """One recovery block: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns what
-    :func:`recovery_kernel_reference` returns.
-    ``recovery_kernel.launches`` counts the CUDA launches."""
-    if y_re.device.type == "cuda":
-        return _recovery_cuda(y_re, y_im, state, params, mf, p)
-    if y_re.device.type == "cpu":
-        return recovery_kernel_reference(y_re, y_im, state, params, mf, p)
-    raise ValueError(f"recovery_kernel runs on cuda or cpu, not "
-                     f"{y_re.device}")
-
-
-recovery_kernel.launches = 0
 
 
 def strobe_agreement(sym_a: np.ndarray, strobe_a: np.ndarray,

@@ -170,25 +170,25 @@ def main() -> int:
                        "channelizer2", "sd_kernel2")
 
             def run_raw():
-                err = raw(xr.data_ptr(), xi.data_ptr(), 0, 1.0,
-                          bank.consts["bmat"].data_ptr(),
-                          bank.consts["theta"].data_ptr(), phi0.data_ptr(),
-                          y_re.data_ptr(), y_im.data_ptr(),
-                          power.data_ptr(), pow_part.data_ptr(), m, c, 64,
-                          mt, torch.cuda.current_stream().cuda_stream)
+                err = _build.launch(
+                    raw, dev, xr.data_ptr(), xi.data_ptr(), 0, 1.0,
+                    bank.consts["bmat"].data_ptr(),
+                    bank.consts["theta"].data_ptr(), phi0.data_ptr(),
+                    y_re.data_ptr(), y_im.data_ptr(), power.data_ptr(),
+                    pow_part.data_ptr(), m, c, 64, mt)
                 assert err == 0, err
 
             def run_k2():
-                err = k2(xw.data_ptr(), 1, chan.params.in_gain,
-                         k["bmat"].data_ptr(), 1, k["q"].data_ptr(),
-                         k["r"].data_ptr(), None, None,
-                         chan._prev_re.data_ptr(), chan._prev_im.data_ptr(),
-                         chan._ftail.data_ptr(), k["ataps"].data_ptr(), 0,
-                         None, None, None, None, None, audio.data_ptr(), 1,
-                         last[0].data_ptr(), last[1].data_ptr(),
-                         ftail.data_ptr(), None, f_scr.data_ptr(), None,
-                         None, m, c, mt, 64, 32, chan.params.quad_gain, 1.0,
-                         torch.cuda.current_stream().cuda_stream)
+                err = _build.launch(
+                    k2, dev, xw.data_ptr(), 1, chan.params.in_gain,
+                    k["bmat"].data_ptr(), 1, k["q"].data_ptr(),
+                    k["r"].data_ptr(), None, None, chan._prev_re.data_ptr(),
+                    chan._prev_im.data_ptr(), chan._ftail.data_ptr(),
+                    k["ataps"].data_ptr(), 0, None, None, None, None, None,
+                    audio.data_ptr(), 1, last[0].data_ptr(),
+                    last[1].data_ptr(), ftail.data_ptr(), None,
+                    f_scr.data_ptr(), None, None, m, c, mt, 64, 32,
+                    chan.params.quad_gain, 1.0)
                 assert err == 0, err
 
             k1 = _bind(os.path.join(d, "libchannelizer.so"),
@@ -196,14 +196,14 @@ def main() -> int:
 
             def run_k1():
                 o = v1_out.data_ptr()
-                err = k1(w_re.data_ptr(), w_im.data_ptr(),
-                         v1.consts["bmat"].data_ptr(),
-                         v1.consts["theta"].data_ptr(), row.data_ptr(),
-                         row.data_ptr(), row.data_ptr(),
-                         v1.consts["ataps"].data_ptr(), o, o + 128 * 1024,
-                         o + 129 * 1024, v1_scr.data_ptr(), 1024, 256, 64,
-                         8, v1.params.quad_gain,
-                         torch.cuda.current_stream().cuda_stream)
+                err = _build.launch(
+                    k1, dev, w_re.data_ptr(), w_im.data_ptr(),
+                    v1.consts["bmat"].data_ptr(),
+                    v1.consts["theta"].data_ptr(), row.data_ptr(),
+                    row.data_ptr(), row.data_ptr(),
+                    v1.consts["ataps"].data_ptr(), o, o + 128 * 1024,
+                    o + 129 * 1024, v1_scr.data_ptr(), 1024, 256, 64, 8,
+                    v1.params.quad_gain)
                 assert err == 0, err
 
             print(f"{name}: raw_rot_tc "

@@ -33,11 +33,11 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.kernels._build import (
-    checked_once,
+    kernel,
     launch,
     load_library,
+    tensor_key,
 )
-from sigdigger_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -69,10 +69,6 @@ def squeeze_kernel_reference(sr: torch.Tensor, si: torch.Tensor,
     return fold(sr * st), fold(si * st), fold(st)
 
 
-# argument signatures whose shapes _squeeze_cuda has checked
-_CHECKED: set = set()
-
-
 def _check(sr, si, st, group: int) -> None:
     dev = st.device
     shape = tuple(st.shape)
@@ -92,12 +88,6 @@ def _check(sr, si, st, group: int) -> None:
 
 
 def _squeeze_cuda(sr, si, st, group: int) -> tuple:
-    # the key holds everything _check reads: shapes and strides (so
-    # contiguity), dtypes, devices and the group
-    key = (sr.shape, si.shape, st.shape, sr.stride(), si.stride(),
-           st.stride(), sr.dtype, si.dtype, st.dtype, sr.device, si.device,
-           st.device, group)
-    checked_once(_CHECKED, key, lambda: _check(sr, si, st, group))
     m, c = st.shape
     # one allocation for the three planes (each a contiguous view); a new
     # one every call, since the threaded drain holds earlier blocks'
@@ -111,27 +101,17 @@ def _squeeze_cuda(sr, si, st, group: int) -> tuple:
                  *ptrs, o, o + plane, o + 2 * plane, m, c, group, vec)
     if err != 0:
         raise RuntimeError(f"sd_symsqueeze launch failed: CUDA error {err}")
-    squeeze_kernel.launches += 1
     squeeze_kernel.path = "vector" if vec else "scalar"
     return out.unbind(0)
 
 
-@profiling.launch("squeeze_kernel")
-def squeeze_kernel(sr: torch.Tensor, si: torch.Tensor, st: torch.Tensor,
-                   group: int) -> tuple:
-    """One squeeze: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  ``squeeze_kernel.launches`` counts the CUDA
-    launches; ``squeeze_kernel.path`` says which path the last one took:
-    ``"vector"`` (float4, C % 4 == 0 and 16-byte aligned inputs) or
-    ``"scalar"``."""
-    if st.device.type == "cuda":
-        return _squeeze_cuda(sr, si, st, group)
-    if st.device.type == "cpu":
-        return squeeze_kernel_reference(sr, si, st, group)
-    raise ValueError(f"squeeze_kernel runs on cuda or cpu, not {st.device}")
-
-
-squeeze_kernel.launches = 0
+squeeze_kernel = kernel(
+    "squeeze_kernel", _squeeze_cuda, squeeze_kernel_reference, at=2,
+    key=lambda sr, si, st, group: tensor_key(sr, si, st) + (group,),
+    check=_check, doc="""One squeeze of the float32 ``[M, C]`` planes
+    (soft re, soft im, strobe) by ``group``.  ``squeeze_kernel.path``
+    says which path the last CUDA launch took: ``"vector"`` (float4,
+    C % 4 == 0 and 16-byte aligned inputs) or ``"scalar"``.""")
 squeeze_kernel.path = None
 
 

@@ -42,11 +42,11 @@ import torch
 
 from sigdigger_tpu_torch.backend import resolve_device
 from sigdigger_tpu_torch.kernels._build import (
-    checked_once,
+    Unlaunched,
+    kernel,
     launch,
     load_library,
 )
-from sigdigger_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -144,7 +144,7 @@ def tv_stream_reference(v: torch.Tensor, starts: torch.Tensor,
                                frac, wts)
 
 
-def _check(x, frac, wts, starts) -> None:
+def _check(x, frac, wts, starts=None) -> None:
     dev = x.device
 
     def need(name, t, dim, dtype):
@@ -164,21 +164,21 @@ def _check(x, frac, wts, starts) -> None:
                          f"the samples on {dev}")
 
 
-_CHECKED: set = set()
-
-
-def _tv_cuda(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
-             starts: torch.Tensor | None) -> torch.Tensor:
-    # the key holds everything _check reads: the table's device (the
-    # rest of the weights was checked when they were built) and each
-    # tensor's dtype, device, dimensions and contiguity; the line, sample
-    # and pixel counts change from call to call and are checked on each
-    # one below
+def _key(x, frac, wts, starts=None) -> tuple:
+    # everything _check reads: the table's device (the rest of the
+    # weights was checked when they were built) and each tensor's dtype,
+    # device, dimensions and contiguity; the line, sample and pixel
+    # counts change from call to call and are checked on each one in
+    # _tv_cuda
     key = [wts.k.get_device()]
     for t in (x, frac, starts):
         key += (None,) if t is None else (t.dtype, t.get_device(), t.dim(),
                                           t.is_contiguous())
-    checked_once(_CHECKED, tuple(key), lambda: _check(x, frac, wts, starts))
+    return tuple(key)
+
+
+def _tv_cuda(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
+             starts: torch.Tensor | None = None) -> torch.Tensor:
     n_lines = frac.shape[0]
     width, px = wts.w0.shape
     if starts is None:
@@ -190,34 +190,28 @@ def _tv_cuda(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
                          f"{n_lines} lines")
     out = torch.empty((n_lines, px), device=x.device)
     if n_lines == 0:
-        return out
+        raise Unlaunched(out)
     err = launch(load_library("tvline").sd_tvline, x.device, x.data_ptr(),
                  x.numel(), None if starts is None else starts.data_ptr(),
                  frac.data_ptr(), wts.k.data_ptr(), wts.taps.data_ptr(),
                  out.data_ptr(), n_lines, width, px)
     if err != 0:
         raise RuntimeError(f"sd_tvline launch failed: CUDA error {err}")
-    tv_kernel.launches += 1
     return out
 
 
-@profiling.launch("tv_kernel")
-def tv_kernel(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
+def _tv_plain(x: torch.Tensor, frac: torch.Tensor, wts: LineWeights,
               starts: torch.Tensor | None = None) -> torch.Tensor:
-    """One line resample of the framed windows ``x`` [L, W] or, with
-    ``starts`` [L] int32, of the windows of the samples ``x`` [n] that
-    start there (the stream form; indices clipped to the samples): the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    ``tv_kernel.launches`` counts the CUDA launches."""
-    if x.device.type == "cuda":
-        return _tv_cuda(x, frac, wts, starts)
-    if x.device.type == "cpu":
-        return (tv_kernel_reference(x, frac, wts) if starts is None
-                else tv_stream_reference(x, starts, frac, wts))
-    raise ValueError(f"tv_kernel runs on cuda or cpu, not {x.device}")
+    return (tv_kernel_reference(x, frac, wts) if starts is None
+            else tv_stream_reference(x, starts, frac, wts))
 
 
-tv_kernel.launches = 0
+tv_kernel = kernel(
+    "tv_kernel", _tv_cuda, _tv_plain, key=_key, check=_check,
+    doc="""One line resample of the framed windows ``x`` [L, W] or,
+    with ``starts`` [L] int32, of the windows of the samples ``x`` [n]
+    that start there (the stream form; indices clipped to the
+    samples).""")
 
 
 class LineResampler:

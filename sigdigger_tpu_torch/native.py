@@ -8,7 +8,9 @@ bank takes the same windows as two planes (:func:`frame_windows`), and
 the standalone PSD takes windowed frames in the four-step layout
 (:func:`frame_psd_packed`).  Every framer matches the reference's numpy
 framers bit for bit; the integer ones quantize with ``np.rint`` and
-saturate.
+saturate.  The upload formats are defined here once: the counts per
+unit of each integer format and the kind code each kernel takes for an
+upload's dtype (:data:`UPLOAD_KIND`).
 
 The packed framers run one hand-written C++ pass (``hostsrc/framer.cpp``)
 from the carried history and the block, with no concatenation and no
@@ -29,6 +31,7 @@ import subprocess
 import threading
 
 import numpy as np
+import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 FRAMER_SRC = os.path.join(_DIR, "hostsrc", "framer.cpp")
@@ -37,6 +40,21 @@ FRAMER_BUILD = os.path.join(_DIR, "hostsrc", "build")
 # never -ffast-math or -Ofast: they set flush-to-zero for the process
 FRAMER_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
                 "-shared", "-fPIC"]
+
+
+# counts per unit of the quantized uploads: the framers multiply by the
+# scale, the kernels by its reciprocal
+I16_SCALE = 4096.0
+I8_SCALE = 64.0
+# the kind code a kernel takes for each upload dtype
+UPLOAD_KIND = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
+
+
+def counts_per_unit(i16: bool, i8: bool, i16_scale: float = I16_SCALE,
+                    i8_scale: float = I8_SCALE) -> float:
+    """Counts per unit of an upload: int8 wins over int16, and a float32
+    upload is 1."""
+    return i8_scale if i8 else i16_scale if i16 else 1.0
 
 
 def _check_length(n: int, m: int, k: int, d: int) -> None:

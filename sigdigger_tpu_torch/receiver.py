@@ -49,6 +49,7 @@ from sigdigger_tpu_torch.kernels.recovery import (
     RecoveryBank,
     RecoveryBankConfig,
 )
+from sigdigger_tpu_torch.native import counts_per_unit
 from sigdigger_tpu_torch.types import WindowFunction
 from sigdigger_tpu_torch.utils import profiling
 
@@ -152,12 +153,11 @@ class KernelReceiver:
             if fuse:
                 self._psd = PSDFold(psd_cfg)
             elif self._shared_psd:
-                in_scale = (1.0 / self.cfg.i8_scale if in_i8
-                            else 1.0 / self.cfg.i16_scale if in_i16
-                            else 1.0)
                 self._psd = PSDFromXW(
                     psd_cfg, block_out, float(sample_rate),
-                    WindowFunction.BLACKMANN_HARRIS, in_scale=in_scale,
+                    WindowFunction.BLACKMANN_HARRIS,
+                    in_scale=1.0 / counts_per_unit(
+                        in_i16, in_i8, self.cfg.i16_scale, self.cfg.i8_scale),
                     device=self.device)
             else:
                 self._psd = PSD(psd_cfg, float(sample_rate),

@@ -203,15 +203,15 @@ def test_cuda_wrapper_lays_out_outputs_and_checks_once(monkeypatch):
     monkeypatch.setattr(ch1, "launch", lambda fn, dev, *a: fn(*a))
     monkeypatch.setattr(ch1, "scratch", lambda dev, n: scr)
     monkeypatch.setattr(ch1.kernel1, "launches", 0)
-    monkeypatch.setattr(ch1, "_CHECKED", set())
+    monkeypatch.setattr(ch1.kernel1, "checked", set())
     for _ in range(2):
-        got = ch1._kernel1_cuda(xr, xi, ours.consts, phi0, pr, pi,
-                                ours.params)
+        got = ch1.kernel1.cuda(xr, xi, ours.consts, phi0, pr, pi,
+                               ours.params)
         assert [tuple(g.shape) for g in got] == [(cfg.audio_out, c),
                                                  (1, c), (1, c)]
         assert all(torch.equal(g, v) for g, v in zip(got, want))
     assert seen["f_scr"] == scr.data_ptr() + 4 * _build.SCRATCH_COUNTERS
-    assert ch1.kernel1.launches == 2 and len(ch1._CHECKED) == 1
+    assert ch1.kernel1.launches == 2 and len(ch1.kernel1.checked) == 1
     no_b = {k: v for k, v in ours.consts.items() if k != "bmat"}
     with pytest.raises(ValueError, match="bmat"):
-        ch1._kernel1_cuda(xr, xi, no_b, phi0, pr, pi, ours.params)
+        ch1.kernel1.cuda(xr, xi, no_b, phi0, pr, pi, ours.params)

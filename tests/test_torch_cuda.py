@@ -49,7 +49,7 @@ import numpy as np
 import pytest
 import torch
 
-from sigdigger_tpu_torch import KernelReceiver
+from sigdigger_tpu_torch import KernelReceiver, native
 from sigdigger_tpu_torch.kernels import _build
 from sigdigger_tpu_torch.kernels import channelizer as ch1
 from sigdigger_tpu_torch.kernels import channelizer2 as ch2
@@ -317,7 +317,7 @@ def test_tensor_core_stages_refuse_bad_inputs(cuda):
                            consts["bmat"][:, :64].contiguous())
     # the C entry refuses K past shared memory by itself
     lib = _build.load_library("rawbank")
-    null = rawbank._ptr(torch.zeros(0))
+    null = None
     assert lib.sd_rawbank(null, null, 0, 1.0, null, null, null, null, null,
                           null, null, 512, 8, 128, 512, null) != 0
     chan = ch2.MatChannelizer2(ch2.MatChannelizer2Config(
@@ -383,8 +383,8 @@ def test_psd_xw_at_a_8_matches_plain_version(cuda):
                                       a=8), m, FS, in_scale=1.0 / 4096.0,
                         device=cuda)
     x = _signal(np.array([2e5, -3e5]), m * 64 + 63, seed=8)
-    xw = torch.from_numpy(ch2.frame_windows_packed_i16(x, m, 64, 64,
-                                                       4096.0)).to(cuda)
+    xw = torch.from_numpy(native.frame_windows_packed_i16(
+        x, m, 64, 64, 4096.0)).to(cuda)
     prev = torch.rand((8, 64), device=cuda)
     got = fft.psd_xw_kernel(xw, psd.consts, psd.xw_params)
     want = fft.psd_xw_kernel_reference(xw, psd.consts, psd.xw_params)
@@ -695,7 +695,7 @@ def test_kernel2_refuses_excluded_geometries(cuda):
             ch2.kernel2(xw, chan.consts, *carries, p, phi0)
     # the C entry refuses them by itself, before any launch
     lib = _build.load_library("channelizer2")
-    null = ch2._ptr(None)
+    null = None
     for m, mt, da, table in ((512, 96, 8, 0), (512, 128, 6, 0),
                              (512, 32, 8, 1), (0, 64, 8, 0)):
         err = lib.sd_kernel2(null, 1, 1.0, null, table, null, null,
@@ -718,11 +718,11 @@ def test_psd_xw_matches_plain_version(cuda, n, stride, fpp, kind):
                         m, FS, in_scale=1.0 / scale, frame_stride=stride,
                         device=cuda)
     x = _signal(np.array([2e5, -3e5, 7e5]), 3 * m * 64 + 63, seed=n + fpp)
-    framer = {"f32": lambda e: ch2.frame_windows_packed(e, m, 64, 64),
-              "i16": lambda e: ch2.frame_windows_packed_i16(e, m, 64, 64,
-                                                            scale),
-              "i8": lambda e: ch2.frame_windows_packed_i8(e, m, 64, 64,
-                                                          scale)}[kind]
+    framer = {"f32": lambda e: native.frame_windows_packed(e, m, 64, 64),
+              "i16": lambda e: native.frame_windows_packed_i16(
+                  e, m, 64, 64, scale),
+              "i8": lambda e: native.frame_windows_packed_i8(
+                  e, m, 64, 64, scale)}[kind]
     prev_k = prev_p = torch.zeros((psd.cfg.a, 64), device=cuda)
     before = (fft.psd_xw_kernel.launches, fft.psd_xw_ema_kernel.launches)
     for b in range(3):
@@ -823,11 +823,11 @@ def test_psd_xw_fft_stages_match_float64(cuda, kind, stride):
                                       // n), m, FS, in_scale=1.0 / scale,
                         frame_stride=stride, device=cuda)
     x = _signal(np.array([2e5, -3e5, 7e5]), 3 * m * 64 + 63, seed=stride)
-    framer = {"f32": lambda e: ch2.frame_windows_packed(e, m, 64, 64),
-              "i16": lambda e: ch2.frame_windows_packed_i16(e, m, 64, 64,
-                                                            scale),
-              "i8": lambda e: ch2.frame_windows_packed_i8(e, m, 64, 64,
-                                                          scale)}[kind]
+    framer = {"f32": lambda e: native.frame_windows_packed(e, m, 64, 64),
+              "i16": lambda e: native.frame_windows_packed_i16(
+                  e, m, 64, 64, scale),
+              "i8": lambda e: native.frame_windows_packed_i8(
+                  e, m, 64, 64, scale)}[kind]
     p, a = psd.xw_params, psd.cfg.a
     kept = fft.psd_xw_frames(m // a, p)
     w2d = psd.consts["w2d"].double().cpu().numpy().ravel()

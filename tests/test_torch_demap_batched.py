@@ -1,5 +1,6 @@
-"""The session's batched host demap (``analyzer/demap.py``) against the
-per-slot demap it replaced, kept below verbatim as the plain reference.
+"""The session's host demap (``analyzer/demap.py``: class passes, then a
+per-lane step) against the per-slot demap it replaced, kept below
+verbatim as the plain reference.
 
 Both demap the same fetched block from the same slots' host state: the
 message tuples must be identical (slot, values, dtypes, shapes, order;
@@ -413,7 +414,12 @@ def run_blocks(an, blocks=3, seed=0, between=None, no_strobes=(),
         msgs = demap_both(an, h, fetched)
         assert msgs
         plans.append(h["bucket"].plan)
-        assert h["batched"] + h["per_slot"] <= len(h["slots"])
+        # a lane takes a class pass, the per-lane step or both; the raw
+        # class and power off the block grid take the per-lane step alone
+        alone = [s for _, s, _, _ in plans[-1].per_slot
+                 if s.class_name in ("raw", "power")]
+        assert h["batched"] + len(alone) <= len(h["slots"])
+        assert h["per_slot"] == len(plans[-1].per_slot)
     return plans
 
 
@@ -481,16 +487,74 @@ def test_batched_demap_equals_per_slot(case):
     assert plans[0] is plans[1] is plans[2]
 
 
+def lane_kinds(plan, handle) -> tuple[bool, bool]:
+    """Whether the lane of ``handle`` takes a class pass of ``plan``, and
+    whether it takes the per-lane step."""
+    passed = any(s.handle == handle
+                 for lanes in (plan.audio, plan.dig, plan.power)
+                 for s in lanes.slots)
+    alone = any(slot.handle == handle for _, slot, _, _ in plan.per_slot)
+    return passed, alone
+
+
 def test_lane_with_an_estimator_demaps_alone():
+    """A lane with an estimator or a spectrum source demaps in its class
+    pass, then takes the per-lane step alone for its raw column: its
+    message carries the column and equals the reference's bit for
+    bit."""
     an = session(_swap(CELL, "power", 2, []))
     psk, audio = handles(an, "psk")[3], handles(an, "audio")[5]
+    ask = handles(an, "ask")[1]
     an.set_estimator(psk, "baud", True)
     an.set_estimator(audio, "offset", True)
-    an.set_spectrum_source(handles(an, "ask")[1], 1)
+    an.set_spectrum_source(ask, 1)
     run_blocks(an)
     h, fetched = block(an, np.random.default_rng(5))
-    demap_both(an, h, fetched)
-    assert h["per_slot"] == 3 and h["batched"] == 1022 - 3
+    msgs = demap_both(an, h, fetched)
+    assert h["per_slot"] == 3 and h["batched"] == 1022
+    for hd in (psk, audio, ask):
+        assert lane_kinds(h["bucket"].plan, hd) == (True, True)
+        (msg,) = [m for m in msgs if m[0].handle == hd]
+        assert msg[3] is not None and msg[3].dtype == np.complex64
+
+
+RAW_COLUMN_CASES = {
+    "fsk-spectrum-source": ("fsk", 2, "spectrum"),
+    "ask-spectrum-source": ("ask", 5, "spectrum"),
+    "fsk-estimator": ("fsk", 6, "estimator"),
+    "resampled-audio": ("audio", 0, "resampler"),
+    "resampled-audio-with-estimator": ("audio", 0, "both"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RAW_COLUMN_CASES))
+def test_lane_with_its_own_step_takes_its_class_pass(case):
+    """fsk and ask lanes with a spectrum source or an estimator, and an
+    audio lane with a host resampler (with and without an estimator),
+    demap in their class pass and then take the per-lane step: each
+    message equals the reference's bit for bit over three blocks, and
+    carries the raw column exactly where the lane has an estimator or a
+    spectrum source."""
+    cls, j, what = RAW_COLUMN_CASES[case]
+    mix = CELL
+    if cls == "audio":
+        mix = _swap(CELL, "audio", 1, [
+            ("audio", 1, {"audio.demodulator": 2,
+                          "audio.sample-rate": 44100})])
+    an = session(mix)
+    hd = handles(an, cls)[-1 if cls == "audio" else j]
+    if what == "spectrum":
+        an.set_spectrum_source(hd, 1)
+    elif what in ("estimator", "both"):
+        an.set_estimator(hd, "offset", True)
+    plans = run_blocks(an, blocks=3, seed=7)
+    assert plans[0] is plans[1] is plans[2]
+    assert lane_kinds(plans[0], hd) == (True, True)
+    h, fetched = block(an, np.random.default_rng(8))
+    msgs = demap_both(an, h, fetched)
+    (msg,) = [m for m in msgs if m[0].handle == hd]
+    assert (msg[3] is not None) == (what != "resampler")
+    assert h["batched"] == 1024
 
 
 def test_slot_closed_in_flight_stops_producing():
@@ -624,13 +688,13 @@ def test_small_session_drain_equals_per_slot():
 @pytest.mark.parametrize("extra,want", [
     ((), (16, 0)),
     ((("audio", {"audio.demodulator": 2, "audio.sample-rate": 44100}),
-      ("raw", {})), (16, 2)),
+      ("raw", {})), (17, 2)),
 ], ids=["mix", "resampled-and-raw"])
 def test_demap_span_counts_its_lanes(extra, want):
     """Traced, the ``an.demap`` span of each block carries how many
-    slots the class passes took (``batched``) and how many the per-slot
-    demap (``per_slot``): a resampled audio lane and a raw lane take the
-    per-slot demap."""
+    slots the class passes took (``batched``) and how many took the
+    per-lane step (``per_slot``): a resampled audio lane takes both, a
+    raw lane the per-lane step alone."""
     from torch.profiler import ProfilerActivity, profile
 
     from sigdigger_tpu_torch.utils import profiling

@@ -437,15 +437,15 @@ def test_plan_goes_with_its_layout(monkeypatch):
     planes.update(zip(("y_re", "y_im"), map(torch.from_numpy, x["raw"])))
     sq, pw = torch.from_numpy(x["sq"]), torch.from_numpy(x["pw"])
     for _ in range(2):
-        out = drainpack._pack_cuda(planes, sq, pw, pk._maps, pk.cfg)
+        out = drainpack.pack_kernel.cuda(planes, sq, pw, pk._maps, pk.cfg)
     assert out.shape == (pk.cfg.total_tiles * pk.cfg.m_tile, pk.cfg.width)
     assert drainpack.pack_kernel.launches == 2
     (key,) = set(drainpack._PLANS) - before
     plan = drainpack._PLANS[key]
     assert key == (id(pk.cfg), torch.device("cpu")) and len(plan.checked) == 1
     with pytest.raises(ValueError):            # a plane of the wrong height
-        drainpack._pack_cuda(dict(planes, audio=planes["audio"][:8]), sq, pw,
-                             pk._maps, pk.cfg)
+        drainpack.pack_kernel.cuda(dict(planes, audio=planes["audio"][:8]),
+                                   sq, pw, pk._maps, pk.cfg)
     del pk
     gc.collect()
     assert set(drainpack._PLANS) == before

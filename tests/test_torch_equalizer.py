@@ -232,20 +232,20 @@ def test_cuda_wrapper_lays_out_outputs_and_checks_once(monkeypatch):
         "Lib", (), {"sd_cma": staticmethod(entry)}))
     monkeypatch.setattr(equalizer, "launch", lambda fn, dev, *a: fn(*a))
     monkeypatch.setattr(equalizer.cma_kernel, "launches", 0)
-    monkeypatch.setattr(equalizer, "_CHECKED", set())
+    monkeypatch.setattr(equalizer.cma_kernel, "checked", set())
     bank = _bank(rate=np.linspace(0.0, 4e-3, C).astype(np.float32))
     x = torch.from_numpy(_isi(seed=4).T.copy())
     xr, xi = x.real.contiguous(), x.imag.contiguous()
     args = (xr, xi, bank.taps_re, bank.taps_im, bank.rate, bank.locked)
     want = equalizer.cma_kernel_reference(*args)
     for _ in range(2):
-        got = equalizer._cma_cuda(*args)
+        got = equalizer.cma_kernel.cuda(*args)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert equalizer.cma_kernel.launches == 2
-    assert len(equalizer._CHECKED) == 1
+    assert len(equalizer.cma_kernel.checked) == 1
     for _ in range(2):
         with pytest.raises(ValueError, match="K = 5"):
-            equalizer._cma_cuda(xr, xi, bank.taps_re[:3].contiguous(),
-                                bank.taps_im[:3].contiguous(), bank.rate,
-                                bank.locked)
-    assert len(equalizer._CHECKED) == 1
+            equalizer.cma_kernel.cuda(
+                xr, xi, bank.taps_re[:3].contiguous(),
+                bank.taps_im[:3].contiguous(), bank.rate, bank.locked)
+    assert len(equalizer.cma_kernel.checked) == 1

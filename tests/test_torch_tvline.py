@@ -226,17 +226,18 @@ def test_cuda_wrapper_keeps_no_weights(monkeypatch):
                             "sd_tvline": staticmethod(lambda *a: 0)}))
     monkeypatch.setattr(tvline, "launch", lambda fn, dev, *a: fn(*a))
     monkeypatch.setattr(tvline.tv_kernel, "launches", 0)
-    monkeypatch.setattr(tvline, "_CHECKED", set())
+    monkeypatch.setattr(tvline.tv_kernel, "checked", set())
     _, ours = _pair(STEP)
     v = torch.zeros(4000)
     st = torch.tensor([0, 1000], dtype=torch.int32)
     frac = torch.zeros(2)
     held = weakref.ref(ours.weights)
-    assert tvline._tv_cuda(v, frac, ours.weights, st).shape == (2, PX)
-    assert tvline.tv_kernel.launches == 1 and len(tvline._CHECKED) == 1
+    assert tvline.tv_kernel.cuda(v, frac, ours.weights, st).shape == (2, PX)
+    assert tvline.tv_kernel.launches == 1
+    assert len(tvline.tv_kernel.checked) == 1
     ours.set_step(STEP * 1.5)                  # a new table
-    tvline._tv_cuda(v, frac, ours.weights, st)
+    tvline.tv_kernel.cuda(v, frac, ours.weights, st)
     gc.collect()
-    assert held() is None and len(tvline._CHECKED) == 1
+    assert held() is None and len(tvline.tv_kernel.checked) == 1
     with pytest.raises(ValueError):            # int64 starts
-        tvline._tv_cuda(v, frac, ours.weights, st.long())
+        tvline.tv_kernel.cuda(v, frac, ours.weights, st.long())
