@@ -26,9 +26,9 @@ kernel banks.
 from __future__ import annotations
 
 import enum
-import queue
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -68,6 +68,45 @@ def _host(v) -> np.ndarray:
     """``v`` as a host array: a tensor (which may lie on the card) is
     fetched, anything else taken as numpy takes it."""
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+class MessageQueue:
+    """The analyzer's message queue: an unbounded FIFO that takes a
+    block's messages in one hand-off (one lock, one notify) and gives a
+    consumer everything queued under one lock.  Order is FIFO across
+    single and batched puts from any thread."""
+
+    def __init__(self) -> None:
+        self._items: deque = deque()
+        self._ready = threading.Condition(threading.Lock())
+
+    def put(self, msg: Message) -> None:
+        self.put_many((msg,))
+
+    def put_many(self, msgs) -> int:
+        """Queue ``msgs`` in order; returns the hand-offs it took (1, or
+        0 for an empty list)."""
+        if not msgs:
+            return 0
+        with self._ready:
+            self._items.extend(msgs)
+            self._ready.notify(len(msgs))
+        return 1
+
+    def get(self, timeout: float | None = None) -> Message | None:
+        """The oldest message, waiting up to ``timeout`` seconds (for
+        ever when None); None when the time runs out."""
+        with self._ready:
+            if not self._ready.wait_for(lambda: self._items, timeout):
+                return None
+            return self._items.popleft()
+
+    def get_all(self) -> list:
+        """Every queued message, oldest first, without waiting."""
+        with self._ready:
+            out = list(self._items)
+            self._items.clear()
+        return out
 
 
 class AnalyzerState(enum.Enum):
@@ -157,7 +196,7 @@ class Analyzer:
             if self.params.max_freq <= self.params.min_freq:
                 raise ValueError("wide-spectrum mode needs a hop range")
 
-        self._mq: queue.Queue[Message] = queue.Queue()
+        self._mq = MessageQueue()
         self._inspectors: dict[int, _InspectorSlot] = {}
         self._by_id: dict[int, int] = {}       # inspector_id → handle
         self._next_handle = 1
@@ -235,19 +274,11 @@ class Analyzer:
     # ------------------------------------------------------------------
     def read(self, timeout: float | None = None) -> Message | None:
         """Blocking message read (≙ suscan_analyzer_read)."""
-        try:
-            return self._mq.get(timeout=timeout)
-        except queue.Empty:
-            return None
+        return self._mq.get(timeout)
 
     def poll(self) -> list[Message]:
         """Drain all queued messages without blocking."""
-        out = []
-        while True:
-            try:
-                out.append(self._mq.get_nowait())
-            except queue.Empty:
-                return out
+        return self._mq.get_all()
 
     def _emit(self, msg: Message) -> None:
         self._mq.put(msg)
@@ -658,33 +689,54 @@ class Analyzer:
         for slot in orbiting:
             self._apply_doppler(slot, rx_time)
 
-    def _emit_samples(self, slot: _InspectorSlot, samples, extras,
-                      now: float) -> None:
-        """Emit one SamplesMessage, honoring the slot watermark."""
+    def _emit_block_msgs(self, msgs, now: float) -> int:
+        """Queue one block's payloads ``[(slot, samples, extras, raw),
+        ...]`` in one hand-off.  For each slot in order: its
+        SamplesMessage, or its watermark flush once the watermark is
+        reached (nothing while it only buffers); then its estimators;
+        then its inspector spectrum.  Returns the hand-offs it took."""
         with self._lock:        # wm_buf is flushed by control threads
-            if slot.watermark <= 1 and not slot.wm_buf:
-                msg = SamplesMessage(
+            held = [None if slot.watermark <= 1 and not slot.wm_buf
+                    else self._hold(slot, samples, extras)
+                    for slot, samples, extras, _ in msgs]
+        out = []
+        for (slot, samples, extras, raw), parts in zip(msgs, held):
+            if parts is None:
+                out.append(SamplesMessage(
                     inspector_id=slot.inspector_id, handle=slot.handle,
-                    samples=samples, extras=extras, timestamp=now)
-                buffered = False
-            else:
-                slot.wm_buf.append((samples, extras))
-                slot.wm_count += len(samples)
-                if slot.wm_count < slot.watermark:
-                    return
-                buffered = True
-        if not buffered:
-            self._emit(msg)
-            return
-        self._flush_watermark(slot, now)
+                    samples=samples, extras=extras, timestamp=now))
+            elif parts:
+                out.append(self._joined(slot, parts, now))
+            if slot.estimators:
+                out += self._estimator_msgs(slot, raw)
+            if slot.spectrum_source:
+                out += self._inspector_spectrum_msgs(slot, raw)
+        return self._mq.put_many(out)
+
+    def _hold(self, slot: _InspectorSlot, samples, extras) -> list:
+        """Buffer one payload under the slot's watermark (the engine
+        lock held); the buffered parts once the watermark is reached,
+        else an empty list."""
+        slot.wm_buf.append((samples, extras))
+        slot.wm_count += len(samples)
+        if slot.wm_count < slot.watermark:
+            return []
+        return self._take_watermark(slot)
+
+    def _take_watermark(self, slot: _InspectorSlot) -> list:
+        with self._lock:
+            parts, slot.wm_buf, slot.wm_count = slot.wm_buf, [], 0
+        return parts
 
     def _flush_watermark(self, slot: _InspectorSlot, now: float) -> None:
-        with self._lock:
-            if not slot.wm_buf:
-                return
-            parts = slot.wm_buf
-            slot.wm_buf = []
-            slot.wm_count = 0
+        parts = self._take_watermark(slot)
+        if parts:
+            self._emit(self._joined(slot, parts, now))
+
+    @staticmethod
+    def _joined(slot: _InspectorSlot, parts: list,
+                now: float) -> SamplesMessage:
+        """One SamplesMessage of a slot's buffered payloads."""
         samples = np.concatenate([np.atleast_1d(s) for s, _ in parts])
         extras: dict[str, Any] = {}
         for _, e in parts:
@@ -696,9 +748,9 @@ class Analyzer:
                     extras.setdefault(k, []).append(a)
         extras = {k: (np.concatenate(v) if isinstance(v, list) else v)
                   for k, v in extras.items()}
-        self._emit(SamplesMessage(
+        return SamplesMessage(
             inspector_id=slot.inspector_id, handle=slot.handle,
-            samples=samples, extras=extras, timestamp=now))
+            samples=samples, extras=extras, timestamp=now)
 
     def set_estimator(self, handle: int, estimator_id: str, enabled: bool,
                       request_id: int = 0) -> None:
@@ -795,12 +847,7 @@ class Analyzer:
             if channels:
                 self._emit(ChannelMessage(channels=channels))
 
-        for slot, samples, extras, raw in sample_msgs:
-            self._emit_samples(slot, samples, extras, now)
-            if slot.estimators:
-                self._emit_estimators(slot, raw)
-            if slot.spectrum_source:
-                self._emit_inspector_spectrum(slot, raw)
+        self._emit_block_msgs(sample_msgs, now)
         self._apply_orbit_corrections()
         return True
 
@@ -809,32 +856,34 @@ class Analyzer:
         (the kernel engine shares the channelizer's packed upload)."""
         self._spectrum.feed(x)
 
-    def _emit_estimators(self, slot: _InspectorSlot, y: np.ndarray) -> None:
+    def _estimator_msgs(self, slot: _InspectorSlot, y: np.ndarray) -> list:
         from sigdigger_tpu_torch.analyzer.estimators import estimate
 
+        out = []
         for est_id in sorted(slot.estimators):
             value = estimate(est_id, y, slot.equiv_rate,
                              device=self.device)
             if value is not None:
-                self._emit(InspectorMessage(
+                out.append(InspectorMessage(
                     inspector_kind=InspectorMessageKind.ESTIMATOR,
                     handle=slot.handle, inspector_id=slot.inspector_id,
                     estimator_id=est_id, estimator_value=float(value),
                 ))
+        return out
 
-    def _emit_inspector_spectrum(self, slot: _InspectorSlot,
-                                 y: np.ndarray) -> None:
+    def _inspector_spectrum_msgs(self, slot: _InspectorSlot,
+                                 y: np.ndarray) -> list:
         n = min(1024, 1 << int(np.log2(max(len(y), 2))))
         if n < 64:
-            return
+            return []
         frame = y[:n] * np.hanning(n)
         spec = np.fft.fftshift(np.abs(np.fft.fft(frame)) ** 2).astype(
             np.float32)
-        self._emit(InspectorMessage(
+        return [InspectorMessage(
             inspector_kind=InspectorMessageKind.SPECTRUM,
             handle=slot.handle, inspector_id=slot.inspector_id,
             spectrum_data=spec, spectrum_rate=slot.equiv_rate,
-        ))
+        )]
 
     # ------------------------------------------------------------------
     # pump thread (live mode)

@@ -55,8 +55,9 @@ the upload ``an.upload``, the PSD's ``an.psd`` and the banks'
 ``queue_depth``), and on the thread that drains it ``an.drain`` (the
 copies ``an.fetch``, the demap ``an.demap`` with the slots its class
 passes took, ``batched``, and those the per-slot demap took,
-``per_slot``, and the emission ``an.emit`` with its ``messages``).  Each drained block leaves a record,
-its id and the number of SAMPLES payloads it emitted, or the error its
+``per_slot``, and the emission ``an.emit`` with its ``messages`` and
+the queue ``handoffs`` they took, one a block).  Each drained block
+leaves a record, its id and the number of SAMPLES payloads it emitted, or the error its
 drain raised: :meth:`KernelAnalyzer.wait_block` waits for one and
 raises for a block whose drain failed.  With no profiler a span costs
 one flag read.
@@ -944,14 +945,6 @@ class KernelAnalyzer(Analyzer):
             out.extend(self._drain_sync(self._inflight.pop(0)))
         return out
 
-    def _emit_block_msgs(self, msgs, now: float) -> None:
-        for slot, samples, extras, raw in msgs:
-            self._emit_samples(slot, samples, extras, now)
-            if slot.estimators:
-                self._emit_estimators(slot, raw)
-            if slot.spectrum_source:
-                self._emit_inspector_spectrum(slot, raw)
-
     # ------------------------------------------------------------------
     # threaded drain: fetch + demap + emission on a worker, so the host
     # demap overlaps the next block's framing, upload and compute
@@ -987,8 +980,11 @@ class KernelAnalyzer(Analyzer):
             try:
                 with profiling.span("an.drain", block=block):
                     msgs = self._drain_entry(entry)
-                    with profiling.span("an.emit", messages=len(msgs)):
-                        self._emit_block_msgs(msgs, _time.time())
+                    with profiling.span("an.emit",
+                                        messages=len(msgs)) as emit:
+                        n = self._emit_block_msgs(msgs, _time.time())
+                        if emit is not None:
+                            emit.attrs["handoffs"] = n
             except Exception as e:  # noqa: BLE001 — worker must live
                 error = e
                 Logger.instance().error(

@@ -1,7 +1,8 @@
 """The analyzer session's block-scoped spans and its per-block drain
 record (``analyzer/kernel_engine.py``), on the CPU: ``an.feed`` on the
 stepping thread and ``an.drain`` on the drain worker share each block's
-id; the children nest under their roots; ``wait_block`` counts exactly a
+id; the children nest under their roots; ``an.emit`` hands a block's
+messages to the queue in one operation; ``wait_block`` counts exactly a
 block's SAMPLES messages; a drain that raises marks its block failed and
 the worker drains the next; the messages' fields and wire image are
 what they were."""
@@ -92,6 +93,23 @@ def test_spans_share_block_ids_and_nest():
     assert len(depths) == 3 and all(d >= 0 for d in depths)
     emits = [r.attrs["messages"] for r in recs if r.name == "an.emit"]
     assert emits == [4] * 5
+
+
+def test_emit_span_counts_one_handoff_a_block():
+    an, hs = session()
+    profiling.clear()
+    fed = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(5):
+            an.step()
+            fed.append(an.last_block)
+        flush(an)
+    emits = {r.block: r.attrs for r in profiling.records()
+             if r.name == "an.emit"}
+    assert sorted(emits) == fed
+    for b, attrs in emits.items():
+        assert attrs["handoffs"] == 1
+        assert attrs["messages"] == an.wait_block(b, timeout=10.0) == len(hs)
 
 
 def test_spans_off_cost_one_flag_read():
